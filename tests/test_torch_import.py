@@ -1,0 +1,94 @@
+"""The PyTorch port imports without JAX and runs on the card by default.
+
+A subprocess imports every module of ``tf_operator_tpu_torch`` (and
+``chip_smoke.py``) behind a meta-path finder that refuses ``jax``,
+``flax``, ``optax`` and the JAX package itself, so a GPU worker image
+needs none of them.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.compute
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_BLOCKED_IMPORT = textwrap.dedent("""
+    import importlib, pkgutil, runpy, sys
+
+    BLOCKED = ("jax", "flax", "optax", "orbax", "tf_operator_tpu")
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import tf_operator_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    runpy.run_path("chip_smoke.py", run_name="chip_smoke_import")
+    leaked = [m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not leaked, leaked
+    print("imported", len(names))
+""")
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    count = int(proc.stdout.split()[-1])
+    assert count >= 9, proc.stdout
+
+
+def test_blocker_matches_exact_package_name():
+    """The finder's rule blocks tf_operator_tpu and its submodules but not
+    tf_operator_tpu_torch (a bare prefix match would)."""
+    blocked = ("tf_operator_tpu",)
+    rule = lambda n: any(n == b or n.startswith(b + ".") for b in blocked)
+    assert rule("tf_operator_tpu")
+    assert rule("tf_operator_tpu.ops.layers")
+    assert not rule("tf_operator_tpu_torch")
+    assert not rule("tf_operator_tpu_torch.ops")
+
+
+@pytest.mark.parametrize("entry", ["llama", "trainer", "payload"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """With no device and no card, each entry point raises instead of
+    running on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from tf_operator_tpu_torch.models.llama import Llama, llama_tiny
+    from tf_operator_tpu_torch.train import train_llama
+    from tf_operator_tpu_torch.train.trainer import Trainer, adamw
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "llama":
+            Llama(llama_tiny())
+        elif entry == "trainer":
+            Trainer(model=Llama(llama_tiny(), device="cpu"),
+                    optimizer=adamw(1e-3))
+        else:
+            train_llama.main(["--steps", "1"])
+
+
+def test_chip_smoke_refuses_without_card():
+    """chip_smoke.py exits non-zero and prints no result without CUDA."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

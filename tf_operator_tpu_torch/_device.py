@@ -1,0 +1,24 @@
+"""Device resolution for the port's entry points: the card by default."""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the CUDA card; raise if there is none.
+
+    Only an explicit ``"cpu"`` (or ``torch.device("cpu")``) runs on the
+    host: a missing card never turns into a silent CPU run.
+    """
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (or --device "
+            "cpu) to run on the host")
+    return dev
+

@@ -1,0 +1,112 @@
+"""Carry Llama weights between the flax param tree and the port's modules.
+
+The flax tree (``tf_operator_tpu/models/llama.py``) stacks every block
+parameter on a leading ``layers`` axis (``nn.scan``) under ``blocks/`` and
+stores ``Dense`` kernels as [in, out]; the port keeps one module per layer
+and [out, in] weights. Both directions take and give plain arrays (numpy
+on the flax side, torch tensors on the port's), and raise on any leaf
+left over or missing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from tf_operator_tpu_torch.models.llama import LlamaConfig
+
+# flax path under blocks/ -> (port name under layers.{i}., transposed?)
+_BLOCK_LEAVES = {
+    ("attn", "wq", "kernel"): ("attn.wq.weight", True),
+    ("attn", "wk", "kernel"): ("attn.wk.weight", True),
+    ("attn", "wv", "kernel"): ("attn.wv.weight", True),
+    ("attn", "wo", "kernel"): ("attn.wo.weight", True),
+    ("attn_norm", "scale"): ("attn_norm.scale", False),
+    ("mlp", "gate", "kernel"): ("mlp.gate.weight", True),
+    ("mlp", "up", "kernel"): ("mlp.up.weight", True),
+    ("mlp", "down", "kernel"): ("mlp.down.weight", True),
+    ("mlp_norm", "scale"): ("mlp_norm.scale", False),
+}
+_TOP_LEAVES = {
+    ("embed_tokens", "embedding"): ("embed_tokens.weight", False),
+    ("final_norm", "scale"): ("final_norm.scale", False),
+    ("lm_head", "kernel"): ("lm_head.weight", True),
+}
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, object]:
+    flat = {}
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            flat.update(_flatten(value, path))
+        else:
+            flat[path] = value
+    return flat
+
+
+def _unflatten(flat: Mapping[tuple, object]) -> Dict:
+    tree: Dict = {}
+    for path, value in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+def llama_params_from_flax(params: Mapping, cfg: LlamaConfig
+                           ) -> Dict[str, torch.Tensor]:
+    """flax ``params`` (nested dict of arrays) -> the port's state_dict."""
+    flat = _flatten(params)
+    state: Dict[str, torch.Tensor] = {}
+
+    def take(path):
+        if path not in flat:
+            raise KeyError(f"flax params lack {'/'.join(path)}")
+        return np.asarray(flat.pop(path), dtype=np.float32)
+
+    def to_torch(arr, transpose):
+        return torch.from_numpy(np.array(arr.T if transpose else arr,
+                                         order="C", copy=True))
+
+    for path, (name, transpose) in _TOP_LEAVES.items():
+        state[name] = to_torch(take(path), transpose)
+    for path, (name, transpose) in _BLOCK_LEAVES.items():
+        stacked = take(("blocks",) + path)
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"blocks/{'/'.join(path)} stacks "
+                             f"{stacked.shape[0]} layers, config has "
+                             f"{cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            state[f"layers.{i}.{name}"] = to_torch(stacked[i], transpose)
+    if flat:
+        raise KeyError("flax params left over: " + ", ".join(
+            "/".join(p) for p in sorted(flat)))
+    return state
+
+
+def llama_params_to_flax(state: Mapping[str, torch.Tensor],
+                         cfg: LlamaConfig) -> Dict:
+    """The port's state_dict -> flax ``params`` (nested dict of numpy)."""
+    state = {k: v.detach().float().cpu().numpy() for k, v in state.items()}
+    flat = {}
+
+    def take(name, transpose):
+        if name not in state:
+            raise KeyError(f"state_dict lacks {name}")
+        arr = state.pop(name)
+        return np.ascontiguousarray(arr.T) if transpose else arr
+
+    for path, (name, transpose) in _TOP_LEAVES.items():
+        flat[path] = take(name, transpose)
+    for path, (name, transpose) in _BLOCK_LEAVES.items():
+        flat[("blocks",) + path] = np.stack(
+            [take(f"layers.{i}.{name}", transpose)
+             for i in range(cfg.n_layers)])
+    if state:
+        raise KeyError("state_dict entries left over: "
+                       + ", ".join(sorted(state)))
+    return _unflatten(flat)

@@ -1,0 +1,212 @@
+"""Single-device training harness (port of train/trainer.py).
+
+The loss, the optimizer and the step follow the JAX trainer's formulas:
+``cross_entropy_loss`` in f32, ``lm_loss`` on shifted tokens, and an
+optimizer that clips by global norm as ``optax.clip_by_global_norm`` does,
+then steps ``torch.optim.AdamW`` at a learning rate read from a schedule at
+the pre-increment count (so the first update of a warmup schedule uses
+``schedule(0)``), as optax's ``scale_by_learning_rate`` does.
+
+Unlike the JAX trainer the state is updated in place: the step mutates
+the model's parameters and the optimizer's moments rather than returning
+new arrays. Sharding over a mesh is a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Iterator, List, Optional
+
+import torch
+from torch import nn
+
+from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL; logits in any dtype, loss in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.unsqueeze(-1)).squeeze(-1)
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1]."""
+    tokens = batch["inputs"]
+    logits = model(tokens[:, :-1])
+    return cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# Optimizer (optax formulas over torch.optim)
+# ---------------------------------------------------------------------------
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule: linear warmup from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then cosine
+    decay to ``end_value`` at ``decay_steps`` (total, warmup included)."""
+    alpha = end_value / peak_value if peak_value else 0.0
+    cosine_steps = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = count / warmup_steps
+            return init_value + (peak_value - init_value) * frac
+        t = min(count - warmup_steps, cosine_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / cosine_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """In place ``g * max_norm / max(norm, max_norm)`` (optax's formula);
+    returns the norm before clipping."""
+    if norm is None:
+        norm = global_norm(grads)
+    factor = max_norm / torch.clamp_min(norm, max_norm)
+    torch._foreach_mul_(grads, factor)
+    return norm
+
+
+@dataclasses.dataclass
+class Optimizer:
+    """An optional global-norm clip, then ``make(params)``'s
+    ``torch.optim`` step at ``schedule(count)`` when a schedule is given."""
+
+    make: Callable[[List[nn.Parameter]], torch.optim.Optimizer]
+    schedule: Optional[Callable[[int], float]] = None
+    max_grad_norm: Optional[float] = None
+
+    def apply(self, opt: torch.optim.Optimizer, count: int,
+              grad_norm: bool = False) -> Optional[torch.Tensor]:
+        """One update from the parameters' ``.grad`` at update ``count``
+        (0 for the first); returns the pre-clip global norm when clipping
+        or when ``grad_norm`` asks for it."""
+        grads = [p.grad for group in opt.param_groups
+                 for p in group["params"] if p.grad is not None]
+        norm = None
+        if self.max_grad_norm is not None:
+            norm = clip_by_global_norm_(grads, self.max_grad_norm)
+        elif grad_norm:
+            norm = global_norm(grads)
+        if self.schedule is not None:
+            for group in opt.param_groups:
+                group["lr"] = self.schedule(count)
+        opt.step()
+        return norm
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4) -> Optimizer:
+    """optax.adamw at its defaults: a constant learning rate."""
+    return Optimizer(make=lambda params: torch.optim.AdamW(
+        params, lr=learning_rate, betas=(b1, b2), eps=eps,
+        weight_decay=weight_decay))
+
+
+def default_optimizer(learning_rate: float = 3e-4,
+                      weight_decay: float = 0.1,
+                      warmup_steps: int = 100,
+                      total_steps: int = 10000,
+                      max_grad_norm: float = 1.0) -> Optimizer:
+    """clip_by_global_norm then adamw(b1=.9, b2=.95) on warmup-cosine."""
+    schedule = warmup_cosine_decay_schedule(
+        0.0, learning_rate, warmup_steps, max(total_steps, warmup_steps + 1))
+    return Optimizer(
+        make=lambda params: torch.optim.AdamW(
+            params, lr=schedule(0), betas=(0.9, 0.95), eps=1e-8,
+            weight_decay=weight_decay),
+        schedule=schedule, max_grad_norm=max_grad_norm)
+
+
+# ---------------------------------------------------------------------------
+# Trainer
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    opt_state: torch.optim.Optimizer
+
+
+@dataclasses.dataclass
+class Trainer:
+    """init + train step for (model, optimizer) on one device.
+
+    ``device`` defaults to the card; the model is moved there if its
+    parameters are elsewhere."""
+
+    model: nn.Module
+    optimizer: Optimizer
+    loss_fn: Callable[[nn.Module, Dict[str, torch.Tensor]], torch.Tensor] = lm_loss
+    device: DeviceLike = None
+    # grad_norm in the step metrics costs a read of every gradient.
+    grad_norm_metric: bool = True
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.model.to(self.device)
+
+    def init(self) -> TrainState:
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        return TrainState(step=0, model=self.model,
+                          opt_state=self.optimizer.make(params))
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def make_train_step(self):
+        """step(state, batch) -> (state, metrics). Metrics are ``loss``
+        and ``grad_norm`` as 0-d device tensors (reading them waits for
+        the card) and ``step``, the count before this update."""
+        def step(state: TrainState, batch: Dict[str, Any]):
+            state.model.train()
+            state.opt_state.zero_grad(set_to_none=True)
+            loss = self.loss_fn(state.model, self._to_device(batch))
+            loss.backward()
+            norm = self.optimizer.apply(state.opt_state, state.step,
+                                        self.grad_norm_metric)
+            metrics = {"loss": loss.detach(), "step": state.step}
+            if self.grad_norm_metric:
+                metrics["grad_norm"] = norm
+            state.step += 1
+            return state, metrics
+
+        return step
+
+
+def run_train_steps(step_fn, state, batch_iter: Iterator, num_steps: int,
+                    start_step: int = 0, ckpt_hook=None,
+                    on_metrics: Optional[Callable] = None):
+    """Drive ``num_steps`` steps, calling ``on_metrics(step, metrics)`` and
+    ``ckpt_hook.after_step(step, state)`` after each, with ``step`` counted
+    from ``start_step`` (the restored step) as a plain int."""
+    step = start_step
+    for _ in range(num_steps):
+        state, step_metrics = step_fn(state, next(batch_iter))
+        step += 1
+        if on_metrics is not None:
+            on_metrics(step, step_metrics)
+        if ckpt_hook is not None:
+            ckpt_hook.after_step(step, state)
+    return state
