@@ -7,15 +7,20 @@ Phases, each printing one JSON line:
 
 1. env     torch, CUDA and nvcc versions; the card's name and power limit.
 2. build   nvcc builds tf_operator_tpu_torch/csrc/flash_attention.cu for
-           sm_90a (seconds, library path, ptxas register/spill report).
+           sm_90a (seconds, library path, and per kernel the registers,
+           stack and spill bytes that ptxas reports).
 3. kernels each flash-attention kernel (forward, dQ, dK/dV) against its
            plain PyTorch version on the card in bf16, at the training
            step's shapes (B=1, S=2048, H=32, Hkv=8, D=128, causal), plus a
-           non-causal case and a q_seq != k_seq case with q_offset > 0,
-           each output within a limit scaled to its own largest value
-           (REL below); the check must also reject perturbed plain outputs
-           (zeros, δ dropped, a k or q tile skipped); kernel, plain and library (scaled_dot_product_attention, a
-           yardstick the port never calls) times from CUDA events.
+           non-causal case, a q_seq != k_seq case with q_offset > 0, an
+           odd number of 64-row tiles (S=1088) and q_seq = k_seq / 2 with
+           q_offset 0 (half the k tiles seen by no row: their dK/dV must
+           be exact zeros), each output within a limit scaled to its own
+           largest value (REL below); the check must also reject perturbed
+           plain outputs (zeros, δ dropped, the first or last k or q tile
+           skipped, one GQA member left out of dK/dV); kernel, plain and
+           library (scaled_dot_product_attention, a yardstick the port
+           never calls) times from CUDA events.
 4. model   the 4-layer llama_3_8b-width model's logits through the kernels
            against the same weights through the reference attention.
 5. train   the main path: Trainer + Llama (llama_3_8b widths, 4 layers,
@@ -37,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -123,15 +129,37 @@ def phase_env():
           "count": torch.cuda.device_count()})
 
 
+def ptxas_report(log: str) -> dict:
+    """Per kernel, what ``ptxas -v`` says: registers at entry (the
+    warp-specialised kernels then move them with setmaxnreg), stack frame
+    and spill bytes; plus any ptxas warning (e.g. setmaxnreg ignored)."""
+    report, name = {"warnings": []}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = next((k for k in PER_STEP if k + "_kernel" in entry[1]),
+                        entry[1])
+            report[name] = {}
+        elif "warning" in line.lower():
+            report["warnings"].append(line.strip())
+        elif name is not None:
+            for key, pattern in (("stack_bytes", r"(\d+) bytes stack frame"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("registers", r"Used (\d+) registers")):
+                found = re.search(pattern, line)
+                if found:
+                    report[name][key] = int(found[1])
+    return report
+
+
 def phase_build():
     t0 = time.perf_counter()
     fa._lib()
     seconds, path, log = _build.build_info["flash_attention"]
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": round(seconds, 3), "library": path,
-          "ptxas": ptxas})
+          "ptxas": ptxas_report(log)})
 
 
 def make_inputs(gen, sq, sk):
@@ -162,6 +190,28 @@ def check(name: str, got, want) -> dict:
             "ratio": ratio, "ok": ratio <= 1.0}
 
 
+def _fwd_without_last_tile(q, k, v, causal, q_offset):
+    """The plain forward with each q tile's last visible k tile left out
+    (a pipeline that drops its final stage): rows left with no key get
+    out 0 and lse -1e30, as the kernel's l == 0 guard would give."""
+    nk = k.shape[1] // BLOCK
+    outs, lses = [], []
+    for i in range(q.shape[1] // BLOCK):
+        rows, off = q[:, i * BLOCK:(i + 1) * BLOCK], q_offset + i * BLOCK
+        seen = min(nk, (off + BLOCK - 1) // BLOCK + 1) if causal else nk
+        keep = (seen - 1) * BLOCK
+        if keep == 0:
+            outs.append(torch.zeros_like(rows))
+            lses.append(torch.full((q.shape[0], q.shape[2], BLOCK),
+                                   fa.NEG_INF, device=q.device))
+            continue
+        out, lse = fa._fwd_reference(rows, k[:, :keep], v[:, :keep], causal,
+                                     off)
+        outs.append(out)
+        lses.append(lse)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
 def perturbed(q, k, v, do, ref, delta, causal, q_offset):
     """Plain-version outputs of kernels gone wrong in typical ways, which
     the check must reject: each a dict of the outputs it changes."""
@@ -171,6 +221,21 @@ def perturbed(q, k, v, do, ref, delta, causal, q_offset):
     dk_skip, dv_skip = fa._dkv_reference(
         q[:, BLOCK:], k, v, lse[..., BLOCK:], do[:, BLOCK:],
         delta[..., BLOCK:], causal, q_offset + BLOCK)
+    out_tail, lse_tail = _fwd_without_last_tile(q, k, v, causal, q_offset)
+    if q.shape[1] > BLOCK:
+        dk_tail, dv_tail = fa._dkv_reference(
+            q[:, :-BLOCK], k, v, lse[..., :-BLOCK], do[:, :-BLOCK],
+            delta[..., :-BLOCK], causal, q_offset)
+    else:
+        dk_tail, dv_tail = torch.zeros_like(k), torch.zeros_like(v)
+    # One GQA member (heads h = 0 mod group) left out of the dK/dV sum: its
+    # dO, and so its δ = rowsum(dO O), zeroed.
+    member = torch.arange(q.shape[2], device=q.device) % (
+        q.shape[2] // k.shape[2]) == 0
+    do_member = do.masked_fill(member[None, None, :, None], 0)
+    delta_member = delta.masked_fill(member[None, :, None], 0)
+    dk_member, dv_member = fa._dkv_reference(
+        q, k, v, lse, do_member, delta_member, causal, q_offset)
     no_delta = torch.zeros_like(delta)
     return {
         "zeros": {n: torch.zeros_like(t) for n, t in ref.items()},
@@ -188,6 +253,11 @@ def perturbed(q, k, v, do, ref, delta, causal, q_offset):
                                    causal, k_off)},
         # The first q tile left out of dK/dV's loop.
         "first_q_tile_skipped": {"dk": dk_skip, "dv": dv_skip},
+        # The pipeline's tail dropped: each q tile's last visible k tile
+        # in the forward, the last q tile in dK/dV's loop.
+        "last_k_tile_skipped": {"out": out_tail, "lse": lse_tail},
+        "last_q_tile_skipped": {"dk": dk_tail, "dv": dv_tail},
+        "gqa_member_dropped": {"dk": dk_member, "dv": dv_member},
     }
 
 
@@ -219,6 +289,12 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool):
     case = {"sq": sq, "sk": sk, "causal": causal, "q_offset": q_offset,
             "max_abs_err": errs, "ok": ok, "checks": checks,
             "perturbed_ratio": caught}
+    # Keys no query row sees (causal, k >= sq + q_offset) must get exact
+    # zeros: the kernel's outputs come from torch.empty.
+    unseen = sq + q_offset if causal else sk
+    if unseen < sk:
+        case["unseen_keys_zero"] = bool(
+            (dk[:, unseen:] == 0).all() and (dv[:, unseen:] == 0).all())
     if not timed:
         return case, None
 
@@ -281,7 +357,9 @@ def phase_kernels():
     for sq, sk, causal, q_offset, timed in (
             (S, S, True, 0, True),            # the training step's shape
             (S, S, False, 0, False),
-            (S // 2, S, True, S // 2, False)):
+            (S // 2, S, True, S // 2, False),
+            (S // 2 + BLOCK, S // 2 + BLOCK, True, 0, False),  # odd tiles
+            (S // 2, S, True, 0, False)):     # half the k tiles unseen
         case, st = check_case(gen, sq, sk, causal, q_offset, timed)
         cases.append(case)
         stats = stats or st
@@ -291,6 +369,8 @@ def phase_kernels():
           "cases": cases})
     bad = [(c["sq"], c["sk"], c["causal"], n) for c in cases
            for n, good in c["ok"].items() if not good]
+    bad += [(c["sq"], c["sk"], c["causal"], "unseen keys not zero")
+            for c in cases if c.get("unseen_keys_zero") is False]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"beyond the scaled limits: {bad}")

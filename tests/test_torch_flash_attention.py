@@ -34,6 +34,8 @@ CASES = {
     "gqa_4_2": (2, 128, 128, 4, 2, True, 0),
     "gqa_4_1": (1, 128, 128, 4, 1, True, 0),
     "q_offset": (1, 64, 128, 4, 2, True, 64),
+    "odd_tiles": (1, 192, 192, 4, 2, True, 0),
+    "unseen_k_tiles": (1, 64, 192, 4, 2, True, 0),
 }
 
 
@@ -190,7 +192,8 @@ def test_launch_counters_reset():
 def test_kernel_check_rejects_wrong_outputs(case):
     """chip_smoke.py's kernel check, which holds each CUDA kernel to its
     plain version, accepts bf16 rounding noise and rejects zeros, a dropped
-    δ and a skipped k or q tile (ratio > 1)."""
+    δ, a skipped first or last k or q tile and a GQA member left out of
+    dK/dV (ratio > 1)."""
     *_, causal, q_offset = CASES[case]
     q, k, v, do = (torch.tensor(x).bfloat16() for x in _inputs(case))
     out, lse = tfa._fwd_reference(q, k, v, causal, q_offset)
@@ -206,7 +209,8 @@ def test_kernel_check_rejects_wrong_outputs(case):
         assert smoke.check(name, noisy, want)["ok"], name
     wrong = smoke.perturbed(q, k, v, do, ref, delta, causal, q_offset)
     assert set(wrong) == {"zeros", "delta_dropped", "first_k_tile_skipped",
-                          "first_q_tile_skipped"}
+                          "first_q_tile_skipped", "last_k_tile_skipped",
+                          "last_q_tile_skipped", "gqa_member_dropped"}
     for kind, outputs in wrong.items():
         for name, got in outputs.items():
             assert got.shape == ref[name].shape, (kind, name)

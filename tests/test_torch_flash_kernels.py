@@ -36,6 +36,10 @@ CASES = {
     "gqa_4_2": (2, 256, 256, 4, 2, True, 0),
     "gqa_4_1": (1, 128, 128, 4, 1, True, 0),
     "q_offset": (1, 64, 192, 4, 2, True, 128),
+    "q_offset_ragged": (1, 128, 192, 4, 2, True, 32),
+    "odd_tiles": (1, 1088, 1088, 8, 2, True, 0),
+    "unseen_k_tiles": (1, 1024, 2048, 4, 1, True, 0),
+    "gqa_8_1": (1, 256, 256, 8, 1, True, 0),
 }
 
 
@@ -71,6 +75,10 @@ def test_kernels_match_plain_versions(case, cuda):
                           (out, lse, *got), (ref_out, ref_lse, *want)):
         result = smoke.check(name, g, w)
         assert result["ok"], (name, result)
+    # Keys no query row sees get exact zeros (the outputs are torch.empty).
+    unseen = q.shape[1] + q_offset if causal else k.shape[1]
+    for name, g in zip(("dk", "dv"), got[1:]):
+        assert (g[:, unseen:] == 0).all(), name
 
 
 def test_strided_inputs_read_through_strides(cuda):

@@ -208,6 +208,11 @@ def _check_operands(q, k, v, q_offset, do=None):
 
 
 def _raise_on(rc: int, name: str) -> None:
+    """The C entries return cudaGetLastError(), or a negated CUresult when
+    a TMA tensor map of an operand cannot be encoded."""
+    if rc < 0:
+        raise RuntimeError(f"{name}: TMA tensor map rejected an operand "
+                           f"(CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
