@@ -20,7 +20,9 @@ Phases, each printing one JSON line:
            plain outputs (zeros, δ dropped, the first or last k or q tile
            skipped, one GQA member left out of dK/dV); kernel, plain and
            library (scaled_dot_product_attention, a yardstick the port
-           never calls) times from CUDA events.
+           never calls) device times from CUDA events around calls queued
+           behind a sleep kernel (``cuda_ms``), and beside them the same
+           calls launched by the host as it goes.
 4. model   the 4-layer llama_3_8b-width model's logits through the kernels
            against the same weights through the reference attention.
 5. train   the main path: Trainer + Llama (llama_3_8b widths, 4 layers,
@@ -92,17 +94,36 @@ def nvidia_smi() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, queued: bool = True) -> float:
+    """Mean time of one ``fn()`` over ``reps`` calls between two CUDA events.
+
+    queued (the default): the calls are enqueued behind a sleep kernel and
+    the start event must still be pending once the host has queued the
+    last of them, so the card runs them back to back and the host's launch
+    rate does not enter (if the sleep ran out first, it is lengthened and
+    the run repeated). ``queued=False`` times calls that the host launches
+    as it goes, which a slow host stretches."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 1 << 24
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        behind = not start.query()
+        torch.cuda.synchronize()
+        if behind or not queued:
+            return start.elapsed_time(end) / reps
+        if cycles >= 1 << 36:
+            raise RuntimeError("the host could not queue the timed calls "
+                               "within the longest sleep")
+        cycles *= 4
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
@@ -190,26 +211,44 @@ def check(name: str, got, want) -> dict:
             "ratio": ratio, "ok": ratio <= 1.0}
 
 
+def _last_tile_cuts(q, k, causal, q_offset):
+    """Per q tile: its rows, their position offset, and how many leading
+    keys stay when its last visible k tile is left out."""
+    nk = k.shape[1] // BLOCK
+    for i in range(q.shape[1] // BLOCK):
+        off = q_offset + i * BLOCK
+        seen = min(nk, (off + BLOCK - 1) // BLOCK + 1) if causal else nk
+        yield slice(i * BLOCK, (i + 1) * BLOCK), off, (seen - 1) * BLOCK
+
+
 def _fwd_without_last_tile(q, k, v, causal, q_offset):
     """The plain forward with each q tile's last visible k tile left out
     (a pipeline that drops its final stage): rows left with no key get
     out 0 and lse -1e30, as the kernel's l == 0 guard would give."""
-    nk = k.shape[1] // BLOCK
     outs, lses = [], []
-    for i in range(q.shape[1] // BLOCK):
-        rows, off = q[:, i * BLOCK:(i + 1) * BLOCK], q_offset + i * BLOCK
-        seen = min(nk, (off + BLOCK - 1) // BLOCK + 1) if causal else nk
-        keep = (seen - 1) * BLOCK
+    for rows, off, keep in _last_tile_cuts(q, k, causal, q_offset):
         if keep == 0:
-            outs.append(torch.zeros_like(rows))
+            outs.append(torch.zeros_like(q[:, rows]))
             lses.append(torch.full((q.shape[0], q.shape[2], BLOCK),
                                    fa.NEG_INF, device=q.device))
             continue
-        out, lse = fa._fwd_reference(rows, k[:, :keep], v[:, :keep], causal,
-                                     off)
+        out, lse = fa._fwd_reference(q[:, rows], k[:, :keep], v[:, :keep],
+                                     causal, off)
         outs.append(out)
         lses.append(lse)
     return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def _dq_without_last_tile(q, k, v, lse, do, delta, causal, q_offset):
+    """The plain dQ with each q tile's last visible k tile left out: rows
+    left with no key get dq 0."""
+    parts = []
+    for rows, off, keep in _last_tile_cuts(q, k, causal, q_offset):
+        parts.append(torch.zeros_like(q[:, rows]) if keep == 0 else
+                     fa._dq_reference(q[:, rows], k[:, :keep], v[:, :keep],
+                                      lse[..., rows], do[:, rows],
+                                      delta[..., rows], causal, off))
+    return torch.cat(parts, dim=1)
 
 
 def perturbed(q, k, v, do, ref, delta, causal, q_offset):
@@ -228,6 +267,9 @@ def perturbed(q, k, v, do, ref, delta, causal, q_offset):
             delta[..., :-BLOCK], causal, q_offset)
     else:
         dk_tail, dv_tail = torch.zeros_like(k), torch.zeros_like(v)
+    # The last q tile's rows of dQ never written (the edge warpgroup idle).
+    dq_tail = ref["dq"].clone()
+    dq_tail[:, -BLOCK:] = 0
     # One GQA member (heads h = 0 mod group) left out of the dK/dV sum: its
     # dO, and so its δ = rowsum(dO O), zeroed.
     member = torch.arange(q.shape[2], device=q.device) % (
@@ -254,9 +296,14 @@ def perturbed(q, k, v, do, ref, delta, causal, q_offset):
         # The first q tile left out of dK/dV's loop.
         "first_q_tile_skipped": {"dk": dk_skip, "dv": dv_skip},
         # The pipeline's tail dropped: each q tile's last visible k tile
-        # in the forward, the last q tile in dK/dV's loop.
-        "last_k_tile_skipped": {"out": out_tail, "lse": lse_tail},
-        "last_q_tile_skipped": {"dk": dk_tail, "dv": dv_tail},
+        # (the diagonal) in the forward's and dQ's loops, the last q tile
+        # in dK/dV's loop and in dQ's output.
+        "last_k_tile_skipped": {
+            "out": out_tail, "lse": lse_tail,
+            "dq": _dq_without_last_tile(q, k, v, lse, do, delta, causal,
+                                        q_offset)},
+        "last_q_tile_skipped": {"dk": dk_tail, "dv": dv_tail,
+                                "dq": dq_tail},
         "gqa_member_dropped": {"dk": dk_member, "dv": dv_member},
     }
 
@@ -309,13 +356,12 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool):
                       + 2 * act_kv),
     }
     reps = 20
-    times = {
-        "flash_fwd": cuda_ms(lambda: fa._fwd_cuda(q, k, v, causal,
-                                                  q_offset), reps),
-        "flash_dq": cuda_ms(lambda: fa._dq_cuda(
-            q, k, v, ref_lse, do, delta, causal, q_offset), reps),
-        "flash_dkv": cuda_ms(lambda: fa._dkv_cuda(
-            q, k, v, ref_lse, do, delta, causal, q_offset), reps),
+    kernel_calls = {
+        "flash_fwd": lambda: fa._fwd_cuda(q, k, v, causal, q_offset),
+        "flash_dq": lambda: fa._dq_cuda(q, k, v, ref_lse, do, delta, causal,
+                                        q_offset),
+        "flash_dkv": lambda: fa._dkv_cuda(q, k, v, ref_lse, do, delta,
+                                          causal, q_offset),
     }
     plain = {
         "flash_fwd": cuda_ms(lambda: fa._fwd_reference(
@@ -331,20 +377,29 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool):
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                   enable_gqa=True), reps)
     lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), reps)
-    library = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd,
-               "flash_dkv": lib_bwd}
+    lib_calls = {
+        "fwd": lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
+        "bwd": lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+    }
+    # (device time of calls queued behind a sleep, time of the same calls
+    # launched by the host as it goes)
+    times = {n: (cuda_ms(f, reps), cuda_ms(f, reps, queued=False))
+             for n, f in {**kernel_calls, **lib_calls}.items()}
+    library = {"flash_fwd": times["fwd"], "flash_dq": times["bwd"],
+               "flash_dkv": times["bwd"]}
     stats = {}
     for name, (flops, nbytes) in work.items():
         bound_ms, bound_by = bound(flops, nbytes)
-        stats[name] = {"ms": times[name], "plain_ms": plain[name],
-                       "library_ms": library[name], "bound_ms": bound_ms,
-                       "bound_by": bound_by, "flops": flops,
-                       "bytes": nbytes}
+        ms, host_ms = times[name]
+        stats[name] = {"ms": ms, "host_launched_ms": host_ms,
+                       "tflop_per_s": flops / ms / 1e9,
+                       "plain_ms": plain[name],
+                       "library_ms": library[name][0],
+                       "library_host_launched_ms": library[name][1],
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "flops": flops, "bytes": nbytes}
     case["timing"] = stats
     return case, stats
 

@@ -192,8 +192,9 @@ def test_launch_counters_reset():
 def test_kernel_check_rejects_wrong_outputs(case):
     """chip_smoke.py's kernel check, which holds each CUDA kernel to its
     plain version, accepts bf16 rounding noise and rejects zeros, a dropped
-    δ, a skipped first or last k or q tile and a GQA member left out of
-    dK/dV (ratio > 1)."""
+    δ, a skipped first or last k or q tile (the last k tile in the forward
+    and dQ, the last q tile in dK/dV and in dQ's rows) and a GQA member
+    left out of dK/dV (ratio > 1)."""
     *_, causal, q_offset = CASES[case]
     q, k, v, do = (torch.tensor(x).bfloat16() for x in _inputs(case))
     out, lse = tfa._fwd_reference(q, k, v, causal, q_offset)

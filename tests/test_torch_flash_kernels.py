@@ -81,18 +81,42 @@ def test_kernels_match_plain_versions(case, cuda):
         assert (g[:, unseen:] == 0).all(), name
 
 
+def _strided_view(x, cuda):
+    """x as a view into a wider [B, S, H, D] buffer (a slice of the
+    sequence and of the heads)."""
+    b, s, h, _ = x.shape
+    wide = torch.zeros(b, s + 128, h + 2, D, device=cuda, dtype=x.dtype)
+    wide[:, 64:64 + s, 1:1 + h] = x
+    view = wide[:, 64:64 + s, 1:1 + h]
+    assert not view.is_contiguous()
+    return view
+
+
 def test_strided_inputs_read_through_strides(cuda):
-    """q/k/v as views into wider [B, S, H, D] buffers (a slice of the
-    sequence and of the heads) give the same result as contiguous copies."""
+    """q/k/v/do as views into wider buffers give the same out, lse, dq, dk
+    and dv as contiguous copies, bit for bit."""
     q, k, v, do = _inputs("gqa_4_2", cuda)
-    wide_q = torch.zeros(2, 384, 6, D, device=cuda, dtype=torch.bfloat16)
-    wide_q[:, 64:320, 1:5] = q
-    qv = wide_q[:, 64:320, 1:5]
-    assert not qv.is_contiguous()
-    out, lse = tfa._fwd_cuda(qv, k, v, True, 0)
+    qv, kv, vv, dov = (_strided_view(x, cuda) for x in (q, k, v, do))
+    out, lse = tfa._fwd_cuda(qv, kv, vv, True, 0)
     ref_out, ref_lse = tfa._fwd_cuda(q, k, v, True, 0)
     torch.testing.assert_close(out, ref_out, atol=0, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=0, rtol=0)
+    delta = tfa._delta(ref_out, do)
+    got = tfa._bwd_cuda(qv, kv, vv, ref_out, ref_lse, dov, True, 0, delta)
+    want = tfa._bwd_cuda(q, k, v, ref_out, ref_lse, do, True, 0, delta)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0, msg=name)
+
+
+def test_dq_is_deterministic(cuda):
+    """Two dQ launches on the same inputs give bitwise-identical results
+    (no atomics; every row is summed in a fixed k-tile order)."""
+    q, k, v, do = _inputs("odd_tiles", cuda)
+    out, lse = tfa._fwd_reference(q, k, v, True, 0)
+    delta = tfa._delta(out, do)
+    first = tfa._dq_cuda(q, k, v, lse, do, delta, True, 0)
+    second = tfa._dq_cuda(q, k, v, lse, do, delta, True, 0)
+    assert torch.equal(first, second)
 
 
 def test_autograd_through_kernels_matches_reference_attention(cuda):

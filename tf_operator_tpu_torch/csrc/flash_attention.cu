@@ -22,7 +22,7 @@
 // with the resident tiles reused across the whole loop the work is bounded
 // by tensor-core operations, not by device memory.
 //
-// Forward and dK/dV (the Hopper design, hopper.cuh):
+// All three share one Hopper design (hopper.cuh):
 //   * Warp-specialised CTAs of 384 threads: two consumer warpgroups that
 //     run wgmma (setmaxnreg 240 registers) and one producer warpgroup
 //     (setmaxnreg 24) whose first thread streams tiles in with TMA
@@ -37,8 +37,8 @@
 //   * The tensor maps are built on the host in each C entry
 //     (cuTensorMapEncodeTiled looked up in libcuda, no -lcuda) and passed
 //     as __grid_constant__ parameters.
-// dQ keeps the first port's design: nvcuda::wmma 16x16x16 tiles in shared
-// memory, 4 warps per CTA, synchronous loads.
+//   * No atomics: every output element is summed inside one CTA in a fixed
+//     order, so the results are deterministic.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(), or the negated CUresult when a tensor map cannot be
@@ -46,37 +46,19 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int D = 128;        // head_dim
 constexpr int T = 64;         // tile rows (q and k)
-constexpr int NT = 128;       // threads per dQ CTA (4 warps)
-constexpr int LDH = D + 8;    // bf16 row stride of a [64, 128] tile
-constexpr int LDP = T + 8;    // bf16 row stride of a [64, 64] tile
-constexpr int LDS = T + 4;    // f32 row stride of a [64, 64] tile
-constexpr int LDO = D + 4;    // f32 row stride of a [64, 128] tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int TILE_H = T * LDH * 2;   // bytes of one bf16 [64, 128] tile
-constexpr int TILE_S = T * LDS * 4;   // bytes of one f32 [64, 64] tile
-constexpr int TILE_P = T * LDP * 2;   // bytes of one bf16 [64, 64] tile
-constexpr int TILE_O = T * LDO * 4;   // bytes of one f32 [64, 128] tile
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// The warp-specialised kernels (forward, dK/dV).
 constexpr int NT_WS = 384;            // 2 consumer warpgroups + 1 producer
 constexpr int CONSUMER_WARPS = 8;
 constexpr int TILE = hopper::TILE_BYTES;
@@ -105,72 +87,15 @@ __device__ __forceinline__ int acc_col(int i, int lane) {
   return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
 }
 
-struct Strides {  // element strides of a [B, S, H, D] tensor (D stride 1)
-  int b, s, h;
-};
-
-__device__ __forceinline__ const bf16* row_ptr(const bf16* base, Strides st,
-                                               int b, int row, int h) {
-  return base + (int64_t)b * st.b + (int64_t)row * st.s + (int64_t)h * st.h;
-}
-
-// Copy 64 rows of 128 bf16 (row r at src + r * row_stride) into a padded
-// shared tile, 16 bytes per thread per step.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row_stride) {
-  for (int idx = threadIdx.x; idx < T * (D / 8); idx += NT) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) =
-        *reinterpret_cast<const uint4*>(src + (int64_t)r * row_stride + c);
-  }
-}
-
-// Write 64 rows of 128 f32 as bf16.
-__device__ __forceinline__ void store_tile(bf16* dst, int row_stride,
-                                           const float* src) {
-  for (int idx = threadIdx.x; idx < T * (D / 2); idx += NT) {
-    const int r = idx / (D / 2), c = (idx % (D / 2)) * 2;
-    const __nv_bfloat162 v = __floats2bfloat162_rn(src[r * LDO + c],
-                                                   src[r * LDO + c + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(dst + (int64_t)r * row_stride + c) = v;
-  }
-}
-
-// out[16 x 64] (f32, ld LDS) = A[16 x 128] . B^T where B is [64 x 128]
-// row-major (so B^T is read column-major).
-__device__ __forceinline__ void mm_abt(float* out, const bf16* a,
-                                       const bf16* b) {
+// Write a 64 x 128 f32 accumulator as bf16 rows of a [.., 128] tensor.
+__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[64],
+                                          int row_stride, int warp,
+                                          int lane) {
 #pragma unroll
-  for (int n = 0; n < T / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBc fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDH);
-      wmma::load_matrix_sync(fb, b + n * 16 * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] (16 x 128 as 8 fragments) += A[16 x 64] (ld LDP) . B[64 x 128]
-// (row-major, ld LDH).
-__device__ __forceinline__ void mm_acc(FragC* acc, const bf16* a,
-                                       const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < T / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, LDP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBr fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * LDH + n * 16, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
+  for (int i = 0; i < 64; i += 2)
+    *reinterpret_cast<__nv_bfloat162*>(
+        dst + static_cast<int64_t>(acc_row(i, warp, lane)) * row_stride +
+        acc_col(i, lane)) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
 }
 
 // Last k tile (exclusive) visible to q tile i: the TPU's _block_visible,
@@ -187,6 +112,45 @@ __device__ __forceinline__ int first_q_tile(int j, int causal, int q_offset) {
   if (!causal) return 0;
   const int need = j * T - q_offset - (T - 1);
   return need > 0 ? (need + T - 1) / T : 0;
+}
+
+// The work of one forward or dQ CTA: q tiles 2c and 2c + 1 (`tiles` of
+// them, 1 for the last CTA of an odd count) of head h, batch b. Blocks are
+// numbered heaviest q tiles first, so the short causal tiles fill the last
+// wave instead of the long ones.
+struct QPair {
+  int c, h, b, tiles;
+};
+
+__device__ __forceinline__ QPair q_pair(int nqt, int H) {
+  const int ncta = (nqt + 1) / 2;
+  const int hb = gridDim.x / ncta;                        // H * B
+  const int blk = static_cast<int>(blockIdx.x);
+  QPair w;
+  w.c = ncta - 1 - blk / hb;
+  w.h = blk % hb % H;
+  w.b = blk % hb / H;
+  w.tiles = min(2, nqt - 2 * w.c);
+  return w;
+}
+
+// Producer side of a K/V ring: K and V tiles 0 .. nk - 1 of kv head hk
+// into `stages` stages of 2 tiles, stage s reused once every consumer warp
+// has released it.
+__device__ __forceinline__ void stream_kv(unsigned char* sKV, uint64_t* full,
+                                          uint64_t* empty, int stages,
+                                          const CUtensorMap* kmap,
+                                          const CUtensorMap* vmap, int nk,
+                                          int hk, int b) {
+  using namespace hopper;
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % stages, use = j / stages;
+    if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+    unsigned char* st = sKV + s * 2 * TILE;
+    mbar_expect_tx(&full[s], 2 * TILE);
+    tma_load_tile(st, kmap, &full[s], hk, j * T, b);
+    tma_load_tile(st + TILE, vmap, &full[s], hk, j * T, b);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -206,8 +170,6 @@ __device__ __forceinline__ int first_q_tile(int j, int causal, int q_offset) {
 //     rescaled there and written once.
 //   * Causal k tiles past a q tile's diagonal are never loaded (the
 //     producer stops at the CTA's last visible tile).
-//   * Blocks are numbered heaviest q tiles first, so the short causal
-//     tiles fill the last wave instead of the long ones.
 // ---------------------------------------------------------------------------
 constexpr int FWD_STAGES = 2;
 constexpr int SMEM_FWD = 1024 + 2 * TILE + FWD_STAGES * 2 * TILE +
@@ -228,13 +190,9 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
   uint64_t* kv_empty = kv_full + FWD_STAGES;
 
   const int nqt = Sq / T, nkt = Sk / T;
-  const int ncta = (nqt + 1) / 2;
-  const int hb = gridDim.x / ncta;                        // H * B
-  const int c = ncta - 1 - static_cast<int>(blockIdx.x) / hb;
-  const int h = static_cast<int>(blockIdx.x) % hb % H;
-  const int b = static_cast<int>(blockIdx.x) % hb / H;
+  const QPair w = q_pair(nqt, H);
+  const int c = w.c, h = w.h, b = w.b, tiles_here = w.tiles;
   const int hk = h / (H / Hkv);
-  const int tiles_here = min(2, nqt - 2 * c);
   // k tiles the CTA streams: those its last q tile sees.
   const int nk = k_tiles_visible(2 * c + tiles_here - 1, nkt, causal, q_offset);
 
@@ -256,14 +214,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
       mbar_expect_tx(q_full, tiles_here * TILE);
       for (int g = 0; g < tiles_here; ++g)
         tma_load_tile(sQ + g * TILE, &qmap, q_full, h, (2 * c + g) * T, b);
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % FWD_STAGES, use = j / FWD_STAGES;
-        if (use > 0) mbar_wait(&kv_empty[s], (use - 1) & 1);
-        unsigned char* st = sKV + s * 2 * TILE;
-        mbar_expect_tx(&kv_full[s], 2 * TILE);
-        tma_load_tile(st, &kmap, &kv_full[s], hk, j * T, b);
-        tma_load_tile(st + TILE, &vmap, &kv_full[s], hk, j * T, b);
-      }
+      stream_kv(sKV, kv_full, kv_empty, FWD_STAGES, &kmap, &vmap, nk, hk, b);
     }
   } else {
     reg_alloc<240>();
@@ -354,92 +305,164 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
         lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[r] + logf(safe);
     }
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int row = iq * T + acc_row(i, warp, lane);
-      const float sc_ = inv[(i % 4) / 2];
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D +
-          acc_col(i, lane)) = __floats2bfloat162_rn(o[i] * sc_, o[i + 1] * sc_);
-    }
+    for (int i = 0; i < 64; ++i) o[i] *= inv[(i % 4) / 2];
+    store_acc(out + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
+                  static_cast<int64_t>(h) * D,
+              o, H * D, warp, lane);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dQ: one CTA per (q tile, head, batch). Replaces _dq_kernel
-// (flash_attention.py:183). Bound by tensor-core operations (6 D FLOPs per
-// visible pair: S, dP and dS.K); Q, dO, lse and delta stay resident and
-// the dQ accumulator lives in wmma fragments, written once at the end.
+// Backward, dQ: one CTA per (128 query rows, head, batch). Replaces
+// _dq_kernel (tf_operator_tpu/ops/flash_attention.py:183). Bound by
+// tensor-core operations: 6 D FLOPs per visible (q, k) pair (S = Q K^T,
+// dP = dO V^T, dQ += dS K) against the K and V tile loads, which the
+// producer streams through a DQ_STAGES ring while the consumers compute
+// (the forward's shape, one product more per tile pair).
+//   * Consumer warpgroup g owns q tile 2c + g; with an odd count of q
+//     tiles the last CTA's second warpgroup computes nothing and still
+//     releases every stage. Its Q and dO tiles come once, on one barrier,
+//     and stay resident; the lse and delta of its rows sit in registers
+//     (the thread's 2 accumulator rows).
+//   * Per k tile: S = Q K^T and dP = dO V^T (16 wgmma m64n64k16 in one
+//     commit group, every operand K-major), scale and the causal mask
+//     (diagonal tiles only, per element) in registers, P = exp(S - lse)
+//     and dS = P (dP - delta) scale there, dS rounded to bf16 register
+//     fragments, and dQ += dS K (4 wgmma m64n128k16, A from registers): the
+//     K tile that was the K-major B of S is read N-major here.
+//   * dQ (64 f32 registers a thread) is written once, as bf16, straight
+//     from registers. Each dQ row is summed by one warpgroup in k-tile
+//     order: no atomics, deterministic.
+//   * Causal k tiles past the CTA's last diagonal are never loaded.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT) flash_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, Strides qs,
-    Strides ks, Strides vs, Strides dos, int causal, int q_offset,
-    float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + TILE_H);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * TILE_H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * TILE_H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * TILE_H);
-  float* sdP = reinterpret_cast<float*>(smem + 4 * TILE_H + TILE_S);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * TILE_H + 2 * TILE_S);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * TILE_H + 2 * TILE_S + TILE_P);
-  float* sDelta = sLse + T;
-  float* sStage = sS;  // after the loop: [64, 128] f32 over sS and sdP
+constexpr int DQ_STAGES = 2;
+constexpr int SMEM_DQ = 1024 + 4 * TILE + DQ_STAGES * 2 * TILE +
+                        8 * (1 + 2 * DQ_STAGES);
 
-  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Hkv,
+    int Sq, int Sk, int causal, int q_offset, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);               // 2 tiles
+  unsigned char* sdO = sQ + 2 * TILE;                     // 2 tiles
+  unsigned char* sKV = sdO + 2 * TILE;                    // stage s: K, V
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sKV + DQ_STAGES * 2 * TILE);
+  uint64_t* kv_full = qdo_full + 1;
+  uint64_t* kv_empty = kv_full + DQ_STAGES;
+
+  const int nqt = Sq / T, nkt = Sk / T;
+  const QPair w = q_pair(nqt, H);
+  const int c = w.c, h = w.h, b = w.b, tiles_here = w.tiles;
   const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
+  const int nk = k_tiles_visible(2 * c + tiles_here - 1, nkt, causal, q_offset);
 
-  load_tile(sQ, row_ptr(q, qs, b, i * T, h), qs.s);
-  load_tile(sdO, row_ptr(dout, dos, b, i * T, h), dos.s);
-  if (threadIdx.x < T) {
-    const int64_t row = ((int64_t)b * H + h) * Sq + i * T + threadIdx.x;
-    sLse[threadIdx.x] = lse[row];
-    sDelta[threadIdx.x] = delta[row];
-  }
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-  const int nk = k_tiles_visible(i, Sk / T, causal, q_offset);
-  for (int j = 0; j < nk; ++j) {
-    __syncthreads();
-    load_tile(sK, row_ptr(k, ks, b, j * T, hk), ks.s);
-    load_tile(sV, row_ptr(v, vs, b, j * T, hk), vs.s);
-    __syncthreads();
-
-    mm_abt(sS + r0 * LDS, sQ + r0 * LDH, sK);     // S  = Q K^T
-    mm_abt(sdP + r0 * LDS, sdO + r0 * LDH, sV);   // dP = dO V^T
-    __syncwarp();
-
-    for (int idx = lane; idx < 16 * T; idx += 32) {
-      const int r = r0 + idx / T, col = idx % T;
-      float s = sS[r * LDS + col] * scale;
-      if (causal && i * T + r + q_offset < j * T + col) s = NEG_INF;
-      const float p = expf(s - sLse[r]);
-      const float ds = p * (sdP[r * LDS + col] - sDelta[r]) * scale;
-      sdS[r * LDP + col] = __float2bfloat16_rn(ds);
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], CONSUMER_WARPS);
     }
-    __syncwarp();
-
-    mm_acc(acc, sdS + r0 * LDP, sK);              // dQ += dS K
+    mbar_init_fence();
   }
-  __syncthreads();  // sS / sdP are free: stage dQ through them
-
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(sStage + r0 * LDO + n * 16, acc[n], LDO,
-                            wmma::mem_row_major);
   __syncthreads();
-  const Strides gs = {Sq * H * D, H * D, D};
-  store_tile(dq + (int64_t)b * gs.b + (int64_t)(i * T) * gs.s +
-                 (int64_t)h * gs.h,
-             gs.s, sStage);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: Q and dO once, then K and V tile by tile through the ring.
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qdo_full, 2 * tiles_here * TILE);
+      for (int g = 0; g < tiles_here; ++g) {
+        tma_load_tile(sQ + g * TILE, &qmap, qdo_full, h, (2 * c + g) * T, b);
+        tma_load_tile(sdO + g * TILE, &domap, qdo_full, h, (2 * c + g) * T,
+                      b);
+      }
+      stream_kv(sKV, kv_full, kv_empty, DQ_STAGES, &kmap, &vmap, nk, hk, b);
+    }
+  } else {
+    reg_alloc<240>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int iq = 2 * c + wg;                            // this q tile
+    const bool active = wg < tiles_here;
+    const int my_nk = active ? k_tiles_visible(iq, nkt, causal, q_offset) : 0;
+    const unsigned char* myQ = sQ + wg * TILE;
+    const unsigned char* mydO = sdO + wg * TILE;
+
+    float row_lse[2] = {0.0f, 0.0f}, row_delta[2] = {0.0f, 0.0f};
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq + iq * T +
+                            16 * warp + lane / 4 + 8 * r;
+        row_lse[r] = lse[row];
+        row_delta[r] = delta[row];
+      }
+    }
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+    mbar_wait(qdo_full, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % DQ_STAGES;
+      mbar_wait(&kv_full[s], (j / DQ_STAGES) & 1);
+      if (j < my_nk) {
+        const unsigned char* sK = sKV + s * 2 * TILE;
+        const unsigned char* sV = sK + TILE;
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_m64n64k16_ss(sc, desc_kmajor(myQ, kk), desc_kmajor(sK, kk),
+                             kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_m64n64k16_ss(dp, desc_kmajor(mydO, kk), desc_kmajor(sV, kk),
+                             kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(sc);
+        reg_fence(dp);
+
+        // Scale, mask (diagonal tiles only), P and dS; dS overwrites S.
+        const bool diag = causal && j * T + T - 1 > iq * T + q_offset;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i % 4) / 2;
+          float x = sc[i] * scale;
+          if (diag && iq * T + acc_row(i, warp, lane) + q_offset <
+                          j * T + acc_col(i, lane))
+            x = NEG_INF;
+          const float p = exp2f((x - row_lse[r]) * LOG2E);
+          sc[i] = p * (dp[i] - row_delta[r]) * scale;
+        }
+
+        // dQ += dS K, dS as bf16 register fragments.
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) frag_a(da[kk], sc, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16_rs(acc, da[kk], desc_nmajor(sK, kk));
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty[s]);
+    }
+    if (!active) return;
+    store_acc(dq + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
+                  static_cast<int64_t>(h) * D,
+              acc, H * D, warp, lane);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -472,16 +495,6 @@ constexpr int DKV_STAGES = 4;
 constexpr int DKV_STAGE = 2 * TILE + 1024;  // Q, dO, lse[64], delta[64]
 constexpr int SMEM_DKV = 1024 + 2 * TILE + DKV_STAGES * DKV_STAGE +
                          T * D * 4 + 8 * (2 + 2 * DKV_STAGES);
-
-__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[64],
-                                          int row_stride, int warp,
-                                          int lane) {
-#pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    *reinterpret_cast<__nv_bfloat162*>(
-        dst + static_cast<int64_t>(acc_row(i, warp, lane)) * row_stride +
-        acc_col(i, lane)) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
-}
 
 __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
     const __grid_constant__ CUtensorMap qmap,
@@ -653,9 +666,8 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
   }
 }
 
-constexpr int SMEM_DQ = 4 * TILE_H + 2 * TILE_S + TILE_P + 2 * T * 4;
-static_assert(2 * TILE_S >= TILE_O, "dQ staging must fit over the score tiles");
-static_assert(SMEM_FWD <= 232448 && SMEM_DKV <= 232448,
+static_assert(SMEM_FWD <= 232448 && SMEM_DQ <= 232448 &&
+                  SMEM_DKV <= 232448,
               "shared memory over the 227 KB a block can use");
 
 }  // namespace
@@ -688,15 +700,19 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb,
              int do_ss, int do_sh, int causal, int q_offset, float scale,
              void* stream) {
+  CUtensorMap qm, km, vm, dom;
+  CUresult rc;
+  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh)) ||
+      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh)) ||
+      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh)) ||
+      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, do_sb, do_ss, do_sh)))
+    return -static_cast<int>(rc);
   cudaFuncSetAttribute(flash_dq_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DQ);
-  const dim3 grid(Sq / T, H, B);
-  flash_dq_kernel<<<grid, NT, SMEM_DQ, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, H, Hkv, Sq, Sk,
-      Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
-      Strides{v_sb, v_ss, v_sh}, Strides{do_sb, do_ss, do_sh}, causal,
-      q_offset, scale);
+  const int ncta = (Sq / T + 1) / 2;
+  flash_dq_kernel<<<ncta * H * B, NT_WS, SMEM_DQ, (cudaStream_t)stream>>>(
+      qm, km, vm, dom, (const float*)lse, (const float*)delta, (bf16*)dq, H,
+      Hkv, Sq, Sk, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
