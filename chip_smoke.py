@@ -34,6 +34,31 @@ Phases, each printing one JSON line:
 6. profile one more step under torch.profiler: device time by kernel class
            and the device's idle share.
 
+The training model, optimizer and state are then freed, and the serving
+path runs (it launches no flash kernel, as the JAX decode path runs none):
+
+7. decode  the KV-cache path at llama_3_8b width with 2 layers on a 2-slot
+           cache: slots first hold another sequence, then prompts of 256
+           and 192 tokens are prefilled on a reused 1-row staging cache and
+           inserted (insert_cache), and 64 decode_steps follow. In f32 (TF32
+           off) every logit is held against the no-cache forward of the same
+           weights with a limit scaled to the logits (DECODE_REL); the check
+           must reject three wrong caches (mask off by one, K/V written one
+           row late, a slot left stale after insert_cache). In bf16 the
+           cached logits may be no further from the f32 forward than the
+           bf16 no-cache forward is (x1.25).
+8. serve   LlamaRunner at full llama_3_8b (32 layers, f32 params, bf16
+           compute, max_seq_len 8192, 4 slots) behind RequestQueue (tenants
+           a:b = 2:1), ContinuousBatcher and ServingEngine.run_until_idle:
+           8 requests, prompts of 7 to 2000 tokens, 32 new tokens each.
+           TTFT, prefill ms per bucket, decode ms per step, tokens/s, peak
+           memory; one decode step under torch.profiler (device time by
+           class, idle share) beside its reckoned bytes. Every request must
+           finish to budget with in-vocabulary tokens and finite logits, and
+           the flash launch counters must read 0.
+9. worker  serve.worker.main --runner llama on the card over a spool of 3
+           requests and the .close sentinel: exit 0, 3 responses.
+
 Then a {"kernels": [...]} summary line, the nvidia-smi name/power line,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero before
 the last line; so does a machine without a CUDA card.
@@ -42,19 +67,29 @@ the last line; so does a machine without a CUDA card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
+from tf_operator_tpu_torch.models import llama as tllama
 from tf_operator_tpu_torch.models.llama import Llama, llama_3_8b
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.serve import worker
+from tf_operator_tpu_torch.serve.batcher import ContinuousBatcher
+from tf_operator_tpu_torch.serve.engine import ServingEngine
+from tf_operator_tpu_torch.serve.queue import Request, RequestQueue
+from tf_operator_tpu_torch.serve.runner import LlamaRunner
 from tf_operator_tpu_torch.train.trainer import Trainer, adamw
 
 # Kernel vs plain version. Attention outputs and gradients are small
@@ -81,6 +116,18 @@ REPLACES = {
 B, S, H, HKV, D = 1, 2048, 32, 8, 128
 STEPS = 5
 PER_STEP = {"flash_fwd": 8, "flash_dq": 4, "flash_dkv": 4}
+# Decode check: cached against no-cache logits of the same f32 weights (TF32
+# off). The two paths sum in other orders (other GEMM shapes; softmax over
+# the whole 8192-row cache against the causal prefix), about 1e-6 of the
+# logits' scale; the limit is 1e-4 of it, and a wrong cache moves logits by
+# their own scale.
+DECODE_REL = 1e-4
+DECODE_LENS = (256, 192)    # slot prompts, prefilled one by one
+DECODE_STEPS = 64
+SERVE_PROMPTS = (7, 40, 130, 300, 700, 1000, 1500, 2000)
+SERVE_NEW_TOKENS = 32
+SERVE_SLOTS = 4
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(record) -> None:
@@ -191,10 +238,11 @@ def make_inputs(gen, sq, sk):
         mk(B, sq, H, D)
 
 
-def check(name: str, got, want) -> dict:
+def check(name: str, got, want, rel: float = REL, tol: float = ATOL
+          ) -> dict:
     """Hold one output against its plain version with limits scaled to
-    that output (see REL): every element within atol + ATOL * |want|, where
-    atol = min(ATOL, REL * max|want|), and relative L2 within REL; lse
+    that output (see REL): every element within atol + tol * |want|, where
+    atol = min(tol, rel * max|want|), and relative L2 within rel; lse
     within LSE_ATOL. ``ratio`` is the error over its limit (the larger of
     the two for a scaled output): the check passes at ratio <= 1."""
     got, want = got.float(), want.float()
@@ -203,10 +251,10 @@ def check(name: str, got, want) -> dict:
     if name == "lse":
         return {"max_abs_err": err, "limit": LSE_ATOL,
                 "ratio": err / LSE_ATOL, "ok": err <= LSE_ATOL}
-    atol = min(ATOL, REL * want.abs().max().item())
-    elementwise = (diff / (atol + ATOL * want.abs())).max().item()
+    atol = min(tol, rel * want.abs().max().item())
+    elementwise = (diff / (atol + tol * want.abs())).max().item()
     rel_l2 = (diff.norm() / want.norm()).item()
-    ratio = max(elementwise, rel_l2 / REL)
+    ratio = max(elementwise, rel_l2 / rel)
     return {"max_abs_err": err, "atol": atol, "rel_l2": rel_l2,
             "ratio": ratio, "ok": ratio <= 1.0}
 
@@ -572,6 +620,332 @@ def phase_profile(step, state, batch):
           "by_class_ms": by_class, "top_kernels_ms": top})
 
 
+# ---------------------------------------------------------------------------
+# The serving path: decode check, serve, worker
+# ---------------------------------------------------------------------------
+
+def decode_config(dtype, decode: bool):
+    return dataclasses.replace(llama_3_8b(), n_layers=2, remat=False,
+                               attention_impl="xla", dtype=dtype,
+                               decode=decode)
+
+
+def seeded_llama(cfg):
+    """The same weights for every config of one shape (seed 0)."""
+    return Llama(cfg, device="cuda",
+                 generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def no_cache_logits(dtype, tokens):
+    model = seeded_llama(decode_config(dtype, decode=False))
+    with torch.no_grad():
+        out = model(tokens).float()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def cached_logits(model, tokens, other, skip_insert=None):
+    """Per slot, its logits at positions 0 .. n + DECODE_STEPS - 1: the
+    prefill's for its prompt of n = DECODE_LENS[slot] tokens, then one
+    decode_step's per position. Both slots first hold ``other`` (an
+    earlier occupant), so rows a slot fails to overwrite are wrong, not
+    zero; the 1-row staging cache is reused without zeroing, as the runner
+    does. ``skip_insert``: a slot whose insert_cache is left out."""
+    cache, stage = tllama.init_cache(model, 2), tllama.init_cache(model, 1)
+    arange = lambda n: torch.arange(n, device="cuda")[None]
+    _, stage = tllama.prefill(model, stage, other, arange(other.shape[1]))
+    for slot in range(2):
+        tllama.insert_cache(cache, stage, slot)
+    outs = []
+    for slot, n in enumerate(DECODE_LENS):
+        logits, stage = tllama.prefill(model, stage,
+                                       tokens[slot:slot + 1, :n], arange(n))
+        outs.append([logits[0].float()])
+        if slot != skip_insert:
+            tllama.insert_cache(cache, stage, slot)
+    lens = torch.tensor(DECODE_LENS, device="cuda")
+    rows = torch.arange(2, device="cuda")
+    for t in range(DECODE_STEPS):
+        pos = lens + t
+        logits, cache = tllama.decode_step(
+            model, cache, tokens[rows, pos][:, None], pos[:, None])
+        for slot in range(2):
+            outs[slot].append(logits[slot].float())
+    return torch.cat([torch.cat(o) for o in outs])
+
+
+def phase_decode():
+    """The KV-cache path against the no-cache forward of the same weights
+    (module docstring, phase 7)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    start_gb = torch.cuda.memory_allocated() / 2 ** 30
+    vocab = llama_3_8b().vocab_size
+    rng = np.random.default_rng(1)
+    seq = max(DECODE_LENS) + DECODE_STEPS
+    tokens = torch.as_tensor(rng.integers(0, vocab, (2, seq)), device="cuda")
+    other = torch.as_tensor(rng.integers(0, vocab, (1, seq)), device="cuda")
+    truth = no_cache_logits(torch.float32, tokens)
+    want = torch.cat([truth[slot, :n + DECODE_STEPS]
+                      for slot, n in enumerate(DECODE_LENS)])
+
+    model = seeded_llama(decode_config(torch.float32, decode=True))
+    params = sum(p.numel() for p in model.parameters())
+    f32 = check("logits", cached_logits(model, tokens, other), want,
+                rel=DECODE_REL, tol=DECODE_REL)
+    write_rows = tllama._write_rows
+    wrong = {}
+    with mock.patch.object(tllama, "_visible", lambda k_pos, positions:
+                           k_pos[None, None, :] < positions[:, :, None]):
+        wrong["mask_off_by_one"] = cached_logits(model, tokens, other)
+    with mock.patch.object(tllama, "_write_rows", lambda cache, new, pos:
+                           write_rows(cache, new, pos + 1)):
+        wrong["kv_written_one_row_late"] = cached_logits(model, tokens, other)
+    wrong["slot_stale_after_insert"] = cached_logits(model, tokens, other,
+                                                     skip_insert=1)
+    caught = {name: check("logits", got, want, rel=DECODE_REL,
+                          tol=DECODE_REL)["ratio"]
+              for name, got in wrong.items()}
+    del model, wrong
+    torch.cuda.empty_cache()
+
+    model = seeded_llama(decode_config(torch.bfloat16, decode=True))
+    cached_bf16 = cached_logits(model, tokens, other)
+    del model
+    torch.cuda.empty_cache()
+    plain = no_cache_logits(torch.bfloat16, tokens)
+    plain_bf16 = torch.cat([plain[slot, :n + DECODE_STEPS]
+                            for slot, n in enumerate(DECODE_LENS)])
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    cached_err, plain_err = rel(cached_bf16, want), rel(plain_bf16, want)
+    emit({"phase": "decode", "layers": 2, "params": params,
+          "memory_allocated_gb_at_start": start_gb,
+          "slot_prompts": list(DECODE_LENS), "decode_steps": DECODE_STEPS,
+          "max_seq_len": llama_3_8b().max_seq_len,
+          "f32": {"max_abs_err": f32["max_abs_err"],
+                  "limit": {"atol": f32["atol"], "rtol": DECODE_REL,
+                            "rel_l2": DECODE_REL},
+                  "rel_l2": f32["rel_l2"], "ratio": f32["ratio"]},
+          "perturbed_ratio": caught,
+          "bf16": {"rel_l2_cached_vs_f32": cached_err,
+                   "rel_l2_no_cache_vs_f32": plain_err,
+                   "finite": bool(torch.isfinite(cached_bf16).all())}})
+    if not f32["ok"]:
+        raise AssertionError(f"cached f32 logits off the no-cache forward: "
+                             f"ratio {f32['ratio']}")
+    missed = [name for name, ratio in caught.items() if ratio <= 1.0]
+    if missed:
+        raise AssertionError(f"the decode check accepts wrong caches: "
+                             f"{missed}")
+    if (not torch.isfinite(cached_bf16).all()
+            or cached_err > 1.25 * plain_err):
+        raise AssertionError(
+            f"bf16 cached logits further from the f32 forward ({cached_err})"
+            f" than 1.25x the bf16 no-cache forward's ({plain_err})")
+
+
+def decode_step_bytes(runner):
+    """Reckoned bytes of one decode step over all slots: (floor, as the
+    port moves them). The floor reads every matmul weight once in f32 and
+    the whole K/V cache once in bf16. The port also writes and reads a
+    bf16 copy of each weight (Dense casts on every call) and, per layer,
+    an f32 copy of the K cache (f32 scores, as ops.layers.attention)."""
+    weights = sum(p.numel() for n, p in runner.model.named_parameters()
+                  if n.endswith(".weight") and "embed" not in n)
+    kv = runner.cache["k"].numel()
+    return 4 * weights + 2 * 2 * kv, 8 * weights + (2 + 4 + 4 + 2) * kv
+
+
+def prefill_bound_ms(runner, size: int) -> float:
+    """Reckoned least time of one prefill of ``size`` tokens: the matmuls
+    at the bf16 tensor-core peak, plus the f32 scores and weighted sums
+    over the whole cache (4 D FLOPs per query, key and head) at the f32
+    peak of 67 TFLOP/s (TF32 off)."""
+    cfg = runner.config
+    weights = sum(p.numel() for n, p in runner.model.named_parameters()
+                  if n.endswith(".weight") and "embed" not in n)
+    attn = 4 * cfg.head_dim * size * cfg.max_seq_len * cfg.n_heads
+    return (2 * weights * size / PEAK_BF16
+            + attn * cfg.n_layers / 67e12) * 1e3
+
+
+def profile_decode(runner, lengths):
+    """One decode step under torch.profiler: device busy time, idle share,
+    and device time by class. Kernels inside the device-side range of the
+    cached attention (annotated here with record_function) are its class;
+    of the rest, cuBLAS GEMMs are matmul and all else casts/elementwise
+    (chiefly the f32 -> bf16 weight casts)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    orig = tllama.LlamaAttention._cached_attention
+
+    def annotated(self, *args):
+        with record_function("cached_attention"):
+            return orig(self, *args)
+
+    last = [1] * len(lengths)
+    runner.decode(last, lengths)
+    torch.cuda.synchronize()
+    with mock.patch.object(tllama.LlamaAttention, "_cached_attention",
+                           annotated), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.decode(last, lengths)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = [(ev.time_range.start, ev.time_range.end) for ev in device
+              if ev.is_user_annotation and ev.name == "cached_attention"]
+    by_class, top, kernels = {}, {}, 0
+    for ev in device:
+        if ev.is_user_annotation:
+            continue
+        kernels += 1
+        if any(a <= ev.time_range.start < b for a, b in ranges):
+            cls = "attention (cached, GQA einsums, softmax, cache writes)"
+        elif kernel_class(ev.name) == "matmul (cuBLAS)":
+            cls = "matmul (cuBLAS)"
+        else:
+            cls = "casts/elementwise"
+        ms = ev.time_range.elapsed_us() / 1e3
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        top.setdefault(cls, {})
+        top[cls][ev.name[:80]] = top[cls].get(ev.name[:80], 0.0) + ms
+    busy = sum(by_class.values())
+    top = {cls: sorted(names.items(), key=lambda kv: -kv[1])[:3]
+           for cls, names in top.items()}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if busy else None,
+            "kernels": kernels, "attention_ranges": len(ranges),
+            "by_class_ms": by_class,
+            "top_kernels_ms": top}
+
+
+def phase_serve():
+    """LlamaRunner at full llama_3_8b through the engine (module
+    docstring, phase 8)."""
+    card = nvidia_smi()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    runner = LlamaRunner(config=llama_3_8b(), max_slots=SERVE_SLOTS,
+                         device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = runner.config
+    prefill_ms, decode_ms = {}, []
+    prefill, decode = runner.prefill, runner.decode
+
+    def timed_prefill(prompt, slot):
+        t = time.perf_counter()
+        token = prefill(prompt, slot)       # int(): waits for the card
+        prefill_ms.setdefault(runner._bucket(len(prompt)), []).append(
+            (time.perf_counter() - t) * 1e3)
+        return token
+
+    def timed_decode(last_tokens, lengths):
+        t = time.perf_counter()
+        tokens = decode(last_tokens, lengths)   # .tolist(): waits
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        return tokens
+
+    runner.prefill, runner.decode = timed_prefill, timed_decode
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def all_finite(module, args, out):
+        finite.logical_and_(torch.isfinite(out).all())   # no host sync
+
+    hook = runner.model.lm_head.register_forward_hook(all_finite)
+    queue = RequestQueue(tenant_weights={"a": 2, "b": 1})
+    engine = ServingEngine(queue, ContinuousBatcher(runner))
+    rng = np.random.default_rng(0)
+    requests = [Request(id=f"req{i}", tenant="ab"[i % 2],
+                        prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                        max_new_tokens=SERVE_NEW_TOKENS)
+                for i, n in enumerate(SERVE_PROMPTS)]
+    for request in requests:
+        queue.submit(request)
+    t0 = time.perf_counter()
+    done = engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    hook.remove()
+    runner.prefill, runner.decode = prefill, decode
+    launches = dict(fa.LAUNCHES)
+    generated = sum(len(r.output) for r in done)
+    emit({"phase": "serve", "nvidia_smi": card, "layers": cfg.n_layers,
+          "params": sum(p.numel() for p in runner.model.parameters()),
+          "max_seq_len": cfg.max_seq_len, "slots": SERVE_SLOTS,
+          "build_s": build_s,
+          "requests": [{"id": r.id, "tenant": r.tenant,
+                        "prompt": len(r.prompt), "tokens": len(r.output),
+                        "ttft_s": r.ttft_seconds,
+                        "outcome": r.outcome} for r in requests],
+          "prefill_ms_by_bucket": prefill_ms,
+          "prefill_bound_ms_by_bucket": {
+              b: prefill_bound_ms(runner, b) for b in prefill_ms},
+          "decode_steps": len(decode_ms),
+          "decode_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+          "decode_ms_min": min(decode_ms), "decode_ms_max": max(decode_ms),
+          "generated_tokens": generated, "wall_s": wall_s,
+          "tokens_per_s": generated / wall_s,
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 2 ** 30,
+          "flash_launches": launches})
+    bad = [r.id for r in requests
+           if r.outcome != "completed" or len(r.output) != SERVE_NEW_TOKENS
+           or not all(0 <= t < cfg.vocab_size for t in r.output)]
+    if bad or len(done) != len(requests):
+        raise AssertionError(f"requests not served to budget with "
+                             f"in-vocabulary tokens: {bad}")
+    if not bool(finite):
+        raise AssertionError("non-finite logits on the serve path")
+    if any(launches.values()):
+        raise AssertionError(f"the serve path launched flash kernels: "
+                             f"{launches}")
+
+    lengths = [n + SERVE_NEW_TOKENS + 1 for n in SERVE_PROMPTS[-SERVE_SLOTS:]]
+    floor, port = decode_step_bytes(runner)
+    emit({"phase": "serve_profile", "nvidia_smi": card,
+          "slots": SERVE_SLOTS, "lengths": lengths,
+          **profile_decode(runner, lengths),
+          "reckoned_bytes": {"floor": floor, "port": port,
+                             "floor_ms": floor / PEAK_BYTES * 1e3,
+                             "port_ms": port / PEAK_BYTES * 1e3}})
+    del runner
+    torch.cuda.empty_cache()
+
+
+def phase_worker():
+    """The serving worker with the llama runner on the card over a spool of
+    3 requests and the .close sentinel (module docstring, phase 9)."""
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="serve-spool-", dir=build) as root:
+        os.makedirs(os.path.join(root, "pending"))
+        for i in range(3):
+            with open(os.path.join(root, "pending", f"w{i}.json"), "w") as f:
+                json.dump({"id": f"w{i}", "tenant": "t",
+                           "prompt": [1 + i, 2, 3 + i], "maxNewTokens": 8}, f)
+        open(os.path.join(root, worker.CLOSE_SENTINEL), "w").close()
+        t0 = time.perf_counter()
+        rc = worker.main(["--runner", "llama", "--spool", root,
+                          "--poll-interval", "0.001"])
+        seconds = time.perf_counter() - t0
+        responses = {}
+        for name in sorted(os.listdir(os.path.join(root, "done"))):
+            with open(os.path.join(root, "done", name)) as f:
+                responses[name] = json.load(f)["tokens"]
+    emit({"phase": "worker", "rc": rc, "seconds": seconds,
+          "responses": responses})
+    if rc != 0 or len(responses) != 3:
+        raise AssertionError(f"serving worker returned {rc} with "
+                             f"{len(responses)} responses, want 0 and 3")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -588,6 +962,14 @@ def main() -> int:
     phase_model(model, torch.as_tensor(tokens[:, :512], device="cuda"))
     launches, step, state = phase_train(model, {"inputs": tokens})
     phase_profile(step, state, {"inputs": tokens})
+    # Free the training model, optimizer and state (35.9 GiB at peak)
+    # before the serving model (about 40 GB) is built.
+    del model, step, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_decode()
+    phase_serve()
+    phase_worker()
 
     summary = []
     for name in PER_STEP:

@@ -51,7 +51,7 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 9, proc.stdout
+    assert count >= 18, proc.stdout
 
 
 def test_blocker_matches_exact_package_name():
@@ -65,12 +65,15 @@ def test_blocker_matches_exact_package_name():
     assert not rule("tf_operator_tpu_torch.ops")
 
 
-@pytest.mark.parametrize("entry", ["llama", "trainer", "payload"])
-def test_entry_points_default_to_the_card(entry, monkeypatch):
+@pytest.mark.parametrize("entry", ["llama", "trainer", "payload", "runner",
+                                   "worker"])
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device and no card, each entry point raises instead of
     running on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tf_operator_tpu_torch.models.llama import Llama, llama_tiny
+    from tf_operator_tpu_torch.serve import worker
+    from tf_operator_tpu_torch.serve.runner import LlamaRunner
     from tf_operator_tpu_torch.train import train_llama
     from tf_operator_tpu_torch.train.trainer import Trainer, adamw
 
@@ -80,8 +83,12 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         elif entry == "trainer":
             Trainer(model=Llama(llama_tiny(), device="cpu"),
                     optimizer=adamw(1e-3))
-        else:
+        elif entry == "payload":
             train_llama.main(["--steps", "1"])
+        elif entry == "runner":
+            LlamaRunner()
+        else:
+            worker.main(["--runner", "llama", "--spool", str(tmp_path)])
 
 
 def test_chip_smoke_refuses_without_card():

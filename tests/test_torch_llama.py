@@ -166,7 +166,7 @@ def test_bf16_logits_match_jax(flash_f32):
 
 
 @pytest.mark.parametrize("fields, error", [
-    (dict(decode=True), NotImplementedError),
+    (dict(remat=True, remat_policy="save_qkv"), NotImplementedError),
     (dict(attention_impl="ring"), NotImplementedError),
     (dict(attention_impl="ring_flash"), NotImplementedError),
     (dict(remat=True, remat_policy="save_attn"), NotImplementedError),

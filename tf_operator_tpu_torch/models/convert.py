@@ -1,11 +1,13 @@
-"""Carry Llama weights between the flax param tree and the port's modules.
+"""Carry Llama weights and KV caches between flax trees and the port.
 
 The flax tree (``tf_operator_tpu/models/llama.py``) stacks every block
 parameter on a leading ``layers`` axis (``nn.scan``) under ``blocks/`` and
 stores ``Dense`` kernels as [in, out]; the port keeps one module per layer
-and [out, in] weights. Both directions take and give plain arrays (numpy
-on the flax side, torch tensors on the port's), and raise on any leaf
-left over or missing.
+and [out, in] weights. The decode cache has one layout in both, [layers,
+batch, max_seq_len, kv_heads, head_dim], under ``blocks/attn/{k,v}`` in
+the flax ``cache`` collection and ``{"k", "v"}`` in the port. Both
+directions take and give plain arrays (numpy on the flax side, torch
+tensors on the port's), and raise on any leaf left over or missing.
 """
 
 from __future__ import annotations
@@ -110,3 +112,30 @@ def llama_params_to_flax(state: Mapping[str, torch.Tensor],
         raise KeyError("state_dict entries left over: "
                        + ", ".join(sorted(state)))
     return _unflatten(flat)
+
+
+_CACHE_LEAVES = {("blocks", "attn", "k"): "k", ("blocks", "attn", "v"): "v"}
+
+
+def llama_cache_from_flax(cache: Mapping, cfg: LlamaConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """flax ``cache`` collection -> the port's cache, in ``cfg.dtype``."""
+    flat = _flatten(cache)
+    out = {}
+    for path, name in _CACHE_LEAVES.items():
+        if path not in flat:
+            raise KeyError(f"flax cache lacks {'/'.join(path)}")
+        arr = np.asarray(flat.pop(path), dtype=np.float32)
+        out[name] = torch.from_numpy(arr.copy()).to(cfg.dtype)
+    if flat:
+        raise KeyError("flax cache left over: " + ", ".join(
+            "/".join(p) for p in sorted(flat)))
+    return out
+
+
+def llama_cache_to_flax(cache: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's cache -> the flax ``cache`` collection (numpy, f32)."""
+    if set(cache) != set(_CACHE_LEAVES.values()):
+        raise KeyError(f"cache has {sorted(cache)}, expected ['k', 'v']")
+    return _unflatten({path: cache[name].detach().float().cpu().numpy()
+                       for path, name in _CACHE_LEAVES.items()})

@@ -1,4 +1,4 @@
-"""Llama-family dense decoder, training path (port of models/llama.py).
+"""Llama-family dense decoder (port of models/llama.py).
 
 Same configuration fields, module names and cast points as the flax model:
 f32 parameters with bf16 compute (a flax ``Dense(dtype=bf16)`` casts both
@@ -9,14 +9,17 @@ weights between the two trees.
 
 Remat ``"full"`` wraps each block in ``torch.utils.checkpoint`` (as
 ``nn.remat`` does), so under training the attention forward kernel runs
-twice per layer and step. Decode mode, the other remat policies and the
-ring attention modes belong to later slices of the port and raise.
+twice per layer and step. ``decode=True`` is the serving path: attention
+reads and writes a KV cache (``init_cache``/``prefill``/``decode_step``/
+``insert_cache`` below) and launches no flash kernel, as in the JAX model.
+The other remat policies and the ring attention modes belong to later
+slices of the port and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
 from tf_operator_tpu_torch.ops.flash_attention import best_attention
 from tf_operator_tpu_torch.ops.layers import (
+    NEG_INF,
     apply_rope,
     attention,
     repeat_kv,
@@ -53,6 +57,10 @@ class LlamaConfig:
     # "" = auto (CUDA kernels where they take the shapes, else the
     # reference); "flash" = force flash_attention; "xla" = the reference.
     attention_impl: str = ""
+    # Incremental decode (the serving path, serve/runner.py): attention
+    # reads and writes a KV cache instead of recomputing the prefix; the
+    # forward then requires ``positions`` and ``cache``. Same parameters as
+    # the training model; remat is bypassed.
     decode: bool = False
 
 
@@ -71,9 +79,6 @@ _REMAT_NOT_PORTED = ("save_attn", "save_qkv", "mlp_only")
 
 
 def _check_config(cfg: LlamaConfig) -> None:
-    if cfg.decode:
-        raise NotImplementedError(
-            "decode mode (the KV-cache serving path) is not ported yet")
     if cfg.attention_impl in ("ring", "ring_flash"):
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} (ring attention over "
@@ -125,15 +130,20 @@ class LlamaAttention(nn.Module):
         self.wv = dense(cfg.hidden, cfg.n_kv_heads * cfg.head_dim)
         self.wo = dense(cfg.n_heads * cfg.head_dim, cfg.hidden)
 
-    def forward(self, x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, angles: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         q = self.wq(x).view(b, s, cfg.n_heads, cfg.head_dim)
         k = self.wk(x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
         v = self.wv(x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-        q = apply_rope(q, angles)
-        k = apply_rope(k, angles)
-        if cfg.attention_impl == "xla":
+        q = apply_rope(q, angles, positions)
+        k = apply_rope(k, angles, positions)
+        if cfg.decode:
+            out = self._cached_attention(q, k, v, positions, *cache)
+        elif cfg.attention_impl == "xla":
             group = cfg.n_heads // cfg.n_kv_heads
             out = attention(q, repeat_kv(k, group), repeat_kv(v, group),
                             causal=True)
@@ -141,6 +151,55 @@ class LlamaAttention(nn.Module):
             out = best_attention(q, k, v, causal=True,
                                  force_flash=cfg.attention_impl == "flash")
         return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+
+    def _cached_attention(self, q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, positions: torch.Tensor,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor
+                          ) -> torch.Tensor:
+        """Attention against this layer's KV cache ([B, max_seq_len,
+        n_kv_heads, head_dim], updated in place).
+
+        The new K/V land at rows [positions[:,0], positions[:,0]+S) and a
+        row attends exactly the keys at positions <= its own, over the whole
+        cache, as the JAX model's ``_cached_attention``: rows past a
+        sequence's length are never attended before they are overwritten,
+        so slot reuse and padded prefill are safe. The sums are those of
+        ``ops.layers.attention`` (f32 scores and softmax, weights cast to
+        ``cfg.dtype``), taken over the cache in its GQA layout: the query
+        heads of one KV head are read as [B, S, Hkv, G, D], so no repeated
+        copy of the cache is made."""
+        cfg = self.cfg
+        b, s = q.shape[:2]
+        _write_rows(cache_k, k, positions)
+        _write_rows(cache_v, v, positions)
+        group = cfg.n_heads // cfg.n_kv_heads
+        q = q.view(b, s, cfg.n_kv_heads, group, cfg.head_dim)
+        logits = torch.einsum("bshgd,bthd->bhgst", q.float(), cache_k.float())
+        logits.mul_(cfg.head_dim ** -0.5)
+        k_pos = torch.arange(cfg.max_seq_len, device=q.device)
+        keep = _visible(k_pos, positions)                  # [B, S, T]
+        logits.masked_fill_(~keep[:, None, None], NEG_INF)
+        weights = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhgst,bthd->bshgd", weights, cache_v)
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor,
+                positions: torch.Tensor) -> None:
+    """Write ``new`` [B, S, ...] into ``cache`` [B, T, ...] at rows
+    [positions[:,0], positions[:,0]+S), in place. The start is clamped to
+    [0, T - S], as ``jax.lax.dynamic_update_slice`` clamps it, so a
+    sequence decoded past ``max_seq_len`` keeps overwriting the last row."""
+    b, s = new.shape[:2]
+    start = positions[:, 0].clamp(0, cache.shape[1] - s)
+    rows = start[:, None] + torch.arange(s, device=new.device)
+    cache[torch.arange(b, device=new.device)[:, None], rows] = new.to(
+        cache.dtype)
+
+
+def _visible(k_pos: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """[B, S, T]: key position t is visible to the query at positions[b, s]
+    when t <= positions[b, s]."""
+    return k_pos[None, None, :] <= positions[:, :, None]
 
 
 class LlamaMLP(nn.Module):
@@ -164,8 +223,11 @@ class LlamaBlock(nn.Module):
         self.mlp_norm = RMSNorm(cfg.hidden, device)
         self.mlp = LlamaMLP(cfg, device, generator)
 
-    def forward(self, x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x), angles)
+    def forward(self, x: torch.Tensor, angles: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), angles, positions, cache)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -173,7 +235,9 @@ class Llama(nn.Module):
     """Token ids [B, S] -> logits [B, S, vocab] in ``cfg.dtype``.
 
     Parameters are made on ``device`` (the card unless ``device="cpu"``)
-    from ``generator`` (one on ``device``), by default one seeded with 0."""
+    from ``generator`` (one on ``device``), by default one seeded with 0.
+    ``positions`` ([B, S] absolute token positions) default to arange; in
+    decode mode they and ``cache`` (from ``init_cache``) are required."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -196,13 +260,85 @@ class Llama(nn.Module):
                                        cfg.rope_theta, device=device),
             persistent=False)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.decode and positions is None:
+            raise ValueError("decode mode requires positions")
+        if cfg.decode and cache is None:
+            raise ValueError("decode mode requires a cache (init_cache)")
         x = self.embed_tokens(tokens).to(cfg.dtype)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for block in self.layers:
-            if remat:
-                x = checkpoint(block, x, self.angles, use_reentrant=False)
+        remat = cfg.remat and not cfg.decode and torch.is_grad_enabled()
+        for i, block in enumerate(self.layers):
+            if cfg.decode:
+                x = block(x, self.angles, positions,
+                          (cache["k"][i], cache["v"][i]))
+            elif remat:
+                x = checkpoint(block, x, self.angles, positions,
+                               use_reentrant=False)
             else:
-                x = block(x, self.angles)
+                x = block(x, self.angles, positions)
         return self.lm_head(self.final_norm(x))
+
+
+# ---------------------------------------------------------------------------
+# Incremental decode (the serving path), the JAX helper contract with the
+# parameters held by the model:
+#
+#   model  = Llama(dataclasses.replace(cfg, decode=True))   # same params
+#   cache  = init_cache(model, batch_size=slots)
+#   logits, one = prefill(model, one, prompt, positions)
+#   cache  = insert_cache(cache, one, slot)                 # slot admission
+#   logits, cache = decode_step(model, cache, tok, positions)
+#
+# The cache is {"k", "v"}, each [layers, batch, max_seq_len, kv_heads,
+# head_dim] in cfg.dtype, the layout of the flax "cache" collection. Where
+# JAX returns a new cache from every call, these update it in place (at
+# llama_3_8b a 4-slot cache is 4.3 GB) and return the same object.
+# ---------------------------------------------------------------------------
+
+
+def init_cache(model: Llama, batch_size: int) -> Dict[str, torch.Tensor]:
+    """All-zeros KV cache for ``batch_size`` slots on the model's device."""
+    cfg = model.cfg
+    shape = (cfg.n_layers, batch_size, cfg.max_seq_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {name: torch.zeros(shape, dtype=cfg.dtype,
+                              device=model.angles.device)
+            for name in ("k", "v")}
+
+
+def prefill(model: Llama, cache: Dict[str, torch.Tensor],
+            tokens: torch.Tensor, positions: torch.Tensor):
+    """One incremental-decode forward: (logits, the updated cache).
+
+    ``tokens``/``positions`` are [B, S]; each row's positions must be
+    consecutive (its K/V rows land at [positions[i,0], positions[i,0]+S)).
+    Prompt processing uses S = prompt length (pad tails are harmless, see
+    ``LlamaAttention._cached_attention``); decoding is the same call at
+    S = 1."""
+    if not model.cfg.decode:
+        raise ValueError("prefill/decode_step need a decode=True model")
+    with torch.no_grad():
+        logits = model(tokens, positions=positions, cache=cache)
+    return logits, cache
+
+
+def decode_step(model: Llama, cache: Dict[str, torch.Tensor],
+                tokens: torch.Tensor, positions: torch.Tensor):
+    """One token per row: ``prefill`` at S = 1."""
+    return prefill(model, cache, tokens, positions)
+
+
+def insert_cache(cache: Dict[str, torch.Tensor],
+                 one: Dict[str, torch.Tensor], slot: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Copy a 1-row cache (a finished prefill) into row ``slot`` of the
+    decode cache along axis 1, in place: the continuous batcher's
+    slot-admission step."""
+    with torch.no_grad():
+        for name, leaf in cache.items():
+            leaf.narrow(1, slot, one[name].shape[1]).copy_(one[name])
+    return cache

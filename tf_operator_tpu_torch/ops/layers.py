@@ -38,9 +38,13 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor,
     """Rotate [..., S, H, D] by position (half-split, not interleaved).
 
     ``angles`` is [max_S, D/2]; ``positions`` ([S] or [B, S]) defaults to
-    arange."""
+    arange. A position past the table reads its last row, as JAX's gather
+    clamps it (a sequence decoded past max_S rotates at the last angle)."""
     seq_len = x.shape[-3]
-    freqs = angles[:seq_len] if positions is None else angles[positions]
+    if positions is None:
+        freqs = angles[:seq_len]
+    else:
+        freqs = angles[positions.clamp(0, angles.shape[0] - 1)]
     cos = torch.cos(freqs).unsqueeze(-2)   # [..., S, 1, D/2]
     sin = torch.sin(freqs).unsqueeze(-2)
     x1, x2 = x.float().chunk(2, dim=-1)
