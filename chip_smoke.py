@@ -33,11 +33,32 @@ Phases, each printing one JSON line:
            dQ 4, dK/dV 4).
 6. profile one more step under torch.profiler: device time by kernel class
            and the device's idle share.
+7. ckpt    restartable training on that state (23.1 GB of f32 params and
+           AdamW moments): a preemption notice {"barrier": "b1"} makes
+           CheckpointHook.after_step force a save to disk, wait, and
+           publish a record with that barrier; seconds until save()
+           returned, seconds of wait(), GB on disk, GB/s, free disk before.
+           One more step is taken and its loss and parameters kept; then
+           everything is freed, a Llama from another seed and a new
+           Trainer restore the checkpoint and take the same step: loss and
+           every parameter must equal the kept ones bit for bit. The check
+           must reject two wrong restores (AdamW moments left fresh, AdamW's
+           per-parameter step dropped).
+8. remat   full, save_attn, save_qkv and mlp_only, one model at a time, the
+           train phase's seed and batch, 3 steps each: launches a step must
+           be fwd 4, dQ 4, dK/dV 4 (full: 8/4/4), and losses and parameters
+           must equal the train phase's after its first 3 steps; ms/step,
+           peak memory, one profiled step's device busy time, and the
+           memory one forward keeps for its backward, per policy. Under
+           save_attn, steps through run_train_steps on fresh host batches
+           with and without prefetch_device, in turns; prefetch_to_device
+           must hand over a batch while the card is busy without waiting
+           for it (PREFETCH_MAX_HANDOVER_S).
 
-The training model, optimizer and state are then freed, and the serving
-path runs (it launches no flash kernel, as the JAX decode path runs none):
+The training state is then freed, and the serving path runs (it launches
+no flash kernel, as the JAX decode path runs none):
 
-7. decode  the KV-cache path at llama_3_8b width with 2 layers on a 2-slot
+9. decode  the KV-cache path at llama_3_8b width with 2 layers on a 2-slot
            cache: slots first hold another sequence, then prompts of 256
            and 192 tokens are prefilled on a reused 1-row staging cache and
            inserted (insert_cache), and 64 decode_steps follow. In f32 (TF32
@@ -47,7 +68,7 @@ path runs (it launches no flash kernel, as the JAX decode path runs none):
            row late, a slot left stale after insert_cache). In bf16 the
            cached logits may be no further from the f32 forward than the
            bf16 no-cache forward is (x1.25).
-8. serve   LlamaRunner at full llama_3_8b (32 layers, f32 params, bf16
+10. serve  LlamaRunner at full llama_3_8b (32 layers, f32 params, bf16
            compute, max_seq_len 8192, 4 slots) behind RequestQueue (tenants
            a:b = 2:1), ContinuousBatcher and ServingEngine.run_until_idle:
            8 requests, prompts of 7 to 2000 tokens, 32 new tokens each.
@@ -56,8 +77,14 @@ path runs (it launches no flash kernel, as the JAX decode path runs none):
            class, idle share) beside its reckoned bytes. Every request must
            finish to budget with in-vocabulary tokens and finite logits, and
            the flash launch counters must read 0.
-9. worker  serve.worker.main --runner llama on the card over a spool of 3
+11. worker serve.worker.main --runner llama on the card over a spool of 3
            requests and the .close sentinel: exit 0, 3 responses.
+12. resume the MNIST payload (train.dist_mnist) on the card as
+           subprocesses: --steps 6 --crash-at-step 3 exits 137, the same
+           command again exits 0 resuming at step 3, and an uninterrupted
+           --steps 6 in another directory reaches the same step-6
+           parameters within RESUME_ATOL (cuDNN's convolution backward need
+           not be deterministic), while its step-5 parameters do not.
 
 Then a {"kernels": [...]} summary line, the nvidia-smi name/power line,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -72,6 +99,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -83,6 +111,7 @@ import torch
 
 from tf_operator_tpu_torch.models import llama as tllama
 from tf_operator_tpu_torch.models.llama import Llama, llama_3_8b
+from tf_operator_tpu_torch.models.mnist import MnistCNN
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.serve import worker
@@ -90,7 +119,18 @@ from tf_operator_tpu_torch.serve.batcher import ContinuousBatcher
 from tf_operator_tpu_torch.serve.engine import ServingEngine
 from tf_operator_tpu_torch.serve.queue import Request, RequestQueue
 from tf_operator_tpu_torch.serve.runner import LlamaRunner
-from tf_operator_tpu_torch.train.trainer import Trainer, adamw
+from tf_operator_tpu_torch.train.checkpoint import (
+    CheckpointConfig,
+    CheckpointHook,
+    Checkpointer,
+)
+from tf_operator_tpu_torch.train.data import prefetch_to_device
+from tf_operator_tpu_torch.train.trainer import (
+    Trainer,
+    adam,
+    adamw,
+    run_train_steps,
+)
 
 # Kernel vs plain version. Attention outputs and gradients are small
 # (at these inputs most are ~1e-2), so the repo's fixed bf16 atol of 2e-2
@@ -116,6 +156,25 @@ REPLACES = {
 B, S, H, HKV, D = 1, 2048, 32, 8, 128
 STEPS = 5
 PER_STEP = {"flash_fwd": 8, "flash_dq": 4, "flash_dkv": 4}
+# Under save_attn, save_qkv and mlp_only the backward reuses the forward
+# kernel's outputs: one forward launch a layer.
+REMAT_PER_STEP = {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4}
+REMAT_STEPS = 3
+# Policies change what is saved, not the arithmetic: the same kernels and
+# GEMMs on the same inputs. Parameters after 3 steps within 1e-6 (an AdamW
+# step moves them by up to 3e-4), losses within 1e-6 relative.
+REMAT_ATOL = 1e-6
+PREFETCH_STEPS = 8
+# The card sleeps about 0.15 s while prefetch_to_device hands over a batch
+# and stages the next; a hand-over that waited for the card would take
+# that long, one that only queues copies takes well under a millisecond.
+PREFETCH_SLEEP_CYCLES = 1 << 28
+PREFETCH_MAX_HANDOVER_S = 0.02
+# MNIST resume: step-6 parameters of the resumed and the uninterrupted run.
+# cuDNN's convolution backward may sum in another order run to run (about
+# 1e-7 of a gradient); one adam(1e-3) step moves a parameter by up to 1e-3,
+# so a resume that replays a wrong batch or loses the moments is far off.
+RESUME_ATOL = 1e-4
 # Decode check: cached against no-cache logits of the same f32 weights (TF32
 # off). The two paths sum in other orders (other GEMM shapes; softmax over
 # the whole 8192-row cache against the causal prefix), about 1e-6 of the
@@ -128,6 +187,7 @@ SERVE_PROMPTS = (7, 40, 130, 300, 700, 1000, 1500, 2000)
 SERVE_NEW_TOKENS = 32
 SERVE_SLOTS = 4
 REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"     # the restartable-training phases' device
 
 
 def emit(record) -> None:
@@ -537,13 +597,15 @@ def phase_train(model, batch):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     losses, norms, step_s = [], [], []
-    for _ in range(STEPS):
+    for i in range(STEPS):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
+        if i + 1 == REMAT_STEPS:     # the remat phase's reference
+            full_params = cpu_params(model)
     launches = dict(fa.LAUNCHES)
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     cfg = model.cfg
@@ -574,7 +636,14 @@ def phase_train(model, batch):
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} "
                              f"({PER_STEP} per step)")
-    return launches, step, state
+    full = {"losses": losses[:REMAT_STEPS], "params": full_params}
+    return launches, step, state, full
+
+
+def cpu_params(model):
+    """A host copy of every parameter (a copy on any device)."""
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
 
 
 def kernel_class(name: str) -> str:
@@ -590,6 +659,11 @@ def kernel_class(name: str) -> str:
 def phase_profile(step, state, batch):
     """One more step under torch.profiler: device time by kernel class,
     the busiest kernels, and the device's idle share of the step."""
+    emit({"phase": "profile", **profile_step(step, state, batch)})
+
+
+def profile_step(step, state, batch) -> dict:
+    """One step under torch.profiler (see phase_profile)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -615,9 +689,297 @@ def phase_profile(step, state, batch):
         if len(top.setdefault(cls, [])) < 4:
             top[cls].append([name[:100], ms])
     busy = sum(by_class.values())
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy,
-          "idle_share": 1.0 - busy / wall_ms if busy else None,
-          "by_class_ms": by_class, "top_kernels_ms": top})
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if busy else None,
+            "by_class_ms": by_class, "top_kernels_ms": top}
+
+
+# ---------------------------------------------------------------------------
+# Restartable training: checkpoint and restore, remat policies
+# ---------------------------------------------------------------------------
+
+class TimedCheckpointer:
+    """The Checkpointer surface, timing save() (until the state is off
+    the card) and wait() (until the step is committed on disk)."""
+
+    def __init__(self, ckpt: Checkpointer):
+        self.ckpt = ckpt
+        self.seconds = {}
+
+    def _timed(self, name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.seconds[name] = time.perf_counter() - t0
+
+    def save(self, step, state, force=False):
+        return self._timed("save_s", self.ckpt.save, step, state, force)
+
+    def wait(self):
+        return self._timed("wait_s", self.ckpt.wait)
+
+    def latest_step(self):
+        return self.ckpt.latest_step()
+
+
+def state_bytes(state) -> int:
+    """Bytes of the parameters and the optimizer's tensors."""
+    tensors = list(state.model.parameters()) + [
+        t for per_param in state.opt_state.state.values()
+        for t in per_param.values() if torch.is_tensor(t)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def phase_ckpt(step, state, batch, root):
+    """The coordinated checkpoint on the training state (module docstring,
+    phase 7), then one more step whose loss and parameters are kept."""
+    card = nvidia_smi()
+    directory = os.path.join(root, "ckpt")
+    need = state_bytes(state)
+    free = shutil.disk_usage(root).free
+    if free < 1.1 * need:
+        raise AssertionError(f"{free / 1e9:.1f} GB free under {root}, the "
+                             f"checkpoint needs {need / 1e9:.1f} GB")
+    preempt = os.path.join(root, "preempt.json")
+    with open(preempt, "w") as f:
+        json.dump({"barrier": "b1"}, f)
+    config = CheckpointConfig(directory=directory, interval_steps=1000,
+                              preempt_file=preempt,
+                              record_file=os.path.join(root, "record.json"))
+    timed = TimedCheckpointer(Checkpointer(directory))
+    torch.cuda.synchronize()
+    saved_step = state.step
+    saved = CheckpointHook(timed, config).after_step(saved_step, state)
+    with open(config.record_file) as f:
+        record = json.load(f)
+    on_disk = dir_bytes(os.path.join(directory, str(saved_step)))
+    seconds = timed.seconds
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    kept = {"step": saved_step, "loss": float(metrics["loss"]),
+            "params": cpu_params(state.model)}
+    emit({"phase": "ckpt", "nvidia_smi": card, "step": saved_step,
+          "saved": saved, "record": record,
+          "latest_step": timed.latest_step(), "state_gb": need / 1e9,
+          "disk_gb": on_disk / 1e9, "free_disk_gb_before": free / 1e9,
+          "save_s": seconds.get("save_s"), "wait_s": seconds.get("wait_s"),
+          "gb_per_s": on_disk / 1e9 / (seconds["save_s"]
+                                       + seconds["wait_s"]),
+          "next_loss": kept["loss"]})
+    if not (saved and record["step"] == saved_step
+            and record["barrier"] == "b1"
+            and timed.latest_step() == saved_step):
+        raise AssertionError(f"the barrier save did not commit and ack "
+                             f"step {saved_step}: saved={saved} "
+                             f"record={record}")
+    timed.ckpt.close()
+    return kept
+
+
+def _fresh_moments(opt):
+    for per_param in opt.state.values():
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            per_param[name].zero_()
+
+
+def _adam_step_dropped(opt):
+    for per_param in opt.state.values():
+        per_param["step"].zero_()
+
+
+def phase_restore(kept, batch, root):
+    """A Llama from another seed and a new Trainer restore the checkpoint
+    and take the kept step again (module docstring, phase 7)."""
+    t0 = time.perf_counter()
+    model = Llama(slice_config(), device=DEVICE,
+                  generator=torch.Generator(device=DEVICE).manual_seed(1))
+    trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE)
+    state = trainer.init()
+    step = trainer.make_train_step()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ckpt = Checkpointer(os.path.join(root, "ckpt"))
+
+    def restored_step(spoil=None):
+        t = time.perf_counter()
+        ckpt.restore(state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        restored_at = state.step
+        if spoil is not None:
+            spoil(state.opt_state)
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        differ = [n for n, p in model.named_parameters()
+                  if not torch.equal(p.detach().cpu(), kept["params"][n])]
+        return {"restore_s": seconds, "restored_step": restored_at,
+                "loss": float(metrics["loss"]),
+                "loss_bit_equal": float(metrics["loss"]) == kept["loss"],
+                "params_differing": len(differ),
+                "params": len(kept["params"])}
+
+    torch.cuda.reset_peak_memory_stats()
+    good = restored_step()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wrong = {"moments_fresh": restored_step(_fresh_moments),
+             "adam_step_dropped": restored_step(_adam_step_dropped)}
+    emit({"phase": "restore", "build_s": build_s, **good,
+          "max_memory_allocated_gb": peak, "wrong_restores": wrong})
+    ckpt.close()
+    del model, trainer, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (good["restored_step"] == kept["step"] and good["loss_bit_equal"]
+            and good["params_differing"] == 0):
+        raise AssertionError(f"the restored run differs from the one that "
+                             f"never stopped: {good}")
+    missed = [name for name, r in wrong.items() if r["params_differing"] == 0]
+    if missed:
+        raise AssertionError(f"the restore check accepts wrong restores: "
+                             f"{missed}")
+
+
+def prefetch_stage_s(vocab: int) -> list:
+    """Seconds prefetch_to_device takes to hand over a batch (and stage
+    the next) while the card is busy: the copies are queued on a side
+    stream, so the host must not wait for the card."""
+    rng = np.random.default_rng(3)
+    it = prefetch_to_device(({"inputs": rng.integers(0, vocab, (B, S + 1))}
+                             for _ in range(4)), DEVICE)
+    next(it)
+    seconds = []
+    for _ in range(3):
+        torch.cuda._sleep(PREFETCH_SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        next(it)
+        seconds.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return seconds
+
+
+def prefetch_ms(step, state, vocab: int) -> dict:
+    """ms a step of run_train_steps on fresh host batches, without and
+    with prefetch_device, in turns (host, prefetch, prefetch, host, host,
+    prefetch)."""
+    rng = np.random.default_rng(2)
+    batches = [{"inputs": rng.integers(0, vocab, (B, S + 1))}
+               for _ in range(PREFETCH_STEPS)]
+    want = [int(b["inputs"].sum()) for b in batches]
+    times = {"host": [], "prefetch": []}
+
+    def checked(state, batch):
+        # Each step must see its own batch (summed where the batch lies,
+        # read after the timed run).
+        sums.append(torch.as_tensor(batch["inputs"]).sum())
+        return step(state, batch)
+
+    for label in ("host", "prefetch", "prefetch", "host", "host",
+                  "prefetch"):
+        sums = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_train_steps(checked, state, iter(batches), PREFETCH_STEPS,
+                        prefetch_device=DEVICE if label == "prefetch"
+                        else None)
+        torch.cuda.synchronize()
+        times[label].append((time.perf_counter() - t0) * 1e3
+                            / PREFETCH_STEPS)
+        if [int(x) for x in sums] != want:
+            raise AssertionError(f"{label}: the steps saw other batches")
+    return times
+
+
+def activation_gb(trainer, state, batch) -> dict:
+    """Device memory one forward leaves for its backward (the tensors the
+    remat policy keeps), and the peak of that forward and backward, both
+    above the memory held before it (params, optimizer state)."""
+    torch.cuda.synchronize()
+    state.opt_state.zero_grad(set_to_none=True)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = trainer.loss_fn(state.model, trainer._to_device(batch))
+    kept = torch.cuda.memory_allocated() - base
+    loss.backward()
+    peak = torch.cuda.max_memory_allocated() - base
+    state.opt_state.zero_grad(set_to_none=True)
+    return {"saved_for_backward_gb": kept / 2 ** 30,
+            "fwd_bwd_peak_above_state_gb": peak / 2 ** 30}
+
+
+def phase_remat(batch, full):
+    """Each remat policy against full's first 3 train-phase steps (module
+    docstring, phase 8); full again, as the run-to-run check."""
+    card = nvidia_smi()
+    policies = {}
+    for policy in tllama.REMAT_POLICIES:
+        cfg = dataclasses.replace(slice_config(), remat_policy=policy)
+        model = Llama(cfg, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(0))
+        trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE)
+        state = trainer.init()
+        step = trainer.make_train_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, step_s = [], []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        params = cpu_params(model)
+        diff = max((params[n] - p).abs().max().item()
+                   for n, p in full["params"].items())
+        result = {
+            "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+            "ms_per_step": sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3,
+            "max_memory_allocated_gb": peak,
+            "launches_per_step": {n: c / REMAT_STEPS
+                                  for n, c in launches.items()},
+            "max_abs_param_diff_vs_full": diff,
+            "max_rel_loss_diff_vs_full": max(
+                abs(a - b) / abs(b) for a, b in zip(losses, full["losses"])),
+            "bit_equal_to_full": losses == full["losses"] and all(
+                torch.equal(params[n], p) for n, p in full["params"].items())}
+        profiled = profile_step(step, state, batch)
+        result.update(device_busy_ms=profiled["device_busy_ms"],
+                      idle_share=profiled["idle_share"],
+                      device_ms_by_class=profiled["by_class_ms"],
+                      **activation_gb(trainer, state, batch))
+        if policy == "save_attn":
+            result["prefetch_ms_per_step"] = prefetch_ms(
+                step, state, cfg.vocab_size)
+            result["prefetch_handover_s_card_busy"] = prefetch_stage_s(
+                cfg.vocab_size)
+        policies[policy] = result
+        del model, trainer, state, step, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "remat", "nvidia_smi": card, "steps": REMAT_STEPS,
+          "limits": {"param_atol": REMAT_ATOL, "loss_rtol": REMAT_ATOL},
+          "policies": policies})
+    handover = policies["save_attn"]["prefetch_handover_s_card_busy"]
+    if max(handover) > PREFETCH_MAX_HANDOVER_S:
+        raise AssertionError(f"prefetch_to_device waited for the busy card: "
+                             f"{handover} s")
+    for policy, r in policies.items():
+        per_step = PER_STEP if policy == "full" else REMAT_PER_STEP
+        want = {n: c * REMAT_STEPS for n, c in per_step.items()}
+        got = {n: c * REMAT_STEPS for n, c in r["launches_per_step"].items()}
+        if got != want:
+            raise AssertionError(f"{policy}: kernel launches {got} != {want}")
+        if (r["max_abs_param_diff_vs_full"] > REMAT_ATOL
+                or r["max_rel_loss_diff_vs_full"] > REMAT_ATOL):
+            raise AssertionError(f"{policy} differs from full: {r}")
 
 
 # ---------------------------------------------------------------------------
@@ -946,6 +1308,62 @@ def phase_worker():
                              f"{len(responses)} responses, want 0 and 3")
 
 
+def mnist_params(directory: str, step: int) -> dict:
+    """Parameters of the MNIST payload's checkpoint at ``step``."""
+    model = MnistCNN(device=DEVICE)
+    state = Trainer(model=model, optimizer=adam(1e-3), device=DEVICE).init()
+    ckpt = Checkpointer(directory)
+    ckpt.restore(state, step=step)
+    ckpt.close()
+    return cpu_params(model)
+
+
+def phase_resume(root):
+    """The MNIST payload crashes, resumes and is held against an
+    uninterrupted run (module docstring, phase 12)."""
+    command = [sys.executable, "-m", "tf_operator_tpu_torch.train.dist_mnist",
+               "--steps", "6"]
+    resumed_dir = os.path.join(root, "resumed")
+    straight_dir = os.path.join(root, "straight")
+    runs = []
+    for args in (["--checkpoint-dir", resumed_dir, "--crash-at-step", "3"],
+                 ["--checkpoint-dir", resumed_dir, "--crash-at-step", "3"],
+                 ["--checkpoint-dir", straight_dir]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(command + args + ["--device", DEVICE], cwd=REPO, capture_output=True,
+                              text=True, timeout=300)
+        runs.append({"args": args, "rc": proc.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "stdout": proc.stdout.splitlines()})
+        if proc.returncode not in (0, 137):
+            raise AssertionError(f"dist_mnist {args} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    resumed = mnist_params(resumed_dir, 6)
+    straight = mnist_params(straight_dir, 6)
+    one_short = mnist_params(straight_dir, 5)
+    diff = max((resumed[n] - p).abs().max().item()
+               for n, p in straight.items())
+    wrong = max((resumed[n] - p).abs().max().item()
+                for n, p in one_short.items())
+    emit({"phase": "resume", "runs": runs,
+          "rcs": [r["rc"] for r in runs], "limit": RESUME_ATOL,
+          "max_abs_param_diff_vs_uninterrupted": diff,
+          "max_abs_param_diff_vs_step_5": wrong})
+    crashed, again, _ = (r["stdout"] for r in runs)
+    if [r["rc"] for r in runs] != [137, 0, 0]:
+        raise AssertionError(f"dist_mnist exit codes "
+                             f"{[r['rc'] for r in runs]} != [137, 0, 0]")
+    if ("injected crash at step 3" not in crashed
+            or "resumed from checkpoint at step 3" not in again
+            or not any(line.startswith("done:") for line in again)):
+        raise AssertionError(f"dist_mnist did not crash at step 3 and "
+                             f"resume there: {crashed} {again}")
+    if not diff <= RESUME_ATOL < wrong:
+        raise AssertionError(
+            f"resumed step-6 parameters {diff} from the uninterrupted run "
+            f"(limit {RESUME_ATOL}); its step 5 is {wrong} away")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -960,16 +1378,29 @@ def main() -> int:
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                (B, S + 1))
     phase_model(model, torch.as_tensor(tokens[:, :512], device="cuda"))
-    launches, step, state = phase_train(model, {"inputs": tokens})
-    phase_profile(step, state, {"inputs": tokens})
-    # Free the training model, optimizer and state (35.9 GiB at peak)
-    # before the serving model (about 40 GB) is built.
-    del model, step, state
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_decode()
-    phase_serve()
-    phase_worker()
+    batch = {"inputs": tokens}
+    launches, step, state, full = phase_train(model, batch)
+    phase_profile(step, state, batch)
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt-", dir=build)
+    try:
+        kept = phase_ckpt(step, state, batch, root)
+        # Free the training model, optimizer and state (35.9 GiB at peak)
+        # before another model is built.
+        del model, step, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_restore(kept, batch, root)
+        del kept
+        phase_remat(batch, full)
+        del full
+        phase_decode()
+        phase_serve()
+        phase_worker()
+        phase_resume(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     summary = []
     for name in PER_STEP:

@@ -51,7 +51,7 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 18, proc.stdout
+    assert count >= 22, proc.stdout
 
 
 def test_blocker_matches_exact_package_name():
@@ -66,15 +66,16 @@ def test_blocker_matches_exact_package_name():
 
 
 @pytest.mark.parametrize("entry", ["llama", "trainer", "payload", "runner",
-                                   "worker"])
+                                   "worker", "mnist", "mnist_payload"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device and no card, each entry point raises instead of
     running on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tf_operator_tpu_torch.models.llama import Llama, llama_tiny
+    from tf_operator_tpu_torch.models.mnist import MnistCNN
     from tf_operator_tpu_torch.serve import worker
     from tf_operator_tpu_torch.serve.runner import LlamaRunner
-    from tf_operator_tpu_torch.train import train_llama
+    from tf_operator_tpu_torch.train import dist_mnist, train_llama
     from tf_operator_tpu_torch.train.trainer import Trainer, adamw
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -87,6 +88,11 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             train_llama.main(["--steps", "1"])
         elif entry == "runner":
             LlamaRunner()
+        elif entry == "mnist":
+            MnistCNN()
+        elif entry == "mnist_payload":
+            dist_mnist.main(["--steps", "1",
+                             "--checkpoint-dir", str(tmp_path)])
         else:
             worker.main(["--runner", "llama", "--spool", str(tmp_path)])
 

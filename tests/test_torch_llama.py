@@ -166,11 +166,8 @@ def test_bf16_logits_match_jax(flash_f32):
 
 
 @pytest.mark.parametrize("fields, error", [
-    (dict(remat=True, remat_policy="save_qkv"), NotImplementedError),
     (dict(attention_impl="ring"), NotImplementedError),
     (dict(attention_impl="ring_flash"), NotImplementedError),
-    (dict(remat=True, remat_policy="save_attn"), NotImplementedError),
-    (dict(remat=True, remat_policy="mlp_only"), NotImplementedError),
     (dict(remat=True, remat_policy="bogus"), ValueError),
     (dict(attention_impl="bogus"), ValueError),
 ])
@@ -178,6 +175,27 @@ def test_unported_options_raise(fields, error):
     cfg = dataclasses.replace(tllama.llama_tiny(), **fields)
     with pytest.raises(error):
         tllama.Llama(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("policy", ["save_qkv", "save_attn", "mlp_only"])
+def test_remat_policies_accepted_and_match_full(policy, flash_f32):
+    """The policies that raised before they were ported: accepted, with
+    the same parameters, loss and grads as remat "full" (f32, 1e-6).
+    tests/test_torch_remat.py holds them against JAX and counts kernels."""
+    _, _, tmodel = flash_f32
+    models = {}
+    for name in ("full", policy):
+        models[name] = tllama.Llama(dataclasses.replace(
+            tmodel.cfg, remat=True, remat_policy=name), device="cpu")
+        models[name].load_state_dict(tmodel.state_dict())
+    toks = tokens(4)
+    loss_a, grads_a = _torch_grads(models["full"], toks)
+    loss_b, grads_b = _torch_grads(models[policy], toks)
+    assert set(grads_b) == set(grads_a)
+    assert loss_b == pytest.approx(loss_a, abs=1e-6)
+    for name in grads_a:
+        torch.testing.assert_close(grads_b[name], grads_a[name], atol=1e-6,
+                                   rtol=1e-6, msg=name)
 
 
 def test_llama_3_8b_widths():

@@ -1,4 +1,5 @@
-"""Carry Llama weights and KV caches between flax trees and the port.
+"""Carry Llama and MNIST weights and Llama KV caches between flax trees
+and the port.
 
 The flax tree (``tf_operator_tpu/models/llama.py``) stacks every block
 parameter on a leading ``layers`` axis (``nn.scan``) under ``blocks/`` and
@@ -8,6 +9,10 @@ batch, max_seq_len, kv_heads, head_dim], under ``blocks/attn/{k,v}`` in
 the flax ``cache`` collection and ``{"k", "v"}`` in the port. Both
 directions take and give plain arrays (numpy on the flax side, torch
 tensors on the port's), and raise on any leaf left over or missing.
+
+The MNIST models (``models/mnist.py``) have one flax module per layer:
+``Conv`` kernels are HWIO where torch's are OIHW, ``Dense`` kernels [in,
+out] where torch's are [out, in]; biases are the same.
 """
 
 from __future__ import annotations
@@ -139,3 +144,42 @@ def llama_cache_to_flax(cache: Mapping[str, torch.Tensor]) -> Dict:
         raise KeyError(f"cache has {sorted(cache)}, expected ['k', 'v']")
     return _unflatten({path: cache[name].detach().float().cpu().numpy()
                        for path, name in _CACHE_LEAVES.items()})
+
+
+def mnist_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax MNIST ``params`` ({layer: {kernel, bias}}) -> the port's
+    state_dict (``MnistCNN`` or ``MnistMLP``)."""
+    state: Dict[str, torch.Tensor] = {}
+    for layer, leaves in params.items():
+        if set(leaves) != {"kernel", "bias"}:
+            raise KeyError(f"flax layer {layer} has {sorted(leaves)}, "
+                           "expected ['bias', 'kernel']")
+        kernel = np.asarray(leaves["kernel"], dtype=np.float32)
+        if kernel.ndim == 4:
+            kernel = kernel.transpose(3, 2, 0, 1)       # HWIO -> OIHW
+        elif kernel.ndim == 2:
+            kernel = kernel.T
+        else:
+            raise ValueError(f"flax layer {layer}: kernel of rank "
+                             f"{kernel.ndim}")
+        state[f"{layer}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel))
+        state[f"{layer}.bias"] = torch.from_numpy(
+            np.array(leaves["bias"], dtype=np.float32))
+    return state
+
+
+def mnist_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's MNIST state_dict -> flax ``params`` (numpy)."""
+    params: Dict = {}
+    for name, value in state.items():
+        layer, leaf = name.rsplit(".", 1)
+        arr = value.detach().float().cpu().numpy()
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            params.setdefault(layer, {})["kernel"] = np.ascontiguousarray(arr)
+        elif leaf == "bias":
+            params.setdefault(layer, {})["bias"] = arr
+        else:
+            raise KeyError(f"state_dict entry {name} is no weight or bias")
+    return params

@@ -7,27 +7,45 @@ f32 logits only in the loss. Where flax stacks the blocks with ``nn.scan``,
 the layers here are an ``nn.ModuleList``; ``models/convert.py`` carries
 weights between the two trees.
 
-Remat ``"full"`` wraps each block in ``torch.utils.checkpoint`` (as
-``nn.remat`` does), so under training the attention forward kernel runs
-twice per layer and step. ``decode=True`` is the serving path: attention
-reads and writes a KV cache (``init_cache``/``prefill``/``decode_step``/
+Remat policies, as the JAX model's ``remat_policy``:
+- ``"full"`` wraps each block in ``torch.utils.checkpoint`` (as
+  ``nn.remat`` does), so under training the attention forward kernel runs
+  twice per layer and step;
+- ``"save_attn"`` checkpoints the block selectively: the two outputs of the
+  flash forward op (JAX's ``flash_out``/``flash_lse``) are saved, so the
+  backward recomputes the rest of the block but not the kernel;
+- ``"save_qkv"`` also saves the post-rope q/k/v (``checkpoint_name``);
+- ``"mlp_only"`` checkpoints the MLP branch only (``LlamaBlockMlpRemat``).
+Every policy keeps the same parameters and the same numbers. Off the flash
+path the flash outputs do not exist, so ``"save_attn"`` saves nothing
+(it is ``"full"``). ``decode=True`` is the serving path: attention reads
+and writes a KV cache (``init_cache``/``prefill``/``decode_step``/
 ``insert_cache`` below) and launches no flash kernel, as in the JAX model.
-The other remat policies and the ring attention modes belong to later
-slices of the port and raise.
+The ring attention modes belong to a later slice of the port and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
-from tf_operator_tpu_torch.ops.flash_attention import best_attention
+from tf_operator_tpu_torch.ops.flash_attention import (
+    CHECKPOINT_NAME_OP,
+    FLASH_FWD_OP,
+    best_attention,
+    checkpoint_name,
+)
 from tf_operator_tpu_torch.ops.layers import (
     NEG_INF,
     apply_rope,
@@ -51,8 +69,7 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    # "full" rematerializes each block. "save_attn", "save_qkv" and
-    # "mlp_only" of the JAX model are not ported yet.
+    # "full" | "save_attn" | "save_qkv" | "mlp_only" (module docstring).
     remat_policy: str = "full"
     # "" = auto (CUDA kernels where they take the shapes, else the
     # reference); "flash" = force flash_attention; "xla" = the reference.
@@ -75,7 +92,13 @@ def llama_tiny(vocab_size: int = 256, max_seq_len: int = 128) -> LlamaConfig:
                        remat=False)
 
 
-_REMAT_NOT_PORTED = ("save_attn", "save_qkv", "mlp_only")
+REMAT_POLICIES = ("full", "save_attn", "save_qkv", "mlp_only")
+
+# The ops whose outputs a selective policy saves. Every checkpoint_name in
+# the model names a post-rope q, k or v, so saving the op saves exactly
+# JAX's attn_q/attn_k/attn_v.
+_SAVED_OPS = {"save_attn": [FLASH_FWD_OP],
+              "save_qkv": [FLASH_FWD_OP, CHECKPOINT_NAME_OP]}
 
 
 def _check_config(cfg: LlamaConfig) -> None:
@@ -85,12 +108,9 @@ def _check_config(cfg: LlamaConfig) -> None:
             "the sp axis) is not ported yet")
     if cfg.attention_impl not in ("", "flash", "xla"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
-    if cfg.remat and cfg.remat_policy in _REMAT_NOT_PORTED:
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet; use "
-            "'full' or remat=False")
-    if cfg.remat and cfg.remat_policy != "full":
-        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"expected {' | '.join(REMAT_POLICIES)}")
 
 
 class Dense(nn.Module):
@@ -143,13 +163,21 @@ class LlamaAttention(nn.Module):
         k = apply_rope(k, angles, positions)
         if cfg.decode:
             out = self._cached_attention(q, k, v, positions, *cache)
-        elif cfg.attention_impl == "xla":
-            group = cfg.n_heads // cfg.n_kv_heads
-            out = attention(q, repeat_kv(k, group), repeat_kv(v, group),
-                            causal=True)
         else:
-            out = best_attention(q, k, v, causal=True,
-                                 force_flash=cfg.attention_impl == "flash")
+            # Saved under remat_policy="save_qkv" (JAX's attn_q/k/v). The
+            # eager recompute still replays the QKV matmuls and rope that
+            # feed them; JAX's partial evaluation drops those.
+            q = checkpoint_name(q, "attn_q")
+            k = checkpoint_name(k, "attn_k")
+            v = checkpoint_name(v, "attn_v")
+            if cfg.attention_impl == "xla":
+                group = cfg.n_heads // cfg.n_kv_heads
+                out = attention(q, repeat_kv(k, group), repeat_kv(v, group),
+                                causal=True)
+            else:
+                out = best_attention(
+                    q, k, v, causal=True,
+                    force_flash=cfg.attention_impl == "flash")
         return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
 
     def _cached_attention(self, q: torch.Tensor, k: torch.Tensor,
@@ -231,6 +259,23 @@ class LlamaBlock(nn.Module):
         return x + self.mlp(self.mlp_norm(x))
 
 
+class LlamaBlockMlpRemat(LlamaBlock):
+    """LlamaBlock with remat scoped to the MLP branch only (remat_policy
+    "mlp_only"): the same parameters, but the attention branch keeps its
+    activations (the flash op's saved tensors included), so the backward
+    never runs the attention forward again."""
+
+    def forward(self, x: torch.Tensor, angles: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), angles, positions, cache)
+        h = self.mlp_norm(x)
+        if torch.is_grad_enabled():
+            return x + checkpoint(self.mlp, h, use_reentrant=False)
+        return x + self.mlp(h)
+
+
 class Llama(nn.Module):
     """Token ids [B, S] -> logits [B, S, vocab] in ``cfg.dtype``.
 
@@ -250,8 +295,17 @@ class Llama(nn.Module):
                                          device=device)
         nn.init.normal_(self.embed_tokens.weight, std=cfg.hidden ** -0.5,
                         generator=gen)
+        remat = cfg.remat and not cfg.decode
+        block = (LlamaBlockMlpRemat
+                 if remat and cfg.remat_policy == "mlp_only" else LlamaBlock)
+        # "full": plain torch.utils.checkpoint, which saves nothing.
+        self._remat_context = noop_context_fn
+        if remat and cfg.remat_policy in _SAVED_OPS:
+            self._remat_context = functools.partial(
+                create_selective_checkpoint_contexts,
+                _SAVED_OPS[cfg.remat_policy])
         self.layers = nn.ModuleList(
-            LlamaBlock(cfg, device, gen) for _ in range(cfg.n_layers))
+            block(cfg, device, gen) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.hidden, device)
         self.lm_head = Dense(cfg.hidden, cfg.vocab_size, cfg.dtype, device,
                              gen)
@@ -270,14 +324,16 @@ class Llama(nn.Module):
         if cfg.decode and cache is None:
             raise ValueError("decode mode requires a cache (init_cache)")
         x = self.embed_tokens(tokens).to(cfg.dtype)
-        remat = cfg.remat and not cfg.decode and torch.is_grad_enabled()
+        remat = (cfg.remat and not cfg.decode and torch.is_grad_enabled()
+                 and cfg.remat_policy != "mlp_only")
         for i, block in enumerate(self.layers):
             if cfg.decode:
                 x = block(x, self.angles, positions,
                           (cache["k"][i], cache["v"][i]))
             elif remat:
                 x = checkpoint(block, x, self.angles, positions,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=self._remat_context)
             else:
                 x = block(x, self.angles, positions)
         return self.lm_head(self.final_norm(x))

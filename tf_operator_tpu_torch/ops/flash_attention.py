@@ -3,10 +3,20 @@
 Port of ``tf_operator_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) become the CUDA
 kernels of ``csrc/flash_attention.cu``, built for ``sm_90a`` and bound by
-ctypes (``ops/_build.py``). ``_Flash`` is the ``torch.autograd.Function``
-around them: its forward saves ``(q, k, v, out, lse)`` and its backward
-launches the dQ and dK/dV kernels, recomputing ``P = exp(S - lse)`` as the
-TPU kernels do, so no attention matrix is ever stored.
+ctypes (``ops/_build.py``). The forward is the custom op
+``tf_operator_tpu_torch::flash_fwd`` returning ``(out, lse)``; its autograd
+formula saves ``(q, k, v, out, lse)`` and launches the dQ and dK/dV
+kernels, recomputing ``P = exp(S - lse)`` as the TPU kernels do, so no
+attention matrix is ever stored.
+
+Both kernel outputs are outputs of one op, as JAX makes them primal
+outputs of its ``custom_vjp`` and names them ``flash_out``/``flash_lse``:
+a selective-checkpoint policy (``models/llama.py``) saves them by op, so
+the backward of a rematerialised block reuses them and never runs the
+forward kernel again. ``checkpoint_name`` is the identity op that names
+the post-rope q/k/v for the same policies. ``lse`` is non-differentiable
+(JAX's ``_guard_lse_nondiff`` contract): differentiating through it
+raises.
 
 Beside each kernel sits its plain PyTorch version (``_fwd_reference``,
 ``_bwd_reference``) with the kernels' cast points. A tensor on the CPU goes
@@ -292,22 +302,64 @@ def _bwd(q, k, v, out, lse, do, causal, q_offset, delta=None):
     return _bwd_reference(q, k, v, out, lse, do, causal, q_offset, delta)
 
 
-class _Flash(torch.autograd.Function):
-    """out = flash(q, k, v); backward through the dQ and dK/dV kernels."""
+@torch.library.custom_op("tf_operator_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, q_offset: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of one flash forward: the kernel on a CUDA tensor, the
+    plain version on the CPU. Both contiguous, as the kernel writes them
+    (the plain version's ``out`` may come out of its reshape permuted)."""
+    out, lse = _fwd(q, k, v, causal, q_offset)
+    return out.contiguous(), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, q_offset: int):
-        out, lse = _fwd(q, k, v, causal, q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.q_offset = causal, q_offset
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _bwd(q, k, v, out, lse, do.contiguous(), ctx.causal,
-                          ctx.q_offset)
-        return dq, dk, dv, None, None
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, q_offset):
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, causal, q_offset = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.q_offset = causal, q_offset
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _bwd(q, k, v, out, lse, do.contiguous(), ctx.causal,
+                      ctx.q_offset)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward,
+                                setup_context=_flash_setup_context)
+
+
+@torch.library.custom_op("tf_operator_tpu_torch::checkpoint_name",
+                         mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Identity that names ``x`` for a selective-checkpoint policy (JAX's
+    ``jax.ad_checkpoint.checkpoint_name``). A custom op may not return its
+    input, so this is a copy."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(
+    lambda ctx, grad: (grad, None),
+    setup_context=lambda ctx, inputs, output: None)
+
+# The ops a selective-checkpoint policy saves for each JAX name.
+FLASH_FWD_OP = torch.ops.tf_operator_tpu_torch.flash_fwd.default
+CHECKPOINT_NAME_OP = torch.ops.tf_operator_tpu_torch.checkpoint_name.default
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -321,7 +373,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"GQA head counts must divide: q heads "
                          f"{q.shape[2]}, kv heads {k.shape[2]}")
-    return _Flash.apply(q, k, v, causal, q_offset)
+    out, _ = _flash_fwd_op(q, k, v, causal, q_offset)
+    return out
 
 
 def best_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,7 +9,10 @@ the pre-increment count (so the first update of a warmup schedule uses
 
 Unlike the JAX trainer the state is updated in place: the step mutates
 the model's parameters and the optimizer's moments rather than returning
-new arrays. Sharding over a mesh is a later slice of the port.
+new arrays. ``TrainState.state_dict``/``load_state_dict`` carry the step,
+the parameters and the optimizer's state (AdamW's per-parameter ``step``
+and both moments) for ``train/checkpoint.py``. Sharding over a mesh is a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -20,8 +23,15 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
+from torch.distributed.checkpoint.state_dict import (
+    get_model_state_dict,
+    get_optimizer_state_dict,
+    set_model_state_dict,
+    set_optimizer_state_dict,
+)
 
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+from tf_operator_tpu_torch.train.data import prefetch_to_device
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -42,6 +52,14 @@ def lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     tokens = batch["inputs"]
     logits = model(tokens[:, :-1])
     return cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"))
+
+
+def classification_loss(model: nn.Module,
+                        batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Image/feature classification: NLL of ``labels`` under the logits of
+    ``inputs``. (BatchNorm statistics, the JAX loss's ``extra_vars``, come
+    with the ResNet port.)"""
+    return cross_entropy_loss(model(batch["inputs"]), batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +140,13 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         weight_decay=weight_decay))
 
 
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    """optax.adam: a constant learning rate, no weight decay."""
+    return Optimizer(make=lambda params: torch.optim.Adam(
+        params, lr=learning_rate, betas=(b1, b2), eps=eps))
+
+
 def default_optimizer(learning_rate: float = 3e-4,
                       weight_decay: float = 0.1,
                       warmup_steps: int = 100,
@@ -146,6 +171,30 @@ class TrainState:
     step: int
     model: nn.Module
     opt_state: torch.optim.Optimizer
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The step, the parameters and the optimizer's state, keyed by
+        parameter name. The tensors are the live ones (no copy), so a load
+        into this dict is a load in place. An optimizer that has not
+        stepped yet gets its state made first, so that a fresh state can
+        be the target of a restore: torch.distributed.checkpoint takes a
+        step at learning rate 0 over zero gradients (the parameters stay
+        as they are), and its count is set back to 0, which is the state
+        a first step would have made."""
+        fresh = not self.opt_state.state
+        optim = get_optimizer_state_dict(self.model, self.opt_state)
+        if fresh:
+            for per_param in self.opt_state.state.values():
+                if torch.is_tensor(per_param.get("step")):
+                    per_param["step"].zero_()
+        return {"step": self.step,
+                "model": get_model_state_dict(self.model),
+                "optim": optim}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        set_model_state_dict(self.model, state["model"])
+        set_optimizer_state_dict(self.model, self.opt_state, state["optim"])
+        self.step = int(state["step"])
 
 
 @dataclasses.dataclass
@@ -197,10 +246,22 @@ class Trainer:
 
 def run_train_steps(step_fn, state, batch_iter: Iterator, num_steps: int,
                     start_step: int = 0, ckpt_hook=None,
-                    on_metrics: Optional[Callable] = None):
+                    on_metrics: Optional[Callable] = None,
+                    prefetch_device: DeviceLike = None,
+                    prefetch_depth: int = 2):
     """Drive ``num_steps`` steps, calling ``on_metrics(step, metrics)`` and
-    ``ckpt_hook.after_step(step, state)`` after each, with ``step`` counted
-    from ``start_step`` (the restored step) as a plain int."""
+    ``ckpt_hook.after_step(step, state)`` (train/checkpoint.py
+    ``CheckpointHook``) after each, with ``step`` counted from
+    ``start_step`` (the restored step) as a plain int.
+
+    ``prefetch_device`` (the JAX loop's ``prefetch_sharding``, on one
+    device) copies each batch to that device ``prefetch_depth`` batches
+    ahead on a side stream (train/data.py ``prefetch_to_device``), so the
+    copy of batch N+1 overlaps step N. Off by default: the batches then
+    reach the step as the iterator yields them."""
+    if prefetch_device is not None:
+        batch_iter = prefetch_to_device(batch_iter, prefetch_device,
+                                        depth=prefetch_depth)
     step = start_step
     for _ in range(num_steps):
         state, step_metrics = step_fn(state, next(batch_iter))
