@@ -125,6 +125,30 @@ def test_device_feeder_stop_frees_a_blocked_producer():
         next(feeder)
 
 
+def test_device_feeder_stop_ends_iteration_after_a_late_put():
+    """A producer blocked in _put may land one batch after stop() drained
+    the queue (it does in some tries); next() must still end."""
+    def endless():
+        i = 0
+        while True:
+            yield {"x": np.full((1,), i)}
+            i += 1
+
+    late = 0
+    for _ in range(30):
+        feeder = tdata.DeviceFeeder(endless(), CPU, prefetch=1)
+        next(feeder)
+        feeder.stop()
+        feeder._thread.join(timeout=5)
+        assert not feeder._thread.is_alive()
+        try:
+            next(feeder)
+            late += 1
+        except StopIteration:
+            pass
+    assert late == 0
+
+
 def test_device_feeder_surfaces_source_errors():
     def broken():
         yield {"x": np.zeros(1)}

@@ -51,7 +51,7 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 22, proc.stdout
+    assert count >= 26, proc.stdout
 
 
 def test_blocker_matches_exact_package_name():
@@ -66,16 +66,24 @@ def test_blocker_matches_exact_package_name():
 
 
 @pytest.mark.parametrize("entry", ["llama", "trainer", "payload", "runner",
-                                   "worker", "mnist", "mnist_payload"])
+                                   "worker", "mnist", "mnist_payload",
+                                   "resnet", "resnet_payload",
+                                   "native_pipeline"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device and no card, each entry point raises instead of
     running on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tf_operator_tpu_torch.models.llama import Llama, llama_tiny
     from tf_operator_tpu_torch.models.mnist import MnistCNN
+    from tf_operator_tpu_torch.models.resnet import ResNet, resnet_tiny
     from tf_operator_tpu_torch.serve import worker
     from tf_operator_tpu_torch.serve.runner import LlamaRunner
-    from tf_operator_tpu_torch.train import dist_mnist, train_llama
+    from tf_operator_tpu_torch.train import (
+        data,
+        dist_mnist,
+        train_llama,
+        train_resnet,
+    )
     from tf_operator_tpu_torch.train.trainer import Trainer, adamw
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -93,6 +101,13 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         elif entry == "mnist_payload":
             dist_mnist.main(["--steps", "1",
                              "--checkpoint-dir", str(tmp_path)])
+        elif entry == "resnet":
+            ResNet(resnet_tiny())
+        elif entry == "resnet_payload":
+            train_resnet.main(["--steps", "1"])
+        elif entry == "native_pipeline":
+            with data.images_pipeline(2, 8) as loader:
+                next(data.prefetch_to_device(loader))
         else:
             worker.main(["--runner", "llama", "--spool", str(tmp_path)])
 

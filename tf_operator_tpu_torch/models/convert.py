@@ -1,5 +1,5 @@
-"""Carry Llama and MNIST weights and Llama KV caches between flax trees
-and the port.
+"""Carry Llama, MNIST and ResNet weights (and ResNet's BatchNorm
+statistics) and Llama KV caches between flax trees and the port.
 
 The flax tree (``tf_operator_tpu/models/llama.py``) stacks every block
 parameter on a leading ``layers`` axis (``nn.scan``) under ``blocks/`` and
@@ -13,11 +13,18 @@ tensors on the port's), and raise on any leaf left over or missing.
 The MNIST models (``models/mnist.py``) have one flax module per layer:
 ``Conv`` kernels are HWIO where torch's are OIHW, ``Dense`` kernels [in,
 out] where torch's are [out, in]; biases are the same.
+
+The ResNet (``models/resnet.py``) mirrors the flax module tree, so a flax
+path is a state_dict name with ``/`` for ``.``: conv ``kernel`` HWIO <->
+``weight`` OIHW, the ``classifier`` kernel [in, out] <-> [out, in], norm
+``scale``/``bias`` as they are (GroupNorm's one level deeper, under
+``GroupNorm_0``), and the ``batch_stats`` collection's ``mean``/``var``
+<-> the BatchNorm buffers of the same layer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -183,3 +190,86 @@ def mnist_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
         else:
             raise KeyError(f"state_dict entry {name} is no weight or bias")
     return params
+
+
+# The leaves of a flax ResNet layer -> its kind.
+_RESNET_LAYERS = {("kernel",): "conv", ("bias", "kernel"): "dense",
+                  ("bias", "scale"): "norm"}
+
+
+def resnet_params_from_flax(params: Mapping,
+                            batch_stats: Optional[Mapping] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """flax ResNet ``params`` and ``batch_stats`` (nested dicts of arrays)
+    -> the port's state_dict, parameters and buffers. Every flax layer is a
+    conv (``kernel``), the classifier (``kernel``, ``bias``) or a norm
+    (``scale``, ``bias``); statistics must belong to a norm layer, and
+    every batch-norm layer has both or, for a model without them, none."""
+    state: Dict[str, torch.Tensor] = {}
+    layers: Dict[tuple, Dict[str, np.ndarray]] = {}
+    for path, value in _flatten(params).items():
+        layers.setdefault(path[:-1], {})[path[-1]] = np.asarray(
+            value, dtype=np.float32)
+    stats: Dict[tuple, Dict[str, np.ndarray]] = {}
+    for path, value in _flatten(batch_stats or {}).items():
+        stats.setdefault(path[:-1], {})[path[-1]] = np.asarray(
+            value, dtype=np.float32)
+    for layer, leaves in sorted(layers.items()):
+        name = ".".join(layer)
+        kind = _RESNET_LAYERS.get(tuple(sorted(leaves)))
+        rank = leaves["kernel"].ndim if "kernel" in leaves else None
+        if kind is None or rank not in (None, 4 if kind == "conv" else 2):
+            raise KeyError(f"flax layer {'/'.join(layer)} has "
+                           f"{sorted(leaves)} (rank "
+                           f"{[v.ndim for v in leaves.values()]}), expected "
+                           "a 4-d ['kernel'], a 2-d ['bias', 'kernel'] or "
+                           "['bias', 'scale']")
+        if kind == "conv":
+            state[name + ".weight"] = _tensor(
+                leaves["kernel"].transpose(3, 2, 0, 1))   # HWIO -> OIHW
+        elif kind == "dense":
+            state[name + ".weight"] = _tensor(leaves["kernel"].T)
+            state[name + ".bias"] = _tensor(leaves["bias"])
+        else:
+            state[name + ".scale"] = _tensor(leaves["scale"])
+            state[name + ".bias"] = _tensor(leaves["bias"])
+    batch_norms = [layer for layer, leaves in layers.items()
+                   if "scale" in leaves and layer[-1] != "GroupNorm_0"]
+    for layer in batch_norms if stats else ():
+        if layer not in stats:
+            raise KeyError(f"flax batch_stats lack {'/'.join(layer)}")
+    for layer, leaves in sorted(stats.items()):
+        if layer not in batch_norms or set(leaves) != {"mean", "var"}:
+            raise KeyError(f"flax batch_stats {'/'.join(layer)} "
+                           f"{sorted(leaves)} left over: no batch-norm layer "
+                           "of that name, or not ['mean', 'var']")
+        for leaf, value in leaves.items():
+            state[".".join(layer + (leaf,))] = _tensor(value)
+    return state
+
+
+def resnet_params_to_flax(state: Mapping[str, torch.Tensor]
+                          ) -> Tuple[Dict, Dict]:
+    """The port's ResNet state_dict -> flax ``(params, batch_stats)``
+    (numpy; ``batch_stats`` empty for a model without statistics)."""
+    params, stats = {}, {}
+    for name, value in state.items():
+        path = tuple(name.split("."))
+        arr = value.detach().float().cpu().numpy()
+        leaf = path[-1]
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            params[path[:-1] + ("kernel",)] = np.ascontiguousarray(arr)
+        elif leaf in ("bias", "scale"):
+            params[path] = arr
+        elif leaf in ("mean", "var"):
+            stats[path] = arr
+        else:
+            raise KeyError(f"state_dict entry {name} is no weight, bias, "
+                           "scale, mean or var")
+    return _unflatten(params), _unflatten(stats)
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C",
+                                     copy=True))

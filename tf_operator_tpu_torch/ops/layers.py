@@ -1,4 +1,5 @@
-"""Core layers: RMSNorm, rotary position embeddings, reference attention.
+"""Core layers: RMSNorm, rotary position embeddings, reference attention,
+and the TPU-formulated BatchNorm.
 
 Port of ``tf_operator_tpu/ops/layers.py``: the same cast points (f32
 statistics and rotations, cast back to the input dtype) and the same
@@ -7,9 +8,11 @@ finite ``-1e30`` mask, so the two packages agree on the same inputs.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 NEG_INF = -1e30
 
@@ -80,3 +83,96 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("...hst,...thd->...shd", weights, v)
+
+
+def _mean_over(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """``jnp.mean``: the sum in f32 (a bf16 input upcast first), divided by
+    the count in f32, cast back to the input's dtype."""
+    count = math.prod(x.shape[d] for d in dims)
+    return (x.float().sum(dim=tuple(dims)) / count).to(x.dtype)
+
+
+def batch_stats(x: torch.Tensor, stats_dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (dim 1) mean and biased variance over every other dim,
+    as TPUBatchNorm computes them: ``x`` cast to ``stats_dtype``, then
+    E[x] and E[x²] − E[x]² in that dtype, returned in f32 with the
+    variance clamped at 0 (no Bessel correction)."""
+    dims = [d for d in range(x.ndim) if d != 1]
+    xs = x.to(stats_dtype)
+    mean = _mean_over(xs, dims)
+    var = _mean_over(xs.square(), dims) - mean.square()
+    return mean.float(), var.float().clamp_min(0.0)
+
+
+class TPUBatchNorm(nn.Module):
+    """BatchNorm as the JAX package's ``TPUBatchNorm`` formulates it, over
+    channels on dim 1 (NCHW, or [N, C]).
+
+    - Parameters ``scale`` and ``bias`` in f32; buffers ``mean`` (zeros) and
+      ``var`` (ones) in f32, flax's ``batch_stats`` (none when
+      ``track_stats=False``).
+    - Batch statistics (``batch_stats``) in ``stats_dtype`` (f32 for the
+      ``bn`` scheme, bf16 for ``bn_bf16``); the running update is
+      ``ra = momentum·ra + (1 − momentum)·batch`` with flax's momentum
+      (0.9) and the biased variance.
+    - The affine is folded in f32 on the [C] vectors, ``a = scale ·
+      rsqrt(var + eps)`` and ``b = bias − mean · a``, then applied as
+      ``x·a + b`` in the output dtype (``a`` and ``b`` cast down first when
+      that is bf16).
+    - ``use_running_average=True`` normalises with the buffers; without
+      buffers (``track_stats=False``) with mean 0 and variance 1, a pure
+      per-channel affine.
+
+    ``torch.nn.BatchNorm2d`` differs on each count that matters here: its
+    running variance is unbiased, its ``momentum`` is 1 − flax's, and it
+    normalises as (x − mean) / sqrt(var + eps) · scale + bias.
+    """
+
+    def __init__(self, features: int, *, momentum: float = 0.9,
+                 epsilon: float = 1e-5, dtype: Optional[torch.dtype] = None,
+                 stats_dtype: torch.dtype = torch.float32,
+                 scale_init: float = 1.0, track_stats: bool = True,
+                 device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.stats_dtype = stats_dtype
+        self.track_stats = track_stats
+        self.scale = nn.Parameter(torch.full(
+            (features,), float(scale_init), dtype=torch.float32,
+            device=device))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32,
+                                             device=device))
+        if track_stats:
+            self.register_buffer("mean", torch.zeros(
+                features, dtype=torch.float32, device=device))
+            self.register_buffer("var", torch.ones(
+                features, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor,
+                use_running_average: bool = False) -> torch.Tensor:
+        if use_running_average:
+            if self.track_stats:
+                mean, var = self.mean, self.var
+            else:
+                mean = torch.zeros_like(self.scale)
+                var = torch.ones_like(self.scale)
+        else:
+            mean, var = batch_stats(x, self.stats_dtype)
+            if self.track_stats:
+                with torch.no_grad():
+                    keep = 1.0 - self.momentum
+                    self.mean.copy_(self.momentum * self.mean
+                                    + keep * mean.detach())
+                    self.var.copy_(self.momentum * self.var
+                                   + keep * var.detach())
+        a = self.scale.float() * torch.rsqrt(var + self.epsilon)
+        b = self.bias.float() - mean * a
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        a, b = a.view(shape), b.view(shape)
+        out_dtype = self.dtype or x.dtype
+        if out_dtype == torch.float32:
+            return x.float() * a + b
+        return x * a.to(out_dtype) + b.to(out_dtype)

@@ -1,4 +1,12 @@
-"""Host -> device batch feeding (port of the device half of train/data.py).
+"""Input pipelines and host -> device batch feeding (port of
+train/data.py).
+
+``SyntheticLM`` and ``SyntheticImages`` draw each batch from the port's
+copy of the native batch generator (``tf_operator_tpu_torch/native``) at
+seed ``(seed << 20) + step``, and ``lm_pipeline``/``images_pipeline`` from
+its prefetching C++ loader; all yield numpy batches, byte for byte the JAX
+package's for the same arguments. A native library that does not build
+raises: there is no Python fallback.
 
 A batch is a dict of arrays (numpy or torch). ``prefetch_to_device`` keeps
 ``depth`` batches in flight to the device with no thread: on a CUDA device
@@ -8,8 +16,7 @@ that copy's event when the batch is handed out, so the copy of batch N+1
 overlaps the step that uses batch N. ``DeviceFeeder`` stages batches from
 a thread instead, for a source that is slow to produce them.
 
-The JAX module's synthetic generators, native loaders and
-``multihost_batch`` are not ported yet.
+The JAX module's ``multihost_batch`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,11 +26,79 @@ import threading
 from collections import deque
 from typing import Any, Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
+from tf_operator_tpu_torch import native
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+from tf_operator_tpu_torch.native import prefetch
 
 Batch = Dict[str, Any]
+
+
+class SyntheticLM:
+    """Deterministic token stream: [B, S+1] int32 batches."""
+
+    def __init__(self, batch_size: int, seq_len: int, vocab_size: int,
+                 seed: int = 0):
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.vocab_size = vocab_size
+        self.seed = seed
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            step += 1
+            yield {"inputs": native.fill_randint(
+                (self.batch_size, self.seq_len + 1), 0, self.vocab_size,
+                (self.seed << 20) + step)}
+
+
+class SyntheticImages:
+    """[B, H, W, 3] float32 images in [0, 1) and int32 labels."""
+
+    def __init__(self, batch_size: int, image_size: int = 224,
+                 num_classes: int = 1000, seed: int = 0):
+        self.batch_size = batch_size
+        self.image_size = image_size
+        self.num_classes = num_classes
+        self.seed = seed
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            step += 1
+            s = (self.seed << 20) + step
+            yield {
+                "inputs": native.fill_uniform(
+                    (self.batch_size, self.image_size, self.image_size, 3),
+                    s),
+                "labels": native.fill_randint(
+                    (self.batch_size,), 0, self.num_classes, s),
+            }
+
+
+def images_pipeline(batch_size: int, image_size: int = 224,
+                    num_classes: int = 1000, seed: int = 0,
+                    prefetch_depth: int = 4, threads: int = 2
+                    ) -> prefetch.NativeLoader:
+    """The native prefetching loader's images (producer threads and a ring
+    of ``prefetch_depth`` batches, no GIL): {"inputs": f32 [B, H, W, 3],
+    "labels": i32 [B]}. ``close()`` it to stop the threads."""
+    return prefetch.create_images(batch_size, image_size, num_classes,
+                                  depth=prefetch_depth, threads=threads,
+                                  seed=seed)
+
+
+def lm_pipeline(batch_size: int, seq_len: int, vocab_size: int,
+                seed: int = 0, prefetch_depth: int = 4,
+                threads: int = 2) -> prefetch.NativeLoader:
+    """The native loader's tokens: {"inputs": i32 [B, S+1]}, S+1 so the
+    trainer can shift."""
+    return prefetch.create_tokens(batch_size, seq_len + 1, vocab_size,
+                                  depth=prefetch_depth, threads=threads,
+                                  seed=seed)
 
 
 def _stage(batch: Batch, device: torch.device,
@@ -124,12 +199,15 @@ class DeviceFeeder:
 
     def __next__(self) -> Batch:
         while True:
+            # Checked first: a producer blocked in _put may still land one
+            # batch after stop() drained the queue.
+            if self._stop.is_set():
+                raise StopIteration
             try:
                 item = self._q.get(timeout=0.2)
                 break
             except queue_mod.Empty:
-                if self._stop.is_set():
-                    raise StopIteration
+                continue
         if isinstance(item, StopIteration):
             raise StopIteration
         if isinstance(item, Exception):

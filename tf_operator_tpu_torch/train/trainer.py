@@ -1,18 +1,22 @@
 """Single-device training harness (port of train/trainer.py).
 
 The loss, the optimizer and the step follow the JAX trainer's formulas:
-``cross_entropy_loss`` in f32, ``lm_loss`` on shifted tokens, and an
-optimizer that clips by global norm as ``optax.clip_by_global_norm`` does,
-then steps ``torch.optim.AdamW`` at a learning rate read from a schedule at
-the pre-increment count (so the first update of a warmup schedule uses
-``schedule(0)``), as optax's ``scale_by_learning_rate`` does.
+``cross_entropy_loss`` in f32, ``lm_loss`` on shifted tokens,
+``classification_loss`` (BatchNorm statistics updated by the forward, as
+the JAX loss threads ``extra_vars``) and its frozen-statistics variant, and
+an optimizer that clips by global norm as ``optax.clip_by_global_norm``
+does, then steps ``torch.optim.AdamW`` (or SGD with optax's momentum
+trace) at a learning rate read from a schedule at the pre-increment count
+(so the first update of a warmup schedule uses ``schedule(0)``), as
+optax's ``scale_by_learning_rate`` does.
 
 Unlike the JAX trainer the state is updated in place: the step mutates
 the model's parameters and the optimizer's moments rather than returning
 new arrays. ``TrainState.state_dict``/``load_state_dict`` carry the step,
-the parameters and the optimizer's state (AdamW's per-parameter ``step``
-and both moments) for ``train/checkpoint.py``. Sharding over a mesh is a
-later slice of the port.
+the parameters, the model's buffers (BatchNorm statistics, the JAX state's
+``extra_vars``) and the optimizer's state (AdamW's per-parameter ``step``
+and both moments, SGD's momentum buffers) for ``train/checkpoint.py``.
+Sharding over a mesh is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -36,10 +40,11 @@ from tf_operator_tpu_torch.train.data import prefetch_to_device
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token NLL; logits in any dtype, loss in f32."""
+    """Mean next-token NLL; logits in any dtype, loss in f32; integer
+    targets of any width."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.unsqueeze(-1)).squeeze(-1)
+    gold = torch.gather(logits, -1, targets.long().unsqueeze(-1)).squeeze(-1)
     nll = logz - gold
     if mask is not None:
         mask = mask.float()
@@ -57,9 +62,23 @@ def lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 def classification_loss(model: nn.Module,
                         batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Image/feature classification: NLL of ``labels`` under the logits of
-    ``inputs``. (BatchNorm statistics, the JAX loss's ``extra_vars``, come
-    with the ResNet port.)"""
+    ``inputs``. A model with BatchNorm layers in training mode normalises
+    with the batch and updates its running statistics in this forward (the
+    JAX loss returns them as the new ``extra_vars``)."""
     return cross_entropy_loss(model(batch["inputs"]), batch["labels"])
+
+
+def classification_loss_frozen_stats(model: nn.Module,
+                                     batch: Dict[str, torch.Tensor]
+                                     ) -> torch.Tensor:
+    """Classification normalising with the *running* statistics, which
+    stay as they are (the model's ``update_stats=False`` path: no
+    batch-statistics reductions); the parameters still train. The building
+    block of interval statistics: one ``classification_loss`` step every N,
+    frozen steps between. Needs a model whose forward takes
+    ``update_stats`` (models/resnet.py)."""
+    return cross_entropy_loss(model(batch["inputs"], update_stats=False),
+                              batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +166,15 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         params, lr=learning_rate, betas=(b1, b2), eps=eps))
 
 
+def sgd(learning_rate: float, momentum: Optional[float] = None) -> Optimizer:
+    """optax.sgd: with ``momentum`` a trace m = g + momentum·m from zero,
+    then p -= learning_rate·m; no dampening, no Nesterov, no weight decay
+    (``torch.optim.SGD`` computes exactly that: its first buffer is g)."""
+    return Optimizer(make=lambda params: torch.optim.SGD(
+        params, lr=learning_rate, momentum=momentum or 0.0, dampening=0.0,
+        nesterov=False, weight_decay=0.0))
+
+
 def default_optimizer(learning_rate: float = 3e-4,
                       weight_decay: float = 0.1,
                       warmup_steps: int = 100,
@@ -173,14 +201,14 @@ class TrainState:
     opt_state: torch.optim.Optimizer
 
     def state_dict(self) -> Dict[str, Any]:
-        """The step, the parameters and the optimizer's state, keyed by
-        parameter name. The tensors are the live ones (no copy), so a load
-        into this dict is a load in place. An optimizer that has not
-        stepped yet gets its state made first, so that a fresh state can
-        be the target of a restore: torch.distributed.checkpoint takes a
-        step at learning rate 0 over zero gradients (the parameters stay
-        as they are), and its count is set back to 0, which is the state
-        a first step would have made."""
+        """The step, the parameters and persistent buffers (BatchNorm
+        statistics), and the optimizer's state, keyed by name. The tensors
+        are the live ones (no copy), so a load into this dict is a load in
+        place. An optimizer that has not stepped yet gets its state made
+        first, so that a fresh state can be the target of a restore:
+        torch.distributed.checkpoint takes a step at learning rate 0 over
+        zero gradients (the parameters stay as they are), and its count is
+        set back to 0, which is the state a first step would have made."""
         fresh = not self.opt_state.state
         optim = get_optimizer_state_dict(self.model, self.opt_state)
         if fresh:
@@ -224,14 +252,27 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
-    def make_train_step(self):
+    def make_train_step(self, steps_per_call: int = 1,
+                        stacked_batches: bool = False):
         """step(state, batch) -> (state, metrics). Metrics are ``loss``
         and ``grad_norm`` as 0-d device tensors (reading them waits for
-        the card) and ``step``, the count before this update."""
-        def step(state: TrainState, batch: Dict[str, Any]):
+        the card) and ``step``, the count before this update.
+
+        ``steps_per_call > 1`` makes one call take that many updates, as
+        the JAX step's ``lax.scan`` does, and return the last one's
+        metrics (so ``step`` is the last inner pre-increment count). With
+        ``stacked_batches`` the batch then has a leading ``steps_per_call``
+        axis, one slice an update; without, every update takes the same
+        batch. In eager mode the updates are a loop of separate
+        dispatches."""
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got "
+                             f"{steps_per_call}")
+
+        def one_step(state: TrainState, batch: Dict[str, torch.Tensor]):
             state.model.train()
             state.opt_state.zero_grad(set_to_none=True)
-            loss = self.loss_fn(state.model, self._to_device(batch))
+            loss = self.loss_fn(state.model, batch)
             loss.backward()
             norm = self.optimizer.apply(state.opt_state, state.step,
                                         self.grad_norm_metric)
@@ -239,6 +280,15 @@ class Trainer:
             if self.grad_norm_metric:
                 metrics["grad_norm"] = norm
             state.step += 1
+            return state, metrics
+
+        def step(state: TrainState, batch: Dict[str, Any]):
+            batch = self._to_device(batch)
+            for k in range(steps_per_call):
+                inner = batch
+                if stacked_batches and steps_per_call > 1:
+                    inner = {name: v[k] for name, v in batch.items()}
+                state, metrics = one_step(state, inner)
             return state, metrics
 
         return step
