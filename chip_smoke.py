@@ -44,7 +44,21 @@ Phases, each printing one JSON line:
            every parameter must equal the kept ones bit for bit. The check
            must reject two wrong restores (AdamW moments left fresh, AdamW's
            per-parameter step dropped).
-8. remat   full, save_attn, save_qkv and mlp_only, one model at a time, the
+8. dist    the sharded training path at world size 1: make_mesh builds
+           MeshConfig(dp=-1) over a world of one NCCL process, and the
+           Trainer shards the train phase's model (same seed, batch and
+           optimizer) by LLAMA_RULES (parallel/sharding.py: every Dense and
+           the embedding a DTensor on the tp axis, FSDP2 over (dp, fsdp)),
+           then takes 5 steps: each loss and grad norm within DIST_REL of
+           the train phase's (and whether bit-equal), launches per step as
+           the train phase's (8/4/4 under full: the kernels, not the
+           reference, on the rank's local heads); tokens/s, peak memory and
+           one profiled step's device busy time beside the train phase's.
+           The sharded state is saved (DCP, shard by shard), one more step
+           is taken and kept, and the unsharded Trainer of another seed
+           restores the save and takes that step: restored parameters, the
+           next loss and every parameter after it bit-equal.
+9. remat   full, save_attn, save_qkv and mlp_only, one model at a time, the
            train phase's seed and batch, 3 steps each: launches a step must
            be fwd 4, dQ 4, dK/dV 4 (full: 8/4/4), and losses and parameters
            must equal the train phase's after its first 3 steps; ms/step,
@@ -58,7 +72,7 @@ Phases, each printing one JSON line:
 The training state is then freed, and the serving path runs (it launches
 no flash kernel, as the JAX decode path runs none):
 
-9. decode  the KV-cache path at llama_3_8b width with 2 layers on a 2-slot
+10. decode the KV-cache path at llama_3_8b width with 2 layers on a 2-slot
            cache: slots first hold another sequence, then prompts of 256
            and 192 tokens are prefilled on a reused 1-row staging cache and
            inserted (insert_cache), and 64 decode_steps follow. In f32 (TF32
@@ -68,7 +82,7 @@ no flash kernel, as the JAX decode path runs none):
            row late, a slot left stale after insert_cache). In bf16 the
            cached logits may be no further from the f32 forward than the
            bf16 no-cache forward is (x1.25).
-10. serve  LlamaRunner at full llama_3_8b (32 layers, f32 params, bf16
+11. serve  LlamaRunner at full llama_3_8b (32 layers, f32 params, bf16
            compute, max_seq_len 8192, 4 slots) behind RequestQueue (tenants
            a:b = 2:1), ContinuousBatcher and ServingEngine.run_until_idle:
            8 requests, prompts of 7 to 2000 tokens, 32 new tokens each.
@@ -77,15 +91,15 @@ no flash kernel, as the JAX decode path runs none):
            class, idle share) beside its reckoned bytes. Every request must
            finish to budget with in-vocabulary tokens and finite logits, and
            the flash launch counters must read 0.
-11. worker serve.worker.main --runner llama on the card over a spool of 3
+12. worker serve.worker.main --runner llama on the card over a spool of 3
            requests and the .close sentinel: exit 0, 3 responses.
-12. resume the MNIST payload (train.dist_mnist) on the card as
+13. resume the MNIST payload (train.dist_mnist) on the card as
            subprocesses: --steps 6 --crash-at-step 3 exits 137, the same
            command again exits 0 resuming at step 3, and an uninterrupted
            --steps 6 in another directory reaches the same step-6
            parameters within RESUME_ATOL (cuDNN's convolution backward need
            not be deterministic), while its step-5 parameters do not.
-13. resnet ResNet-50 training (no flash kernel: cuDNN convolutions and
+14. resnet ResNet-50 training (no flash kernel: cuDNN convolutions and
            the hand-written TPUBatchNorm in eager PyTorch).
            resnet_check, in f32 with TF32 off: the s2d stem against the
            conv7 stem on the same 7x7 weights, and ResNet-50 (s2d, B=2,
@@ -139,6 +153,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from tf_operator_tpu_torch.models import llama as tllama
 from tf_operator_tpu_torch.models.llama import Llama, llama_3_8b
@@ -157,6 +173,13 @@ from tf_operator_tpu_torch.train.checkpoint import (
     Checkpointer,
 )
 from tf_operator_tpu_torch.ops.layers import TPUBatchNorm
+from tf_operator_tpu_torch.parallel.distributed import process_group_scope
+from tf_operator_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    make_mesh,
+    mesh_shape,
+)
+from tf_operator_tpu_torch.parallel.sharding import LLAMA_RULES
 from tf_operator_tpu_torch.train.data import (
     DeviceFeeder,
     images_pipeline,
@@ -204,6 +227,10 @@ REMAT_STEPS = 3
 # GEMMs on the same inputs. Parameters after 3 steps within 1e-6 (an AdamW
 # step moves them by up to 3e-4), losses within 1e-6 relative.
 REMAT_ATOL = 1e-6
+# The sharded path at world size 1 against the unsharded step: the same
+# GEMMs and kernels on the same numbers (FSDP2's gather and reduce over one
+# rank are copies); the grad norm sums its squares in another order.
+DIST_REL = 1e-5
 PREFETCH_STEPS = 8
 # The card sleeps about 0.15 s while prefetch_to_device hands over a batch
 # and stages the next; a hand-over that waited for the card would take
@@ -672,16 +699,17 @@ def phase_train(model, batch):
                         if n.endswith(".weight") and "embed" not in n)
     flops = (6 * matmul_params * B * S + 3 * 4 * cfg.head_dim * cfg.n_heads
              * visible_pairs(S, S, True, 0) * cfg.n_layers * B)
-    emit({"phase": "train", "layers": cfg.n_layers,
-          "params": sum(p.numel() for p in model.parameters()),
-          "batch": B, "seq": S, "steps": STEPS, "losses": losses,
-          "grad_norms": norms, "step_ms": [t * 1e3 for t in step_s],
-          "ms_per_step": steady * 1e3, "tokens_per_s": B * S / steady,
-          "model_flops_per_step": flops,
-          "mfu_vs_989_tflops": flops / steady / PEAK_BF16,
-          "max_memory_allocated_gb":
-              torch.cuda.max_memory_allocated() / 2 ** 30,
-          "launches": launches})
+    record = {"phase": "train", "layers": cfg.n_layers,
+              "params": sum(p.numel() for p in model.parameters()),
+              "batch": B, "seq": S, "steps": STEPS, "losses": losses,
+              "grad_norms": norms, "step_ms": [t * 1e3 for t in step_s],
+              "ms_per_step": steady * 1e3, "tokens_per_s": B * S / steady,
+              "model_flops_per_step": flops,
+              "mfu_vs_989_tflops": flops / steady / PEAK_BF16,
+              "max_memory_allocated_gb":
+                  torch.cuda.max_memory_allocated() / 2 ** 30,
+              "launches": launches}
+    emit(record)
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"non-finite loss or grad norm: {losses} "
                              f"{norms}")
@@ -691,13 +719,16 @@ def phase_train(model, batch):
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} "
                              f"({PER_STEP} per step)")
-    full = {"losses": losses[:REMAT_STEPS], "params": full_params}
+    full = {"losses": losses[:REMAT_STEPS], "params": full_params,
+            "record": record}
     return launches, step, state, full
 
 
 def cpu_params(model):
-    """A host copy of every parameter (a copy on any device)."""
-    return {n: p.detach().to("cpu", copy=True)
+    """A host copy of every parameter (a copy on any device); a sharded
+    model's gathered whole."""
+    return {n: (p.full_tensor() if isinstance(p, DTensor) else p)
+            .detach().to("cpu", copy=True)
             for n, p in model.named_parameters()}
 
 
@@ -714,7 +745,9 @@ def kernel_class(name: str) -> str:
 def phase_profile(step, state, batch):
     """One more step under torch.profiler: device time by kernel class,
     the busiest kernels, and the device's idle share of the step."""
-    emit({"phase": "profile", **profile_step(step, state, batch)})
+    record = profile_step(step, state, batch)
+    emit({"phase": "profile", **record})
+    return record
 
 
 def profile_step(step, state, batch, classify=kernel_class) -> dict:
@@ -901,6 +934,127 @@ def phase_restore(kept, batch, root):
                              f"{missed}")
 
 
+def phase_dist(batch, train, train_profile, root):
+    """The sharded training path at world size 1 (module docstring, phase
+    8): the steps against the train phase's, the kernels' launches, what
+    the wrapping costs, and the sharded state saved and restored into the
+    unsharded Trainer."""
+    card = nvidia_smi()
+    with process_group_scope():
+        mesh = make_mesh(MeshConfig(dp=-1), device=DEVICE)
+        model = Llama(slice_config(), device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(0))
+        trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE,
+                          mesh=mesh, rules=LLAMA_RULES,
+                          param_axes_fn=tllama.param_logical_axes)
+        state = trainer.init()
+        step = trainer.make_train_step()
+        sharded = sum(isinstance(p, DTensor) for p in model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, norms, step_s = [], [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        ckpt = Checkpointer(os.path.join(root, "dist-ckpt"))
+        t0 = time.perf_counter()
+        ckpt.save(state.step, state)
+        ckpt.wait()
+        save_s = time.perf_counter() - t0
+        ckpt.close()
+        saved_step, saved = state.step, cpu_params(model)
+        # One more step, profiled: the step the restored Trainer repeats.
+        out = {}
+
+        def kept_step(st, b):
+            out["result"] = step(st, b)
+            return out["result"]
+
+        profile = profile_step(kept_step, state, batch)
+        kept_loss = float(out["result"][1]["loss"])
+        kept = cpu_params(model)
+        mesh_sizes = mesh_shape(mesh)
+        backend = dist.get_backend()
+        del model, trainer, state, step, out, mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+    # The unsharded Trainer, from another seed, restores the sharded save.
+    model = Llama(slice_config(), device=DEVICE,
+                  generator=torch.Generator(device=DEVICE).manual_seed(1))
+    trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE)
+    state = trainer.init()
+    ckpt = Checkpointer(os.path.join(root, "dist-ckpt"))
+    t0 = time.perf_counter()
+    ckpt.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ckpt.close()
+    restored = cpu_params(model)
+    restored_differ = [n for n, p in saved.items()
+                       if not torch.equal(restored[n], p)]
+    del restored, saved
+    _, metrics = trainer.make_train_step()(state, batch)
+    next_loss = float(metrics["loss"])
+    next_differ = [n for n, p in cpu_params(model).items()
+                   if not torch.equal(p, kept[n])]
+    del model, trainer, state, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(root, "dist-ckpt"), ignore_errors=True)
+
+    rel = lambda a, b: abs(a - b) / abs(b)
+    record = {
+        "phase": "dist", "nvidia_smi": card, "backend": backend,
+        "mesh": mesh_sizes, "rules": "LLAMA_RULES",
+        "dtensor_params": sharded, "losses": losses, "grad_norms": norms,
+        "max_rel_loss_vs_unsharded": max(
+            rel(a, b) for a, b in zip(losses, train["losses"])),
+        "max_rel_grad_norm_vs_unsharded": max(
+            rel(a, b) for a, b in zip(norms, train["grad_norms"])),
+        "losses_bit_equal": losses == train["losses"],
+        "grad_norms_bit_equal": norms == train["grad_norms"],
+        "limit": DIST_REL, "launches": launches,
+        "step_ms": [t * 1e3 for t in step_s], "ms_per_step": steady * 1e3,
+        "tokens_per_s": B * S / steady,
+        "unsharded_tokens_per_s": train["tokens_per_s"],
+        "device_busy_ms": profile["device_busy_ms"],
+        "unsharded_device_busy_ms": train_profile["device_busy_ms"],
+        "profile": profile,
+        "max_memory_allocated_gb": peak,
+        "unsharded_max_memory_allocated_gb":
+            train["max_memory_allocated_gb"],
+        "save_s": save_s, "saved_step": saved_step, "restore_s": restore_s,
+        "restored_params_differing": len(restored_differ),
+        "next_loss": next_loss, "next_loss_sharded": kept_loss,
+        "next_loss_bit_equal": next_loss == kept_loss,
+        "next_params_differing": len(next_differ)}
+    emit(record)
+    if not (record["max_rel_loss_vs_unsharded"] <= DIST_REL
+            and record["max_rel_grad_norm_vs_unsharded"] <= DIST_REL):
+        raise AssertionError(f"the sharded steps differ from the unsharded "
+                             f"ones beyond {DIST_REL}: {losses} {norms} vs "
+                             f"{train['losses']} {train['grad_norms']}")
+    want = {n: c * STEPS for n, c in PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"sharded kernel launches {launches} != {want}: "
+                             f"the sharded path left the kernels")
+    if not (saved_step == STEPS and not restored_differ
+            and record["next_loss_bit_equal"] and not next_differ):
+        raise AssertionError(
+            f"the sharded save restored into the unsharded Trainer differs: "
+            f"restored {restored_differ[:3]}, next step {next_differ[:3]}, "
+            f"loss {next_loss} vs {kept_loss}")
+    return launches
+
+
 def prefetch_stage_s(vocab: int) -> list:
     """Seconds prefetch_to_device takes to hand over a batch (and stage
     the next) while the card is busy: the copies are queued on a side
@@ -970,7 +1124,7 @@ def activation_gb(trainer, state, batch) -> dict:
 
 def phase_remat(batch, full):
     """Each remat policy against full's first 3 train-phase steps (module
-    docstring, phase 8); full again, as the run-to-run check."""
+    docstring, phase 9); full again, as the run-to-run check."""
     card = nvidia_smi()
     policies = {}
     for policy in tllama.REMAT_POLICIES:
@@ -1095,7 +1249,7 @@ def cached_logits(model, tokens, other, skip_insert=None):
 
 def phase_decode():
     """The KV-cache path against the no-cache forward of the same weights
-    (module docstring, phase 7)."""
+    (module docstring, phase 10)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     start_gb = torch.cuda.memory_allocated() / 2 ** 30
@@ -1244,7 +1398,7 @@ def profile_decode(runner, lengths):
 
 def phase_serve():
     """LlamaRunner at full llama_3_8b through the engine (module
-    docstring, phase 8)."""
+    docstring, phase 11)."""
     card = nvidia_smi()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
@@ -1339,7 +1493,7 @@ def phase_serve():
 
 def phase_worker():
     """The serving worker with the llama runner on the card over a spool of
-    3 requests and the .close sentinel (module docstring, phase 9)."""
+    3 requests and the .close sentinel (module docstring, phase 12)."""
     build = os.path.join(REPO, "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="serve-spool-", dir=build) as root:
@@ -1376,7 +1530,7 @@ def mnist_params(directory: str, step: int) -> dict:
 
 def phase_resume(root):
     """The MNIST payload crashes, resumes and is held against an
-    uninterrupted run (module docstring, phase 12)."""
+    uninterrupted run (module docstring, phase 13)."""
     command = [sys.executable, "-m", "tf_operator_tpu_torch.train.dist_mnist",
                "--steps", "6"]
     resumed_dir = os.path.join(root, "resumed")
@@ -1625,7 +1779,7 @@ def resnet_step_setup():
 
 def phase_resnet():
     """The main measurement and its correctness (module docstring,
-    phase 13); returns what the later ResNet phases reuse."""
+    phase 14); returns what the later ResNet phases reuse."""
     model, trainer, batch = resnet_step_setup()
     state = trainer.init()
     step = trainer.make_train_step()
@@ -1803,7 +1957,7 @@ def main() -> int:
     phase_model(model, torch.as_tensor(tokens[:, :512], device="cuda"))
     batch = {"inputs": tokens}
     launches, step, state, full = phase_train(model, batch)
-    phase_profile(step, state, batch)
+    train_profile = phase_profile(step, state, batch)
     build = os.path.join(REPO, "build")
     os.makedirs(build, exist_ok=True)
     root = tempfile.mkdtemp(prefix="ckpt-", dir=build)
@@ -1816,6 +1970,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_restore(kept, batch, root)
         del kept
+        shutil.rmtree(os.path.join(root, "ckpt"), ignore_errors=True)
+        dist_launches = phase_dist(batch, full["record"], train_profile,
+                                   root)
         phase_remat(batch, full)
         del full
         phase_decode()
@@ -1832,6 +1989,8 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
+            "launches_by_path": {"train": launches[name],
+                                 "dist": dist_launches[name]},
             "max_abs_err": errs[name], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"]})

@@ -40,6 +40,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     leaked = [m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not leaked, leaked
+    print(" ".join(names))
     print("imported", len(names))
 """)
 
@@ -51,7 +52,9 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 26, proc.stdout
+    assert count >= 30, proc.stdout
+    for module in ("distributed", "mesh", "sharding"):
+        assert f"tf_operator_tpu_torch.parallel.{module}" in proc.stdout
 
 
 def test_blocker_matches_exact_package_name():
@@ -68,7 +71,8 @@ def test_blocker_matches_exact_package_name():
 @pytest.mark.parametrize("entry", ["llama", "trainer", "payload", "runner",
                                    "worker", "mnist", "mnist_payload",
                                    "resnet", "resnet_payload",
-                                   "native_pipeline"])
+                                   "native_pipeline", "mesh",
+                                   "distributed", "sharded_payload"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device and no card, each entry point raises instead of
     running on the host."""
@@ -76,6 +80,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from tf_operator_tpu_torch.models.llama import Llama, llama_tiny
     from tf_operator_tpu_torch.models.mnist import MnistCNN
     from tf_operator_tpu_torch.models.resnet import ResNet, resnet_tiny
+    from tf_operator_tpu_torch.parallel.distributed import (
+        maybe_init_distributed,
+    )
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
     from tf_operator_tpu_torch.serve import worker
     from tf_operator_tpu_torch.serve.runner import LlamaRunner
     from tf_operator_tpu_torch.train import (
@@ -108,6 +116,14 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         elif entry == "native_pipeline":
             with data.images_pipeline(2, 8) as loader:
                 next(data.prefetch_to_device(loader))
+        elif entry == "mesh":
+            make_mesh()
+        elif entry == "distributed":
+            maybe_init_distributed(environ={
+                "TPUJOB_JAX_DISTRIBUTED": "1", "JAX_NUM_PROCESSES": "2",
+                "JAX_COORDINATOR_ADDRESS": "127.0.0.1:1"})
+        elif entry == "sharded_payload":
+            train_llama.main(["--steps", "1", "--fsdp", "1", "--tp", "1"])
         else:
             worker.main(["--runner", "llama", "--spool", str(tmp_path)])
 

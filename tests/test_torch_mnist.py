@@ -216,10 +216,17 @@ def test_payload_crashes_resumes_and_matches_an_uninterrupted_run(
 
 
 def test_payload_refuses_multi_process_training(monkeypatch):
+    """Multi-process training runs on the card, or on the CPU (gloo) only
+    where --device cpu asks for it: with the operator's multi-process env
+    and no card the payload raises before it serves or dials the store.
+    Without TPUJOB_JAX_DISTRIBUTED=1 a replica trains alone and its rank is
+    the env's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
     monkeypatch.setenv("TPUJOB_JAX_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        dist_mnist.main(["--steps", "1", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_mnist.main(["--steps", "1"])
     monkeypatch.delenv("TPUJOB_JAX_DISTRIBUTED")
     monkeypatch.setenv("TPU_WORKER_ID", "1")
     assert dist_mnist.process_rank() == 1

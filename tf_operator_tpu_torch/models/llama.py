@@ -54,6 +54,7 @@ from tf_operator_tpu_torch.ops.layers import (
     rms_norm,
     rope_frequencies,
 )
+from tf_operator_tpu_torch.parallel.mesh import mesh_axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,9 +157,15 @@ class LlamaAttention(nn.Module):
                 ) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
-        q = self.wq(x).view(b, s, cfg.n_heads, cfg.head_dim)
-        k = self.wk(x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+        # Under tensor parallelism (parallel/sharding.py) the projections
+        # return this rank's heads: n_heads // tp and n_kv_heads // tp.
+        # Where tp does not divide both, local_heads raises (the JAX model
+        # runs the reference attention on the global heads there).
+        q, k, v = self.wq(x), self.wk(x), self.wv(x)
+        n_heads, n_kv_heads = local_heads(cfg, q.shape[-1], k.shape[-1])
+        q = q.view(b, s, n_heads, cfg.head_dim)
+        k = k.view(b, s, n_kv_heads, cfg.head_dim)
+        v = v.view(b, s, n_kv_heads, cfg.head_dim)
         q = apply_rope(q, angles, positions)
         k = apply_rope(k, angles, positions)
         if cfg.decode:
@@ -171,14 +178,14 @@ class LlamaAttention(nn.Module):
             k = checkpoint_name(k, "attn_k")
             v = checkpoint_name(v, "attn_v")
             if cfg.attention_impl == "xla":
-                group = cfg.n_heads // cfg.n_kv_heads
+                group = n_heads // n_kv_heads
                 out = attention(q, repeat_kv(k, group), repeat_kv(v, group),
                                 causal=True)
             else:
                 out = best_attention(
                     q, k, v, causal=True,
                     force_flash=cfg.attention_impl == "flash")
-        return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+        return self.wo(out.reshape(b, s, n_heads * cfg.head_dim))
 
     def _cached_attention(self, q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, positions: torch.Tensor,
@@ -197,11 +204,11 @@ class LlamaAttention(nn.Module):
         heads of one KV head are read as [B, S, Hkv, G, D], so no repeated
         copy of the cache is made."""
         cfg = self.cfg
-        b, s = q.shape[:2]
+        b, s, n_heads = q.shape[:3]
+        n_kv_heads = k.shape[2]
         _write_rows(cache_k, k, positions)
         _write_rows(cache_v, v, positions)
-        group = cfg.n_heads // cfg.n_kv_heads
-        q = q.view(b, s, cfg.n_kv_heads, group, cfg.head_dim)
+        q = q.view(b, s, n_kv_heads, n_heads // n_kv_heads, cfg.head_dim)
         logits = torch.einsum("bshgd,bthd->bhgst", q.float(), cache_k.float())
         logits.mul_(cfg.head_dim ** -0.5)
         k_pos = torch.arange(cfg.max_seq_len, device=q.device)
@@ -209,6 +216,23 @@ class LlamaAttention(nn.Module):
         logits.masked_fill_(~keep[:, None, None], NEG_INF)
         weights = torch.softmax(logits, dim=-1).to(q.dtype)
         return torch.einsum("bhgst,bthd->bshgd", weights, cache_v)
+
+
+def local_heads(cfg: LlamaConfig, q_features: int,
+                kv_features: int) -> Tuple[int, int]:
+    """(query heads, KV heads) in projections of ``q_features`` and
+    ``kv_features``: all of them, or a tensor-parallel rank's share, which
+    keeps the GQA group whole."""
+    n_heads, rem_q = divmod(q_features, cfg.head_dim)
+    n_kv_heads, rem_kv = divmod(kv_features, cfg.head_dim)
+    if rem_q or rem_kv or not n_kv_heads or n_heads % n_kv_heads or (
+            n_heads // n_kv_heads != cfg.n_heads // cfg.n_kv_heads):
+        raise ValueError(
+            f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads of "
+            f"{cfg.head_dim} do not split into local projections of "
+            f"{q_features} and {kv_features} features: under tensor "
+            f"parallelism both head counts must divide tp")
+    return n_heads, n_kv_heads
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -340,6 +364,38 @@ class Llama(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Logical axes (consumed by parallel/sharding.py rule tables)
+# ---------------------------------------------------------------------------
+
+# The JAX model's _LEAF_AXES in this model's layout: a Dense weight is
+# [out, in] where the flax kernel is [in, out].
+_LEAF_AXES = {
+    ("embed_tokens", "weight"): ("vocab", "embed"),
+    ("wq", "weight"): ("heads", "embed"),
+    ("wk", "weight"): ("kv_heads", "embed"),
+    ("wv", "weight"): ("kv_heads", "embed"),
+    ("wo", "weight"): ("embed", "heads"),
+    ("gate", "weight"): ("mlp", "embed"),
+    ("up", "weight"): ("mlp", "embed"),
+    ("down", "weight"): ("embed", "mlp"),
+    ("lm_head", "weight"): ("vocab", "embed"),
+    ("scale",): ("norm",),
+}
+
+
+def param_logical_axes(name: str, value: torch.Tensor
+                       ) -> Tuple[Optional[str], ...]:
+    """Logical axis names of the parameter ``name`` (as
+    ``named_parameters`` gives it, e.g. ``layers.0.attn.wq.weight``)."""
+    path = tuple(name.split("."))
+    for suffix, axes in _LEAF_AXES.items():
+        if path[-len(suffix):] == suffix and len(axes) == value.dim():
+            return axes
+    raise ValueError(f"no logical axes for param {name} shape "
+                     f"{tuple(value.shape)}")
+
+
+# ---------------------------------------------------------------------------
 # Incremental decode (the serving path), the JAX helper contract with the
 # parameters held by the model:
 #
@@ -357,9 +413,12 @@ class Llama(nn.Module):
 
 
 def init_cache(model: Llama, batch_size: int) -> Dict[str, torch.Tensor]:
-    """All-zeros KV cache for ``batch_size`` slots on the model's device."""
+    """All-zeros KV cache for ``batch_size`` slots on the model's device;
+    under tensor parallelism, for this rank's KV heads (n_kv_heads // tp),
+    as the JAX cache shards its kv_heads axis over tp."""
     cfg = model.cfg
-    shape = (cfg.n_layers, batch_size, cfg.max_seq_len, cfg.n_kv_heads,
+    tp = mesh_axis_size(model.layers[0].attn.wk.weight, "tp")
+    shape = (cfg.n_layers, batch_size, cfg.max_seq_len, cfg.n_kv_heads // tp,
              cfg.head_dim)
     return {name: torch.zeros(shape, dtype=cfg.dtype,
                               device=model.angles.device)

@@ -12,7 +12,7 @@ zero.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,3 +79,10 @@ def synthetic_batch(generator: torch.Generator, batch_size: int = 64
         "labels": torch.randint(0, 10, (batch_size,), generator=generator,
                                 device=device),
     }
+
+
+def param_logical_axes(name: str, value: torch.Tensor
+                       ) -> Tuple[Optional[str], ...]:
+    """MNIST is pure data-parallel: every parameter replicates under
+    ``CNN_RULES`` (the JAX package's ``models/resnet.py`` rule)."""
+    return (None,) * value.dim()

@@ -325,3 +325,10 @@ def synthetic_batch(generator: torch.Generator, batch_size: int = 128,
         "labels": torch.randint(0, num_classes, (batch_size,),
                                 generator=generator, device=device),
     }
+
+
+def param_logical_axes(name: str, value: torch.Tensor
+                       ) -> Tuple[Optional[str], ...]:
+    """ResNet is pure data-parallel: every parameter replicates under
+    ``CNN_RULES`` (the JAX package's ``models/resnet.py`` rule)."""
+    return (None,) * value.dim()

@@ -27,17 +27,31 @@ dispatch is ``best_attention``: shapes or dtypes outside
 
 Layout is [B, S, H, D] at every public function; k/v may carry fewer heads
 (GQA, H % Hkv == 0), read directly by the kernels and never repeated.
+
+The op has no DTensor sharding rule, so it takes local tensors only: a
+DTensor reaching ``flash_attention`` raises. ``flash_attention_sharded``
+is JAX's ``shard_map`` of the kernel: it lays global q/k/v out with the
+batch over the mesh's data axes and the heads over ``tp`` and runs
+``flash_attention`` on each rank's local ``[B/dp, S, H/tp, D]`` shard
+(``local_map``). Inside a tensor-parallel model (``parallel/sharding.py``)
+the activations are local already and reach ``best_attention`` with the
+rank's own heads, so tp must divide both head counts: where it does not,
+the JAX ``best_attention`` falls back to the reference on the global
+heads, and the port's model raises (``models/llama.py`` ``local_heads``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops.layers import NEG_INF, attention, repeat_kv
+from tf_operator_tpu_torch.parallel.mesh import batch_placements
 
 # The CUDA kernels' tile: 64 query rows by 64 key rows, head_dim 128.
 BLOCK = 64
@@ -365,7 +379,12 @@ CHECKPOINT_NAME_OP = torch.ops.tf_operator_tpu_torch.checkpoint_name.default
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Flash attention over [B, S, H, D] (k/v may be [B, T, Hkv, D] with
-    H % Hkv == 0). Requires ``flash_supported`` shapes on any device."""
+    H % Hkv == 0). Requires ``flash_supported`` shapes on any device, and
+    local tensors (``flash_attention_sharded`` takes DTensors)."""
+    if any(isinstance(x, DTensor) for x in (q, k, v)):
+        raise TypeError("flash_attention takes local tensors, not DTensors "
+                        "(the kernels have no sharding rule); use "
+                        "flash_attention_sharded")
     if not flash_supported(q.shape[1], k.shape[1], q.shape[3]):
         raise ValueError(
             f"flash_attention unsupported for shapes q={tuple(q.shape)} "
@@ -375,6 +394,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.shape[2]}, kv heads {k.shape[2]}")
     out, _ = _flash_fwd_op(q, k, v, causal, q_offset)
     return out
+
+
+def attention_placements(mesh):
+    """Placements of a [B, S, H, D] tensor on ``mesh``: the batch over the
+    data axes, the heads over ``tp``, the sequence whole."""
+    return [Shard(2) if name == "tp" else p
+            for name, p in zip(mesh.mesh_dim_names, batch_placements(mesh))]
+
+
+def flash_attention_sharded(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mesh, causal: bool = True,
+                            q_offset: int = 0) -> DTensor:
+    """Flash attention of global q/k/v on ``mesh``, one kernel call a rank
+    on its local shard (JAX's ``shard_map`` over the kernel): plain tensors
+    (the same on every rank, which then get their gradients whole) or
+    DTensors are laid out by ``attention_placements``, and the output is a
+    DTensor laid out so. Both head counts must divide the ``tp`` size,
+    the batch the data axes'."""
+    from torch.distributed.tensor.experimental import local_map
+
+    placements = attention_placements(mesh)
+
+    def place(x):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, placements)
+
+    per_shard = local_map(
+        functools.partial(flash_attention, causal=causal, q_offset=q_offset),
+        out_placements=placements, in_placements=(placements,) * 3,
+        device_mesh=mesh)
+    return per_shard(place(q), place(k), place(v))
 
 
 def best_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

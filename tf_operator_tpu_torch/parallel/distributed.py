@@ -1,0 +1,126 @@
+"""Multi-process bring-up from the operator's env (port of the payloads'
+``maybe_init_distributed``, examples/dist_mnist/dist_mnist.py).
+
+The operator renders the same env for a port payload as for a JAX one:
+``JAX_COORDINATOR_ADDRESS`` (host:port of process 0),
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` (``TPU_WORKER_ID`` where the
+id is missing). A process joins a multi-process run only where the JAX
+payload joins one: ``TPUJOB_JAX_DISTRIBUTED=1``, more than one process,
+and a coordinator address. It then joins ``torch.distributed`` through a
+``TCPStore`` at the coordinator's host:port, served by process 0: NCCL
+when the process drives the card, gloo when the caller asked for the
+CPU. That follows the port's device rule (``_device.py``): a missing card
+never turns into a gloo run, and a failed NCCL init raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import os
+from typing import Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+
+# Copy of tf_operator_tpu/api/constants.py DEFAULT_COORDINATOR_PORT: the
+# port a coordinator address without one means.
+DEFAULT_COORDINATOR_PORT = 8476
+# How long a process waits for the others to reach the store.
+JOIN_TIMEOUT_S = 300.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessEnv:
+    """What the operator's env says about this process."""
+
+    num_processes: int = 1
+    process_id: int = 0
+    coordinator: str = ""
+    distributed: bool = False      # TPUJOB_JAX_DISTRIBUTED=1
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None
+                 ) -> "ProcessEnv":
+        env = os.environ if environ is None else environ
+        return cls(
+            num_processes=int(env.get("JAX_NUM_PROCESSES", "1") or 1),
+            process_id=int(env.get("JAX_PROCESS_ID",
+                                   env.get("TPU_WORKER_ID", "0")) or 0),
+            coordinator=env.get("JAX_COORDINATOR_ADDRESS", ""),
+            distributed=env.get("TPUJOB_JAX_DISTRIBUTED") == "1")
+
+    @property
+    def joins(self) -> bool:
+        """Whether this process joins a multi-process run (the JAX
+        payload's three conditions)."""
+        return (self.distributed and self.num_processes > 1
+                and bool(self.coordinator))
+
+
+def coordinator_host_port(address: str) -> Tuple[str, int]:
+    """``host:port`` (or a bare host, meaning the default port)."""
+    host, sep, port = address.rpartition(":")
+    if not sep:
+        return address, DEFAULT_COORDINATOR_PORT
+    return host.strip("[]"), int(port)
+
+
+def backend_for(device: torch.device) -> str:
+    """NCCL for the card, gloo for the CPU."""
+    if device.type == "cuda":
+        return "nccl"
+    if device.type == "cpu":
+        return "gloo"
+    raise ValueError(f"no process-group backend for device {device}")
+
+
+def maybe_init_distributed(device: DeviceLike = None,
+                           environ: Optional[Mapping[str, str]] = None,
+                           timeout_s: float = JOIN_TIMEOUT_S) -> int:
+    """Join the multi-process run the env describes, if it describes one,
+    and return this process's rank (the env's process id; 0 when it names
+    none). ``device`` is the device this process trains on: the card
+    unless ``"cpu"``."""
+    env = ProcessEnv.from_env(environ)
+    if not env.joins or dist.is_initialized():
+        return env.process_id
+    device = resolve_device(device)
+    backend = backend_for(device)
+    host, port = coordinator_host_port(env.coordinator)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = dist.TCPStore(host, port, env.num_processes,
+                          is_master=env.process_id == 0, timeout=timeout)
+    kwargs = {}
+    if device.type == "cuda":
+        index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        torch.cuda.set_device(index)
+        # Eager init: a communicator that cannot be made raises here.
+        kwargs["device_id"] = torch.device("cuda", index)
+    dist.init_process_group(backend, store=store, rank=env.process_id,
+                            world_size=env.num_processes, timeout=timeout,
+                            **kwargs)
+    return env.process_id
+
+
+@contextlib.contextmanager
+def process_group_scope():
+    """Leave, on the way out, a process group made inside the block (by
+    ``maybe_init_distributed`` or a world of one from
+    ``parallel/mesh.py``); one that stood before stays. A block that ends
+    normally first waits for every process, so process 0 serves the store
+    until the last one is done."""
+    owned = not dist.is_initialized()
+    ok = False
+    try:
+        yield
+        ok = True
+    finally:
+        if owned and dist.is_initialized():
+            if ok and dist.get_world_size() > 1:
+                dist.barrier()
+            dist.destroy_process_group()

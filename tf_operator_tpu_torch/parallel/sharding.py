@@ -1,0 +1,218 @@
+"""Logical-axis sharding rules (port of parallel/sharding.py) and their
+placement of a model on a mesh.
+
+The rule tables are the JAX package's: a parameter is annotated with
+logical axis names ("embed", "heads", "mlp", ...) by its model's
+``param_logical_axes``, and a table maps each logical axis to mesh axes.
+``spec_for`` turns one parameter's logical axes into a DTensor placement
+per mesh dimension (``AXIS_ORDER``), the counterpart of a JAX
+``PartitionSpec``.
+
+``shard_model`` places a model by those placements:
+- ``tp``: megatron tensor parallelism. A projection whose weight shards
+  over ``tp`` gets ``_place_projection``: its weight becomes a DTensor
+  on the ``tp`` dimension, sharded on the weight dim the rule names
+  (``[out, in]``: heads/kv_heads/mlp/vocab on dim 0, the column-parallel
+  projections; wo/down on dim 1, the row-parallel ones; an embedding's
+  vocab on dim 0). Inputs and outputs stay local tensors, as the body of a
+  JAX ``shard_map`` sees them: a column-parallel projection returns its
+  shard of the features (the attention then works on its local heads,
+  so tp must divide both head counts: where it does not, the JAX model
+  runs the reference attention and the port raises), a row-parallel one
+  all-reduces its partial sums. Logits (features on
+  ``vocab``) are all-gathered, so the f32 loss sees every class.
+- ``fsdp``: ``fully_shard`` (FSDP2) over the ``fsdp`` dimension, each
+  block of a ``ModuleList`` (the layers) a unit of its own, then the
+  root. FSDP2 shards every parameter's dim 0 whatever dim the rule names;
+  it gathers the parameter before use, so the numbers do not change.
+- ``dcn``/``dp``: replicated, as HSDP: ``fully_shard`` on the 2-D mesh
+  (``dcn`` x ``dp`` flattened, ``fsdp``), which all-reduces gradients
+  over the replicas and reduce-scatters them within one.
+The batch is sharded over (dcn, dp, fsdp) by the trainer.
+
+``pp``, ``sp`` and ``ep`` above 1 raise: the pipeline, ring attention and
+MoE are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (
+    DTensor,
+    Replicate,
+    Shard,
+    distribute_module,
+    distribute_tensor,
+)
+from torch.distributed.tensor.placement_types import Placement
+
+from tf_operator_tpu_torch.models.llama import Dense
+from tf_operator_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_shape
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+Rules = Dict[str, MeshAxes]
+
+# Dense transformer (Llama/BERT family), megatron TP + FSDP:
+# - embed dim sharded over fsdp (ZeRO-3 gather on use)
+# - attention heads + ffn hidden sharded over tp
+# - vocab sharded over tp (output projection all-gather)
+LLAMA_RULES: Rules = {
+    "batch": ("dcn", "dp", "fsdp"),
+    "embed": "fsdp",
+    "heads": "tp",
+    "kv_heads": "tp",
+    "head_dim": None,
+    "mlp": "tp",
+    "vocab": "tp",
+    "seq": "sp",
+    "kv_seq": None,
+    "layers": None,
+    "norm": None,
+}
+
+# MoE (Mixtral family): experts sharded over ep, expert-internal mlp over tp.
+MOE_RULES: Rules = {
+    **LLAMA_RULES,
+    "expert": "ep",
+    "capacity": None,
+}
+
+# Conv/vision nets (ResNet): pure data parallel; params replicated.
+CNN_RULES: Rules = {
+    "batch": ("dcn", "dp", "fsdp"),
+}
+
+# Output feature axes whose activations are all-gathered after their
+# projection: the logits leave the model whole.
+GATHERED_AXES = ("vocab",)
+
+ParamAxesFn = Callable[[str, torch.Tensor], Tuple[Optional[str], ...]]
+
+
+def spec_for(logical_axes: Sequence[Optional[str]], rules: Rules,
+             axis_names: Sequence[str] = AXIS_ORDER) -> List[Placement]:
+    """One placement per mesh dimension (``axis_names``): ``Shard(d)``
+    where the rule maps tensor dim d's logical axis to that mesh axis,
+    else ``Replicate()`` (JAX's ``spec_for`` as a DTensor placement
+    list)."""
+    placements: List[Placement] = [Replicate()] * len(axis_names)
+    for dim, name in enumerate(logical_axes):
+        axes = rules.get(name) if name is not None else None
+        for axis in (axes,) if isinstance(axes, str) else axes or ():
+            i = list(axis_names).index(axis)
+            if placements[i].is_shard():
+                raise ValueError(f"mesh axis {axis!r} shards two dims of "
+                                 f"{tuple(logical_axes)}")
+            placements[i] = Shard(dim)
+    return placements
+
+
+def _place_projection(module: nn.Module, tp_mesh: DeviceMesh,
+                      weight_dim: int, gather_output: bool) -> None:
+    """Tensor parallelism for a projection with one weight: the port's
+    ``Dense`` (``[out, in]``, ``x @ W^T``) or an ``nn.Embedding``
+    (``[vocab, embed]``). ``weight_dim`` is the weight dim split over
+    ``tp_mesh`` (module docstring); inputs and outputs are local tensors,
+    the output gathered whole where ``gather_output``."""
+    embedding = isinstance(module, nn.Embedding)
+    if not isinstance(module, (Dense, nn.Embedding)) or (
+            embedding and weight_dim != 0) or weight_dim not in (0, 1):
+        raise NotImplementedError(
+            f"no tensor-parallel placement of {type(module).__name__} "
+            f"on weight dim {weight_dim}")
+    # Column-parallel Dense: replicated input, features split on output.
+    # Row-parallel Dense: input split on its features, output partial
+    # sums. Vocab-split embedding: replicated ids, partial rows.
+    column = weight_dim == 0 and not embedding
+    in_layout = Replicate() if weight_dim == 0 else Shard(-1)
+
+    def partition(name, mod, mesh):
+        if mod is module:
+            mod.register_parameter("weight", nn.Parameter(
+                distribute_tensor(mod.weight, mesh, [Shard(weight_dim)])))
+
+    def prepare_input(mod, inputs, mesh):
+        x, *rest = inputs
+        if isinstance(x, DTensor):
+            raise TypeError(f"{type(mod).__name__} under tensor "
+                            f"parallelism takes local tensors")
+        return (DTensor.from_local(x, mesh, [in_layout], run_check=False),
+                *rest)
+
+    def prepare_output(mod, out, mesh):
+        if not column or gather_output:
+            out = out.redistribute(mesh, [Replicate()])
+        return out.to_local()
+
+    distribute_module(module, tp_mesh, partition, prepare_input,
+                      prepare_output)
+
+
+def _fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """The 2-D (replicas, shards) mesh of HSDP: (dp, fsdp), with dcn x dp
+    flattened into the replicas where dcn > 1."""
+    if mesh_shape(mesh)["dcn"] == 1:
+        return mesh[("dp", "fsdp")]
+    flat = "dcn_dp"
+    try:
+        mesh[("dcn", "dp")]._flatten(flat)
+    except (RuntimeError, ValueError, KeyError):
+        pass    # flattened already (another model on this mesh)
+    return mesh[(flat, "fsdp")]
+
+
+def _tp_placement(name: str, param: torch.Tensor, rules: Rules,
+                  param_axes_fn: ParamAxesFn) -> Tuple[Optional[int], tuple]:
+    axes = tuple(param_axes_fn(name, param))
+    if len(axes) != param.dim():
+        raise ValueError(f"{name}: logical axes {axes} for a "
+                         f"{param.dim()}-d parameter")
+    placement = spec_for(axes, rules)[AXIS_ORDER.index("tp")]
+    return (placement.dim if placement.is_shard() else None), axes
+
+
+def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Rules,
+                param_axes_fn: ParamAxesFn) -> nn.Module:
+    """Place ``model`` (built the same on every rank, on this rank's
+    device) on ``mesh`` by ``rules`` (module docstring), in place; returns
+    it. ``param_axes_fn(name, param)`` gives a parameter's logical axes
+    by its ``named_parameters`` name."""
+    from torch.distributed.fsdp import fully_shard
+
+    shape = mesh_shape(mesh)
+    for axis, what in (("pp", "pipeline"), ("sp", "ring attention"),
+                       ("ep", "MoE")):
+        if shape.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"{axis}={shape[axis]}: the {what} is not ported yet")
+    tp_mesh = mesh["tp"]
+    for prefix, module in list(model.named_modules()):
+        split = {}
+        for pname, param in module.named_parameters(recurse=False):
+            name = f"{prefix}.{pname}" if prefix else pname
+            dim, axes = _tp_placement(name, param, rules, param_axes_fn)
+            if dim is not None:
+                split[pname] = (dim, axes)
+        if not split:
+            continue
+        if set(split) != {"weight"}:
+            raise NotImplementedError(
+                f"{prefix}: tensor parallelism over {sorted(split)}")
+        dim, axes = split["weight"]
+        if module.weight.shape[dim] % shape["tp"]:
+            raise ValueError(f"{prefix}: weight dim {dim} of "
+                             f"{tuple(module.weight.shape)} does not split "
+                             f"over tp={shape['tp']}")
+        _place_projection(module, tp_mesh, dim,
+                          gather_output=axes[0] in GATHERED_AXES)
+    dp_mesh = _fsdp_mesh(mesh)
+    for module in model.modules():
+        if isinstance(module, nn.ModuleList):
+            for block in module:
+                fully_shard(block, mesh=dp_mesh)
+    fully_shard(model, mesh=dp_mesh)
+    return model

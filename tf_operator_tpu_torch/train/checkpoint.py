@@ -15,9 +15,17 @@ steps stay on disk. A save runs in two halves, as orbax's async save does:
   renames it to ``<step>`` once every file is written; ``wait()`` returns
   when that rename is done. ``latest_step`` names committed steps only.
 
-One process writes a whole checkpoint (no process group is needed:
-``torch.distributed.checkpoint`` saves and loads in a single process when
-none is initialised); sharded saves come with the distributed slice.
+With no process group a single process writes the whole checkpoint.
+Under ``torch.distributed`` (``parallel/distributed.py``) every rank makes
+the same calls: each writes the shards it holds (DTensor parameters and
+optimizer state of a sharded ``TrainState``) into the same ``<step>.tmp``
+and rank 0 the metadata, and the commit is rank 0's rename after a
+barrier, followed by a second barrier so that no rank reports a step
+before it is committed. The checkpoint's collectives run on a gloo group
+of their own, made when the ``Checkpointer`` is (every rank constructs
+one), so the commit thread never shares a communicator with the training
+step. A restore loads into any layout: the shards of another mesh, or
+whole tensors with no mesh at all.
 
 ``CheckpointHook`` and ``CheckpointConfig`` are copied from the JAX
 package unchanged (same env keys, record payload, barrier and cadence
@@ -47,6 +55,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
 log = logging.getLogger("tpu_operator.checkpoint")
@@ -72,12 +81,18 @@ class Checkpointer:
         self.directory = directory
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        # Collective: every rank of a process group makes its Checkpointer.
+        self._group = (dist.new_group(backend="gloo")
+                       if dist.is_initialized() else None)
+        self._rank = dist.get_rank() if self._group is not None else 0
         os.makedirs(directory, exist_ok=True)
         # A .tmp directory is a write that never committed (its process
         # died): nothing reads it.
-        for name in os.listdir(directory):
-            if name.endswith(_TMP_SUFFIX):
-                shutil.rmtree(os.path.join(directory, name))
+        if self._rank == 0:
+            for name in os.listdir(directory):
+                if name.endswith(_TMP_SUFFIX):
+                    shutil.rmtree(os.path.join(directory, name))
+        self._barrier()
         self._lock = threading.Lock()
         # Committed steps in the order they were saved (orbax keeps this
         # order in-process and sorts by step when it reopens a directory).
@@ -92,6 +107,13 @@ class Checkpointer:
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
+
+    def _barrier(self) -> None:
+        if self._group is not None:
+            dist.barrier(group=self._group)
+
+    def _group_kwargs(self) -> Dict[str, Any]:
+        return {} if self._group is None else {"process_group": self._group}
 
     def _due(self, step: int) -> bool:
         last = self._last_started
@@ -109,9 +131,11 @@ class Checkpointer:
             if step in self._steps:
                 raise ValueError(f"checkpoint for step {step} already exists")
         tmp = self._path(step) + _TMP_SUFFIX
-        if os.path.exists(tmp):
+        if self._rank == 0 and os.path.exists(tmp):
             shutil.rmtree(tmp)
-        written = dcp.async_save({"state": state}, checkpoint_id=tmp)
+        self._barrier()
+        written = dcp.async_save({"state": state}, checkpoint_id=tmp,
+                                 **self._group_kwargs())
         if torch.cuda.is_initialized():
             # The staged copy must be complete before the caller's next
             # step updates the tensors it was copied from.
@@ -122,29 +146,51 @@ class Checkpointer:
 
     def _commit(self, step: int, tmp: str,
                 written: concurrent.futures.Future) -> None:
-        written.result()
-        os.rename(tmp, self._path(step))
-        _fsync_dir(self.directory)
+        if self._group is None:
+            written.result()
+        else:
+            # Every rank's shards are written, or every rank raises (a
+            # rank whose write failed must not leave the others waiting).
+            error = None
+            try:
+                written.result()
+            except Exception as err:
+                error = err
+            failed = torch.tensor([int(error is not None)])
+            dist.all_reduce(failed, group=self._group)
+            if error is not None:
+                raise error
+            if failed.item():
+                raise RuntimeError(f"checkpoint step {step}: another "
+                                   f"rank's write failed")
+        if self._rank == 0:
+            os.rename(tmp, self._path(step))
+            _fsync_dir(self.directory)
+        self._barrier()         # the step is committed
         with self._lock:
             self._steps.append(step)
             drop = self._steps[:-self.max_to_keep]
             del self._steps[:-self.max_to_keep]
-        for old in drop:
-            shutil.rmtree(self._path(old), ignore_errors=True)
+        if self._rank == 0:
+            for old in drop:
+                shutil.rmtree(self._path(old), ignore_errors=True)
 
     def restore(self, target: Any, step: Optional[int] = None) -> Any:
         """Load ``step`` (default: the latest) in place into ``target``, a
         ``TrainState`` from ``Trainer.init()`` (its tensors keep their
-        device) or a dict of tensors, and return it.
+        device and layout: a sharded state reads its own shards, whatever
+        mesh saved them) or a dict of tensors, and return it.
 
         The JAX package restores into ``abstract_state_with_shardings``;
-        until the port shards its state, the target is a real state."""
+        the port's target is a real state, sharded or not."""
+        self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError("no checkpoint found")
         loaded = {"state": target}
-        dcp.load(loaded, checkpoint_id=self._path(step))
+        dcp.load(loaded, checkpoint_id=self._path(step),
+                 **self._group_kwargs())
         return loaded["state"]
 
     def latest_step(self) -> Optional[int]:
@@ -370,6 +416,7 @@ class CheckpointHook:
 
 
 # ``abstract_state_with_shardings`` (the JAX package's restore target:
-# eval_shape + sharding annotation) has no counterpart here until the port
-# shards its state; ``Checkpointer.restore`` loads into the state that
-# ``Trainer.init()`` makes, on that state's device.
+# eval_shape + sharding annotation) has no counterpart here:
+# ``Checkpointer.restore`` loads into the state that ``Trainer.init()``
+# makes, on that state's device and in its layout (sharded on a mesh, or
+# not).

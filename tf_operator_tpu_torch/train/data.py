@@ -16,7 +16,10 @@ that copy's event when the batch is handed out, so the copy of batch N+1
 overlaps the step that uses batch N. ``DeviceFeeder`` stages batches from
 a thread instead, for a source that is slow to produce them.
 
-The JAX module's ``multihost_batch`` is not ported yet.
+Multi-process feeding: ``multihost_batch`` makes a global batch out of
+this process's local slice without the global batch ever existing on one
+host (a DTensor sharded over the mesh's data axes), and ``local_batch``
+gives a trainer step the slice of a batch that is its rank's.
 """
 
 from __future__ import annotations
@@ -32,6 +35,11 @@ import torch
 from tf_operator_tpu_torch import native
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
 from tf_operator_tpu_torch.native import prefetch
+from tf_operator_tpu_torch.parallel.mesh import (
+    batch_placements,
+    data_index,
+    data_parallel_size,
+)
 
 Batch = Dict[str, Any]
 
@@ -223,3 +231,40 @@ class DeviceFeeder:
                 self._q.get_nowait()
         except queue_mod.Empty:
             pass
+
+
+def multihost_batch(local: Batch, mesh) -> Batch:
+    """Assemble a global batch from this process's local slice (multihost
+    feeding; each host makes only its own): each leaf becomes a DTensor on
+    ``mesh`` sharded on dim 0 over the data axes and replicated over the
+    others, on the mesh's device. Every rank passes slices of one size."""
+    from torch.distributed.tensor import DTensor
+
+    placements = batch_placements(mesh)
+    return {k: DTensor.from_local(torch.as_tensor(v), mesh, placements,
+                                  run_check=False)
+            for k, v in local.items()}
+
+
+def local_batch(batch: Batch, mesh, batch_dim: int = 0) -> Batch:
+    """This rank's slice of ``batch`` along ``batch_dim`` over the mesh's
+    data axes: a DTensor leaf (``multihost_batch``) gives its local shard,
+    a whole batch (numpy or torch, the same on every rank) its
+    ``data_index``-th of ``data_parallel_size`` equal slices."""
+    from torch.distributed.tensor import DTensor
+
+    n, i = data_parallel_size(mesh), data_index(mesh)
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, DTensor):
+            out[k] = v.to_local()
+            continue
+        size = v.shape[batch_dim]
+        if size % n:
+            raise ValueError(f"batch {k!r} of {size} along dim {batch_dim} "
+                             f"does not split over {n} data shards")
+        step = size // n
+        index = (slice(None),) * batch_dim + (slice(i * step,
+                                                    (i + 1) * step),)
+        out[k] = v[index]
+    return out

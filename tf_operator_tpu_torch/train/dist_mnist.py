@@ -5,18 +5,23 @@
         [--device cpu]
 
 Each replica reads the operator-injected bootstrap env
-(``TPUJOB_CLUSTER_SPEC``, ``TPU_WORKER_ID``) and trains ``MnistCNN`` on
-synthetic data with ``adam(1e-3)`` on one device: the card unless
-``--device cpu``. The batch of step i is drawn from a generator seeded
-with i + 1, so a resumed run sees the batches an uninterrupted one sees.
-With ``--checkpoint-dir`` every step is saved and a restarted replica
-resumes from the latest checkpoint; ``--crash-at-step N`` exits 137 (a
-retryable code under the ExitCode restart policy) once step N is on disk,
-on a fresh start only. The log lines are the JAX payload's.
+(``TPUJOB_CLUSTER_SPEC``, ``TPU_WORKER_ID``, ``JAX_COORDINATOR_ADDRESS``)
+and trains ``MnistCNN`` on synthetic data with ``adam(1e-3)``, on the
+card unless ``--device cpu``. With ``TPUJOB_JAX_DISTRIBUTED=1``, more than
+one process and a coordinator address, the replicas join one run
+(``parallel/distributed.py``: NCCL on the card, gloo on the CPU) and
+train through the sharded trainer on a ``MeshConfig(dp=-1)`` mesh over
+the processes with ``CNN_RULES`` (parameters replicated); otherwise each
+trains on its own, unsharded, as the JAX payload does.
 
-Multi-process training (``TPUJOB_JAX_DISTRIBUTED=1`` with
-``JAX_NUM_PROCESSES`` > 1) is not ported yet and raises; without that
-flag each replica trains locally, as the JAX payload does.
+``--batch-size`` is the global batch: each process draws only its local
+slice, rank r's of step i from a generator seeded with (i + 1) * nproc +
+r (one process: i + 1), so a resumed run sees the batches an
+uninterrupted one sees and the global batch never exists on one host.
+With ``--checkpoint-dir`` every step is saved (each rank its shards) and
+a restarted run resumes from the latest checkpoint; ``--crash-at-step N``
+exits 137 (a retryable code under the ExitCode restart policy) once step N
+is on disk, on a fresh start only. The log lines are the JAX payload's.
 """
 
 from __future__ import annotations
@@ -30,17 +35,29 @@ from typing import Optional, Sequence
 CRASH_EXIT_CODE = 137   # SIGKILL-class: retryable under ExitCode policy
 
 
-def process_rank() -> int:
-    """This replica's rank (it prints the step lines at rank 0); raises
-    where the job asks for one multi-process training run."""
-    num = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
-    if num > 1 and os.environ.get("TPUJOB_JAX_DISTRIBUTED") == "1":
-        raise NotImplementedError(
-            "multi-process training is not ported to PyTorch yet "
-            "(ROADMAP.md queue A item 3); without TPUJOB_JAX_DISTRIBUTED=1 "
-            "each replica trains locally")
-    return int(os.environ.get("JAX_PROCESS_ID",
-                              os.environ.get("TPU_WORKER_ID", "0")))
+def process_rank(device=None) -> int:
+    """This replica's rank (it prints the step lines at rank 0), having
+    joined the multi-process run the env describes, if it describes one
+    (``device``: the card unless ``"cpu"``)."""
+    from tf_operator_tpu_torch.parallel.distributed import (
+        maybe_init_distributed,
+    )
+
+    return maybe_init_distributed(device)
+
+
+def local_shard(step_idx: int, nproc: int, index: int, batch_size: int):
+    """Process ``index`` of ``nproc``'s slice of the global batch of
+    ``batch_size`` fed at ``step_idx`` (the loop's i + 1): drawn from a CPU
+    generator seeded with step_idx * nproc + index, as the JAX payload
+    seeds its PRNG key."""
+    import torch
+
+    from tf_operator_tpu_torch.models.mnist import synthetic_batch
+
+    return synthetic_batch(
+        torch.Generator().manual_seed(step_idx * nproc + index),
+        batch_size=max(batch_size // nproc, 1))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -60,13 +77,27 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if spec:
         task = json.loads(spec).get("task", {})
         print(f"replica {task.get('type')}-{task.get('index')} starting")
-    rank = process_rank()
+    from tf_operator_tpu_torch.parallel.distributed import (
+        process_group_scope,
+    )
 
+    with process_group_scope():
+        return _train(args, process_rank(args.device))
+
+
+def _train(args, rank: int) -> int:
     import torch
+    import torch.distributed as dist
 
     from tf_operator_tpu_torch._device import resolve_device
-    from tf_operator_tpu_torch.models.mnist import MnistCNN, synthetic_batch
+    from tf_operator_tpu_torch.models.mnist import (
+        MnistCNN,
+        param_logical_axes,
+    )
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from tf_operator_tpu_torch.parallel.sharding import CNN_RULES
     from tf_operator_tpu_torch.train.checkpoint import Checkpointer
+    from tf_operator_tpu_torch.train.data import multihost_batch
     from tf_operator_tpu_torch.train.trainer import (
         Trainer,
         adam,
@@ -74,15 +105,27 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
 
     device = resolve_device(args.device)
+    nproc = dist.get_world_size() if dist.is_initialized() else 1
+    index = dist.get_rank() if nproc > 1 else 0
+    # One process trains unsharded: a world-1 mesh would only add the
+    # host cost of FSDP2's hooks to every step.
+    mesh = make_mesh(MeshConfig(dp=-1), device=device) if nproc > 1 else None
     model = MnistCNN(device=device,
                      generator=torch.Generator(device=device).manual_seed(0))
     trainer = Trainer(model=model, optimizer=adam(1e-3),
-                      loss_fn=classification_loss, device=device)
+                      loss_fn=classification_loss, device=device, mesh=mesh,
+                      rules=CNN_RULES, param_axes_fn=param_logical_axes)
     state = trainer.init()
 
+    # Multihost feeding contract: --batch-size is the GLOBAL batch; each
+    # process draws only its local slice.
+
     def make_batch(step_idx: int):
-        return synthetic_batch(torch.Generator().manual_seed(step_idx),
-                               batch_size=args.batch_size)
+        local = local_shard(step_idx, nproc, index, args.batch_size)
+        return multihost_batch(local, mesh) if nproc > 1 else local
+
+    if nproc > 1:
+        print(f"distributed: {nproc} processes, {nproc} global devices")
 
     # Checkpoint/resume: a restarted replica (same index, fresh pod)
     # picks up from the latest saved step instead of step 0 — what makes

@@ -16,7 +16,19 @@ new arrays. ``TrainState.state_dict``/``load_state_dict`` carry the step,
 the parameters, the model's buffers (BatchNorm statistics, the JAX state's
 ``extra_vars``) and the optimizer's state (AdamW's per-parameter ``step``
 and both moments, SGD's momentum buffers) for ``train/checkpoint.py``.
-Sharding over a mesh is a later slice of the port.
+
+With a ``mesh`` (``parallel/mesh.py``), ``init`` places the model by a
+rule table (``parallel/sharding.py`` ``shard_model``: tensor parallel
+over ``tp``, FSDP2 over ``fsdp``, replicas over ``dcn``/``dp``), each
+step trains on this rank's slice of the batch over the data axes, and the
+``loss`` metric is the mean over them, as the JAX trainer's global loss
+is. FSDP2 averages the slices' gradients. A batch with a ``mask`` gets a
+``mask_count`` (``slice_mask_count``), which ``lm_loss`` divides by, so
+that a masked loss trains on the global masked mean and not on the mean
+of the slices' means. Gradients are then DTensors; their global norm is
+reduced to one scalar over every shard before the clip. The state dict
+holds DTensors, which ``train/checkpoint.py`` saves shard by shard and
+restores into any mesh, or none.
 """
 
 from __future__ import annotations
@@ -26,7 +38,9 @@ import math
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.checkpoint.state_dict import (
     get_model_state_dict,
     get_optimizer_state_dict,
@@ -35,28 +49,49 @@ from torch.distributed.checkpoint.state_dict import (
 )
 
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
-from tf_operator_tpu_torch.train.data import prefetch_to_device
+from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+from tf_operator_tpu_torch.train.data import local_batch, prefetch_to_device
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None,
+                       mask_count: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Mean next-token NLL; logits in any dtype, loss in f32; integer
-    targets of any width."""
+    targets of any width. A masked sum is divided by ``mask_count``, by
+    default the mask's own count (at least 1)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long().unsqueeze(-1)).squeeze(-1)
     nll = logz - gold
     if mask is not None:
         mask = mask.float()
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        if mask_count is None:
+            mask_count = mask.sum().clamp_min(1.0)
+        return (nll * mask).sum() / mask_count
     return nll.mean()
 
 
 def lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1]."""
+    """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1]. A
+    ``mask_count`` in the batch is what the masked sum divides by (the
+    trainer sets it on a mesh)."""
     tokens = batch["inputs"]
     logits = model(tokens[:, :-1])
-    return cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"))
+    return cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"),
+                              batch.get("mask_count"))
+
+
+def slice_mask_count(mask: torch.Tensor, mesh) -> torch.Tensor:
+    """What each data-parallel slice divides its masked loss sum by: the
+    global mask count (at least 1) over the number of slices. FSDP2
+    averages the slices' gradients and the ``loss`` metric is the slices'
+    mean, so both come out as those of the global masked mean, as in the
+    JAX trainer, however unevenly the mask falls on the slices."""
+    axes = mesh_lib.data_axes(mesh)
+    return mesh_lib.all_reduce_mean(mask.float().sum(), mesh, axes
+                                    ).clamp_min(
+        1.0 / mesh_lib.data_parallel_size(mesh))
 
 
 def classification_loss(model: nn.Module,
@@ -107,19 +142,52 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    """sqrt of the sum of squares of every element (optax.global_norm).
+
+    DTensor gradients (a sharded model's, on meshes of one or more
+    dimensions) count each element once: each shard's sum of squares is
+    summed over the mesh dimensions that shard it (not those that
+    replicate it), one all-reduce for each mesh and dimension, and the
+    result is a plain scalar, the same on every rank."""
+    if not any(isinstance(g, DTensor) for g in grads):
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+    by_layout: Dict[tuple, List[torch.Tensor]] = {}
+    for g in grads:
+        if isinstance(g, DTensor):
+            mesh = g.device_mesh
+            if any(p.is_partial() for p in g.placements):
+                g = g.redistribute(mesh, [Replicate() if p.is_partial()
+                                          else p for p in g.placements])
+            dims = tuple(i for i, p in enumerate(g.placements)
+                         if not p.is_replicate() and mesh.size(i) > 1)
+            key, local = (mesh, dims), g.to_local()
+        else:
+            key, local = (None, ()), g
+        by_layout.setdefault(key, []).append(
+            torch.linalg.vector_norm(local.float()) ** 2)
+    total = []
+    for (mesh, dims), squares in by_layout.items():
+        part = torch.stack(squares).sum()
+        for i in dims:
+            dist.all_reduce(part, group=mesh.get_group(i))
+        total.append(part)
+    return torch.stack(total).sum().sqrt()
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
                          norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """In place ``g * max_norm / max(norm, max_norm)`` (optax's formula);
-    returns the norm before clipping."""
+    returns the norm before clipping. DTensors are scaled shard by
+    shard."""
     if norm is None:
         norm = global_norm(grads)
     factor = max_norm / torch.clamp_min(norm, max_norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_([_local(g) for g in grads], factor)
     return norm
 
 
@@ -227,10 +295,15 @@ class TrainState:
 
 @dataclasses.dataclass
 class Trainer:
-    """init + train step for (model, optimizer) on one device.
+    """init + train step for (model, optimizer) on one device, or on this
+    rank's device of a ``mesh``.
 
     ``device`` defaults to the card; the model is moved there if its
-    parameters are elsewhere."""
+    parameters are elsewhere. With a ``mesh``, ``rules`` and
+    ``param_axes_fn`` (the model's ``param_logical_axes``) place the model
+    at ``init`` (module docstring); every rank builds the model from the
+    same seed first, so a sharded run starts from the unsharded one's
+    weights. Without one, nothing is sharded."""
 
     model: nn.Module
     optimizer: Optimizer
@@ -238,17 +311,32 @@ class Trainer:
     device: DeviceLike = None
     # grad_norm in the step metrics costs a read of every gradient.
     grad_norm_metric: bool = True
+    mesh: Any = None                # torch DeviceMesh (parallel/mesh.py)
+    rules: Optional[Dict[str, Any]] = None
+    param_axes_fn: Optional[Callable] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.model.to(self.device)
+        if self.mesh is not None and (self.rules is None
+                                      or self.param_axes_fn is None):
+            raise ValueError("a mesh needs rules and param_axes_fn")
 
     def init(self) -> TrainState:
+        if self.mesh is not None and not any(
+                isinstance(p, DTensor) for p in self.model.parameters()):
+            from tf_operator_tpu_torch.parallel.sharding import shard_model
+
+            shard_model(self.model, self.mesh, self.rules,
+                        self.param_axes_fn)
         params = [p for p in self.model.parameters() if p.requires_grad]
         return TrainState(step=0, model=self.model,
                           opt_state=self.optimizer.make(params))
 
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _to_device(self, batch: Dict[str, Any],
+                   batch_dim: int = 0) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:
+            batch = local_batch(batch, self.mesh, batch_dim)
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
@@ -272,21 +360,30 @@ class Trainer:
         def one_step(state: TrainState, batch: Dict[str, torch.Tensor]):
             state.model.train()
             state.opt_state.zero_grad(set_to_none=True)
+            if self.mesh is not None and "mask" in batch:
+                batch = {**batch, "mask_count": slice_mask_count(
+                    batch["mask"], self.mesh)}
             loss = self.loss_fn(state.model, batch)
             loss.backward()
             norm = self.optimizer.apply(state.opt_state, state.step,
                                         self.grad_norm_metric)
-            metrics = {"loss": loss.detach(), "step": state.step}
+            loss = loss.detach()
+            if self.mesh is not None:
+                loss = mesh_lib.all_reduce_mean(
+                    loss, self.mesh, mesh_lib.data_axes(self.mesh))
+            metrics = {"loss": loss, "step": state.step}
             if self.grad_norm_metric:
                 metrics["grad_norm"] = norm
             state.step += 1
             return state, metrics
 
+        stacked = stacked_batches and steps_per_call > 1
+
         def step(state: TrainState, batch: Dict[str, Any]):
-            batch = self._to_device(batch)
+            batch = self._to_device(batch, batch_dim=1 if stacked else 0)
             for k in range(steps_per_call):
                 inner = batch
-                if stacked_batches and steps_per_call > 1:
+                if stacked:
                     inner = {name: v[k] for name, v in batch.items()}
                 state, metrics = one_step(state, inner)
             return state, metrics
