@@ -130,6 +130,38 @@ no flash kernel, as the JAX decode path runs none):
            resnet_payload: python -m tf_operator_tpu_torch.train.train_resnet
            --size 50 --steps 4 --batch-size 64 --image-size 224 exits 0.
 
+15. mixtral Mixtral (models/mixtral.py), after every earlier phase.
+           mixtral_check: mixtral_tiny in f32 (TF32 off), card against CPU
+           on the same weights: MoELayer outputs within MIXTRAL_CHECK_REL
+           of their largest value, aux within MIXTRAL_AUX_ATOL and equal
+           drop counts for both dispatch paths at capacity factors 1.25
+           and 0.25 (which must drop), the whole model's logits; the check
+           must reject a layer whose expert 0 outputs zeros.
+           mixtral_train: Trainer + Mixtral at mixtral_8x7b width, 2
+           layers (3.16 B parameters), B=1, S=2048, bf16 compute, f32
+           params, full remat, adamw(1e-4), make_moe_lm_loss; 5 steps with
+           the einsum path, then 5 with the gather path from the same seed
+           and batch: losses finite and falling and within
+           MIXTRAL_LOSS_RTOL of each other, first-step drop counts equal
+           (per layer and step printed), flash launches 4/2/2 a step
+           (counters zeroed before each run's steps), ms/step, tokens/s,
+           MFU on active work (attention, router, k of E experts,
+           lm_head) with the capacity-padding and dispatch-einsum FLOPs
+           beside it, peak memory, and one profiled step (device busy by
+           class, idle share, matmul time split by the launching op's
+           shapes).
+           mixtral_decode: 2 layers of that width in f32 (TF32 off),
+           cached prefill and decode logits (the decode phase's slots and
+           steps) within DECODE_REL of the drop-free no-cache forward
+           (capacity_factor = n_experts) and the same greedy tokens.
+           mixtral_serve: MixtralRunner at 8 layers (f32 params, bf16
+           compute, max_seq_len 8192, 4 slots) serves the serve phase's 8
+           requests (TTFT, prefill ms per bucket, decode ms a step,
+           tokens/s, peak memory); mixtral_serve_profile: one decode step
+           under torch.profiler with the MoE layers annotated.
+           mixtral_payload: python -m tf_operator_tpu_torch.train.
+           train_mixtral --size tiny --steps 4 exits 0.
+
 Then a {"kernels": [...]} summary line, the nvidia-smi name/power line,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero before
 the last line; so does a machine without a CUDA card.
@@ -138,6 +170,7 @@ the last line; so does a machine without a CUDA card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -158,6 +191,7 @@ from torch.distributed.tensor import DTensor
 
 from tf_operator_tpu_torch.models import llama as tllama
 from tf_operator_tpu_torch.models.llama import Llama, llama_3_8b
+from tf_operator_tpu_torch.models import mixtral as tmix
 from tf_operator_tpu_torch.models import resnet
 from tf_operator_tpu_torch.models.mnist import MnistCNN
 from tf_operator_tpu_torch.ops import _build
@@ -166,7 +200,7 @@ from tf_operator_tpu_torch.serve import worker
 from tf_operator_tpu_torch.serve.batcher import ContinuousBatcher
 from tf_operator_tpu_torch.serve.engine import ServingEngine
 from tf_operator_tpu_torch.serve.queue import Request, RequestQueue
-from tf_operator_tpu_torch.serve.runner import LlamaRunner
+from tf_operator_tpu_torch.serve.runner import LlamaRunner, MixtralRunner
 from tf_operator_tpu_torch.train.checkpoint import (
     CheckpointConfig,
     CheckpointHook,
@@ -269,7 +303,7 @@ RESNET_REL = 1e-4
 SPREAD_THRESHOLD = 0.1      # bench.py's outlier-rep guard
 MAX_EXTRA_REPS = 2
 REPO = os.path.dirname(os.path.abspath(__file__))
-DEVICE = "cuda"     # the restartable-training phases' device
+DEVICE = "cuda"     # the restartable-training and Mixtral phases' device
 
 
 def emit(record) -> None:
@@ -750,20 +784,32 @@ def phase_profile(step, state, batch):
     return record
 
 
-def profile_step(step, state, batch, classify=kernel_class) -> dict:
+def profile_step(step, state, batch, classify=kernel_class,
+                 op_class=None) -> dict:
     """One step under torch.profiler (see phase_profile), kernels grouped
-    by ``classify(name)``."""
+    by ``classify(name)``. With ``op_class(op)`` (a class or None for an
+    aten op, read with its input shapes), also the device time of each
+    op class's kernels (``by_op_class_ms``; a kernel the profiler links to
+    no aten op, e.g. one launched while the host waited on a full command
+    buffer, is in none)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=op_class is not None) as prof:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, by_op = {}, {}
     for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            cls = (op_class(ev) if op_class is not None
+                   and ev.name.startswith("aten::") else None)
+            if cls is not None:
+                by_op[cls] = (by_op.get(cls, 0.0)
+                              + sum(k.duration for k in ev.kernels) / 1e3)
+            continue
         # Device-side ranges of user annotations (e.g. Optimizer.step)
         # span kernels that are counted on their own.
         if (ev.device_type != torch.autograd.DeviceType.CUDA
@@ -778,9 +824,12 @@ def profile_step(step, state, batch, classify=kernel_class) -> dict:
         if len(top.setdefault(cls, [])) < 4:
             top[cls].append([name[:100], ms])
     busy = sum(by_class.values())
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": 1.0 - busy / wall_ms if busy else None,
-            "by_class_ms": by_class, "top_kernels_ms": top}
+    record = {"wall_ms": wall_ms, "device_busy_ms": busy,
+              "idle_share": 1.0 - busy / wall_ms if busy else None,
+              "by_class_ms": by_class, "top_kernels_ms": top}
+    if op_class is not None:
+        record["by_op_class_ms"] = by_op
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -1217,30 +1266,31 @@ def no_cache_logits(dtype, tokens):
     return out
 
 
-def cached_logits(model, tokens, other, skip_insert=None):
+def cached_logits(model, tokens, other, skip_insert=None, lib=tllama):
     """Per slot, its logits at positions 0 .. n + DECODE_STEPS - 1: the
     prefill's for its prompt of n = DECODE_LENS[slot] tokens, then one
     decode_step's per position. Both slots first hold ``other`` (an
     earlier occupant), so rows a slot fails to overwrite are wrong, not
     zero; the 1-row staging cache is reused without zeroing, as the runner
-    does. ``skip_insert``: a slot whose insert_cache is left out."""
-    cache, stage = tllama.init_cache(model, 2), tllama.init_cache(model, 1)
-    arange = lambda n: torch.arange(n, device="cuda")[None]
-    _, stage = tllama.prefill(model, stage, other, arange(other.shape[1]))
+    does. ``skip_insert``: a slot whose insert_cache is left out. ``lib``:
+    the model family's decode helpers (models/llama.py or mixtral.py)."""
+    cache, stage = lib.init_cache(model, 2), lib.init_cache(model, 1)
+    arange = lambda n: torch.arange(n, device=DEVICE)[None]
+    _, stage = lib.prefill(model, stage, other, arange(other.shape[1]))
     for slot in range(2):
-        tllama.insert_cache(cache, stage, slot)
+        lib.insert_cache(cache, stage, slot)
     outs = []
     for slot, n in enumerate(DECODE_LENS):
-        logits, stage = tllama.prefill(model, stage,
-                                       tokens[slot:slot + 1, :n], arange(n))
+        logits, stage = lib.prefill(model, stage,
+                                    tokens[slot:slot + 1, :n], arange(n))
         outs.append([logits[0].float()])
         if slot != skip_insert:
-            tllama.insert_cache(cache, stage, slot)
-    lens = torch.tensor(DECODE_LENS, device="cuda")
-    rows = torch.arange(2, device="cuda")
+            lib.insert_cache(cache, stage, slot)
+    lens = torch.tensor(DECODE_LENS, device=DEVICE)
+    rows = torch.arange(2, device=DEVICE)
     for t in range(DECODE_STEPS):
         pos = lens + t
-        logits, cache = tllama.decode_step(
+        logits, cache = lib.decode_step(
             model, cache, tokens[rows, pos][:, None], pos[:, None])
         for slot in range(2):
             outs[slot].append(logits[slot].float())
@@ -1317,14 +1367,21 @@ def phase_decode():
             f" than 1.25x the bf16 no-cache forward's ({plain_err})")
 
 
+def matmul_params(model) -> int:
+    """Parameters that enter a matmul: every weight of two or more dims
+    (Dense weights, Mixtral's expert tensors) but the embedding table,
+    which is a lookup."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if p.dim() >= 2 and "embed" not in n)
+
+
 def decode_step_bytes(runner):
     """Reckoned bytes of one decode step over all slots: (floor, as the
     port moves them). The floor reads every matmul weight once in f32 and
     the whole K/V cache once in bf16. The port also writes and reads a
     bf16 copy of each weight (Dense casts on every call) and, per layer,
     an f32 copy of the K cache (f32 scores, as ops.layers.attention)."""
-    weights = sum(p.numel() for n, p in runner.model.named_parameters()
-                  if n.endswith(".weight") and "embed" not in n)
+    weights = matmul_params(runner.model)
     kv = runner.cache["k"].numel()
     return 4 * weights + 2 * 2 * kv, 8 * weights + (2 + 4 + 4 + 2) * kv
 
@@ -1335,8 +1392,7 @@ def prefill_bound_ms(runner, size: int) -> float:
     over the whole cache (4 D FLOPs per query, key and head) at the f32
     peak of 67 TFLOP/s (TF32 off)."""
     cfg = runner.config
-    weights = sum(p.numel() for n, p in runner.model.named_parameters()
-                  if n.endswith(".weight") and "embed" not in n)
+    weights = matmul_params(runner.model)
     attn = 4 * cfg.head_dim * size * cfg.max_seq_len * cfg.n_heads
     return (2 * weights * size / PEAK_BF16
             + attn * cfg.n_layers / 67e12) * 1e3
@@ -1346,21 +1402,29 @@ def profile_decode(runner, lengths):
     """One decode step under torch.profiler: device busy time, idle share,
     and device time by class. Kernels inside the device-side range of the
     cached attention (annotated here with record_function) are its class;
-    of the rest, cuBLAS GEMMs are matmul and all else casts/elementwise
-    (chiefly the f32 -> bf16 weight casts)."""
+    inside a Mixtral MoE layer's range, MoE matmul or MoE casts/routing
+    (chiefly the f32 -> bf16 expert-weight casts); of the rest, cuBLAS
+    GEMMs are matmul and all else casts/elementwise (chiefly the f32 ->
+    bf16 weight casts)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     orig = tllama.LlamaAttention._cached_attention
+    moe_orig = tmix.MoELayer.forward
 
     def annotated(self, *args):
         with record_function("cached_attention"):
             return orig(self, *args)
+
+    def moe_annotated(self, *args):
+        with record_function("moe_layer"):
+            return moe_orig(self, *args)
 
     last = [1] * len(lengths)
     runner.decode(last, lengths)
     torch.cuda.synchronize()
     with mock.patch.object(tllama.LlamaAttention, "_cached_attention",
                            annotated), \
+            mock.patch.object(tmix.MoELayer, "forward", moe_annotated), \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1369,16 +1433,24 @@ def profile_decode(runner, lengths):
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [ev for ev in prof.events()
               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    ranges = [(ev.time_range.start, ev.time_range.end) for ev in device
-              if ev.is_user_annotation and ev.name == "cached_attention"]
+    ranges = {name: [(ev.time_range.start, ev.time_range.end)
+                     for ev in device
+                     if ev.is_user_annotation and ev.name == name]
+              for name in ("cached_attention", "moe_layer")}
+    inside = lambda ev, name: any(a <= ev.time_range.start < b
+                                  for a, b in ranges[name])
     by_class, top, kernels = {}, {}, 0
     for ev in device:
         if ev.is_user_annotation:
             continue
         kernels += 1
-        if any(a <= ev.time_range.start < b for a, b in ranges):
+        matmul = kernel_class(ev.name) == "matmul (cuBLAS)"
+        if inside(ev, "cached_attention"):
             cls = "attention (cached, GQA einsums, softmax, cache writes)"
-        elif kernel_class(ev.name) == "matmul (cuBLAS)":
+        elif inside(ev, "moe_layer"):
+            cls = ("moe matmul (router, dispatch, experts)" if matmul
+                   else "moe casts/routing/elementwise")
+        elif matmul:
             cls = "matmul (cuBLAS)"
         else:
             cls = "casts/elementwise"
@@ -1391,22 +1463,20 @@ def profile_decode(runner, lengths):
            for cls, names in top.items()}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if busy else None,
-            "kernels": kernels, "attention_ranges": len(ranges),
+            "kernels": kernels,
+            "attention_ranges": len(ranges["cached_attention"]),
+            "moe_ranges": len(ranges["moe_layer"]),
             "by_class_ms": by_class,
             "top_kernels_ms": top}
 
 
-def phase_serve():
-    """LlamaRunner at full llama_3_8b through the engine (module
-    docstring, phase 11)."""
-    card = nvidia_smi()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    t0 = time.perf_counter()
-    runner = LlamaRunner(config=llama_3_8b(), max_slots=SERVE_SLOTS,
-                         device="cuda")
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+def serve_requests(runner) -> dict:
+    """SERVE_PROMPTS through RequestQueue (tenants a:b = 2:1),
+    ContinuousBatcher and ServingEngine.run_until_idle on ``runner``:
+    TTFT, prefill ms per bucket, decode ms per step, tokens/s and the
+    flash launches (which must read 0: decode runs no flash kernel). Every
+    request must finish to budget with in-vocabulary tokens and finite
+    logits."""
     cfg = runner.config
     prefill_ms, decode_ms = {}, []
     prefill, decode = runner.prefill, runner.decode
@@ -1425,7 +1495,7 @@ def phase_serve():
         return tokens
 
     runner.prefill, runner.decode = timed_prefill, timed_decode
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
 
     def all_finite(module, args, out):
         finite.logical_and_(torch.isfinite(out).all())   # no host sync
@@ -1440,33 +1510,32 @@ def phase_serve():
                 for i, n in enumerate(SERVE_PROMPTS)]
     for request in requests:
         queue.submit(request)
+    fa.reset_launches()
     t0 = time.perf_counter()
     done = engine.run_until_idle()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
     hook.remove()
     runner.prefill, runner.decode = prefill, decode
-    launches = dict(fa.LAUNCHES)
     generated = sum(len(r.output) for r in done)
-    emit({"phase": "serve", "nvidia_smi": card, "layers": cfg.n_layers,
-          "params": sum(p.numel() for p in runner.model.parameters()),
-          "max_seq_len": cfg.max_seq_len, "slots": SERVE_SLOTS,
-          "build_s": build_s,
-          "requests": [{"id": r.id, "tenant": r.tenant,
-                        "prompt": len(r.prompt), "tokens": len(r.output),
-                        "ttft_s": r.ttft_seconds,
-                        "outcome": r.outcome} for r in requests],
-          "prefill_ms_by_bucket": prefill_ms,
-          "prefill_bound_ms_by_bucket": {
-              b: prefill_bound_ms(runner, b) for b in prefill_ms},
-          "decode_steps": len(decode_ms),
-          "decode_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
-          "decode_ms_min": min(decode_ms), "decode_ms_max": max(decode_ms),
-          "generated_tokens": generated, "wall_s": wall_s,
-          "tokens_per_s": generated / wall_s,
-          "max_memory_allocated_gb":
-              torch.cuda.max_memory_allocated() / 2 ** 30,
-          "flash_launches": launches})
+    record = {
+        "layers": cfg.n_layers,
+        "params": sum(p.numel() for p in runner.model.parameters()),
+        "max_seq_len": cfg.max_seq_len, "slots": SERVE_SLOTS,
+        "requests": [{"id": r.id, "tenant": r.tenant,
+                      "prompt": len(r.prompt), "tokens": len(r.output),
+                      "ttft_s": r.ttft_seconds,
+                      "outcome": r.outcome} for r in requests],
+        "prefill_ms_by_bucket": prefill_ms,
+        "decode_steps": len(decode_ms),
+        "decode_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+        "decode_ms_min": min(decode_ms), "decode_ms_max": max(decode_ms),
+        "generated_tokens": generated, "wall_s": wall_s,
+        "tokens_per_s": generated / wall_s,
+        "max_memory_allocated_gb":
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+        "flash_launches": launches}
     bad = [r.id for r in requests
            if r.outcome != "completed" or len(r.output) != SERVE_NEW_TOKENS
            or not all(0 <= t < cfg.vocab_size for t in r.output)]
@@ -1478,7 +1547,25 @@ def phase_serve():
     if any(launches.values()):
         raise AssertionError(f"the serve path launched flash kernels: "
                              f"{launches}")
+    return record
 
+
+def phase_serve():
+    """LlamaRunner at full llama_3_8b through the engine (module
+    docstring, phase 11)."""
+    card = nvidia_smi()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = LlamaRunner(config=llama_3_8b(), max_slots=SERVE_SLOTS,
+                         device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    record = serve_requests(runner)
+    emit({"phase": "serve", "nvidia_smi": card, "build_s": build_s,
+          **record,
+          "prefill_bound_ms_by_bucket": {
+              b: prefill_bound_ms(runner, b)
+              for b in record["prefill_ms_by_bucket"]}})
     lengths = [n + SERVE_NEW_TOKENS + 1 for n in SERVE_PROMPTS[-SERVE_SLOTS:]]
     floor, port = decode_step_bytes(runner)
     emit({"phase": "serve_profile", "nvidia_smi": card,
@@ -1941,6 +2028,347 @@ def phase_resnet_all():
     phase_resnet_payload()
 
 
+# ---------------------------------------------------------------------------
+# Mixtral (models/mixtral.py): check, training, serving, payload
+# ---------------------------------------------------------------------------
+
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_STEPS = 5
+MIXTRAL_LR = 1e-4
+# Flash launches a step at 2 layers under full remat: the forward kernel
+# twice a layer (forward, recompute), the two backward kernels once.
+MIXTRAL_PER_STEP = {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}
+# The two dispatch paths' losses (tests/test_moe_dispatch.py's rtol).
+MIXTRAL_LOSS_RTOL = 5e-3
+MIXTRAL_SERVE_LAYERS = 8
+# Card (f32, TF32 off) against CPU on mixtral_tiny: each MoE output within
+# 1e-5 of its largest value (sums of at most 128 f32 products in another
+# order), aux within 1e-6; a zeroed expert moves outputs by their scale.
+MIXTRAL_CHECK_REL = 1e-5
+MIXTRAL_AUX_ATOL = 1e-6
+
+
+def scaled_ratio(got, want, rel: float) -> float:
+    """max |got - want| over rel * max |want|: the check passes at <= 1."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((got - want).abs().max() / (rel * want.abs().max())).item()
+
+
+def phase_mixtral_check():
+    """mixtral_tiny in f32 (TF32 off), card against CPU on the same weights
+    and inputs: MoELayer outputs, aux and drop counts for both dispatch
+    paths at capacity factors 1.25 and 0.25 (which must drop), and the
+    whole model's logits and aux; the check must reject a layer whose
+    expert 0 outputs zeros."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(tmix.mixtral_tiny(), dtype=torch.float32)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (2, 32, cfg.hidden)), dtype=torch.float32)
+    devices = {"cpu": "cpu", "card": DEVICE}
+    seeded = lambda make, dev: make(dev, torch.Generator(dev).manual_seed(0))
+    cases, bad = [], []
+    for dispatch, factor in itertools.product(tmix.DISPATCHES, (1.25, 0.25)):
+        layer_cfg = dataclasses.replace(cfg, dispatch=dispatch,
+                                        capacity_factor=factor)
+        layers = {where: seeded(functools.partial(tmix.MoELayer, layer_cfg),
+                                dev) for where, dev in devices.items()}
+        layers["card"].load_state_dict(layers["cpu"].state_dict())
+        with torch.no_grad():
+            want, want_aux = layers["cpu"](x)
+            got, aux = layers["card"](x.to(DEVICE))
+            real = layers["card"]._expert_ffn
+
+            def zero_expert(expert_in):
+                out = real(expert_in).clone()
+                out[0] = 0
+                return out
+
+            layers["card"]._expert_ffn = zero_expert
+            wrong, _ = layers["card"](x.to(DEVICE))
+        case = {"dispatch": dispatch, "capacity_factor": factor,
+                "ratio": scaled_ratio(got, want, MIXTRAL_CHECK_REL),
+                "aux_err": abs(aux.item() - want_aux.item()),
+                "dropped": int(layers["card"].dropped_assignments),
+                "dropped_cpu": int(layers["cpu"].dropped_assignments),
+                "expert0_zeroed_ratio": scaled_ratio(wrong, want,
+                                                     MIXTRAL_CHECK_REL)}
+        cases.append(case)
+        if (case["ratio"] > 1 or case["aux_err"] > MIXTRAL_AUX_ATOL
+                or case["dropped"] != case["dropped_cpu"]
+                or (factor < 1 and case["dropped"] == 0)
+                or case["expert0_zeroed_ratio"] <= 1):
+            bad.append(case)
+    models = {where: seeded(functools.partial(tmix.Mixtral, cfg), dev)
+              for where, dev in devices.items()}
+    models["card"].load_state_dict(models["cpu"].state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 32)))
+    with torch.no_grad():
+        want, want_aux = models["cpu"](tokens)
+        got, aux = models["card"](tokens.to(DEVICE))
+    model_case = {"ratio": scaled_ratio(got, want, MIXTRAL_CHECK_REL),
+                  "aux_err": abs(aux.item() - want_aux.item()),
+                  "dropped": [int(layer.moe.dropped_assignments)
+                              for layer in models["card"].layers],
+                  "dropped_cpu": [int(layer.moe.dropped_assignments)
+                                  for layer in models["cpu"].layers]}
+    emit({"phase": "mixtral_check", "dtype": "float32", "tf32": False,
+          "limit": {"rel_to_max": MIXTRAL_CHECK_REL,
+                    "aux_atol": MIXTRAL_AUX_ATOL},
+          "moe_layer": cases, "model": model_case})
+    if (model_case["ratio"] > 1 or model_case["aux_err"] > MIXTRAL_AUX_ATOL
+            or model_case["dropped"] != model_case["dropped_cpu"]):
+        bad.append(model_case)
+    if bad:
+        raise AssertionError(f"Mixtral on the card disagrees with the CPU, "
+                             f"or the check accepts a zeroed expert: {bad}")
+
+
+def mixtral_op_class(op, rows: int, experts: int):
+    """The class of a Mixtral training step's aten op by its name and input
+    shapes, or None: expert matmuls are bmm over E; the dispatch and
+    combine einsums contract or produce ``rows`` = E x capacity; the gather
+    path's index ops; the expert-weight and other casts."""
+    name = op.name
+    shapes = [s for s in op.input_shapes or () if s]
+    if name in ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm"):
+        if name == "aten::bmm" and shapes and shapes[0][0] == experts:
+            return "expert matmuls"
+        if any(rows in shape for shape in shapes):
+            return "dispatch/combine einsums"
+        return "matmul (attention, router, lm_head)"
+    if name in ("aten::index", "aten::index_put_", "aten::_index_put_impl_",
+                "aten::index_add_", "aten::sort", "aten::argsort",
+                "aten::bincount", "aten::gather", "aten::scatter_add_"):
+        return "dispatch/combine index ops"
+    if name in ("aten::copy_", "aten::_to_copy"):
+        return "casts/copies"
+    return None
+
+
+def mixtral_kernel_class(name: str) -> str:
+    """``kernel_class``, with copy kernels (the casts) a class of their
+    own."""
+    cls = kernel_class(name)
+    return "casts/copies" if cls == "other" and "copy" in name else cls
+
+
+def mixtral_flops(cfg, tokens: int, capacity: int, kept: int) -> dict:
+    """Reckoned FLOPs of one training step (remat recompute not counted),
+    6 a parameter a token and attention's 12 D a visible pair and head:
+    the active work (attention projections, router, k of E experts and
+    lm_head), the expert matmuls on capacity padding (E x capacity rows a
+    layer, ``kept`` of them real over the layers), and the dispatch and
+    combine einsums (2 T E C H each forward, x3 with the backward)."""
+    h, m, e, k = cfg.hidden, cfg.mlp_dim, cfg.n_experts, cfg.experts_per_token
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    layers = cfg.n_layers
+    attn_params = h * q + 2 * h * kv + q * h
+    active = (6 * tokens * (layers * (attn_params + h * e + k * 3 * h * m)
+                            + h * cfg.vocab_size)
+              + 12 * cfg.head_dim * cfg.n_heads * layers
+              * visible_pairs(tokens, tokens, True, 0))
+    padding = 6 * 3 * h * m * (layers * e * capacity - kept)
+    dispatch = 3 * 2 * 2 * tokens * e * capacity * h * layers
+    return {"active": active, "capacity_padding": padding,
+            "dispatch_einsums": dispatch}
+
+
+def phase_mixtral_train():
+    """The main path of this family: Trainer + Mixtral at mixtral_8x7b
+    width, 2 layers, B=1, S=2048, bf16 compute, f32 params, full remat,
+    adamw(1e-4), make_moe_lm_loss (aux weight 0.02); MIXTRAL_STEPS steps
+    with each dispatch path from the same seed and batch. Returns the
+    flash launches of both runs' steps."""
+    card = nvidia_smi()
+    cfg = dataclasses.replace(tmix.mixtral_8x7b(),
+                              n_layers=MIXTRAL_TRAIN_LAYERS, remat=True)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               (B, S + 1))
+    batch = {"inputs": tokens}
+    capacity = max(cfg.experts_per_token,
+                   int(B * S * cfg.experts_per_token * cfg.capacity_factor
+                       / cfg.n_experts))
+    runs, total = {}, dict.fromkeys(MIXTRAL_PER_STEP, 0)
+    start_gb = torch.cuda.memory_allocated() / 2 ** 30
+    for dispatch in tmix.DISPATCHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = tmix.Mixtral(dataclasses.replace(cfg, dispatch=dispatch),
+                             device=DEVICE, generator=torch.Generator(
+                                 device=DEVICE).manual_seed(0))
+        params = sum(p.numel() for p in model.parameters())
+        trainer = Trainer(model=model, optimizer=adamw(MIXTRAL_LR),
+                          loss_fn=tmix.make_moe_lm_loss(cfg.aux_loss_weight),
+                          device=DEVICE)
+        state = trainer.init()
+        step = trainer.make_train_step()
+        torch.cuda.synchronize()
+        losses, norms, drops, step_s = [], [], [], []
+        fa.reset_launches()
+        for _ in range(MIXTRAL_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            drops.append([int(layer.moe.dropped_assignments)
+                          for layer in model.layers])
+        launches = dict(fa.LAUNCHES)
+        for name in total:
+            total[name] += launches.get(name, 0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_step(step, state, batch, mixtral_kernel_class,
+                            functools.partial(
+                                mixtral_op_class,
+                                rows=cfg.n_experts * capacity,
+                                experts=cfg.n_experts))
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        kept = B * S * cfg.experts_per_token * cfg.n_layers - sum(drops[-1])
+        flops = mixtral_flops(cfg, B * S, capacity, kept)
+        runs[dispatch] = {
+            "losses": losses, "grad_norms": norms,
+            "dropped_per_layer": drops, "step_ms": [t * 1e3 for t in step_s],
+            "ms_per_step": steady * 1e3, "tokens_per_s": B * S / steady,
+            "flops_per_step": flops,
+            "mfu_active_vs_989_tflops": flops["active"] / steady / PEAK_BF16,
+            "max_memory_allocated_gb": peak,
+            "free_gb_at_peak": (torch.cuda.get_device_properties(0)
+                                .total_memory / 2 ** 30 - peak),
+            "launches": launches,
+            "launches_per_step": {n: c / MIXTRAL_STEPS
+                                  for n, c in launches.items()},
+            "profile": prof}
+        del model, trainer, state, step, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    einsum, gather = runs["einsum"], runs["gather"]
+    emit({"phase": "mixtral_train", "nvidia_smi": card,
+          "memory_allocated_gb_at_start": start_gb,
+          "layers": cfg.n_layers, "batch": B, "seq": S,
+          "params": params, "capacity": capacity, "steps": MIXTRAL_STEPS,
+          "lr": MIXTRAL_LR, "aux_loss_weight": cfg.aux_loss_weight,
+          "loss_rtol": MIXTRAL_LOSS_RTOL, "runs": runs})
+    for dispatch, run in runs.items():
+        if not all(math.isfinite(v) for v in run["losses"] + run["grad_norms"]):
+            raise AssertionError(f"{dispatch}: non-finite loss or grad norm")
+        if not run["losses"][-1] < run["losses"][0]:
+            raise AssertionError(f"{dispatch}: loss did not fall: "
+                                 f"{run['losses']}")
+        want = {n: c * MIXTRAL_STEPS for n, c in MIXTRAL_PER_STEP.items()}
+        if run["launches"] != want:
+            raise AssertionError(f"{dispatch}: flash launches "
+                                 f"{run['launches']} != {want}")
+    np.testing.assert_allclose(gather["losses"], einsum["losses"],
+                               rtol=MIXTRAL_LOSS_RTOL)
+    # The first step routes the same weights and batch: the same drops.
+    # Later steps start from weights that differ in the last bf16 bits
+    # (the paths' backward sums round differently), so they are printed.
+    if einsum["dropped_per_layer"][0] != gather["dropped_per_layer"][0]:
+        raise AssertionError(f"first-step drop counts differ between the "
+                             f"dispatch paths: {einsum['dropped_per_layer']}"
+                             f" {gather['dropped_per_layer']}")
+    return total
+
+
+def phase_mixtral_serve():
+    """Decode at 2 layers of mixtral_8x7b width in f32 (TF32 off): cached
+    prefill and decode logits (2 slots, prompts of DECODE_LENS tokens,
+    DECODE_STEPS steps) against the drop-free no-cache forward
+    (capacity_factor = n_experts) of the same weights, and the greedy
+    tokens of both equal; then MixtralRunner at 8 layers (f32 params,
+    bf16 compute, max_seq_len 8192, SERVE_SLOTS slots) serves
+    SERVE_PROMPTS, and one decode step is profiled."""
+    card = nvidia_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dataclasses.replace(tmix.mixtral_8x7b(), n_layers=2,
+                               remat=False, dtype=torch.float32)
+    free = dataclasses.replace(base, capacity_factor=float(base.n_experts))
+    rng = np.random.default_rng(1)
+    seq = max(DECODE_LENS) + DECODE_STEPS
+    tokens = torch.as_tensor(rng.integers(0, base.vocab_size, (2, seq)),
+                             device=DEVICE)
+    other = torch.as_tensor(rng.integers(0, base.vocab_size, (1, seq)),
+                            device=DEVICE)
+    seeded = lambda c: tmix.Mixtral(c, device=DEVICE,
+                                    generator=torch.Generator(
+                                        device=DEVICE).manual_seed(0))
+    model = seeded(free)
+    with torch.no_grad():
+        truth = model(tokens)[0].float()
+    del model
+    torch.cuda.empty_cache()
+    want = torch.cat([truth[slot, :n + DECODE_STEPS]
+                      for slot, n in enumerate(DECODE_LENS)])
+    model = seeded(dataclasses.replace(base, decode=True))
+    got = cached_logits(model, tokens, other, lib=tmix)
+    del model
+    torch.cuda.empty_cache()
+    f32 = check("logits", got, want, rel=DECODE_REL, tol=DECODE_REL)
+    greedy_equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    emit({"phase": "mixtral_decode", "nvidia_smi": card, "layers": 2,
+          "slot_prompts": list(DECODE_LENS), "decode_steps": DECODE_STEPS,
+          "f32": {"max_abs_err": f32["max_abs_err"],
+                  "limit": {"atol": f32["atol"], "rtol": DECODE_REL,
+                            "rel_l2": DECODE_REL},
+                  "rel_l2": f32["rel_l2"], "ratio": f32["ratio"]},
+          "greedy_tokens_equal": greedy_equal})
+    if not f32["ok"] or not greedy_equal:
+        raise AssertionError(f"cached Mixtral logits off the drop-free "
+                             f"forward: ratio {f32['ratio']}, greedy "
+                             f"tokens equal {greedy_equal}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = MixtralRunner(config=dataclasses.replace(
+        tmix.mixtral_8x7b(), n_layers=MIXTRAL_SERVE_LAYERS),
+        max_slots=SERVE_SLOTS, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    record = serve_requests(runner)
+    emit({"phase": "mixtral_serve", "nvidia_smi": card, "build_s": build_s,
+          "dispatch": runner.config.dispatch, **record})
+    lengths = [n + SERVE_NEW_TOKENS + 1 for n in SERVE_PROMPTS[-SERVE_SLOTS:]]
+    floor, port = decode_step_bytes(runner)
+    emit({"phase": "mixtral_serve_profile", "nvidia_smi": card,
+          "slots": SERVE_SLOTS, "lengths": lengths,
+          **profile_decode(runner, lengths),
+          "reckoned_bytes": {"floor": floor, "port": port,
+                             "floor_ms": floor / PEAK_BYTES * 1e3,
+                             "port_ms": port / PEAK_BYTES * 1e3}})
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mixtral_payload():
+    command = [sys.executable, "-m",
+               "tf_operator_tpu_torch.train.train_mixtral", "--size", "tiny",
+               "--steps", "4"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.splitlines()
+    emit({"phase": "mixtral_payload", "args": command[3:],
+          "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+          "stdout": lines})
+    if proc.returncode != 0 or "mixtral training OK" not in lines:
+        raise AssertionError(f"train_mixtral exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+
+
+def phase_mixtral_all() -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mixtral_check()
+    launches = phase_mixtral_train()
+    phase_mixtral_serve()
+    phase_mixtral_payload()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1980,6 +2408,7 @@ def main() -> int:
         phase_worker()
         phase_resume(root)
         phase_resnet_all()
+        mixtral_launches = phase_mixtral_all()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1990,7 +2419,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_by_path": {"train": launches[name],
-                                 "dist": dist_launches[name]},
+                                 "dist": dist_launches[name],
+                                 "mixtral": mixtral_launches[name]},
             "max_abs_err": errs[name], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"]})

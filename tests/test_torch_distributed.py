@@ -20,6 +20,15 @@ JAX side, which runs in the test process on ``jax.devices()[:4]``:
   ``tests/test_llama_decode.py``'s ATOL (1e-5);
 - a DCP save at (fsdp=2, tp=2) restored at (dp=4) and, after the world is
   gone, at world 1: parameters and AdamW moments bit-equal;
+- ``mixtral_tiny`` (f32), 3 steps of ``make_moe_lm_loss`` under
+  ``MOE_RULES`` at ``MeshConfig(dp=2, ep=2)`` with each dispatch path and
+  at ``MeshConfig(fsdp=2, tp=2)``, against the JAX ``Trainer`` on the same
+  mesh: losses, grad norms and gathered parameters within 5e-4 (the
+  default capacity drops there, so routing over the global batch is held
+  to JAX's);
+- tp=2 Mixtral prefill and decode logits (``MeshConfig(dp=2, tp=2)``)
+  against the unsharded drop-free JAX forward within 1e-5, as the Llama
+  case (tighter than ``tests/test_mixtral_decode.py``'s 2e-5);
 - a 2-rank ``dist_mnist`` step (a mesh over ranks 0 and 1) against the
   1-rank step on the global batch within 1e-5;
 - a save whose write fails on one rank raises on every rank and commits
@@ -50,6 +59,11 @@ TRAIN_MESHES = {"fsdp2_tp2": dict(fsdp=2, tp=2),
                 "dcn2_tp2": dict(dcn=2, tp=2),
                 "dp2_fsdp2_masked": dict(dp=2, fsdp=2)}
 MASKED = ("dp2_fsdp2_masked",)
+# Mixtral under MOE_RULES: experts over ep (each dispatch path), and the
+# experts' mlp dim over tp with FSDP.
+MOE_MESHES = {"moe_dp2_ep2_einsum": (dict(dp=2, ep=2), "einsum"),
+              "moe_dp2_ep2_gather": (dict(dp=2, ep=2), "gather"),
+              "moe_fsdp2_tp2": (dict(fsdp=2, tp=2), "einsum")}
 TRAIN_TOL = 5e-4
 FLASH_TOL, FLASH_GRAD_TOL = 2e-5, 2e-4
 DECODE_ATOL = 1e-5
@@ -62,6 +76,13 @@ def tiny_fields():
     return dict(vocab_size=256, hidden=64, n_layers=2, n_heads=4,
                 n_kv_heads=2, head_dim=16, mlp_dim=128, max_seq_len=64,
                 rope_theta=10000.0, remat=False)
+
+
+def moe_fields():
+    return dict(vocab_size=256, hidden=64, n_layers=2, n_heads=4,
+                n_kv_heads=2, head_dim=16, mlp_dim=128, n_experts=4,
+                experts_per_token=2, max_seq_len=64, rope_theta=10000.0,
+                remat=False)
 
 
 def flash_inputs():
@@ -125,6 +146,65 @@ def _train_case(inputs, name, ckpt_dir=None):
         ckpt.close()
         out["moments"] = _gathered_moments(state.opt_state)
     return out
+
+
+def _moe_train_case(inputs, name):
+    from tf_operator_tpu_torch.models import mixtral as tmix
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from tf_operator_tpu_torch.parallel.sharding import MOE_RULES
+    from tf_operator_tpu_torch.train import trainer as ttr
+
+    fields, dispatch = MOE_MESHES[name]
+    cfg = tmix.MixtralConfig(dtype=torch.float32, dispatch=dispatch,
+                             **moe_fields())
+    model = tmix.Mixtral(cfg, device="cpu")
+    model.load_state_dict(inputs["mixtral"])
+    mesh = make_mesh(MeshConfig(**fields), device="cpu")
+    trainer = ttr.Trainer(model=model, optimizer=ttr.adamw(LR), device="cpu",
+                          loss_fn=tmix.make_moe_lm_loss(cfg.aux_loss_weight),
+                          mesh=mesh, rules=MOE_RULES,
+                          param_axes_fn=tmix.param_logical_axes)
+    state = trainer.init()
+    step = trainer.make_train_step()
+    losses, norms = [], []
+    for tokens in inputs["tokens"]:
+        state, metrics = step(state, {"inputs": tokens})
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    expert = model.layers[0].moe.w_gate
+    return {"losses": losses, "grad_norms": norms,
+            "params": _gathered(model),
+            "expert_local_shape": tuple(expert.to_local().shape)}
+
+
+def _moe_decode_case(inputs):
+    from tf_operator_tpu_torch.models import mixtral as tmix
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from tf_operator_tpu_torch.parallel.sharding import (
+        MOE_RULES,
+        shard_model,
+    )
+
+    base = tmix.mixtral_tiny(64, 32)
+    cfg = dataclasses.replace(base, dtype=torch.float32, decode=True,
+                              capacity_factor=float(base.n_experts))
+    model = tmix.Mixtral(cfg, device="cpu")
+    model.load_state_dict(inputs["moe_decode_params"])
+    mesh = make_mesh(MeshConfig(dp=2, tp=2), device="cpu")
+    shard_model(model, mesh, MOE_RULES, tmix.param_logical_axes)
+    toks = torch.as_tensor(inputs["moe_decode_tokens"])
+    b, s = toks.shape
+    cache = tmix.init_cache(model, b)
+    positions = torch.arange(DECODE_SPLIT).expand(b, DECODE_SPLIT)
+    logits, cache = tmix.prefill(model, cache, toks[:, :DECODE_SPLIT],
+                                 positions)
+    steps = [logits]
+    for t in range(DECODE_SPLIT, s):
+        logits, cache = tmix.decode_step(model, cache, toks[:, t:t + 1],
+                                         torch.full((b, 1), t))
+        steps.append(logits)
+    return {"logits": torch.cat(steps, dim=1),
+            "cache_kv_heads": cache["k"].shape[3]}
 
 
 def _restore_case(inputs, ckpt_dir, seed):
@@ -304,6 +384,9 @@ def _worker(work_dir: str) -> None:
         for name in TRAIN_MESHES:
             results[name] = _train_case(
                 inputs, name, ckpt_dir if name == "fsdp2_tp2" else None)
+        for name in MOE_MESHES:
+            results[name] = _moe_train_case(inputs, name)
+        results["moe_decode"] = _moe_decode_case(inputs)
         results["restore_dp4"] = _restore_case(inputs, ckpt_dir, seed=1)
         results["flash"] = _flash_case(inputs)
         results["decode"] = _decode_case(inputs)
@@ -388,6 +471,44 @@ def _jax_training(tokens, masks, init_params):
     return out
 
 
+def _jax_moe_training(tokens, init_params):
+    """3 JAX Trainer steps of make_moe_lm_loss per MoE mesh, each from
+    ``init_params``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from tf_operator_tpu.models import mixtral as jmix
+    from tf_operator_tpu.parallel.mesh import MeshConfig, make_mesh
+    from tf_operator_tpu.parallel.sharding import MOE_RULES
+    from tf_operator_tpu.train import trainer as jtr
+
+    out = {}
+    for name, (fields, dispatch) in MOE_MESHES.items():
+        cfg = jmix.MixtralConfig(dtype=jnp.float32, dispatch=dispatch,
+                                 **moe_fields())
+        mesh = make_mesh(MeshConfig(**fields), devices=jax.devices()[:WORLD])
+        trainer = jtr.Trainer(model=jmix.Mixtral(cfg),
+                              param_axes_fn=jmix.param_logical_axes,
+                              rules=MOE_RULES, mesh=mesh,
+                              optimizer=optax.adamw(LR),
+                              loss_fn=jmix.make_moe_lm_loss(
+                                  cfg.aux_loss_weight))
+        sample = {"inputs": jnp.zeros_like(jnp.asarray(tokens[0]))}
+        state, shardings = trainer.init(jax.random.PRNGKey(0), sample)
+        jax.tree.map(np.testing.assert_array_equal,
+                     jax.tree.map(np.asarray, state.params), init_params)
+        step = trainer.make_train_step(shardings, sample)
+        losses, norms = [], []
+        for t in tokens:
+            state, m = step(state, {"inputs": jnp.asarray(t)})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[name] = {"losses": losses, "grad_norms": norms,
+                     "params": jax.tree.map(np.asarray, state.params)}
+    return out
+
+
 def _start_world(work):
     """Spawn the 4 ranks on ``work/inputs.pt``; returns (process, log)
     pairs."""
@@ -431,9 +552,14 @@ def world(tmp_path_factory):
     import jax.numpy as jnp
 
     from tf_operator_tpu.models import llama as jllama
+    from tf_operator_tpu.models import mixtral as jmix
     from tf_operator_tpu.ops.layers import attention, repeat_kv
     from tf_operator_tpu_torch.models import llama as tllama
-    from tf_operator_tpu_torch.models.convert import llama_params_from_flax
+    from tf_operator_tpu_torch.models import mixtral as tmix
+    from tf_operator_tpu_torch.models.convert import (
+        llama_params_from_flax,
+        mixtral_params_from_flax,
+    )
 
     if len(jax.devices()) < WORLD:
         pytest.skip(f"needs {WORLD} devices (conftest forces 8)")
@@ -459,16 +585,35 @@ def world(tmp_path_factory):
     dparams = jax.tree.map(np.asarray, dmodel.init(rng, dtoks)["params"])
     tdcfg = dataclasses.replace(tllama.llama_tiny(64, 32),
                                 dtype=torch.float32)
+    # Mixtral: the trainer's init params, and the drop-free decode setup
+    # of tests/test_mixtral_decode.py.
+    jmcfg = jmix.MixtralConfig(dtype=jnp.float32, **moe_fields())
+    tmcfg = tmix.MixtralConfig(dtype=torch.float32, **moe_fields())
+    moe_params = jax.tree.map(np.asarray, jmix.Mixtral(jmcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((BATCH, SEQ + 1), jnp.int32))
+        ["params"])
+    mbase = jmix.mixtral_tiny(vocab_size=64, max_seq_len=32)
+    mdcfg = dataclasses.replace(mbase, dtype=jnp.float32,
+                                capacity_factor=float(mbase.n_experts))
+    mtoks = jax.random.randint(rng, (2, 12), 0, mdcfg.vocab_size)
+    mdmodel = jmix.Mixtral(mdcfg)
+    mdparams = jax.tree.map(np.asarray, mdmodel.init(rng, mtoks)["params"])
     flash = flash_inputs()
     torch.save({"llama": llama_params_from_flax(init_params, tcfg),
                 "tokens": tokens, "masks": masks, "flash": flash,
                 "decode_params": llama_params_from_flax(dparams, tdcfg),
-                "decode_tokens": np.asarray(dtoks)},
+                "decode_tokens": np.asarray(dtoks),
+                "mixtral": mixtral_params_from_flax(moe_params, tmcfg),
+                "moe_decode_params": mixtral_params_from_flax(
+                    mdparams, tmix.mixtral_tiny(64, 32)),
+                "moe_decode_tokens": np.asarray(mtoks)},
                work / "inputs.pt")
     procs = _start_world(work)
     try:
         jax_train = _jax_training(tokens, masks, init_params)
+        jax_moe = _jax_moe_training(tokens, moe_params)
         dfull = np.asarray(dmodel.apply({"params": dparams}, dtoks))
+        mdfull = np.asarray(mdmodel.apply({"params": mdparams}, mtoks)[0])
         f = {n: jnp.asarray(a) for n, a in flash.items()}
         group = f["q"].shape[2] // f["k"].shape[2]
 
@@ -487,7 +632,9 @@ def world(tmp_path_factory):
                           "dq": np.asarray(grads[0]),
                           "dk": np.asarray(grads[1]),
                           "dv": np.asarray(grads[2])},
-                "decode_full": dfull, "tcfg": tcfg}
+                "decode_full": dfull, "tcfg": tcfg, "moe_train": jax_moe,
+                "moe_init_params": moe_params, "tmcfg": tmcfg,
+                "moe_decode_full": mdfull}
     return results, jax_side
 
 
@@ -511,6 +658,42 @@ def test_sharded_steps_match_jax_trainer(world, mesh_name):
                                    err_msg=name)
         # The steps moved every parameter.
         assert not torch.equal(param, start[name]), name
+
+
+@pytest.mark.parametrize("mesh_name", list(MOE_MESHES))
+def test_sharded_moe_steps_match_jax_trainer(world, mesh_name):
+    from tf_operator_tpu_torch.models.convert import mixtral_params_from_flax
+
+    results, jax_side = world
+    got, want = results[mesh_name], jax_side["moe_train"][mesh_name]
+    fields, _ = MOE_MESHES[mesh_name]
+    # Each rank held E/ep experts and mlp/tp columns (FSDP2 splits dim 0
+    # further over fsdp).
+    e, h, m = (moe_fields()[k] for k in ("n_experts", "hidden", "mlp_dim"))
+    assert got["expert_local_shape"] == (
+        e // fields.get("ep", 1) // fields.get("fsdp", 1), h,
+        m // fields.get("tp", 1))
+    np.testing.assert_allclose(got["losses"], want["losses"],
+                               atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    np.testing.assert_allclose(got["grad_norms"], want["grad_norms"],
+                               atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    tmcfg = jax_side["tmcfg"]
+    want_params = mixtral_params_from_flax(want["params"], tmcfg)
+    start = mixtral_params_from_flax(jax_side["moe_init_params"], tmcfg)
+    assert set(got["params"]) == set(want_params)
+    for name, param in got["params"].items():
+        np.testing.assert_allclose(param.numpy(), want_params[name].numpy(),
+                                   atol=TRAIN_TOL, rtol=TRAIN_TOL,
+                                   err_msg=name)
+        assert not torch.equal(param, start[name]), name
+
+
+def test_tp2_sharded_moe_decode_matches_unsharded(world):
+    results, jax_side = world
+    got = results["moe_decode"]
+    assert got["cache_kv_heads"] == 1
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               jax_side["moe_decode_full"], atol=DECODE_ATOL)
 
 
 def test_sharded_flash_gqa_matches_reference(world):

@@ -53,8 +53,10 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
     assert count >= 30, proc.stdout
-    for module in ("distributed", "mesh", "sharding"):
-        assert f"tf_operator_tpu_torch.parallel.{module}" in proc.stdout
+    for module in ("parallel.distributed", "parallel.mesh",
+                   "parallel.sharding", "models.mixtral", "serve.gateway",
+                   "train.train_mixtral"):
+        assert f"tf_operator_tpu_torch.{module}" in proc.stdout.split()
 
 
 def test_blocker_matches_exact_package_name():
@@ -72,12 +74,15 @@ def test_blocker_matches_exact_package_name():
                                    "worker", "mnist", "mnist_payload",
                                    "resnet", "resnet_payload",
                                    "native_pipeline", "mesh",
-                                   "distributed", "sharded_payload"])
+                                   "distributed", "sharded_payload",
+                                   "mixtral", "mixtral_runner",
+                                   "mixtral_payload"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device and no card, each entry point raises instead of
     running on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tf_operator_tpu_torch.models.llama import Llama, llama_tiny
+    from tf_operator_tpu_torch.models.mixtral import Mixtral, mixtral_tiny
     from tf_operator_tpu_torch.models.mnist import MnistCNN
     from tf_operator_tpu_torch.models.resnet import ResNet, resnet_tiny
     from tf_operator_tpu_torch.parallel.distributed import (
@@ -85,11 +90,12 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     )
     from tf_operator_tpu_torch.parallel.mesh import make_mesh
     from tf_operator_tpu_torch.serve import worker
-    from tf_operator_tpu_torch.serve.runner import LlamaRunner
+    from tf_operator_tpu_torch.serve.runner import LlamaRunner, MixtralRunner
     from tf_operator_tpu_torch.train import (
         data,
         dist_mnist,
         train_llama,
+        train_mixtral,
         train_resnet,
     )
     from tf_operator_tpu_torch.train.trainer import Trainer, adamw
@@ -124,6 +130,12 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
                 "JAX_COORDINATOR_ADDRESS": "127.0.0.1:1"})
         elif entry == "sharded_payload":
             train_llama.main(["--steps", "1", "--fsdp", "1", "--tp", "1"])
+        elif entry == "mixtral":
+            Mixtral(mixtral_tiny())
+        elif entry == "mixtral_runner":
+            MixtralRunner()
+        elif entry == "mixtral_payload":
+            train_mixtral.main(["--steps", "1"])
         else:
             worker.main(["--runner", "llama", "--spool", str(tmp_path)])
 

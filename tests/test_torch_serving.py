@@ -198,11 +198,6 @@ def test_llama_runner_rejects_prompts_outside_the_cache():
             runner.prefill([1] * length, 0)
 
 
-def test_mixtral_runner_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        trunner.MixtralRunner(device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # Spool and worker
 # ---------------------------------------------------------------------------

@@ -1,12 +1,16 @@
-"""Carry Llama, MNIST and ResNet weights (and ResNet's BatchNorm
-statistics) and Llama KV caches between flax trees and the port.
+"""Carry Llama, Mixtral, MNIST and ResNet weights (and ResNet's BatchNorm
+statistics) and Llama/Mixtral KV caches between flax trees and the port.
 
 The flax tree (``tf_operator_tpu/models/llama.py``) stacks every block
 parameter on a leading ``layers`` axis (``nn.scan``) under ``blocks/`` and
 stores ``Dense`` kernels as [in, out]; the port keeps one module per layer
 and [out, in] weights. The decode cache has one layout in both, [layers,
 batch, max_seq_len, kv_heads, head_dim], under ``blocks/attn/{k,v}`` in
-the flax ``cache`` collection and ``{"k", "v"}`` in the port. Both
+the flax ``cache`` collection and ``{"k", "v"}`` in the port. A Mixtral
+tree is a Llama one with ``blocks/moe/`` (the router ``Dense`` and the
+expert tensors ``w_gate``/``w_up`` [E, H, M] and ``w_down`` [E, M, H],
+whose layout the port keeps) in place of ``blocks/mlp/``; its cache is
+the Llama cache, so ``llama_cache_{from,to}_flax`` carry it. Both
 directions take and give plain arrays (numpy on the flax side, torch
 tensors on the port's), and raise on any leaf left over or missing.
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from tf_operator_tpu_torch.models.llama import LlamaConfig
+from tf_operator_tpu_torch.models.mixtral import MixtralConfig
 
 # flax path under blocks/ -> (port name under layers.{i}., transposed?)
 _BLOCK_LEAVES = {
@@ -42,6 +47,15 @@ _BLOCK_LEAVES = {
     ("mlp", "up", "kernel"): ("mlp.up.weight", True),
     ("mlp", "down", "kernel"): ("mlp.down.weight", True),
     ("mlp_norm", "scale"): ("mlp_norm.scale", False),
+}
+# A Mixtral block: the Llama block's attention and norms, and the MoE layer.
+_MIXTRAL_BLOCK_LEAVES = {
+    **{path: leaf for path, leaf in _BLOCK_LEAVES.items()
+       if path[0] != "mlp"},
+    ("moe", "router", "kernel"): ("moe.router.weight", True),
+    ("moe", "w_gate"): ("moe.w_gate", False),
+    ("moe", "w_up"): ("moe.w_up", False),
+    ("moe", "w_down"): ("moe.w_down", False),
 }
 _TOP_LEAVES = {
     ("embed_tokens", "embedding"): ("embed_tokens.weight", False),
@@ -71,9 +85,10 @@ def _unflatten(flat: Mapping[tuple, object]) -> Dict:
     return tree
 
 
-def llama_params_from_flax(params: Mapping, cfg: LlamaConfig
-                           ) -> Dict[str, torch.Tensor]:
-    """flax ``params`` (nested dict of arrays) -> the port's state_dict."""
+def _stacked_from_flax(params: Mapping, n_layers: int, block_leaves: Mapping
+                       ) -> Dict[str, torch.Tensor]:
+    """flax ``params`` with ``blocks/`` scanned over ``n_layers`` -> the
+    port's state_dict, by the leaf tables."""
     flat = _flatten(params)
     state: Dict[str, torch.Tensor] = {}
 
@@ -88,13 +103,13 @@ def llama_params_from_flax(params: Mapping, cfg: LlamaConfig
 
     for path, (name, transpose) in _TOP_LEAVES.items():
         state[name] = to_torch(take(path), transpose)
-    for path, (name, transpose) in _BLOCK_LEAVES.items():
+    for path, (name, transpose) in block_leaves.items():
         stacked = take(("blocks",) + path)
-        if stacked.shape[0] != cfg.n_layers:
+        if stacked.shape[0] != n_layers:
             raise ValueError(f"blocks/{'/'.join(path)} stacks "
                              f"{stacked.shape[0]} layers, config has "
-                             f"{cfg.n_layers}")
-        for i in range(cfg.n_layers):
+                             f"{n_layers}")
+        for i in range(n_layers):
             state[f"layers.{i}.{name}"] = to_torch(stacked[i], transpose)
     if flat:
         raise KeyError("flax params left over: " + ", ".join(
@@ -102,9 +117,10 @@ def llama_params_from_flax(params: Mapping, cfg: LlamaConfig
     return state
 
 
-def llama_params_to_flax(state: Mapping[str, torch.Tensor],
-                         cfg: LlamaConfig) -> Dict:
-    """The port's state_dict -> flax ``params`` (nested dict of numpy)."""
+def _stacked_to_flax(state: Mapping[str, torch.Tensor], n_layers: int,
+                     block_leaves: Mapping) -> Dict:
+    """The port's state_dict -> flax ``params`` (nested dict of numpy),
+    the blocks stacked on a leading ``layers`` axis."""
     state = {k: v.detach().float().cpu().numpy() for k, v in state.items()}
     flat = {}
 
@@ -116,14 +132,39 @@ def llama_params_to_flax(state: Mapping[str, torch.Tensor],
 
     for path, (name, transpose) in _TOP_LEAVES.items():
         flat[path] = take(name, transpose)
-    for path, (name, transpose) in _BLOCK_LEAVES.items():
+    for path, (name, transpose) in block_leaves.items():
         flat[("blocks",) + path] = np.stack(
             [take(f"layers.{i}.{name}", transpose)
-             for i in range(cfg.n_layers)])
+             for i in range(n_layers)])
     if state:
         raise KeyError("state_dict entries left over: "
                        + ", ".join(sorted(state)))
     return _unflatten(flat)
+
+
+def llama_params_from_flax(params: Mapping, cfg: LlamaConfig
+                           ) -> Dict[str, torch.Tensor]:
+    """flax ``params`` (nested dict of arrays) -> the port's state_dict."""
+    return _stacked_from_flax(params, cfg.n_layers, _BLOCK_LEAVES)
+
+
+def llama_params_to_flax(state: Mapping[str, torch.Tensor],
+                         cfg: LlamaConfig) -> Dict:
+    """The port's state_dict -> flax ``params`` (nested dict of numpy)."""
+    return _stacked_to_flax(state, cfg.n_layers, _BLOCK_LEAVES)
+
+
+def mixtral_params_from_flax(params: Mapping, cfg: MixtralConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """flax Mixtral ``params`` -> the port's state_dict (expert tensors in
+    the flax [E, in, out] layout, the router Dense transposed)."""
+    return _stacked_from_flax(params, cfg.n_layers, _MIXTRAL_BLOCK_LEAVES)
+
+
+def mixtral_params_to_flax(state: Mapping[str, torch.Tensor],
+                           cfg: MixtralConfig) -> Dict:
+    """The port's Mixtral state_dict -> flax ``params`` (numpy)."""
+    return _stacked_to_flax(state, cfg.n_layers, _MIXTRAL_BLOCK_LEAVES)
 
 
 _CACHE_LEAVES = {("blocks", "attn", "k"): "k", ("blocks", "attn", "v"): "v"}

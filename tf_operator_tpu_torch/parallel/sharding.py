@@ -25,13 +25,19 @@ per mesh dimension (``AXIS_ORDER``), the counterpart of a JAX
   block of a ``ModuleList`` (the layers) a unit of its own, then the
   root. FSDP2 shards every parameter's dim 0 whatever dim the rule names;
   it gathers the parameter before use, so the numbers do not change.
+- ``ep`` (``MOE_RULES``): a parameter of any other module that shards
+  over ``ep`` or ``tp`` (the Mixtral expert tensors: the expert dim over
+  ``ep``, the expert ``mlp`` dim over ``tp``) becomes a DTensor on the
+  (ep, tp) mesh, and the module computes on its local shard
+  (``models/mixtral.py``). ``ep`` is not a data axis: its ranks see the
+  same batch.
 - ``dcn``/``dp``: replicated, as HSDP: ``fully_shard`` on the 2-D mesh
   (``dcn`` x ``dp`` flattened, ``fsdp``), which all-reduces gradients
   over the replicas and reduce-scatters them within one.
 The batch is sharded over (dcn, dp, fsdp) by the trainer.
 
-``pp``, ``sp`` and ``ep`` above 1 raise: the pipeline, ring attention and
-MoE are not ported yet.
+``pp`` and ``sp`` above 1 raise: the pipeline and ring attention are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -89,6 +95,8 @@ CNN_RULES: Rules = {
 # Output feature axes whose activations are all-gathered after their
 # projection: the logits leave the model whole.
 GATHERED_AXES = ("vocab",)
+# The mesh axes that split a model's parameters (not its batch).
+MODEL_AXES = ("ep", "tp")
 
 ParamAxesFn = Callable[[str, torch.Tensor], Tuple[Optional[str], ...]]
 
@@ -165,14 +173,17 @@ def _fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
     return mesh[(flat, "fsdp")]
 
 
-def _tp_placement(name: str, param: torch.Tensor, rules: Rules,
-                  param_axes_fn: ParamAxesFn) -> Tuple[Optional[int], tuple]:
+def _model_placements(name: str, param: torch.Tensor, rules: Rules,
+                      param_axes_fn: ParamAxesFn
+                      ) -> Tuple[List[Placement], tuple]:
+    """The parameter's placements on the (ep, tp) dimensions, and its
+    logical axes."""
     axes = tuple(param_axes_fn(name, param))
     if len(axes) != param.dim():
         raise ValueError(f"{name}: logical axes {axes} for a "
                          f"{param.dim()}-d parameter")
-    placement = spec_for(axes, rules)[AXIS_ORDER.index("tp")]
-    return (placement.dim if placement.is_shard() else None), axes
+    placements = spec_for(axes, rules)
+    return [placements[AXIS_ORDER.index(a)] for a in MODEL_AXES], axes
 
 
 def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Rules,
@@ -184,30 +195,40 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Rules,
     from torch.distributed.fsdp import fully_shard
 
     shape = mesh_shape(mesh)
-    for axis, what in (("pp", "pipeline"), ("sp", "ring attention"),
-                       ("ep", "MoE")):
+    for axis, what in (("pp", "pipeline"), ("sp", "ring attention")):
         if shape.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"{axis}={shape[axis]}: the {what} is not ported yet")
-    tp_mesh = mesh["tp"]
+    model_mesh = mesh[MODEL_AXES]
     for prefix, module in list(model.named_modules()):
         split = {}
         for pname, param in module.named_parameters(recurse=False):
             name = f"{prefix}.{pname}" if prefix else pname
-            dim, axes = _tp_placement(name, param, rules, param_axes_fn)
-            if dim is not None:
-                split[pname] = (dim, axes)
+            placements, axes = _model_placements(name, param, rules,
+                                                 param_axes_fn)
+            for axis, placement in zip(MODEL_AXES, placements):
+                if placement.is_shard() and (
+                        param.shape[placement.dim] % shape[axis]):
+                    raise ValueError(
+                        f"{name}: dim {placement.dim} of "
+                        f"{tuple(param.shape)} does not split over "
+                        f"{axis}={shape[axis]}")
+            if any(p.is_shard() for p in placements):
+                split[pname] = (placements, axes)
         if not split:
             continue
-        if set(split) != {"weight"}:
+        if not isinstance(module, (Dense, nn.Embedding)):
+            for pname, (placements, _) in split.items():
+                module.register_parameter(pname, nn.Parameter(
+                    distribute_tensor(getattr(module, pname), model_mesh,
+                                      placements)))
+            continue
+        if set(split) != {"weight"} or split["weight"][0][0].is_shard():
             raise NotImplementedError(
-                f"{prefix}: tensor parallelism over {sorted(split)}")
-        dim, axes = split["weight"]
-        if module.weight.shape[dim] % shape["tp"]:
-            raise ValueError(f"{prefix}: weight dim {dim} of "
-                             f"{tuple(module.weight.shape)} does not split "
-                             f"over tp={shape['tp']}")
-        _place_projection(module, tp_mesh, dim,
+                f"{prefix}: no placement of {type(module).__name__} "
+                f"parameters {sorted(split)} over ep/tp")
+        (_, tp), axes = split["weight"]
+        _place_projection(module, mesh["tp"], tp.dim,
                           gather_output=axes[0] in GATHERED_AXES)
     dp_mesh = _fsdp_mesh(mesh)
     for module in model.modules():

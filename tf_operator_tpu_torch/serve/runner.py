@@ -1,5 +1,6 @@
 """Model runners: the continuous batcher's prefill/decode phases on the
-port's Llama incremental-decode path (models/llama.py).
+port's Llama and Mixtral incremental-decode paths (models/llama.py,
+models/mixtral.py).
 
 Port of ``tf_operator_tpu/serve/runner.py``, with the same phase split:
 
@@ -120,9 +121,33 @@ class LlamaRunner(_CachedDecodeRunner):
 
 
 class MixtralRunner(_CachedDecodeRunner):
-    """Mixtral serving comes with the port of ``models/mixtral.py``."""
+    """Mixtral serving on one device: the card unless ``device="cpu"``.
+    Decode-mode routing is drop-free (every token reaches its top-k
+    experts, ``MixtralConfig.decode``), so generation is reproducible
+    against a drop-free full forward (capacity_factor >= n_experts).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MixtralRunner is not ported yet: it comes with the "
-            "models/mixtral.py slice of the port")
+    ``params`` is a port ``state_dict`` (e.g. ``mixtral_params_from_flax``);
+    without one the weights are drawn from a ``torch.Generator`` on the
+    device seeded with ``rng_seed``."""
+
+    def __init__(self, config=None, params=None, max_slots: int = 4,
+                 rng_seed: int = 0, eos: Optional[int] = None,
+                 min_prefill_bucket: int = 8, device: DeviceLike = None):
+        from tf_operator_tpu_torch.models.mixtral import (
+            Mixtral,
+            decode_step,
+            init_cache,
+            insert_cache,
+            mixtral_tiny,
+            prefill,
+        )
+
+        cfg = dataclasses.replace(config or mixtral_tiny(), decode=True)
+        device = resolve_device(device)
+        model = Mixtral(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(rng_seed))
+        if params is not None:
+            model.load_state_dict(params)
+        model.requires_grad_(False)
+        self._setup(model, (init_cache, prefill, decode_step, insert_cache),
+                    max_slots, eos, min_prefill_bucket)

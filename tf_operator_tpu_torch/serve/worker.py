@@ -214,9 +214,8 @@ def main(argv=None) -> int:
                         choices=tuple(sorted(RUNNERS)),
                         help="decode backend: 'fake' = deterministic "
                              "model-free generator (hermetic e2e); "
-                             "'llama' = the incremental-decode path "
-                             "(models/llama.py); 'mixtral' is not "
-                             "ported yet")
+                             "'llama'/'mixtral' = the incremental-decode "
+                             "paths (models/llama.py, models/mixtral.py)")
     parser.add_argument("--poll-interval", type=float, default=0.02)
     parser.add_argument("--spool", default=None,
                         help="override TPUJOB_SERVE_SPOOL")

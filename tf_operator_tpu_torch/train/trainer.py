@@ -25,14 +25,18 @@ step trains on this rank's slice of the batch over the data axes, and the
 is. FSDP2 averages the slices' gradients. A batch with a ``mask`` gets a
 ``mask_count`` (``slice_mask_count``), which ``lm_loss`` divides by, so
 that a masked loss trains on the global masked mean and not on the mean
-of the slices' means. Gradients are then DTensors; their global norm is
-reduced to one scalar over every shard before the clip. The state dict
-holds DTensors, which ``train/checkpoint.py`` saves shard by shard and
-restores into any mesh, or none.
+of the slices' means. The step's forward and backward run under
+``use_mesh(mesh)``, where a Mixtral MoE layer routes over every slice's
+tokens (``models/mixtral.py``), so that its capacity, priority and aux
+loss are those of the global batch. Gradients are then DTensors; their
+global norm is reduced to one scalar over every shard before the clip.
+The state dict holds DTensors, which ``train/checkpoint.py`` saves shard
+by shard and restores into any mesh, or none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Iterator, List, Optional
@@ -363,8 +367,11 @@ class Trainer:
             if self.mesh is not None and "mask" in batch:
                 batch = {**batch, "mask_count": slice_mask_count(
                     batch["mask"], self.mesh)}
-            loss = self.loss_fn(state.model, batch)
-            loss.backward()
+            # The backward's remat recompute routes over the mesh too.
+            with (mesh_lib.use_mesh(self.mesh) if self.mesh is not None
+                  else contextlib.nullcontext()):
+                loss = self.loss_fn(state.model, batch)
+                loss.backward()
             norm = self.optimizer.apply(state.opt_state, state.step,
                                         self.grad_norm_metric)
             loss = loss.detach()
