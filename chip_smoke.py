@@ -58,6 +58,46 @@ Phases, each printing one JSON line:
            is taken and kept, and the unsharded Trainer of another seed
            restores the save and takes that step: restored parameters, the
            next loss and every parameter after it bit-equal.
+8a. ring   ring attention (ops/ring_attention.py) over the flash kernels:
+           4 ring positions stepped in lock step on the card (a hop that
+           rotates the list of lanes), S=8192 in blocks of 2048, B=1,
+           H=32, Hkv=8, D=128, bf16, causal and not. out, dQ, dK and dV are
+           held against one kernel call over the whole 8192 and against the
+           plain version (by KV head), with check's scaled limits; the
+           check must reject three broken rings (an off-diagonal block
+           merged with its visibility inverted, dK/dV left one hop from
+           home, δ taken from the diagonal block's output). Launches per
+           ring: forward, dQ and dK/dV 4 each per position (RING_LANES^2);
+           the ring's device time (forward and backward) beside the one
+           call's. Reckoned: 14 visible or masked 2048² block pairs
+           (12 whole, 4 causal diagonals) against the 8 of one causal 8192
+           call, about 1.75x before the merges.
+8b. ring_train the train phase's model (seed, batch, optimizer, 5 steps)
+           with attention_impl="ring_flash" on MeshConfig(dp=-1, sp=1) at
+           world size 1 (the ring of one block): losses and grad norms
+           within DIST_REL of the train phase's (and whether bit-equal),
+           launches 8/4/4 a step.
+8c. pp     LlamaPipelineTrainer (parallel/llama_pp.py) at world size 1
+           (pp=1): llama_3_8b widths, 4 layers, a batch of 4x2048 in 4
+           microbatches, adamw(3e-4); "auto" probes GPipe's peak against the
+           card's memory (the choice, peak and budget printed); gpipe and
+           1f1b take 3 steps each from the seed-0 state, each loss and
+           grad norm within PP_LOSS_RTOL and PP_NORM_RTOL of the unsharded
+           Trainer's 3 steps on that batch,
+           launches a step by pp_launches (GPipe L·m each; 1F1B the same at
+           the last stage, fwd 2·L/pp·m elsewhere), tokens/s, peak memory;
+           then python -m tf_operator_tpu_torch.train.train_llama_pp --pp 1
+           --dp 1 --steps 3 exits 0.
+8d. tp_kv  each rank's attention where tp divides the query heads but
+           not the KV heads: tp=16 over llama_3_8b's 32 query and 8 KV
+           heads (2 query heads a rank, S=2048, bf16), the rank's own KV
+           head taken from all 8 (models/llama.py _own_kv) and its
+           attention through best_attention, forward and backward, on all
+           16 ranks in turn: out, dQ, dK and dV (of all 8 KV heads) within
+           check's scaled limits of the plain version on JAX's layout (K/V
+           repeated to full heads and sliced to the rank's); a rank that
+           reads the next KV head over must be rejected; launches forward,
+           dQ and dK/dV 1 each a rank.
 9. remat   full, save_attn, save_qkv and mlp_only, one model at a time, the
            train phase's seed and batch, 3 steps each: launches a step must
            be fwd 4, dQ 4, dK/dV 4 (full: 8/4/4), and losses and parameters
@@ -196,6 +236,8 @@ from tf_operator_tpu_torch.models import resnet
 from tf_operator_tpu_torch.models.mnist import MnistCNN
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.ops import ring_attention as ra
+from tf_operator_tpu_torch.parallel.llama_pp import LlamaPipelineTrainer
 from tf_operator_tpu_torch.serve import worker
 from tf_operator_tpu_torch.serve.batcher import ContinuousBatcher
 from tf_operator_tpu_torch.serve.engine import ServingEngine
@@ -206,7 +248,7 @@ from tf_operator_tpu_torch.train.checkpoint import (
     CheckpointHook,
     Checkpointer,
 )
-from tf_operator_tpu_torch.ops.layers import TPUBatchNorm
+from tf_operator_tpu_torch.ops.layers import TPUBatchNorm, repeat_kv
 from tf_operator_tpu_torch.parallel.distributed import process_group_scope
 from tf_operator_tpu_torch.parallel.mesh import (
     MeshConfig,
@@ -265,6 +307,26 @@ REMAT_ATOL = 1e-6
 # GEMMs and kernels on the same numbers (FSDP2's gather and reduce over one
 # rank are copies); the grad norm sums its squares in another order.
 DIST_REL = 1e-5
+# Ring phase: RING_LANES ring positions of RING_S // RING_LANES tokens.
+RING_LANES = 4
+RING_S = 8192
+# tp_kv phase: a tp that divides llama_3_8b's 32 query heads but not its 8
+# KV heads (2 query heads a rank, both reading one KV head).
+TP_KV = 16
+# Pipeline phase: the global batch, its microbatches and the steps a
+# schedule takes. Its losses and grad norms against the unsharded Trainer's
+# on the same batch: the stage runs the same layers on [1, 2048]
+# microbatches where the Trainer runs [4, 2048], so bf16 GEMMs round
+# differently. Measured on an H100 80GB HBM3 at 700 W (PERF.md, PR 9): at
+# most 2.70e-5 of the loss and 1.50e-4 of the grad norm over 3 steps, both
+# schedules. The limits are about 4x those; a gradient off by a constant
+# (a lost 1/m: 4x here) leaves AdamW's losses nearly where they were but
+# moves the grad norm by its factor.
+PP_BATCH = 4
+PP_MICROBATCHES = 4
+PP_STEPS = 3
+PP_LOSS_RTOL = 1e-4
+PP_NORM_RTOL = 6e-4
 PREFETCH_STEPS = 8
 # The card sleeps about 0.15 s while prefetch_to_device hands over a batch
 # and stages the next; a hand-over that waited for the card would take
@@ -1102,6 +1164,412 @@ def phase_dist(batch, train, train_profile, root):
             f"restored {restored_differ[:3]}, next step {next_differ[:3]}, "
             f"loss {next_loss} vs {kept_loss}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Sequence and pipeline parallelism: ring, ring_train, pp
+# ---------------------------------------------------------------------------
+
+def rotate(lanes, reverse=False):
+    """The lock-step hop of the ring phase: lane i receives lane i-1's
+    payload (i+1's when reversed)."""
+    return lanes[1:] + lanes[:1] if reverse else lanes[-1:] + lanes[:-1]
+
+
+def plain_by_kv_head(q, k, v, do, causal):
+    """The plain forward and backward over the whole sequence, one KV head
+    and its query heads at a time (the f32 scores of all 32 heads at 8192
+    would take 8.6 GB each): out, lse, dq, dk, dv."""
+    group = q.shape[2] // k.shape[2]
+    parts = []
+    for h in range(k.shape[2]):
+        qh = q[:, :, h * group:(h + 1) * group]
+        kh, vh = k[:, :, h:h + 1], v[:, :, h:h + 1]
+        doh = do[:, :, h * group:(h + 1) * group]
+        out, lse = fa._fwd_reference(qh, kh, vh, causal, 0)
+        dq, dk, dv = fa._bwd_reference(qh, kh, vh, out, lse, doh, causal, 0)
+        parts.append((out, lse, dq, dk, dv))
+    dims = (2, 1, 2, 2, 2)
+    return [torch.cat([p[i] for p in parts], dim=d)
+            for i, d in enumerate(dims)]
+
+
+def lanes_of(x):
+    return [c.contiguous() for c in x.chunk(RING_LANES, dim=1)]
+
+
+def ring_outputs(q, k, v, do, causal):
+    """The ring through its autograd function, the launches it made, and
+    its per-lane forward results: {out, dq, dk, dv} over the sequence."""
+    ring = ra.Ring(rotate, tuple(range(RING_LANES)), RING_LANES)
+    qs, ks, vs = ([c.detach().clone().requires_grad_() for c in lanes_of(x)]
+                  for x in (q, k, v))
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    outs = ra._ring_flash_lanes(qs, ks, vs, ring, causal)
+    torch.autograd.backward(outs, lanes_of(do))
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    cat = lambda xs: torch.cat([x.detach() for x in xs], dim=1)
+    got = {"out": cat(outs), "dq": cat([x.grad for x in qs]),
+           "dk": cat([x.grad for x in ks]), "dv": cat([x.grad for x in vs])}
+    return got, launches, ring
+
+
+def ring_perturbed(q, k, v, do, causal, got, ring):
+    """Rings gone wrong in the three ways the check must catch."""
+    qs, ks, vs, dos = (lanes_of(x) for x in (q, k, v, do))
+    n = RING_LANES
+    # An off-diagonal block merged with its visibility inverted.
+    accs, kb, vb = [], ks, vs
+    for i in range(n):
+        o, lse = fa._fwd(qs[i], ks[i], vs[i], causal, 0)
+        accs.append((o.float(), lse))
+    for step in range(1, n):
+        kb, vb = kb[-1:] + kb[:-1], vb[-1:] + vb[:-1]
+        for i, src in enumerate(ring.sources(step)):
+            o, lse = fa._fwd(qs[i], kb[i], vb[i], False, 0)
+            accs[i] = ra._merge_block(*accs[i], o, lse,
+                                      not ra._visible(causal, src, i))
+    inverted = torch.cat([o.to(q.dtype) for o, _ in accs], dim=1)
+    # dK/dV without the last hop home: lane r keeps block r+1's.
+    away = {name: torch.cat([got[name].chunk(n, dim=1)[(r + 1) % n]
+                             for r in range(n)], dim=1)
+            for name in ("dk", "dv")}
+    # δ from the diagonal block's output instead of the final one.
+    outs, lses = ra._ring_flash_fwd(qs, ks, vs, ring, causal)
+    deltas = [fa._delta(fa._fwd(qs[i], ks[i], vs[i], causal, 0)[0], dos[i])
+              for i in range(n)]
+    dqs, dks, _ = ra._ring_flash_bwd(qs, ks, vs, outs, lses, dos, deltas,
+                                     ring, causal)
+    # δ enters dS = P (dP - δ) only: dV = P^T dO does not see it.
+    cat = lambda xs: torch.cat(xs, dim=1)
+    return {"visibility_inverted": {"out": inverted},
+            "dkv_one_hop_from_home": away,
+            "delta_from_block_output": {"dq": cat(dqs), "dk": cat(dks)}}
+
+
+def phase_ring():
+    """Ring attention over the kernels, 4 lock-step lanes on the card
+    (module docstring, phase 8a)."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    mk = lambda *shape: (torch.randn(*shape, generator=gen, device=DEVICE)
+                         * 0.5).to(torch.bfloat16)
+    cases, launches_total = [], {n: 0 for n in PER_STEP}
+    want_launches = {n: RING_LANES * RING_LANES for n in PER_STEP}
+    for causal in (True, False):
+        q, k, v, do = (mk(B, RING_S, h, D) for h in (H, HKV, HKV, H))
+        got, launches, ring = ring_outputs(q, k, v, do, causal)
+        for name, count in launches.items():
+            launches_total[name] += count
+        out, lse = fa._fwd(q, k, v, causal, 0)
+        dq, dk, dv = fa._bwd(q, k, v, out, lse, do, causal, 0)
+        single = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+        plain = dict(zip(("out", "lse", "dq", "dk", "dv"),
+                         plain_by_kv_head(q, k, v, do, causal)))
+        plain.pop("lse")
+        checks = {n: check(n, got[n], plain[n]) for n in got}
+        vs_single = {n: check(n, got[n], single[n]) for n in got}
+        single_vs_plain = {n: check(n, single[n], plain[n])["ratio"]
+                           for n in got}
+        caught = {p: {n: check(n, t, plain[n])["ratio"]
+                      for n, t in outs.items()}
+                  for p, outs in ring_perturbed(q, k, v, do, causal, got,
+                                                ring).items()}
+        qs, ks, vs, dos = (lanes_of(x) for x in (q, k, v, do))
+
+        def ring_call():
+            outs, lses = ra._ring_flash_fwd(qs, ks, vs, ring, causal)
+            deltas = [fa._delta(o, do) for o, do in zip(outs, dos)]
+            ra._ring_flash_bwd(qs, ks, vs, outs, lses, dos, deltas, ring,
+                               causal)
+
+        def single_call():
+            o, l = fa._fwd(q, k, v, causal, 0)
+            fa._bwd(q, k, v, o, l, do, causal, 0)
+
+        # One ring call queues some 320 launches (kernels, merges, f32
+        # accumulations); the card's queue of pending launches holds about
+        # a thousand, so each timed run is one call, the median of three.
+        ring_ms = sorted(cuda_ms(ring_call, 1) for _ in range(3))[1]
+        single_ms = sorted(cuda_ms(single_call, 1) for _ in range(3))[1]
+        cases.append({
+            "causal": causal, "launches": launches,
+            "checks_vs_plain": checks, "checks_vs_one_call": vs_single,
+            "one_call_vs_plain_ratio": single_vs_plain,
+            "perturbed_ratio": caught,
+            "ring_fwd_bwd_ms": ring_ms, "one_call_fwd_bwd_ms": single_ms,
+            "ring_over_one_call": ring_ms / single_ms,
+            "reckoned_block_pairs": ({"ring": 14, "one_call": 8} if causal
+                                     else {"ring": 16, "one_call": 16})})
+        del q, k, v, do, got, single, plain, qs, ks, vs, dos
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "ring", "nvidia_smi": nvidia_smi(), "lanes": RING_LANES,
+          "seq": RING_S, "block": RING_S // RING_LANES,
+          "shape": {"B": B, "H": H, "Hkv": HKV, "D": D},
+          "tolerance": {"atol": f"min({ATOL}, {REL} * max|ref|)",
+                        "rtol": ATOL, "rel_l2": REL},
+          "cases": cases})
+    bad = [(c["causal"], which, n) for c in cases
+           for which in ("checks_vs_plain", "checks_vs_one_call")
+           for n, r in c[which].items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the ring disagrees beyond the scaled "
+                             f"limits: {bad}")
+    missed = [(c["causal"], p, n) for c in cases
+              for p, ratios in c["perturbed_ratio"].items()
+              for n, r in ratios.items() if r <= 1.0]
+    if missed:
+        raise AssertionError(f"the ring check accepts broken rings: "
+                             f"{missed}")
+    wrong = [c["launches"] for c in cases if c["launches"] != want_launches]
+    if wrong:
+        raise AssertionError(f"ring launches {wrong} != {want_launches} "
+                             f"(forward, dQ, dK/dV {RING_LANES} a position)")
+    return launches_total
+
+
+def phase_ring_train(batch, train):
+    """The train phase's step with attention_impl="ring_flash" on a mesh
+    with sp (module docstring, phase 8b)."""
+    with process_group_scope():
+        mesh = make_mesh(MeshConfig(dp=-1, sp=1), device=DEVICE)
+        cfg = dataclasses.replace(slice_config(), attention_impl="ring_flash")
+        model = Llama(cfg, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(0))
+        trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE,
+                          mesh=mesh, rules=LLAMA_RULES,
+                          param_axes_fn=tllama.param_logical_axes)
+        state = trainer.init()
+        step = trainer.make_train_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, norms, step_s = [], [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mesh_sizes = mesh_shape(mesh)
+        del model, trainer, state, step, mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    record = {
+        "phase": "ring_train", "nvidia_smi": nvidia_smi(), "mesh": mesh_sizes,
+        "attention_impl": "ring_flash", "losses": losses, "grad_norms": norms,
+        "max_rel_loss_vs_train": max(
+            rel(a, b) for a, b in zip(losses, train["losses"])),
+        "max_rel_grad_norm_vs_train": max(
+            rel(a, b) for a, b in zip(norms, train["grad_norms"])),
+        "losses_bit_equal": losses == train["losses"],
+        "grad_norms_bit_equal": norms == train["grad_norms"],
+        "limit": DIST_REL, "launches": launches,
+        "step_ms": [t * 1e3 for t in step_s], "ms_per_step": steady * 1e3,
+        "tokens_per_s": B * S / steady, "max_memory_allocated_gb": peak}
+    emit(record)
+    if not (record["max_rel_loss_vs_train"] <= DIST_REL
+            and record["max_rel_grad_norm_vs_train"] <= DIST_REL):
+        raise AssertionError(f"the ring steps differ from the train phase's "
+                             f"beyond {DIST_REL}: {losses} {norms}")
+    want = {n: c * STEPS for n, c in PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"ring_train kernel launches {launches} != "
+                             f"{want}: the ring left the kernels")
+    return launches
+
+
+def phase_tp_kv():
+    """Each rank's attention where tp divides the query heads but not the
+    KV heads (module docstring, phase 8d)."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in f32
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    mk = lambda *shape: (torch.randn(*shape, generator=gen, device=DEVICE)
+                         * 0.5).to(torch.bfloat16)
+    heads, group = H // TP_KV, H // HKV
+
+    def port(first):
+        def attend(q, k, v):
+            return fa.best_attention(
+                q, *tllama._own_kv(k, v, first, heads, group), causal=True)
+        return attend
+
+    def run(attend, q, k, v, do):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = attend(*leaves)
+        out.backward(do)
+        return {"out": out.detach(), "dq": leaves[0].grad,
+                "dk": leaves[1].grad, "dv": leaves[2].grad}
+
+    launches = {n: 0 for n in PER_STEP}
+    worst, caught = {}, []
+    for rank in range(TP_KV):
+        first = rank * heads
+        q, do = mk(B, S, heads, D), mk(B, S, heads, D)
+        k, v = mk(B, S, HKV, D), mk(B, S, HKV, D)
+        fa.reset_launches()
+        got = run(port(first), q, k, v, do)
+        torch.cuda.synchronize()
+        for name, count in fa.LAUNCHES.items():
+            launches[name] += count
+        # The plain version on JAX's layout: K/V repeated to full heads and
+        # sliced to this rank's, the repeated heads' dK/dV summed back.
+        mine = lambda x: repeat_kv(x, group)[:, :, first:first + heads]
+        out, _, dq, dk, dv = plain_by_kv_head(q, mine(k), mine(v), do, True)
+        home = torch.arange(first, first + heads, device=DEVICE) // group
+        full = lambda g: torch.zeros(k.shape, dtype=torch.float32,
+                                     device=DEVICE).index_add_(
+                                         2, home, g.float())
+        plain = {"out": out, "dq": dq, "dk": full(dk), "dv": full(dv)}
+        for n, r in ((n, check(n, got[n], plain[n])) for n in plain):
+            if r["ratio"] > worst.get(n, {"ratio": -1.0})["ratio"]:
+                worst[n] = r
+        # A rank that reads the next KV head over must be rejected.
+        wrong = run(port((first + group) % H), q, k, v, do)
+        caught.append(max(check(n, wrong[n], plain[n])["ratio"]
+                          for n in plain))
+        del q, k, v, do, got, wrong, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {n: TP_KV for n in PER_STEP}
+    emit({"phase": "tp_kv", "nvidia_smi": nvidia_smi(), "tp": TP_KV,
+          "heads_per_rank": heads, "kv_heads": HKV, "seq": S,
+          "worst_vs_plain": worst, "launches": launches,
+          "want_launches": want, "wrong_kv_head_min_ratio": min(caught)})
+    if not all(r["ok"] for r in worst.values()):
+        raise AssertionError(f"tp_kv disagrees with the plain version: "
+                             f"{worst}")
+    if min(caught) <= 1.0:
+        raise AssertionError("the tp_kv check accepts the wrong KV head")
+    if launches != want:
+        raise AssertionError(f"tp_kv launches {launches} != {want}: the "
+                             f"ranks' attention left the kernels")
+
+
+def pp_launches(schedule: str, stage: int, stages: int, layers: int,
+                microbatches: int) -> dict:
+    """Kernel launches of one pipeline step at ``stage``: each of its
+    layers runs forward, dQ and dK/dV once a microbatch; 1F1B runs the
+    forward again in the backward (recompute), except at the last stage,
+    whose forward slot is its backward slot's microbatch."""
+    per = layers // stages * microbatches
+    again = schedule == "1f1b" and stage < stages - 1
+    return {"flash_fwd": per * (2 if again else 1), "flash_dq": per,
+            "flash_dkv": per}
+
+
+def phase_pp():
+    """LlamaPipelineTrainer at world size 1 (module docstring, phase 8c)."""
+    cfg = slice_config()
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (PP_BATCH, S + 1))
+    # The unsharded Trainer on the same batch.
+    model = Llama(cfg, device=DEVICE,
+                  generator=torch.Generator(device=DEVICE).manual_seed(0))
+    trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE)
+    state, step = trainer.init(), trainer.make_train_step()
+    reference, reference_norms = [], []
+    for _ in range(PP_STEPS):
+        state, metrics = step(state, {"inputs": tokens})
+        reference.append(float(metrics["loss"]))
+        reference_norms.append(float(metrics["grad_norm"]))
+    del model, trainer, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    with process_group_scope():
+        mesh = make_mesh(MeshConfig(dp=-1, pp=1), device=DEVICE)
+
+        def pipeline(schedule):
+            return LlamaPipelineTrainer(cfg, mesh, adamw(3e-4),
+                                        PP_MICROBATCHES, schedule=schedule,
+                                        device=DEVICE)
+
+        auto = pipeline("auto")
+        for schedule in ("gpipe", "1f1b"):
+            state = auto.init(generator=torch.Generator(
+                device=DEVICE).manual_seed(0))
+            if schedule == "gpipe":
+                auto.make_train_step(state, sample_tokens=tokens)
+            step = pipeline(schedule).make_train_step(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            losses, norms, step_s = [], [], []
+            for _ in range(PP_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = step(state, tokens)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+            launches = dict(fa.LAUNCHES)
+            steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+            rel = lambda xs, ys: max(abs(a - b) / abs(b)
+                                     for a, b in zip(xs, ys))
+            runs[schedule] = {
+                "losses": losses, "grad_norms": norms, "launches": launches,
+                "want_launches": {n: c * PP_STEPS for n, c in pp_launches(
+                    schedule, 0, 1, cfg.n_layers, PP_MICROBATCHES).items()},
+                "max_rel_loss_vs_trainer": rel(losses, reference),
+                "max_rel_grad_norm_vs_trainer": rel(norms, reference_norms),
+                "step_ms": [t * 1e3 for t in step_s],
+                "ms_per_step": steady * 1e3,
+                "tokens_per_s": PP_BATCH * S / steady,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 2 ** 30}
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        peak, budget = auto.probe
+        choice = {"resolved": auto.resolved_schedule,
+                  "probe_peak_gb": None if peak is None else peak / 2 ** 30,
+                  "budget_gb": None if budget is None else budget / 2 ** 30}
+        del auto, mesh
+    emit({"phase": "pp", "nvidia_smi": nvidia_smi(), "layers": cfg.n_layers,
+          "batch": PP_BATCH, "seq": S, "microbatches": PP_MICROBATCHES,
+          "trainer_losses": reference, "trainer_grad_norms": reference_norms,
+          "limit_rel": {"loss": PP_LOSS_RTOL, "grad_norm": PP_NORM_RTOL},
+          "auto": choice, "schedules": runs})
+    for schedule, r in runs.items():
+        if r["launches"] != r["want_launches"]:
+            raise AssertionError(f"pp {schedule}: kernel launches "
+                                 f"{r['launches']} != {r['want_launches']}")
+        if not (r["max_rel_loss_vs_trainer"] <= PP_LOSS_RTOL
+                and r["max_rel_grad_norm_vs_trainer"] <= PP_NORM_RTOL):
+            raise AssertionError(
+                f"pp {schedule}: losses {r['losses']} and grad norms "
+                f"{r['grad_norms']} vs the Trainer's {reference} and "
+                f"{reference_norms}")
+    if choice["resolved"] not in ("gpipe", "1f1b") or peak is None:
+        raise AssertionError(f"auto made no probed choice: {choice}")
+    phase_pp_payload()
+    return {n: sum(r["launches"][n] for r in runs.values())
+            for n in PER_STEP}
+
+
+def phase_pp_payload():
+    command = [sys.executable, "-m",
+               "tf_operator_tpu_torch.train.train_llama_pp", "--pp", "1",
+               "--dp", "1", "--steps", "3"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.splitlines()
+    emit({"phase": "pp_payload", "args": command[3:], "rc": proc.returncode,
+          "seconds": time.perf_counter() - t0, "stdout": lines})
+    if proc.returncode != 0 or not any("pipeline training OK" in line
+                                       for line in lines):
+        raise AssertionError(f"train_llama_pp exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
 
 
 def prefetch_stage_s(vocab: int) -> list:
@@ -2401,6 +2869,10 @@ def main() -> int:
         shutil.rmtree(os.path.join(root, "ckpt"), ignore_errors=True)
         dist_launches = phase_dist(batch, full["record"], train_profile,
                                    root)
+        ring_launches = phase_ring()
+        ring_train_launches = phase_ring_train(batch, full["record"])
+        pp_launches_run = phase_pp()
+        phase_tp_kv()
         phase_remat(batch, full)
         del full
         phase_decode()
@@ -2420,6 +2892,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_by_path": {"train": launches[name],
                                  "dist": dist_launches[name],
+                                 "ring": ring_launches[name],
+                                 "ring_train": ring_train_launches[name],
+                                 "pp": pp_launches_run[name],
                                  "mixtral": mixtral_launches[name]},
             "max_abs_err": errs[name], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],

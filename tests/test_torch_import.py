@@ -55,7 +55,9 @@ def test_port_imports_without_jax():
     assert count >= 30, proc.stdout
     for module in ("parallel.distributed", "parallel.mesh",
                    "parallel.sharding", "models.mixtral", "serve.gateway",
-                   "train.train_mixtral"):
+                   "train.train_mixtral", "ops.ring_attention",
+                   "parallel.pipeline", "parallel.llama_pp",
+                   "train.train_llama_pp"):
         assert f"tf_operator_tpu_torch.{module}" in proc.stdout.split()
 
 
@@ -76,7 +78,8 @@ def test_blocker_matches_exact_package_name():
                                    "native_pipeline", "mesh",
                                    "distributed", "sharded_payload",
                                    "mixtral", "mixtral_runner",
-                                   "mixtral_payload"])
+                                   "mixtral_payload", "pipeline_trainer",
+                                   "pipeline_payload"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device and no card, each entry point raises instead of
     running on the host."""
@@ -91,10 +94,12 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from tf_operator_tpu_torch.parallel.mesh import make_mesh
     from tf_operator_tpu_torch.serve import worker
     from tf_operator_tpu_torch.serve.runner import LlamaRunner, MixtralRunner
+    from tf_operator_tpu_torch.parallel.llama_pp import LlamaPipelineTrainer
     from tf_operator_tpu_torch.train import (
         data,
         dist_mnist,
         train_llama,
+        train_llama_pp,
         train_mixtral,
         train_resnet,
     )
@@ -136,6 +141,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             MixtralRunner()
         elif entry == "mixtral_payload":
             train_mixtral.main(["--steps", "1"])
+        elif entry == "pipeline_trainer":
+            LlamaPipelineTrainer(llama_tiny(), None, adamw(1e-3), 2)
+        elif entry == "pipeline_payload":
+            train_llama_pp.main(["--steps", "1", "--pp", "1", "--dp", "1"])
         else:
             worker.main(["--runner", "llama", "--spool", str(tmp_path)])
 

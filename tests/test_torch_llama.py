@@ -166,15 +166,19 @@ def test_bf16_logits_match_jax(flash_f32):
 
 
 @pytest.mark.parametrize("fields, error", [
-    (dict(attention_impl="ring"), NotImplementedError),
-    (dict(attention_impl="ring_flash"), NotImplementedError),
+    (dict(attention_impl="ring"), ValueError),
+    (dict(attention_impl="ring_flash"), ValueError),
     (dict(remat=True, remat_policy="bogus"), ValueError),
     (dict(attention_impl="bogus"), ValueError),
 ])
 def test_unported_options_raise(fields, error):
+    """Unknown options raise when the model is built; the ring modes
+    (ported since) raise at the forward without an active mesh, as the
+    JAX model's do."""
     cfg = dataclasses.replace(tllama.llama_tiny(), **fields)
-    with pytest.raises(error):
-        tllama.Llama(cfg, device="cpu")
+    with pytest.raises(error, match="active mesh|unknown"):
+        tllama.Llama(cfg, device="cpu")(torch.zeros((1, 8),
+                                                    dtype=torch.long))
 
 
 @pytest.mark.parametrize("policy", ["save_qkv", "save_attn", "mlp_only"])
@@ -205,3 +209,31 @@ def test_llama_3_8b_widths():
         if f.name != "dtype":
             assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert got.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n_heads, n_kv_heads, tp", [
+    (4, 2, 4),      # llama_tiny at tp=4: one query head a rank
+    (32, 8, 16),    # llama_3_8b at tp=16: two query heads on one KV head
+    (12, 6, 4),     # three query heads a rank, straddling two KV heads
+])
+def test_own_kv_matches_jax_repeated_slice(n_heads, n_kv_heads, tp):
+    """Where tp divides the query heads but not the KV heads, each rank's
+    query heads read the same K/V through ``_own_kv`` as through JAX's
+    layout: K/V repeated to full heads, sliced to the rank's heads."""
+    from tf_operator_tpu.ops.layers import repeat_kv as jrepeat_kv
+    from tf_operator_tpu_torch.ops.layers import repeat_kv
+
+    rng = np.random.default_rng(n_heads)
+    k, v = (rng.standard_normal((2, 8, n_kv_heads, 4)).astype(np.float32)
+            for _ in range(2))
+    group, local = n_heads // n_kv_heads, n_heads // tp
+    for rank in range(tp):
+        first = rank * local
+        kk, vv = tllama._own_kv(torch.tensor(k), torch.tensor(v), first,
+                                local, group)
+        assert local % kk.shape[2] == 0
+        for got, x in ((kk, k), (vv, v)):
+            want = np.asarray(jrepeat_kv(jnp.asarray(x), group))
+            np.testing.assert_array_equal(
+                repeat_kv(got, local // got.shape[2]).numpy(),
+                want[:, :, first:first + local])

@@ -10,7 +10,12 @@ the flax ``cache`` collection and ``{"k", "v"}`` in the port. A Mixtral
 tree is a Llama one with ``blocks/moe/`` (the router ``Dense`` and the
 expert tensors ``w_gate``/``w_up`` [E, H, M] and ``w_down`` [E, M, H],
 whose layout the port keeps) in place of ``blocks/mlp/``; its cache is
-the Llama cache, so ``llama_cache_{from,to}_flax`` carry it. Both
+the Llama cache, so ``llama_cache_{from,to}_flax`` carry it. The JAX
+pipeline trainer's tree stages the blocks as [pp, L/pp, ...]
+(``parallel/llama_pp.py``); ``llama_stage_params_{from,to}_flax`` carry
+it to and from the port's stages, whose ``state_dict`` names are the
+``Llama``'s (each stage its own layers, every stage the embedding and
+head). Both
 directions take and give plain arrays (numpy on the flax side, torch
 tensors on the port's), and raise on any leaf left over or missing.
 
@@ -28,7 +33,7 @@ path is a state_dict name with ``/`` for ``.``: conv ``kernel`` HWIO <->
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -152,6 +157,42 @@ def llama_params_to_flax(state: Mapping[str, torch.Tensor],
                          cfg: LlamaConfig) -> Dict:
     """The port's state_dict -> flax ``params`` (nested dict of numpy)."""
     return _stacked_to_flax(state, cfg.n_layers, _BLOCK_LEAVES)
+
+
+def _restage(params: Mapping, shape) -> Dict:
+    """A copy of ``params`` with every ``blocks/`` leaf reshaped by
+    ``shape(leaf)``."""
+    return _unflatten({path: (np.asarray(v).reshape(shape(np.asarray(v)))
+                              if path[0] == "blocks" else v)
+                       for path, v in _flatten(params).items()})
+
+
+def llama_stage_params_from_flax(params: Mapping, cfg: LlamaConfig,
+                                 stage: int, pp: int
+                                 ) -> Dict[str, torch.Tensor]:
+    """flax ``params`` with staged blocks [pp, L/pp, ...] -> the
+    state_dict of the port's stage ``stage`` of ``pp``
+    (``parallel/llama_pp.py`` ``LlamaStage``)."""
+    state = llama_params_from_flax(
+        _restage(params, lambda a: (a.shape[0] * a.shape[1],) + a.shape[2:]),
+        cfg)
+    per = cfg.n_layers // pp
+    own = {f"layers.{i}." for i in range(stage * per, (stage + 1) * per)}
+    return {n: t for n, t in state.items()
+            if not n.startswith("layers.")
+            or n[:n.index(".", len("layers.")) + 1] in own}
+
+
+def llama_stage_params_to_flax(states: Sequence[Mapping[str, torch.Tensor]],
+                               cfg: LlamaConfig) -> Dict:
+    """The state_dicts of the port's pp stages, in stage order -> flax
+    ``params`` with staged blocks [pp, L/pp, ...] (numpy)."""
+    merged = {}
+    for state in states:
+        merged.update(state)
+    pp = len(states)
+    return _restage(llama_params_to_flax(merged, cfg),
+                    lambda a: (pp, a.shape[0] // pp) + a.shape[1:])
 
 
 def mixtral_params_from_flax(params: Mapping, cfg: MixtralConfig

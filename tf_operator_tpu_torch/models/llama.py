@@ -21,7 +21,23 @@ path the flash outputs do not exist, so ``"save_attn"`` saves nothing
 (it is ``"full"``). ``decode=True`` is the serving path: attention reads
 and writes a KV cache (``init_cache``/``prefill``/``decode_step``/
 ``insert_cache`` below) and launches no flash kernel, as in the JAX model.
-The ring attention modes belong to a later slice of the port and raise.
+
+``attention_impl="ring"``/``"ring_flash"`` run ring attention over the
+``sp`` axis of the active mesh (``ops/ring_attention.py``; the Trainer runs
+its step under ``use_mesh``), as the JAX model's ``shard_map`` does: every
+``sp`` rank computes the whole sequence outside attention (RoPE included),
+and the ring runs on its block, laid out by DTensor redistributions whose
+gradients gather and slice. ``"ring"`` repeats GQA KV for the einsum ring;
+``"ring_flash"`` reads the shared KV heads through the kernels.
+
+Under tensor parallelism a rank works on its own heads. Where tp divides
+``n_heads`` but not ``n_kv_heads``, the KV projections give every KV head
+(``parallel/sharding.py`` gathers their output) and each rank keeps the KV
+heads its query heads read (``_own_kv``). JAX repeats K/V to full heads and
+runs the reference attention on the global heads there, because its
+sharded kernel wrapper cannot split them; the port's heads are already
+local, so its attention dispatches as anywhere else (the kernels on the
+card) to the same result.
 """
 
 from __future__ import annotations
@@ -33,6 +49,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
@@ -43,6 +60,7 @@ from tf_operator_tpu_torch._device import DeviceLike, resolve_device
 from tf_operator_tpu_torch.ops.flash_attention import (
     CHECKPOINT_NAME_OP,
     FLASH_FWD_OP,
+    attention_placements,
     best_attention,
     checkpoint_name,
 )
@@ -54,7 +72,7 @@ from tf_operator_tpu_torch.ops.layers import (
     rms_norm,
     rope_frequencies,
 )
-from tf_operator_tpu_torch.parallel.mesh import mesh_axis_size
+from tf_operator_tpu_torch.parallel.mesh import active_mesh, mesh_axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +91,9 @@ class LlamaConfig:
     # "full" | "save_attn" | "save_qkv" | "mlp_only" (module docstring).
     remat_policy: str = "full"
     # "" = auto (CUDA kernels where they take the shapes, else the
-    # reference); "flash" = force flash_attention; "xla" = the reference.
+    # reference); "flash" = force flash_attention; "xla" = the reference;
+    # "ring" = the einsum ring over sp; "ring_flash" = the ring over the
+    # flash kernels (both need an active mesh).
     attention_impl: str = ""
     # Incremental decode (the serving path, serve/runner.py): attention
     # reads and writes a KV cache instead of recomputing the prefix; the
@@ -102,12 +122,11 @@ _SAVED_OPS = {"save_attn": [FLASH_FWD_OP],
               "save_qkv": [FLASH_FWD_OP, CHECKPOINT_NAME_OP]}
 
 
+ATTENTION_IMPLS = ("", "flash", "xla", "ring", "ring_flash")
+
+
 def _check_config(cfg: LlamaConfig) -> None:
-    if cfg.attention_impl in ("ring", "ring_flash"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} (ring attention over "
-            "the sp axis) is not ported yet")
-    if cfg.attention_impl not in ("", "flash", "xla"):
+    if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
@@ -118,9 +137,14 @@ class Dense(nn.Module):
     """Bias-free projection with f32 weight [out, in], computed in ``dtype``."""
 
     def __init__(self, features_in: int, features_out: int,
-                 dtype: torch.dtype, device, generator: torch.Generator):
+                 dtype: torch.dtype, device, generator: torch.Generator,
+                 heads: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
+        # The attention heads its output holds: where tp does not divide
+        # them, tensor parallelism gathers the output whole
+        # (parallel/sharding.py).
+        self.heads = heads
         self.weight = nn.Parameter(torch.empty(
             features_out, features_in, dtype=torch.float32, device=device))
         nn.init.normal_(self.weight, std=features_in ** -0.5,
@@ -147,8 +171,11 @@ class LlamaAttention(nn.Module):
         dense = lambda n_in, n_out: Dense(n_in, n_out, cfg.dtype, device,
                                           generator)
         self.wq = dense(cfg.hidden, cfg.n_heads * cfg.head_dim)
-        self.wk = dense(cfg.hidden, cfg.n_kv_heads * cfg.head_dim)
-        self.wv = dense(cfg.hidden, cfg.n_kv_heads * cfg.head_dim)
+        kv = lambda: Dense(cfg.hidden, cfg.n_kv_heads * cfg.head_dim,
+                           cfg.dtype, device, generator,
+                           heads=cfg.n_kv_heads)
+        self.wk = kv()
+        self.wv = kv()
         self.wo = dense(cfg.n_heads * cfg.head_dim, cfg.hidden)
 
     def forward(self, x: torch.Tensor, angles: torch.Tensor,
@@ -158,9 +185,8 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         # Under tensor parallelism (parallel/sharding.py) the projections
-        # return this rank's heads: n_heads // tp and n_kv_heads // tp.
-        # Where tp does not divide both, local_heads raises (the JAX model
-        # runs the reference attention on the global heads there).
+        # return this rank's heads: n_heads // tp and n_kv_heads // tp, or
+        # every KV head where tp does not divide them (module docstring).
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
         n_heads, n_kv_heads = local_heads(cfg, q.shape[-1], k.shape[-1])
         q = q.view(b, s, n_heads, cfg.head_dim)
@@ -168,6 +194,15 @@ class LlamaAttention(nn.Module):
         v = v.view(b, s, n_kv_heads, cfg.head_dim)
         q = apply_rope(q, angles, positions)
         k = apply_rope(k, angles, positions)
+        whole_kv = n_kv_heads == cfg.n_kv_heads and n_heads < cfg.n_heads
+        if whole_kv:
+            if cfg.decode:
+                raise ValueError(
+                    f"decode under tensor parallelism needs tp to divide "
+                    f"the {cfg.n_kv_heads} KV heads")
+            k, v = _own_kv(k, v, _tp_rank(self.wq.weight) * n_heads,
+                           n_heads, cfg.n_heads // cfg.n_kv_heads)
+            n_kv_heads = k.shape[2]
         if cfg.decode:
             out = self._cached_attention(q, k, v, positions, *cache)
         else:
@@ -177,8 +212,12 @@ class LlamaAttention(nn.Module):
             q = checkpoint_name(q, "attn_q")
             k = checkpoint_name(k, "attn_k")
             v = checkpoint_name(v, "attn_v")
-            if cfg.attention_impl == "xla":
-                group = n_heads // n_kv_heads
+            group = n_heads // n_kv_heads
+            if cfg.attention_impl in ("ring", "ring_flash"):
+                if cfg.attention_impl == "ring":
+                    k, v = repeat_kv(k, group), repeat_kv(v, group)
+                out = _ring(q, k, v, cfg.attention_impl == "ring_flash")
+            elif cfg.attention_impl == "xla":
                 out = attention(q, repeat_kv(k, group), repeat_kv(v, group),
                                 causal=True)
             else:
@@ -222,17 +261,60 @@ def local_heads(cfg: LlamaConfig, q_features: int,
                 kv_features: int) -> Tuple[int, int]:
     """(query heads, KV heads) in projections of ``q_features`` and
     ``kv_features``: all of them, or a tensor-parallel rank's share, which
-    keeps the GQA group whole."""
+    keeps the GQA group whole, or its query heads' share beside every KV
+    head (tp divides ``n_heads`` but not ``n_kv_heads``)."""
     n_heads, rem_q = divmod(q_features, cfg.head_dim)
     n_kv_heads, rem_kv = divmod(kv_features, cfg.head_dim)
-    if rem_q or rem_kv or not n_kv_heads or n_heads % n_kv_heads or (
-            n_heads // n_kv_heads != cfg.n_heads // cfg.n_kv_heads):
+    group = cfg.n_heads // cfg.n_kv_heads
+    if rem_q or rem_kv or not n_heads or cfg.n_heads % n_heads or not (
+            n_kv_heads == cfg.n_kv_heads or n_heads == n_kv_heads * group):
         raise ValueError(
             f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads of "
             f"{cfg.head_dim} do not split into local projections of "
             f"{q_features} and {kv_features} features: under tensor "
-            f"parallelism both head counts must divide tp")
+            f"parallelism tp must divide the query heads")
     return n_heads, n_kv_heads
+
+
+def _own_kv(k: torch.Tensor, v: torch.Tensor, first: int, n_heads: int,
+            group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The KV heads that query heads [first, first + n_heads) read, of
+    every KV head [B, S, n_kv_heads, D]: the one they share, a GQA group
+    of ``n_heads``, or, where they straddle KV heads, one KV head a query
+    head."""
+    lo, hi = first // group, (first + n_heads - 1) // group
+    if lo == hi:
+        return k[:, :, lo:lo + 1], v[:, :, lo:lo + 1]
+    idx = torch.arange(first, first + n_heads, device=k.device) // group
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _tp_rank(weight: torch.Tensor) -> int:
+    """This rank's index on the tp mesh a projection weight is split over
+    (0 for a plain tensor)."""
+    return weight.device_mesh.get_local_rank("tp") if isinstance(
+        weight, DTensor) else 0
+
+
+def _ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          flash: bool) -> torch.Tensor:
+    """Ring attention of this rank's [B/dp, S, H/tp, D] activations (the
+    whole sequence) over the active mesh's ``sp`` axis: each rank's block
+    runs the ring and the output is gathered whole again."""
+    from tf_operator_tpu_torch.ops.ring_attention import (
+        ring_attention_sharded,
+    )
+
+    mesh = active_mesh()
+    if mesh is None:
+        raise ValueError("ring attention requires an active mesh (wrap the "
+                         "step in parallel.mesh.use_mesh)")
+    placements = attention_placements(mesh)
+    out = ring_attention_sharded(
+        *(DTensor.from_local(x, mesh, placements, run_check=False)
+          for x in (q, k, v)),
+        mesh, causal=True, impl="flash" if flash else "einsum")
+    return out.redistribute(mesh, placements).to_local()
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor,

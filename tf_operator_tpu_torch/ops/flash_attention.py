@@ -35,9 +35,10 @@ batch over the mesh's data axes and the heads over ``tp`` and runs
 ``flash_attention`` on each rank's local ``[B/dp, S, H/tp, D]`` shard
 (``local_map``). Inside a tensor-parallel model (``parallel/sharding.py``)
 the activations are local already and reach ``best_attention`` with the
-rank's own heads, so tp must divide both head counts: where it does not,
+rank's own heads. Where tp divides the query heads but not the KV heads,
 the JAX ``best_attention`` falls back to the reference on the global
-heads, and the port's model raises (``models/llama.py`` ``local_heads``).
+heads; the port's model runs the reference on its own heads there
+(``models/llama.py``).
 """
 
 from __future__ import annotations

@@ -128,6 +128,12 @@ def mesh_shape(mesh: DeviceMesh) -> Dict[str, int]:
     return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
 
 
+def axis_index(mesh: DeviceMesh, axis: str) -> int:
+    """This rank's position along the mesh ``axis`` (its rank in
+    ``mesh.get_group(axis)``, the sub-mesh's process group)."""
+    return mesh.get_local_rank(axis)
+
+
 def data_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
     """Mesh axes a [batch, ...] input's leading dim shards over."""
     return tuple(a for a in ("dcn", "dp", "fsdp") if a in mesh.mesh_dim_names)

@@ -16,11 +16,12 @@ per mesh dimension (``AXIS_ORDER``), the counterpart of a JAX
   projections; wo/down on dim 1, the row-parallel ones; an embedding's
   vocab on dim 0). Inputs and outputs stay local tensors, as the body of a
   JAX ``shard_map`` sees them: a column-parallel projection returns its
-  shard of the features (the attention then works on its local heads,
-  so tp must divide both head counts: where it does not, the JAX model
-  runs the reference attention and the port raises), a row-parallel one
-  all-reduces its partial sums. Logits (features on
-  ``vocab``) are all-gathered, so the f32 loss sees every class.
+  shard of the features (the attention then works on its local heads),
+  a row-parallel one all-reduces its partial sums. Logits (features on
+  ``vocab``) are all-gathered, so the f32 loss sees every class; so is the
+  output of a projection whose ``heads`` tp does not divide (Llama's KV
+  projections where tp divides the query heads but not the KV heads: each
+  rank then takes the KV heads its query heads read, ``models/llama.py``).
 - ``fsdp``: ``fully_shard`` (FSDP2) over the ``fsdp`` dimension, each
   block of a ``ModuleList`` (the layers) a unit of its own, then the
   root. FSDP2 shards every parameter's dim 0 whatever dim the rule names;
@@ -36,8 +37,11 @@ per mesh dimension (``AXIS_ORDER``), the counterpart of a JAX
   over the replicas and reduce-scatters them within one.
 The batch is sharded over (dcn, dp, fsdp) by the trainer.
 
-``pp`` and ``sp`` above 1 raise: the pipeline and ring attention are not
-ported yet.
+Parameters are replicated over ``sp`` and ``pp``. ``sp`` is no data axis:
+its ranks see the same batch and run ring attention on their blocks of
+the sequence (``ops/ring_attention.py``), each computing whole and equal
+gradients. Under ``pp`` the pipeline trainer (``parallel/llama_pp.py``)
+gives each rank its own stage and places nothing here.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (
     DTensor,
+    Partial,
     Replicate,
     Shard,
     distribute_module,
@@ -120,12 +125,16 @@ def spec_for(logical_axes: Sequence[Optional[str]], rules: Rules,
 
 
 def _place_projection(module: nn.Module, tp_mesh: DeviceMesh,
-                      weight_dim: int, gather_output: bool) -> None:
+                      weight_dim: int, gather_output: bool,
+                      partial_grad: bool = False) -> None:
     """Tensor parallelism for a projection with one weight: the port's
     ``Dense`` (``[out, in]``, ``x @ W^T``) or an ``nn.Embedding``
     (``[vocab, embed]``). ``weight_dim`` is the weight dim split over
     ``tp_mesh`` (module docstring); inputs and outputs are local tensors,
-    the output gathered whole where ``gather_output``."""
+    the output gathered whole where ``gather_output``. A gathered output
+    that every rank uses alike (the logits) gets the same gradient on every
+    rank; with ``partial_grad`` each rank uses its own part of it (Llama's
+    KV heads), so its gradients are summed over tp."""
     embedding = isinstance(module, nn.Embedding)
     if not isinstance(module, (Dense, nn.Embedding)) or (
             embedding and weight_dim != 0) or weight_dim not in (0, 1):
@@ -154,7 +163,8 @@ def _place_projection(module: nn.Module, tp_mesh: DeviceMesh,
     def prepare_output(mod, out, mesh):
         if not column or gather_output:
             out = out.redistribute(mesh, [Replicate()])
-        return out.to_local()
+        return out.to_local(grad_placements=[Partial()] if partial_grad
+                            else None)
 
     distribute_module(module, tp_mesh, partition, prepare_input,
                       prepare_output)
@@ -195,10 +205,6 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Rules,
     from torch.distributed.fsdp import fully_shard
 
     shape = mesh_shape(mesh)
-    for axis, what in (("pp", "pipeline"), ("sp", "ring attention")):
-        if shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"{axis}={shape[axis]}: the {what} is not ported yet")
     model_mesh = mesh[MODEL_AXES]
     for prefix, module in list(model.named_modules()):
         split = {}
@@ -228,8 +234,11 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Rules,
                 f"{prefix}: no placement of {type(module).__name__} "
                 f"parameters {sorted(split)} over ep/tp")
         (_, tp), axes = split["weight"]
+        heads = getattr(module, "heads", None)
+        split_heads = heads is not None and heads % shape["tp"] != 0
         _place_projection(module, mesh["tp"], tp.dim,
-                          gather_output=axes[0] in GATHERED_AXES)
+                          gather_output=axes[0] in GATHERED_AXES
+                          or split_heads, partial_grad=split_heads)
     dp_mesh = _fsdp_mesh(mesh)
     for module in model.modules():
         if isinstance(module, nn.ModuleList):

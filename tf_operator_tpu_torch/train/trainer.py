@@ -31,7 +31,11 @@ tokens (``models/mixtral.py``), so that its capacity, priority and aux
 loss are those of the global batch. Gradients are then DTensors; their
 global norm is reduced to one scalar over every shard before the clip.
 The state dict holds DTensors, which ``train/checkpoint.py`` saves shard
-by shard and restores into any mesh, or none.
+by shard and restores into any mesh, or none. On a mesh with ``sp`` (a
+model with ``attention_impl="ring"``/``"ring_flash"``) the step is the
+same: the ``sp`` ranks take the same batch, and the ring inside the model
+leaves each of them whole, equal gradients, so nothing is reduced over
+``sp``.
 """
 
 from __future__ import annotations
@@ -205,17 +209,20 @@ class Optimizer:
     max_grad_norm: Optional[float] = None
 
     def apply(self, opt: torch.optim.Optimizer, count: int,
-              grad_norm: bool = False) -> Optional[torch.Tensor]:
+              grad_norm: bool = False,
+              norm_fn: Callable[[List[torch.Tensor]], torch.Tensor]
+              = global_norm) -> Optional[torch.Tensor]:
         """One update from the parameters' ``.grad`` at update ``count``
-        (0 for the first); returns the pre-clip global norm when clipping
-        or when ``grad_norm`` asks for it."""
+        (0 for the first); returns the pre-clip global norm (``norm_fn``
+        of the gradients) when clipping or when ``grad_norm`` asks for
+        it."""
         grads = [p.grad for group in opt.param_groups
                  for p in group["params"] if p.grad is not None]
         norm = None
+        if self.max_grad_norm is not None or grad_norm:
+            norm = norm_fn(grads)
         if self.max_grad_norm is not None:
-            norm = clip_by_global_norm_(grads, self.max_grad_norm)
-        elif grad_norm:
-            norm = global_norm(grads)
+            clip_by_global_norm_(grads, self.max_grad_norm, norm)
         if self.schedule is not None:
             for group in opt.param_groups:
                 group["lr"] = self.schedule(count)
