@@ -202,9 +202,40 @@ no flash kernel, as the JAX decode path runs none):
            mixtral_payload: python -m tf_operator_tpu_torch.train.
            train_mixtral --size tiny --steps 4 exits 0.
 
-Then a {"kernels": [...]} summary line, the nvidia-smi name/power line,
-and last {"ok": true, "device": {...}}. Any failure exits non-zero before
-the last line; so does a machine without a CUDA card.
+16. bert  BERT (models/bert.py; no flash kernel: the reference attention
+           at head_dim 64, as in JAX), after Mixtral.
+           bert_check: bert_tiny in f32 (TF32 off), card against CPU on
+           the same weights and a padded MLM batch (B=4, S=40): logits
+           within BERT_CHECK_REL of their largest value and every
+           parameter's gradient within BERT_GRAD_REL of its own (the key
+           biases', zero in exact arithmetic, of the key weights'); the check
+           must reject the card's logits without the padding mask; then
+           bert_base at B=2, S=128 in f32, logits within BERT_BASE_REL.
+           bert: benchmarks/bench_bert.py's configuration, Trainer + Bert
+           (bert_base, bf16 compute, f32 params, remat), adamw(1e-4),
+           mlm_loss, B=16, S=512, one fixed batch with 15% masked, 5
+           steps: losses finite, the first within 0.5 of ln V + 1/2 (the
+           cross entropy of unit-variance random logits), falling; ms a
+           step, tokens/s, peak memory, MFU over 989 TFLOP/s (6 FLOPs a
+           matmul parameter a token plus 12·D a pair and head, remat not
+           counted); one profiled step by class (matmul, attention einsums
+           and softmax, LayerNorm, gelu, casts, AdamW) and the idle share.
+           Flash launches 0/0/0 over both phases (launches_by_path.bert).
+           bert_payload: python -m tf_operator_tpu_torch.train.train_bert
+           --size base --steps 2 exits 0.
+17. ps     two port shards (python -m tf_operator_tpu_torch.train.ps) as
+           subprocesses on loopback from a TPUJOB_CLUSTER_SPEC, each on
+           the card, and the port's MNIST worker (train.dist_mnist_ps) on
+           the card for 30 steps against them, its window-mean loss
+           falling; on two fresh shards, one pull and one push of a
+           bert_base-sized flat dict (110 M f32 parameters) timed, median
+           of 3, and the pushed SGD steps read back; every shard stopped
+           by SIGTERM exits 0.
+
+Then the whole script's seconds, a {"kernels": [...]} summary line, the
+nvidia-smi name/power line, and last {"ok": true, "device": {...}}. Any
+failure exits non-zero before the last line; so does a machine without a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -229,6 +260,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from tf_operator_tpu_torch.models import bert as tbert
 from tf_operator_tpu_torch.models import llama as tllama
 from tf_operator_tpu_torch.models.llama import Llama, llama_3_8b
 from tf_operator_tpu_torch.models import mixtral as tmix
@@ -267,6 +299,7 @@ from tf_operator_tpu_torch.train.trainer import (
     adamw,
     classification_loss,
     classification_loss_frozen_stats,
+    cross_entropy_loss,
     run_train_steps,
     sgd,
 )
@@ -2837,10 +2870,407 @@ def phase_mixtral_all() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# BERT (models/bert.py) and the parameter server (train/ps.py)
+# ---------------------------------------------------------------------------
+
+# Card (f32, TF32 off) against CPU: bert_tiny's logits within 1e-5 of
+# their largest value (sums of at most 128 f32 products in another
+# order, as mixtral_check), its gradients within 1e-4 (sums over the
+# batch's 160 rows on top); bert_base's logits within 1e-4 (12 layers of
+# sums over 768-3072 products).
+BERT_CHECK_REL = 1e-5
+BERT_GRAD_REL = 1e-4
+BERT_BASE_REL = 1e-4
+BERT_CHECK_SHAPE = (4, 40)          # B, S < max_seq_len, one row padded
+BERT_BASE_CHECK_SHAPE = (2, 128)
+# benchmarks/bench_bert.py's configuration: B=16, S=512, bf16 compute,
+# f32 params, remat, adamw(1e-4).
+BERT_B, BERT_S = 16, 512
+BERT_STEPS = 5
+BERT_LR = 1e-4
+# The first loss: the cross entropy of random logits of unit variance
+# (the MLM head's input leaves mlm_ln at unit variance, its weights draw
+# at 1/hidden) over V words is about ln V + 1/2.
+BERT_FIRST_LOSS_ATOL = 0.5
+PS_STEPS = 30
+PS_TRANSFER_REPS = 3
+
+
+def bert_batch(vocab: int, b: int, s: int, seed: int,
+               padded: bool = False) -> dict:
+    """The payload's MLM batch: tokens from ``default_rng(seed)``, 15% of
+    positions masked with the sentinel 3; ``padded`` adds an attn_mask
+    with row 1 padded at its tail and the last row all padding."""
+    rng = np.random.default_rng(seed)
+    targets = rng.integers(0, vocab, (b, s))
+    mask = rng.random((b, s)) < 0.15
+    batch = {"inputs": np.where(mask, 3, targets), "targets": targets,
+             "mask": mask.astype(np.float32)}
+    if padded:
+        attn = np.ones((b, s), np.int32)
+        attn[1, s // 2:] = 0
+        attn[-1] = 0
+        batch["attn_mask"] = attn
+    return batch
+
+
+def phase_bert_check() -> dict:
+    """bert_tiny in f32 (TF32 off), card against CPU on the same weights
+    and a padded batch: logits and every parameter's gradient of the MLM
+    loss, each within its limit scaled to its own largest value (check);
+    the check must reject the card's logits without the padding mask.
+    Then bert_base at B=2, S=128 in f32: logits, card against CPU.
+    Returns the flash launches of the phase (BERT reaches no kernel)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.reset_launches()
+    tiny = dataclasses.replace(tbert.bert_tiny(), dtype=torch.float32)
+    seeded = lambda cfg, dev: tbert.Bert(
+        cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    models = {"cpu": seeded(tiny, "cpu")}
+    models["card"] = seeded(tiny, DEVICE)
+    models["card"].load_state_dict(models["cpu"].state_dict())
+    batch = bert_batch(tiny.vocab_size, *BERT_CHECK_SHAPE, seed=5,
+                       padded=True)
+    outs = {}
+    for where, model in models.items():
+        dev = next(model.parameters()).device
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        logits = model(b["inputs"], b["attn_mask"])
+        loss = cross_entropy_loss(logits, b["targets"], b["mask"])
+        loss.backward()
+        outs[where] = {"logits": logits.detach().cpu(), "loss": loss.item(),
+                       "grads": {n: p.grad.cpu() for n, p in
+                                 model.named_parameters()}}
+        if where == "card":
+            with torch.no_grad():
+                outs["unmasked"] = model(b["inputs"]).cpu()
+    logits = check("logits", outs["card"]["logits"], outs["cpu"]["logits"],
+                   rel=BERT_CHECK_REL, tol=BERT_CHECK_REL)
+    unmasked = check("logits", outs["unmasked"], outs["cpu"]["logits"],
+                     rel=BERT_CHECK_REL, tol=BERT_CHECK_REL)
+    grads = {}
+    for n, g in outs["card"]["grads"].items():
+        want = outs["cpu"]["grads"][n]
+        if n.endswith("attn.wk.bias"):
+            # Zero in exact arithmetic: the key bias moves every logit of
+            # a query row alike, which the softmax cancels. Both sides'
+            # round-off is held against the key weight's gradient.
+            scale = outs["cpu"]["grads"][n[:-len("bias")] + "weight"]
+            limit = BERT_GRAD_REL * scale.abs().max().item()
+            err = max(g.abs().max().item(), want.abs().max().item())
+            grads[n] = {"max_abs_err": err, "limit": limit,
+                        "ratio": err / limit, "ok": err <= limit}
+        else:
+            grads[n] = check(n, g, want, rel=BERT_GRAD_REL,
+                             tol=BERT_GRAD_REL)
+    worst = max(grads, key=lambda n: grads[n]["ratio"])
+    del models, outs
+    base = dataclasses.replace(tbert.bert_base(), dtype=torch.float32,
+                               remat=False)
+    cpu_base = seeded(base, "cpu")
+    card_base = seeded(base, DEVICE)
+    card_base.load_state_dict(cpu_base.state_dict())
+    tokens = bert_batch(base.vocab_size, *BERT_BASE_CHECK_SHAPE,
+                        seed=6)["inputs"]
+    with torch.no_grad():
+        want = cpu_base(torch.as_tensor(tokens))
+        got = card_base(torch.as_tensor(tokens, device=DEVICE)).cpu()
+    base_logits = check("logits", got, want, rel=BERT_BASE_REL,
+                        tol=BERT_BASE_REL)
+    del cpu_base, card_base, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(fa.LAUNCHES)
+    emit({"phase": "bert_check", "dtype": "float32", "tf32": False,
+          "tiny": {"batch": list(BERT_CHECK_SHAPE),
+                   "limit": {"logits_rel": BERT_CHECK_REL,
+                             "grads_rel": BERT_GRAD_REL},
+                   "logits": logits, "worst_grad": [worst, grads[worst]],
+                   "grads_ok": all(g["ok"] for g in grads.values()),
+                   "unmasked_ratio": unmasked["ratio"]},
+          "base": {"batch": list(BERT_BASE_CHECK_SHAPE),
+                   "limit_rel": BERT_BASE_REL, "logits": base_logits},
+          "launches": launches})
+    bad = [n for n, g in grads.items() if not g["ok"]]
+    if not logits["ok"] or bad or not base_logits["ok"]:
+        raise AssertionError(f"BERT on the card disagrees with the CPU: "
+                             f"logits {logits['ratio']}, grads {bad}, "
+                             f"bert_base {base_logits['ratio']}")
+    if unmasked["ok"]:
+        raise AssertionError("the check accepts logits without the padding "
+                             "mask")
+    if any(launches.values()):
+        raise AssertionError(f"BERT launched flash kernels: {launches}")
+    return launches
+
+
+def bert_op_class(op, seq: int, vocab: int):
+    """The class of a BERT training step's aten op by its name and input
+    shapes, or None: [.., S, S] operands are the attention's einsums and
+    softmax, the other matmuls the projections and the MLM head; keepdim
+    [B, S, 1] statistics and the mean/square/rsqrt ops are LayerNorm's (no
+    other layer of the model takes them); the foreach ops AdamW's."""
+    name = op.name
+    shapes = [s for s in op.input_shapes or () if s]
+    if name.startswith("aten::_foreach"):
+        return "AdamW (foreach)"
+    if name in ("aten::bmm", "aten::baddbmm", "aten::_softmax",
+                "aten::_softmax_backward_data") or any(
+            len(x) >= 2 and x[-1] == x[-2] == seq for x in shapes):
+        return "attention einsums and softmax"
+    if name in ("aten::mm", "aten::addmm"):
+        return "matmul (projections, MLM head)"
+    if name in ("aten::gelu", "aten::gelu_backward"):
+        return "gelu"
+    if name in ("aten::mean", "aten::square", "aten::pow", "aten::rsqrt",
+                "aten::clamp_min") or any(len(x) == 3 and x[-1] == 1
+                                          for x in shapes):
+        return "LayerNorm"
+    if name in ("aten::copy_", "aten::_to_copy"):
+        return "casts/copies"
+    if any(x and x[-1] == vocab for x in shapes):
+        return "MLM loss and logits"
+    return None
+
+
+def bert_flops(model, tokens: int, seq: int) -> dict:
+    """Reckoned FLOPs of one training step (the remat recompute not
+    counted): 6 a matmul parameter a token, and the attention's 12·D a
+    (query, key) pair and head."""
+    cfg = model.cfg
+    matmul_params = sum(m.weight.numel() for m in model.modules()
+                        if isinstance(m, tllama.Dense))
+    attention = (12 * cfg.head_dim * cfg.n_heads * cfg.n_layers * tokens
+                 * seq)
+    return {"matmul_params": matmul_params,
+            "matmul": 6 * matmul_params * tokens, "attention": attention,
+            "total": 6 * matmul_params * tokens + attention}
+
+
+def phase_bert() -> dict:
+    """BERT-base MLM training at benchmarks/bench_bert.py's configuration:
+    Trainer + Bert (bf16 compute, f32 params, remat), adamw(1e-4),
+    mlm_loss, B=16, S=512, one fixed batch with 15% masked, BERT_STEPS
+    steps; then one profiled step. Returns the flash launches of the
+    steps."""
+    card = nvidia_smi()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tbert.bert_base()
+    model = tbert.Bert(cfg, device=DEVICE,
+                       generator=torch.Generator(device=DEVICE).manual_seed(0))
+    trainer = Trainer(model=model, optimizer=adamw(BERT_LR),
+                      loss_fn=tbert.mlm_loss, device=DEVICE)
+    state = trainer.init()
+    step = trainer.make_train_step()
+    batch = bert_batch(cfg.vocab_size, BERT_B, BERT_S, seed=0)
+    torch.cuda.synchronize()
+    losses, norms, step_s = [], [], []
+    fa.reset_launches()
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_step(step, state, batch, kernel_class, functools.partial(
+        bert_op_class, seq=BERT_S, vocab=cfg.vocab_size))
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = BERT_B * BERT_S
+    flops = bert_flops(model, tokens, BERT_S)
+    first_loss = math.log(cfg.vocab_size) + 0.5
+    emit({"phase": "bert", "nvidia_smi": card, "batch": BERT_B,
+          "seq": BERT_S, "dtype": str(cfg.dtype), "remat": cfg.remat,
+          "lr": BERT_LR, "params": sum(p.numel() for p in
+                                       model.parameters()),
+          "losses": losses, "grad_norms": norms,
+          "expected_first_loss": first_loss,
+          "step_ms": [t * 1e3 for t in step_s], "ms_per_step": steady * 1e3,
+          "tokens_per_s": tokens / steady, "flops_per_step": flops,
+          "mfu_vs_989_tflops": flops["total"] / steady / PEAK_BF16,
+          "max_memory_allocated_gb": peak, "launches": launches,
+          "profile": prof})
+    del model, trainer, state, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"non-finite BERT loss or grad norm: {losses}")
+    if abs(losses[0] - first_loss) > BERT_FIRST_LOSS_ATOL:
+        raise AssertionError(f"first BERT loss {losses[0]} is not within "
+                             f"{BERT_FIRST_LOSS_ATOL} of {first_loss}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"BERT loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"BERT launched flash kernels: {launches}")
+    return launches
+
+
+def phase_bert_payload():
+    command = [sys.executable, "-m", "tf_operator_tpu_torch.train.train_bert",
+               "--size", "base", "--steps", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.splitlines()
+    emit({"phase": "bert_payload", "args": command[3:],
+          "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+          "stdout": lines})
+    if proc.returncode != 0 or "bert training OK" not in lines:
+        raise AssertionError(f"train_bert exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+
+
+def phase_bert_all() -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = phase_bert_check()
+    train = phase_bert()
+    phase_bert_payload()
+    return {n: launches[n] + train[n] for n in launches}
+
+
+def _free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def _cluster_spec(addrs, task_type: str, index: int) -> str:
+    return json.dumps({"cluster": {"ps": addrs, "worker": ["127.0.0.1:0"]},
+                       "task": {"type": task_type, "index": index}})
+
+
+def phase_ps(root: str):
+    """The parameter-server job on the card: two port shards (python -m
+    tf_operator_tpu_torch.train.ps) as subprocesses on loopback, each
+    given its TPUJOB_CLUSTER_SPEC, and the port's MNIST worker on the card
+    for PS_STEPS steps against them (window-mean loss falling); then, on
+    two fresh shards, the seconds of one pull and one push of a
+    bert_base-sized flat dict (110 M f32 parameters over 2 shards: what a
+    worker of the BASELINE's "PS + 8 Workers" config moves a step), the
+    median of PS_TRANSFER_REPS, and the pushed SGD steps read back. Every
+    shard is stopped with SIGTERM and must exit 0."""
+    import signal
+
+    from tf_operator_tpu_torch.train.ps import PSClient
+
+    card = nvidia_smi()
+    ports = _free_ports(4)
+    jobs = {"mnist": [f"127.0.0.1:{p}" for p in ports[:2]],
+            "bert": [f"127.0.0.1:{p}" for p in ports[2:]]}
+    lr = {"mnist": 0.2, "bert": 0.01}
+    shards, logs = [], []
+    try:
+        for job, addrs in jobs.items():
+            for i in range(len(addrs)):
+                log = open(os.path.join(root, f"ps-{job}-{i}.log"), "w+")
+                logs.append(log)
+                shards.append(subprocess.Popen(
+                    [sys.executable, "-m", "tf_operator_tpu_torch.train.ps",
+                     "--lr", str(lr[job])], cwd=REPO, stdout=log,
+                    stderr=subprocess.STDOUT,
+                    env=dict(os.environ, TPUJOB_CLUSTER_SPEC=_cluster_spec(
+                        addrs, "ps", i))))
+        t0 = time.perf_counter()
+        worker = subprocess.run(
+            [sys.executable, "-m", "tf_operator_tpu_torch.train.dist_mnist_ps",
+             "--steps", str(PS_STEPS)], cwd=REPO, capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, TPU_WORKER_ID="0",
+                     TPUJOB_CLUSTER_SPEC=_cluster_spec(jobs["mnist"],
+                                                       "worker", 0)))
+        worker_s = time.perf_counter() - t0
+        done = [ln for ln in worker.stdout.splitlines()
+                if ln.startswith("done:")]
+        if worker.returncode != 0 or not done:
+            raise AssertionError(f"PS worker exited {worker.returncode}: "
+                                 f"{worker.stderr[-2000:]}")
+        first = float(done[0].split("first=")[1].split()[0])
+        last = float(done[0].split("last=")[1])
+
+        model = tbert.Bert(tbert.bert_base(), device=DEVICE)
+        flat = {n.replace(".", "/"): p.detach().cpu().numpy()
+                for n, p in model.named_parameters()}
+        del model
+        nbytes = sum(v.nbytes for v in flat.values())
+        client = PSClient(jobs["bert"])
+        client.wait_ready(timeout=120)
+        t0 = time.perf_counter()
+        client.init(flat)
+        init_s = time.perf_counter() - t0
+        pull_s, push_s = [], []
+        for _ in range(PS_TRANSFER_REPS):
+            t0 = time.perf_counter()
+            client.push(flat)
+            push_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            pulled = client.pull()
+            pull_s.append(time.perf_counter() - t0)
+        client.close()
+        # PS_TRANSFER_REPS SGD steps, each with the initial parameters as
+        # the gradient.
+        scale = 1 - lr["bert"] * PS_TRANSFER_REPS
+        key = "layers/0/attn/wq/weight"
+        got = pulled["layers"]["0"]["attn"]["wq"]["weight"]
+        applied = bool(np.allclose(got, flat[key] * scale, rtol=1e-5,
+                                   atol=1e-7))
+        rcs = []
+        for proc in shards:
+            proc.send_signal(signal.SIGTERM)
+        for proc in shards:
+            rcs.append(proc.wait(timeout=60))
+        shard_logs = []
+        for log in logs:
+            log.seek(0)
+            shard_logs.append(log.read())
+    finally:
+        for proc in shards:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    on_card = all("serving on" in text and " on cuda" in text
+                  for text in shard_logs)
+    median = lambda xs: sorted(xs)[len(xs) // 2]
+    emit({"phase": "ps", "nvidia_smi": card, "shards": 2,
+          "worker": {"steps": PS_STEPS, "seconds": worker_s,
+                     "first_window_loss": first, "last_window_loss": last},
+          "transfer": {"params": sum(v.size for v in flat.values()),
+                       "bytes": nbytes, "init_s": init_s,
+                       "pull_s": pull_s, "push_s": push_s,
+                       "pull_s_median": median(pull_s),
+                       "push_s_median": median(push_s),
+                       "pull_gb_per_s": nbytes / median(pull_s) / 1e9,
+                       "push_gb_per_s": nbytes / median(push_s) / 1e9,
+                       "sgd_steps_read_back": applied},
+          "shard_rcs": rcs, "shards_on_card": on_card})
+    if not last < first:
+        raise AssertionError(f"PS worker loss did not fall: {first} -> "
+                             f"{last}")
+    if not applied or any(rcs) or not on_card:
+        raise AssertionError(f"PS transfer: pushes applied {applied}, "
+                             f"shard exit codes {rcs}, on the card "
+                             f"{on_card}: {shard_logs}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     phase_env()
     phase_build()
     stats, errs = phase_kernels()
@@ -2881,6 +3311,8 @@ def main() -> int:
         phase_resume(root)
         phase_resnet_all()
         mixtral_launches = phase_mixtral_all()
+        bert_launches = phase_bert_all()
+        phase_ps(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2895,10 +3327,12 @@ def main() -> int:
                                  "ring": ring_launches[name],
                                  "ring_train": ring_train_launches[name],
                                  "pp": pp_launches_run[name],
-                                 "mixtral": mixtral_launches[name]},
+                                 "mixtral": mixtral_launches[name],
+                                 "bert": bert_launches[name]},
             "max_abs_err": errs[name], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - started})
     emit({"kernels": summary})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -49,7 +49,15 @@ JAX side, which runs in the test process on ``jax.devices()[:4]``:
 - ``LlamaPipelineTrainer`` (1F1B) at (dp=2, pp=2), 3 steps from the JAX
   pipeline trainer's converted init against the JAX trainer within 5e-4;
   its state saved, restored into a trainer of another seed bit-equal, and
-  the next step equal to the uninterrupted one's.
+  the next step equal to the uninterrupted one's;
+- ``bert_tiny`` (f32, biased projections, LayerNorm; biases and norm
+  scales drawn at random) with ``mlm_loss`` under ``LLAMA_RULES`` at
+  ``MeshConfig(dp=2, tp=2)`` and ``MeshConfig(fsdp=2, tp=2)`` on padded,
+  unevenly masked batches: the
+  first batch's gradients of every parameter (the biases of the column-
+  and row-parallel projections included) against JAX's unsharded
+  gradients, then 3 adamw steps against the JAX ``Trainer`` on the same
+  mesh: losses, grad norms and gathered parameters within 5e-4.
 """
 
 import dataclasses
@@ -98,6 +106,10 @@ PIPE_SCHEDULES = ("1f1b", "gpipe")
 PIPE_HID, PIPE_VOCAB, PIPE_TOKENS, PIPE_MB = 16, 32, 16, 4
 PIPE_LOSS_TOL, PIPE_GRAD_ATOL, PIPE_GRAD_RTOL = 1e-5, 1e-5, 1e-4
 PP_LR = 3e-3
+# BERT: data parallel and FSDP, each with tensor parallelism over the
+# biased projections.
+BERT_MESHES = {"bert_dp2_tp2": dict(dp=2, tp=2),
+               "bert_fsdp2_tp2": dict(fsdp=2, tp=2)}
 TRAIN_TOL = 5e-4
 FLASH_TOL, FLASH_GRAD_TOL = 2e-5, 2e-4
 DECODE_ATOL = 1e-5
@@ -147,6 +159,43 @@ def pipe_inputs(stages):
             "head": {"w": mk(PIPE_HID, PIPE_VOCAB, scale=0.5)},
             "tokens": rng.integers(0, PIPE_VOCAB, PIPE_TOKENS),
             "labels": rng.integers(0, PIPE_VOCAB, PIPE_TOKENS)}
+
+
+def bert_batches():
+    """MLM batches (15% masked, sentinel 3) with an attn_mask: one row
+    padded at its tail, one all padding."""
+    rng = np.random.default_rng(41)
+    out = []
+    for _ in range(STEPS):
+        targets = rng.integers(0, 256, (BATCH, SEQ))
+        mask = rng.random((BATCH, SEQ)) < 0.15
+        attn = np.ones((BATCH, SEQ), np.int32)
+        attn[1, SEQ // 2:] = 0
+        attn[3] = 0
+        out.append({"inputs": np.where(mask, 3, targets),
+                    "targets": targets, "mask": mask.astype(np.float32),
+                    "attn_mask": attn})
+    return out
+
+
+def randomized_norms_and_biases(params, seed):
+    """``params`` with every bias and LayerNorm scale drawn at random:
+    flax makes them 0 and 1, and a bias added tp times, or a gradient of
+    one off by tp, would not show on zeros."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "bias":
+            return (0.2 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        if name == "scale":
+            return (1 + 0.2 * rng.standard_normal(leaf.shape)).astype(
+                np.float32)
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(draw, params)
 
 
 def moe_fields():
@@ -222,6 +271,54 @@ def _train_case(inputs, name, fields=None, ckpt_dir=None,
         ckpt.close()
         out["moments"] = _gathered_moments(state.opt_state)
     return out
+
+
+def _bert_case(inputs, name):
+    """The first batch's gradients through the sharded model (whole), then
+    3 Trainer steps."""
+    import dataclasses as dc
+
+    from tf_operator_tpu_torch.models import bert as tbert
+    from tf_operator_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        make_mesh,
+        use_mesh,
+    )
+    from tf_operator_tpu_torch.parallel.sharding import LLAMA_RULES
+    from tf_operator_tpu_torch.train import trainer as ttr
+    from tf_operator_tpu_torch.train.data import local_batch
+
+    cfg = dc.replace(tbert.bert_tiny(), dtype=torch.float32)
+    model = tbert.Bert(cfg, device="cpu")
+    model.load_state_dict(inputs["bert"])
+    mesh = make_mesh(MeshConfig(**BERT_MESHES[name]), device="cpu")
+    trainer = ttr.Trainer(model=model, optimizer=ttr.adamw(LR),
+                          loss_fn=tbert.mlm_loss, device="cpu", mesh=mesh,
+                          rules=LLAMA_RULES,
+                          param_axes_fn=tbert.param_logical_axes)
+    state = trainer.init()
+    batches = inputs["bert_batches"]
+    first = {k: torch.as_tensor(v)
+             for k, v in local_batch(batches[0], mesh).items()}
+    first["mask_count"] = ttr.slice_mask_count(first["mask"], mesh)
+    with use_mesh(mesh):
+        tbert.mlm_loss(model, first).backward()
+    grads = {n: p.grad.full_tensor().clone()
+             for n, p in model.named_parameters()}
+    step = trainer.make_train_step()
+    losses, norms = [], []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    attn = model.layers[0].attn
+    tp_placement = lambda p: str(dict(zip(p.device_mesh.mesh_dim_names,
+                                          p.placements))["tp"])
+    return {"grads": grads, "losses": losses, "grad_norms": norms,
+            "params": _gathered(model),
+            "wq_bias_local": tuple(attn.wq.bias.to_local().shape),
+            "tp_placements": {n: tp_placement(getattr(attn, n).bias)
+                              for n in ("wq", "wo")}}
 
 
 def _moe_train_case(inputs, name):
@@ -605,6 +702,8 @@ def _worker(work_dir: str) -> None:
         results["pipe"] = _pipe_case(inputs)
         results["llama_pp"] = _llama_pp_case(
             inputs, os.path.join(work_dir, "pp-ckpt"))
+        for name in BERT_MESHES:
+            results[name] = _bert_case(inputs, name)
     if rank == 0:
         results["restore_world1"] = _restore_world1(ckpt_dir)
         torch.save(results, os.path.join(work_dir, "results.pt"))
@@ -826,6 +925,48 @@ def _jax_moe_training(tokens, init_params):
     return out
 
 
+def _jax_bert(batches, init_params):
+    """JAX's unsharded gradients on the first batch, and 3 JAX Trainer
+    steps per BERT mesh, each from ``init_params``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from tf_operator_tpu.models import bert as jbert
+    from tf_operator_tpu.parallel.mesh import MeshConfig, make_mesh
+    from tf_operator_tpu.parallel.sharding import LLAMA_RULES
+    from tf_operator_tpu.train import trainer as jtr
+
+    cfg = dataclasses.replace(jbert.bert_tiny(), dtype=jnp.float32)
+    model = jbert.Bert(cfg)
+    first = jax.tree.map(jnp.asarray, batches[0])
+    grads = jax.grad(lambda p: jbert.mlm_loss(p, None, first,
+                                              model.apply)[0])(init_params)
+    out = {"grads": jax.tree.map(np.asarray, grads)}
+    for name, fields in BERT_MESHES.items():
+        mesh = make_mesh(MeshConfig(**fields), devices=jax.devices()[:WORLD])
+        trainer = jtr.Trainer(model=model,
+                              param_axes_fn=jbert.param_logical_axes,
+                              rules=LLAMA_RULES, mesh=mesh,
+                              optimizer=optax.adamw(LR),
+                              loss_fn=jbert.mlm_loss)
+        state, shardings = trainer.init(jax.random.PRNGKey(0), first)
+        # Both sides start from the same weights (the sharded init draws
+        # the kernels within an ulp of the unsharded one's, and the norms
+        # and biases are drawn at random).
+        state = dataclasses.replace(state, params=jax.device_put(
+            init_params, shardings.params))
+        step = trainer.make_train_step(shardings, first)
+        losses, norms = [], []
+        for batch in batches:
+            state, m = step(state, jax.tree.map(jnp.asarray, batch))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[name] = {"losses": losses, "grad_norms": norms,
+                     "params": jax.tree.map(np.asarray, state.params)}
+    return out
+
+
 def _start_world(work):
     """Spawn the 4 ranks on ``work/inputs.pt``; returns (process, log)
     pairs."""
@@ -873,7 +1014,10 @@ def world(tmp_path_factory):
     from tf_operator_tpu.ops.layers import attention, repeat_kv
     from tf_operator_tpu_torch.models import llama as tllama
     from tf_operator_tpu_torch.models import mixtral as tmix
+    from tf_operator_tpu.models import bert as jbert
+    from tf_operator_tpu_torch.models import bert as tbert
     from tf_operator_tpu_torch.models.convert import (
+        bert_params_from_flax,
         llama_params_from_flax,
         llama_stage_params_from_flax,
         mixtral_params_from_flax,
@@ -935,7 +1079,17 @@ def world(tmp_path_factory):
     pp_llama = {}
     for stage in range(2):
         pp_llama.update(llama_stage_params_from_flax(pp_init, pcfg, stage, 2))
+    # BERT: the JAX trainer's init params, and padded MLM batches.
+    bcfg = dataclasses.replace(tbert.bert_tiny(), dtype=torch.float32)
+    bert_batch = bert_batches()
+    bert_init = randomized_norms_and_biases(jax.tree.map(
+        np.asarray, jbert.Bert(dataclasses.replace(
+            jbert.bert_tiny(), dtype=jnp.float32)).init(
+            jax.random.PRNGKey(0), jnp.asarray(bert_batch[0]["inputs"]))
+        ["params"]), seed=43)
     torch.save({"llama": llama_params_from_flax(init_params, tcfg),
+                "bert": bert_params_from_flax(bert_init, bcfg),
+                "bert_batches": bert_batch,
                 "ring": ring, "ring_tokens": ring_tokens,
                 "ring_llama": llama_params_from_flax(ring_init, rcfg),
                 "pipe": pipes, "pp_llama": pp_llama,
@@ -960,6 +1114,7 @@ def world(tmp_path_factory):
         jax_pp = _jax_llama_pp_run(pp_trainer, pp_state, pp_shardings,
                                    pp_tokens)
         jax_moe = _jax_moe_training(tokens, moe_params)
+        jax_bert = _jax_bert(bert_batch, bert_init)
         dfull = np.asarray(dmodel.apply({"params": dparams}, dtoks))
         mdfull = np.asarray(mdmodel.apply({"params": mdparams}, mtoks)[0])
         f = {n: jnp.asarray(a) for n, a in flash.items()}
@@ -984,7 +1139,8 @@ def world(tmp_path_factory):
                 "moe_init_params": moe_params, "tmcfg": tmcfg,
                 "moe_decode_full": mdfull, "ring_attention": jax_ring,
                 "ring_init": ring_init, "rcfg": rcfg, "pipe": jax_pipe,
-                "llama_pp": jax_pp, "pp_init": pp_init, "pcfg": pcfg}
+                "llama_pp": jax_pp, "pp_init": pp_init, "pcfg": pcfg,
+                "bert": jax_bert, "bert_init": bert_init, "bcfg": bcfg}
     return results, jax_side
 
 
@@ -1213,3 +1369,34 @@ def test_a_failed_write_on_one_rank_commits_nothing(world):
                for r, e in enumerate(got["errors"]) if r != 1), got
     assert got["latest_step"] is None
     assert got["entries"] == ["1.tmp"]
+
+
+@pytest.mark.parametrize("mesh_name", list(BERT_MESHES))
+def test_sharded_bert_matches_jax(world, mesh_name):
+    """The first batch's gradients (every bias among them) within 5e-4 of
+    JAX's unsharded ones: a row-parallel bias added on every tp rank
+    before the sum would double the activations, an unsummed or
+    tp-split bias gradient would be off by tp; then 3 steps against the
+    JAX Trainer on the same mesh."""
+    from tf_operator_tpu_torch.models.convert import bert_params_from_flax
+
+    results, jax_side = world
+    got, want = results[mesh_name], jax_side["bert"]
+    bcfg = jax_side["bcfg"]
+    tp, fsdp = (BERT_MESHES[mesh_name].get(a, 1) for a in ("tp", "fsdp"))
+    # wq's bias split with its output features over tp (and dim 0 again
+    # over fsdp); wo's whole on the tp dim.
+    assert got["wq_bias_local"] == (64 // tp // fsdp,)
+    assert got["tp_placements"] == {"wq": "S(0)", "wo": "R"}
+    want_grads = bert_params_from_flax(want["grads"], bcfg)
+    assert set(got["grads"]) == set(want_grads)
+    for name, grad in got["grads"].items():
+        np.testing.assert_allclose(grad.numpy(), want_grads[name].numpy(),
+                                   atol=TRAIN_TOL, rtol=TRAIN_TOL,
+                                   err_msg=name)
+    for name in ("layers.0.attn.wq.bias", "layers.0.attn.wo.bias",
+                 "layers.1.mlp_in.bias", "layers.1.mlp_out.bias",
+                 "mlm_head.bias"):
+        assert got["grads"][name].abs().max() > 1e-3, name
+    assert_train_matches(got, want[mesh_name], bcfg, jax_side["bert_init"],
+                         bert_params_from_flax)

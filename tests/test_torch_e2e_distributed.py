@@ -1,5 +1,6 @@
-"""End to end: the port's MNIST payload, and its pipeline-parallel Llama
-payload, train as two processes under the local operator.
+"""End to end: the port's MNIST payload, its pipeline-parallel Llama
+payload and its BERT payload train as two processes under the local
+operator.
 
 The arc of tests/test_e2e_local.py's
 ``test_distributed_jax_two_process_training`` with ``python -m
@@ -9,7 +10,8 @@ env the operator renders (``JAX_COORDINATOR_ADDRESS`` /
 ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``), each drawing its local slice
 of the global batch. ``python -m tf_operator_tpu_torch.train.train_llama_pp
 --pp 2 --dp 1 --device cpu`` runs the same way, each pod one pipeline
-stage.
+stage, and ``python -m tf_operator_tpu_torch.train.train_bert --size tiny
+--device cpu`` with the batch over the two pods (dp=2).
 """
 
 import os
@@ -96,3 +98,28 @@ def test_port_pipeline_payload_two_stages(client):
     losses = [[line for line in log.splitlines() if line.startswith("step")]
               for log in logs.values()]
     assert len(losses[0]) == 3 and losses[0] == losses[1], losses
+
+
+def test_port_bert_payload_two_processes(client):
+    cmd = [sys.executable, "-m", "tf_operator_tpu_torch.train.train_bert",
+           "--size", "tiny", "--steps", "2", "--device", "cpu"]
+    spec = ReplicaSpec(
+        replicas=2,
+        template=PodTemplateSpec(spec=PodSpec(containers=[Container(
+            name=constants.DEFAULT_CONTAINER_NAME, command=cmd,
+            env={"TPUJOB_JAX_DISTRIBUTED": "1"})])))
+    job = TPUJob(metadata=ObjectMeta(name="torch-bert"),
+                 spec=TPUJobSpec(replica_specs={"worker": spec}))
+    job.spec.run_policy.clean_pod_policy = "None"
+    client.create(job)
+    job = client.wait_for_job("torch-bert", timeout=180)
+    logs = client.get_job_logs("torch-bert")
+    assert testutil.check_condition(job, JobConditionType.SUCCEEDED), logs
+    assert sorted(logs) == ["torch-bert-worker-0", "torch-bert-worker-1"]
+    # Both processes joined one dp=2 mesh and report the same global loss.
+    for log in logs.values():
+        assert "'dp': 2" in log, log
+        assert "bert training OK" in log, log
+    losses = [[line for line in log.splitlines() if line.startswith("step")]
+              for log in logs.values()]
+    assert len(losses[0]) == 2 and losses[0] == losses[1], losses

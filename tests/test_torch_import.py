@@ -57,7 +57,8 @@ def test_port_imports_without_jax():
                    "parallel.sharding", "models.mixtral", "serve.gateway",
                    "train.train_mixtral", "ops.ring_attention",
                    "parallel.pipeline", "parallel.llama_pp",
-                   "train.train_llama_pp"):
+                   "train.train_llama_pp", "models.bert", "train.train_bert",
+                   "train.ps", "train.dist_mnist_ps"):
         assert f"tf_operator_tpu_torch.{module}" in proc.stdout.split()
 
 
@@ -79,7 +80,9 @@ def test_blocker_matches_exact_package_name():
                                    "distributed", "sharded_payload",
                                    "mixtral", "mixtral_runner",
                                    "mixtral_payload", "pipeline_trainer",
-                                   "pipeline_payload"])
+                                   "pipeline_payload", "bert",
+                                   "bert_payload", "ps_server", "ps_main",
+                                   "ps_worker"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device and no card, each entry point raises instead of
     running on the host."""
@@ -104,6 +107,12 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         train_resnet,
     )
     from tf_operator_tpu_torch.train.trainer import Trainer, adamw
+    from tf_operator_tpu_torch.models.bert import Bert, bert_tiny
+    from tf_operator_tpu_torch.train import dist_mnist_ps, ps, train_bert
+
+    monkeypatch.setenv(ps.ENV_CLUSTER_SPEC,
+                       '{"cluster": {"ps": ["127.0.0.1:0"]}, '
+                       '"task": {"type": "ps", "index": 0}}')
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "llama":
@@ -145,6 +154,16 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             LlamaPipelineTrainer(llama_tiny(), None, adamw(1e-3), 2)
         elif entry == "pipeline_payload":
             train_llama_pp.main(["--steps", "1", "--pp", "1", "--dp", "1"])
+        elif entry == "bert":
+            Bert(bert_tiny())
+        elif entry == "bert_payload":
+            train_bert.main(["--steps", "1"])
+        elif entry == "ps_server":
+            ps.ParameterServer()
+        elif entry == "ps_main":
+            ps.main([])
+        elif entry == "ps_worker":
+            dist_mnist_ps.main(["--steps", "1"])
         else:
             worker.main(["--runner", "llama", "--spool", str(tmp_path)])
 

@@ -1,5 +1,6 @@
-"""Carry Llama, Mixtral, MNIST and ResNet weights (and ResNet's BatchNorm
-statistics) and Llama/Mixtral KV caches between flax trees and the port.
+"""Carry Llama, Mixtral, BERT, MNIST and ResNet weights (and ResNet's
+BatchNorm statistics) and Llama/Mixtral KV caches between flax trees and the
+port.
 
 The flax tree (``tf_operator_tpu/models/llama.py``) stacks every block
 parameter on a leading ``layers`` axis (``nn.scan``) under ``blocks/`` and
@@ -10,7 +11,10 @@ the flax ``cache`` collection and ``{"k", "v"}`` in the port. A Mixtral
 tree is a Llama one with ``blocks/moe/`` (the router ``Dense`` and the
 expert tensors ``w_gate``/``w_up`` [E, H, M] and ``w_down`` [E, M, H],
 whose layout the port keeps) in place of ``blocks/mlp/``; its cache is
-the Llama cache, so ``llama_cache_{from,to}_flax`` carry it. The JAX
+the Llama cache, so ``llama_cache_{from,to}_flax`` carry it. A BERT tree
+scans its blocks the same way; its ``Dense`` layers have a ``bias`` beside
+the kernel and its LayerNorms a ``bias`` beside the ``scale``, all carried
+as they are, as is ``pos_embed``. The JAX
 pipeline trainer's tree stages the blocks as [pp, L/pp, ...]
 (``parallel/llama_pp.py``); ``llama_stage_params_{from,to}_flax`` carry
 it to and from the port's stages, whose ``state_dict`` names are the
@@ -38,6 +42,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tf_operator_tpu_torch.models.bert import BertConfig
 from tf_operator_tpu_torch.models.llama import LlamaConfig
 from tf_operator_tpu_torch.models.mixtral import MixtralConfig
 
@@ -69,6 +74,32 @@ _TOP_LEAVES = {
 }
 
 
+def _dense(*path: str) -> Dict[tuple, Tuple[str, bool]]:
+    """The leaves of a biased flax ``Dense`` at ``path``."""
+    name = ".".join(path)
+    return {path + ("kernel",): (f"{name}.weight", True),
+            path + ("bias",): (f"{name}.bias", False)}
+
+
+def _layer_norm(name: str) -> Dict[tuple, Tuple[str, bool]]:
+    return {(name, "scale"): (f"{name}.scale", False),
+            (name, "bias"): (f"{name}.bias", False)}
+
+
+# A BERT block: biased projections and flax LayerNorms.
+_BERT_BLOCK_LEAVES = {
+    **_dense("attn", "wq"), **_dense("attn", "wk"), **_dense("attn", "wv"),
+    **_dense("attn", "wo"), **_layer_norm("attn_ln"),
+    **_dense("mlp_in"), **_dense("mlp_out"), **_layer_norm("mlp_ln"),
+}
+_BERT_TOP_LEAVES = {
+    ("embed_tokens", "embedding"): ("embed_tokens.weight", False),
+    ("pos_embed",): ("pos_embed", False),
+    **_layer_norm("embed_ln"), **_dense("mlm_transform"),
+    **_layer_norm("mlm_ln"), **_dense("mlm_head"),
+}
+
+
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, object]:
     flat = {}
     for key, value in tree.items():
@@ -90,7 +121,8 @@ def _unflatten(flat: Mapping[tuple, object]) -> Dict:
     return tree
 
 
-def _stacked_from_flax(params: Mapping, n_layers: int, block_leaves: Mapping
+def _stacked_from_flax(params: Mapping, n_layers: int, block_leaves: Mapping,
+                       top_leaves: Mapping = _TOP_LEAVES
                        ) -> Dict[str, torch.Tensor]:
     """flax ``params`` with ``blocks/`` scanned over ``n_layers`` -> the
     port's state_dict, by the leaf tables."""
@@ -106,7 +138,7 @@ def _stacked_from_flax(params: Mapping, n_layers: int, block_leaves: Mapping
         return torch.from_numpy(np.array(arr.T if transpose else arr,
                                          order="C", copy=True))
 
-    for path, (name, transpose) in _TOP_LEAVES.items():
+    for path, (name, transpose) in top_leaves.items():
         state[name] = to_torch(take(path), transpose)
     for path, (name, transpose) in block_leaves.items():
         stacked = take(("blocks",) + path)
@@ -123,7 +155,8 @@ def _stacked_from_flax(params: Mapping, n_layers: int, block_leaves: Mapping
 
 
 def _stacked_to_flax(state: Mapping[str, torch.Tensor], n_layers: int,
-                     block_leaves: Mapping) -> Dict:
+                     block_leaves: Mapping,
+                     top_leaves: Mapping = _TOP_LEAVES) -> Dict:
     """The port's state_dict -> flax ``params`` (nested dict of numpy),
     the blocks stacked on a leading ``layers`` axis."""
     state = {k: v.detach().float().cpu().numpy() for k, v in state.items()}
@@ -135,7 +168,7 @@ def _stacked_to_flax(state: Mapping[str, torch.Tensor], n_layers: int,
         arr = state.pop(name)
         return np.ascontiguousarray(arr.T) if transpose else arr
 
-    for path, (name, transpose) in _TOP_LEAVES.items():
+    for path, (name, transpose) in top_leaves.items():
         flat[path] = take(name, transpose)
     for path, (name, transpose) in block_leaves.items():
         flat[("blocks",) + path] = np.stack(
@@ -206,6 +239,21 @@ def mixtral_params_to_flax(state: Mapping[str, torch.Tensor],
                            cfg: MixtralConfig) -> Dict:
     """The port's Mixtral state_dict -> flax ``params`` (numpy)."""
     return _stacked_to_flax(state, cfg.n_layers, _MIXTRAL_BLOCK_LEAVES)
+
+
+def bert_params_from_flax(params: Mapping, cfg: BertConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """flax BERT ``params`` -> the port's state_dict: kernels transposed,
+    biases, LayerNorm scales and biases and ``pos_embed`` as they are."""
+    return _stacked_from_flax(params, cfg.n_layers, _BERT_BLOCK_LEAVES,
+                              _BERT_TOP_LEAVES)
+
+
+def bert_params_to_flax(state: Mapping[str, torch.Tensor],
+                        cfg: BertConfig) -> Dict:
+    """The port's BERT state_dict -> flax ``params`` (numpy)."""
+    return _stacked_to_flax(state, cfg.n_layers, _BERT_BLOCK_LEAVES,
+                            _BERT_TOP_LEAVES)
 
 
 _CACHE_LEAVES = {("blocks", "attn", "k"): "k", ("blocks", "attn", "v"): "v"}

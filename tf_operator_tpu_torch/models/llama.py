@@ -49,7 +49,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
@@ -134,11 +134,18 @@ def _check_config(cfg: LlamaConfig) -> None:
 
 
 class Dense(nn.Module):
-    """Bias-free projection with f32 weight [out, in], computed in ``dtype``."""
+    """Projection with f32 weight [out, in], computed in ``dtype``;
+    bias-free unless ``bias`` (an f32 ``bias`` [out], zeros).
+
+    As flax's ``nn.Dense``, the input, the weight and the bias are cast to
+    ``dtype`` and the bias is added after the product. Under tensor
+    parallelism (``parallel/sharding.py``) a row-parallel projection's
+    product is a partial sum over tp: it is summed first, so that the
+    replicated bias is added once."""
 
     def __init__(self, features_in: int, features_out: int,
                  dtype: torch.dtype, device, generator: torch.Generator,
-                 heads: Optional[int] = None):
+                 heads: Optional[int] = None, bias: bool = False):
         super().__init__()
         self.dtype = dtype
         # The attention heads its output holds: where tp does not divide
@@ -149,9 +156,19 @@ class Dense(nn.Module):
             features_out, features_in, dtype=torch.float32, device=device))
         nn.init.normal_(self.weight, std=features_in ** -0.5,
                         generator=generator)
+        self.register_parameter("bias", nn.Parameter(torch.zeros(
+            features_out, dtype=torch.float32, device=device))
+            if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.bias is None:
+            return y
+        if isinstance(y, DTensor) and any(p.is_partial()
+                                          for p in y.placements):
+            y = y.redistribute(y.device_mesh,
+                               [Replicate()] * y.device_mesh.ndim)
+        return y + self.bias.to(self.dtype)
 
 
 class RMSNorm(nn.Module):

@@ -1,5 +1,5 @@
-"""Core layers: RMSNorm, rotary position embeddings, reference attention,
-and the TPU-formulated BatchNorm.
+"""Core layers: RMSNorm, flax's LayerNorm, the tanh GELU, rotary position
+embeddings, reference attention, and the TPU-formulated BatchNorm.
 
 Port of ``tf_operator_tpu/ops/layers.py``: the same cast points (f32
 statistics and rotations, cast back to the input dtype) and the same
@@ -25,6 +25,48 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * scale.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` over the last axis (``use_fast_variance``): the
+    mean and E[x²] in f32, var = max(E[x²] − E[x]², 0), then
+    ``(x − mean) · (rsqrt(var + eps) · scale) + bias`` in f32, cast to
+    ``dtype`` (default: the input's) at the end."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf.square().mean(dim=-1, keepdim=True)
+           - mean.square()).clamp_min(0.0)
+    mul = torch.rsqrt(var + eps) * scale.float()
+    return ((xf - mean) * mul + bias.float()).to(dtype or x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm(dtype=dtype, param_dtype=float32)``: f32
+    ``scale`` (ones) and ``bias`` (zeros), epsilon 1e-6, ``layer_norm``.
+
+    ``torch.nn.LayerNorm`` differs: its eps is 1e-5 and its variance is
+    the two-pass E[(x − E[x])²]."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias, dtype=self.dtype)
+
+
+def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
+    """``jax.nn.gelu``: by default the tanh form,
+    0.5·x·(1 + tanh(sqrt(2/π)·(x + 0.044715·x³)))."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
 
 
 def rope_frequencies(head_dim: int, max_seq_len: int, theta: float = 10000.0,

@@ -17,7 +17,11 @@ per mesh dimension (``AXIS_ORDER``), the counterpart of a JAX
   vocab on dim 0). Inputs and outputs stay local tensors, as the body of a
   JAX ``shard_map`` sees them: a column-parallel projection returns its
   shard of the features (the attention then works on its local heads),
-  a row-parallel one all-reduces its partial sums. Logits (features on
+  a row-parallel one all-reduces its partial sums. A biased projection
+  (BERT's) keeps its bias with it: split with a column-parallel
+  projection's output features, whole on a row-parallel one and added
+  once, after the sum (the JAX rules replicate every bias and GSPMD
+  slices it against the sharded activation). Logits (features on
   ``vocab``) are all-gathered, so the f32 loss sees every class; so is the
   output of a projection whose ``heads`` tp does not divide (Llama's KV
   projections where tp divides the query heads but not the KV heads: each
@@ -131,9 +135,12 @@ def _place_projection(module: nn.Module, tp_mesh: DeviceMesh,
     ``Dense`` (``[out, in]``, ``x @ W^T``) or an ``nn.Embedding``
     (``[vocab, embed]``). ``weight_dim`` is the weight dim split over
     ``tp_mesh`` (module docstring); inputs and outputs are local tensors,
-    the output gathered whole where ``gather_output``. A gathered output
-    that every rank uses alike (the logits) gets the same gradient on every
-    rank; with ``partial_grad`` each rank uses its own part of it (Llama's
+    the output gathered whole where ``gather_output``. A ``Dense`` bias
+    splits with a column-parallel projection's output features and stays
+    whole on a row-parallel one, where it is added after the sum; either
+    way its gradient comes out whole and equal on every tp rank. A
+    gathered output that every rank uses alike (the logits) gets the same
+    gradient on every rank; with ``partial_grad`` each rank uses its own part of it (Llama's
     KV heads), so its gradients are summed over tp."""
     embedding = isinstance(module, nn.Embedding)
     if not isinstance(module, (Dense, nn.Embedding)) or (
@@ -151,6 +158,13 @@ def _place_projection(module: nn.Module, tp_mesh: DeviceMesh,
         if mod is module:
             mod.register_parameter("weight", nn.Parameter(
                 distribute_tensor(mod.weight, mesh, [Shard(weight_dim)])))
+            if getattr(mod, "bias", None) is not None:
+                # Column-parallel: split with the output features.
+                # Row-parallel: whole, added once after the tp sum
+                # (Dense.forward).
+                mod.register_parameter("bias", nn.Parameter(
+                    distribute_tensor(mod.bias, mesh,
+                                      [Shard(0) if column else Replicate()])))
 
     def prepare_input(mod, inputs, mesh):
         x, *rest = inputs
