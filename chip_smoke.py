@@ -6,23 +6,51 @@
 Phases, each printing one JSON line:
 
 1. env     torch, CUDA and nvcc versions; the card's name and power limit.
-2. build   nvcc builds tf_operator_tpu_torch/csrc/flash_attention.cu for
-           sm_90a (seconds, library path, and per kernel the registers,
-           stack and spill bytes that ptxas reports).
+2. build   nvcc builds the two kernel libraries for sm_90a, one nvcc each,
+           started together: tf_operator_tpu_torch/csrc/flash_attention.cu
+           (the wgmma kernels: bf16 and fp16 at head_dim 128) and
+           csrc/flash_attention_simt.cu (the SIMT kernels: f32 at every
+           head_dim, bf16/fp16 at 256-512); seconds, library paths, and
+           per kernel variant the registers, stack and spill bytes that
+           ptxas reports.
 3. kernels each flash-attention kernel (forward, dQ, dK/dV) against its
-           plain PyTorch version on the card in bf16, at the training
-           step's shapes (B=1, S=2048, H=32, Hkv=8, D=128, causal), plus a
-           non-causal case, a q_seq != k_seq case with q_offset > 0, an
-           odd number of 64-row tiles (S=1088) and q_seq = k_seq / 2 with
-           q_offset 0 (half the k tiles seen by no row: their dK/dV must
-           be exact zeros), each output within a limit scaled to its own
-           largest value (REL below); the check must also reject perturbed
-           plain outputs (zeros, δ dropped, the first or last k or q tile
-           skipped, one GQA member left out of dK/dV); kernel, plain and
-           library (scaled_dot_product_attention, a yardstick the port
-           never calls) device times from CUDA events around calls queued
-           behind a sleep kernel (``cuda_ms``), and beside them the same
-           calls launched by the host as it goes.
+           plain PyTorch version on the card (KERNEL_CASES; B=1, H=32,
+           Hkv=8, GQA 4:1): in bf16 at head_dim 128 the training step's
+           shapes (S=2048, causal), a non-causal case, a q_seq != k_seq
+           case with q_offset > 0, an odd number of 64-row tiles (S=1088)
+           and q_seq = k_seq / 2 with q_offset 0 (half the k tiles seen by
+           no row: their dK/dV must be exact zeros); ragged lengths
+           (S=2000 causal, Sq=72 / Sk=200 at q_offset 128, S=8); fp16 at
+           S=2048 and 200; and the SIMT kernels at f32 128 and 512, bf16
+           256 and 512 and fp16 384, each at S=2048 causal and S=200 not.
+           Each output within a limit scaled to its own largest value (REL
+           below; f32 F32_REL); the check must also reject perturbed plain
+           outputs (zeros, δ dropped, the first or last k or q tile
+           skipped, one GQA member left out of dK/dV) and, wherever they
+           apply, the domain's edge cases (the partial last k tile
+           dropped, rows past the last full q tile left as zeros, scores
+           from the first 128 of head_dim, f32 products in TF32). Kernel,
+           plain and library (scaled_dot_product_attention, a yardstick
+           the port never calls) device times from CUDA events around
+           calls queued behind a sleep kernel (``cuda_ms``), and beside
+           them the same calls launched by the host as it goes, at B=1,
+           S=2048, H=32, Hkv=8, causal for bf16/fp16/f32 at 128, bf16 at
+           256 and 512, f32 at 512, and bf16 at S=2000; the bound takes
+           989 TFLOP/s for bf16/fp16 and 67 for f32, against 3.35 TB/s.
+3a. fp16_model  the model phase's logits check in fp16 at S=2048
+           (phase 4's rule; forward only): launches flash_fwd 4.
+3b. ragged_train  the main path at S=2000 (no multiple of the 64-row
+           tile), bf16: the logits through the kernels against the
+           reference attention (phase 4's rule), then 3 Trainer steps
+           launching fwd 8 / dQ 4 / dK/dV 4 each and calling the reference
+           attention never (counted); tokens/s and peak memory beside the
+           same 3 steps with attention_impl="xla", what the port ran there
+           before its kernels took ragged lengths.
+3c. f32_train  the main path with LlamaConfig.dtype = f32 at S=2048,
+           through the SIMT kernels: the logits within relative L2
+           F32_LOGITS_REL of the reference attention's on the same f32
+           weights, then 2 steps launching the _simt kernels 8 / 4 / 4
+           each, no reference attention; the step time.
 4. model   the 4-layer llama_3_8b-width model's logits through the kernels
            against the same weights through the reference attention.
 5. train   the main path: Trainer + Llama (llama_3_8b widths, 4 layers,
@@ -61,7 +89,10 @@ Phases, each printing one JSON line:
 8a. ring   ring attention (ops/ring_attention.py) over the flash kernels:
            4 ring positions stepped in lock step on the card (a hop that
            rotates the list of lanes), S=8192 in blocks of 2048, B=1,
-           H=32, Hkv=8, D=128, bf16, causal and not. out, dQ, dK and dV are
+           H=32, Hkv=8, D=128, bf16, causal and not; then causal rings of
+           ragged 2000-token bf16 blocks and of 512-token f32 blocks (the
+           SIMT kernels, at f32's limits), each ring the one
+           resolve_impl("auto") picks for its block. out, dQ, dK and dV are
            held against one kernel call over the whole 8192 and against the
            plain version (by KV head), with check's scaled limits; the
            check must reject three broken rings (an off-diagonal block
@@ -232,14 +263,19 @@ no flash kernel, as the JAX decode path runs none):
            of 3, and the pushed SGD steps read back; every shard stopped
            by SIGTERM exits 0.
 
-Then the whole script's seconds, a {"kernels": [...]} summary line, the
-nvidia-smi name/power line, and last {"ok": true, "device": {...}}. Any
+Then the whole script's seconds, a {"kernels": [...]} summary line (one
+entry a launch key: the wgmma kernels' numbers from the training step's
+case and launches from the train phase, the SIMT kernels' from the f32
+D=128 case and the f32_train phase; every path's launches and every timed
+variant beside them), the nvidia-smi name/power line, and last {"ok":
+true, "device": {...}}. Any
 failure exits non-zero before the last line; so does a machine without a
 CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -311,22 +347,43 @@ from tf_operator_tpu_torch.train.trainer import (
 # at most 2**-7 of a value), and the relative L2 error is bounded too. lse
 # is a log, so an absolute error on it is a relative one on the softmax
 # sum.
+# fp16 keeps 3 more mantissa bits than bf16, so it is held to bf16's
+# limits (its rounding noise sits well inside them).
 REL = 1e-2
 ATOL = 2e-2
 LSE_ATOL = 1e-3
+# f32 kernels (SIMT f32 FMA) against the plain versions with TF32 off:
+# relative L2 within 1e-5, every element within 1e-5 of the output's
+# largest value plus 1e-5 of itself, lse within 1e-5. Both sum in f32,
+# in orders that differ by about 1e-7 of a value; a TF32 product (10-bit
+# mantissa) is off by about 1e-4, and the tf32 perturbation shows these
+# limits reject it.
+F32_REL = F32_TOL = F32_LSE_ATOL = 1e-5
 OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
            "flash_dkv": ("dk", "dv")}
 BLOCK = fa.BLOCK
-PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_BF16 = 989e12      # H100 SXM dense bf16/fp16 tensor-core FLOP/s
+PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s without tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
-SOURCE = "tf_operator_tpu_torch/csrc/flash_attention.cu"
+SOURCE = {"": "tf_operator_tpu_torch/csrc/flash_attention.cu",
+          "_simt": "tf_operator_tpu_torch/csrc/flash_attention_simt.cu"}
 REPLACES = {
     "flash_fwd": "tf_operator_tpu/ops/flash_attention.py:95",
     "flash_dq": "tf_operator_tpu/ops/flash_attention.py:183",
     "flash_dkv": "tf_operator_tpu/ops/flash_attention.py:207",
 }
+DTYPE_NAME = {torch.bfloat16: "bf16", torch.float16: "fp16",
+              torch.float32: "f32"}
 B, S, H, HKV, D = 1, 2048, 32, 8, 128
 STEPS = 5
+# Paths beyond the tile and dtype of the main one: a ragged sequence (no
+# multiple of 64) and f32 through the SIMT kernels. The f32 logits against
+# the reference attention's on the same f32 weights: both sum in f32 (TF32
+# off), in other orders, through 4 layers and a 128,256-way lm_head.
+RAGGED_S = 2000
+RAGGED_STEPS = 3
+F32_STEPS = 2
+F32_LOGITS_REL = 1e-4
 PER_STEP = {"flash_fwd": 8, "flash_dq": 4, "flash_dkv": 4}
 # Under save_attn, save_qkv and mlp_only the backward reuses the forward
 # kernel's outputs: one forward launch a layer.
@@ -340,9 +397,16 @@ REMAT_ATOL = 1e-6
 # GEMMs and kernels on the same numbers (FSDP2's gather and reduce over one
 # rank are copies); the grad norm sums its squares in another order.
 DIST_REL = 1e-5
-# Ring phase: RING_LANES ring positions of RING_S // RING_LANES tokens.
+# Ring phase: RING_LANES ring positions of RING_S // RING_LANES tokens,
+# causal and not; then a causal ring of ragged 2000-token blocks, and one
+# of f32 blocks (the SIMT kernels), each block's ring chosen by
+# resolve_impl("auto"). (causal, block rows, dtype)
 RING_LANES = 4
 RING_S = 8192
+RING_CASES = ((True, RING_S // RING_LANES, torch.bfloat16),
+              (False, RING_S // RING_LANES, torch.bfloat16),
+              (True, 2000, torch.bfloat16),
+              (True, 512, torch.float32))
 # tp_kv phase: a tp that divides llama_3_8b's 32 query heads but not its 8
 # KV heads (2 query heads a rank, both reading one KV head).
 TP_KV = 16
@@ -444,6 +508,12 @@ def cuda_ms(fn, reps: int, warmup: int = 2, queued: bool = True) -> float:
         cycles *= 4
 
 
+def counts(per_kernel: dict, times: int = 1) -> dict:
+    """Launches of every kernel in fa.LAUNCHES: ``per_kernel``'s counts
+    times ``times``, and 0 for each kernel it does not name."""
+    return {n: per_kernel.get(n, 0) * times for n in fa.LAUNCHES}
+
+
 def visible_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
     """(q, k) pairs the causal mask leaves, per head."""
     if not causal:
@@ -451,8 +521,8 @@ def visible_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
     return sum(min(sk, q + q_offset + 1) for q in range(sq))
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -468,16 +538,27 @@ def phase_env():
           "count": torch.cuda.device_count()})
 
 
+def kernel_variant(mangled: str) -> str:
+    """"flash_fwd[bf16]", "flash_dq_simt[f32,512]": the launch key and
+    template arguments of a compiled kernel's mangled name."""
+    found = re.search(r"(flash_\w+?)_kernelI(f|13__nv_bfloat16|6__half)"
+                      r"(?:Li(\d+)E)?E", mangled)
+    if not found:
+        return mangled
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+    args = dtype[found[2]] + (f",{found[3]}" if found[3] else "")
+    return f"{found[1]}[{args}]"
+
+
 def ptxas_report(log: str) -> dict:
-    """Per kernel, what ``ptxas -v`` says: registers at entry (the
+    """Per kernel variant, what ``ptxas -v`` says: registers at entry (the
     warp-specialised kernels then move them with setmaxnreg), stack frame
     and spill bytes; plus any ptxas warning (e.g. setmaxnreg ignored)."""
     report, name = {"warnings": []}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            name = next((k for k in PER_STEP if k + "_kernel" in entry[1]),
-                        entry[1])
+            name = kernel_variant(entry[1])
             report[name] = {}
         elif "warning" in line.lower():
             report["warnings"].append(line.strip())
@@ -493,35 +574,48 @@ def ptxas_report(log: str) -> dict:
 
 
 def phase_build():
+    """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
-    fa._lib()
-    seconds, path, log = _build.build_info["flash_attention"]
+    _build.load_all(fa._LIBRARY.values())
+    for suffix in fa._LIBRARY:
+        fa._lib(suffix)
+    libraries = {}
+    for name in fa._LIBRARY.values():
+        seconds, path, log = _build.build_info[name]
+        libraries[name] = {"nvcc_seconds": round(seconds, 3),
+                           "library": path, "ptxas": ptxas_report(log)}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "nvcc_seconds": round(seconds, 3), "library": path,
-          "ptxas": ptxas_report(log)})
+          "libraries": libraries})
 
 
-def make_inputs(gen, sq, sk):
+def make_inputs(gen, sq, sk, dtype=torch.bfloat16, d=D, h=H, hkv=HKV):
     def mk(*shape):
         return (torch.randn(*shape, generator=gen, device="cuda")
-                * 0.5).to(torch.bfloat16)
-    return mk(B, sq, H, D), mk(B, sk, HKV, D), mk(B, sk, HKV, D), \
-        mk(B, sq, H, D)
+                * 0.5).to(dtype)
+    return mk(B, sq, h, d), mk(B, sk, hkv, d), mk(B, sk, hkv, d), \
+        mk(B, sq, h, d)
 
 
-def check(name: str, got, want, rel: float = REL, tol: float = ATOL
-          ) -> dict:
+def limits(dtype) -> dict:
+    """check's limits for outputs of ``dtype`` (see REL and F32_REL)."""
+    if dtype == torch.float32:
+        return {"rel": F32_REL, "tol": F32_TOL, "lse_atol": F32_LSE_ATOL}
+    return {"rel": REL, "tol": ATOL, "lse_atol": LSE_ATOL}
+
+
+def check(name: str, got, want, rel: float = REL, tol: float = ATOL,
+          lse_atol: float = LSE_ATOL) -> dict:
     """Hold one output against its plain version with limits scaled to
     that output (see REL): every element within atol + tol * |want|, where
     atol = min(tol, rel * max|want|), and relative L2 within rel; lse
-    within LSE_ATOL. ``ratio`` is the error over its limit (the larger of
+    within lse_atol. ``ratio`` is the error over its limit (the larger of
     the two for a scaled output): the check passes at ratio <= 1."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     err = diff.max().item()
     if name == "lse":
-        return {"max_abs_err": err, "limit": LSE_ATOL,
-                "ratio": err / LSE_ATOL, "ok": err <= LSE_ATOL}
+        return {"max_abs_err": err, "limit": lse_atol,
+                "ratio": err / lse_atol, "ok": err <= lse_atol}
     atol = min(tol, rel * want.abs().max().item())
     elementwise = (diff / (atol + tol * want.abs())).max().item()
     rel_l2 = (diff.norm() / want.norm()).item()
@@ -531,13 +625,15 @@ def check(name: str, got, want, rel: float = REL, tol: float = ATOL
 
 
 def _last_tile_cuts(q, k, causal, q_offset):
-    """Per q tile: its rows, their position offset, and how many leading
-    keys stay when its last visible k tile is left out."""
-    nk = k.shape[1] // BLOCK
-    for i in range(q.shape[1] // BLOCK):
+    """Per q tile (the last may be partial): its rows, their position
+    offset, and how many leading keys stay when its last visible k tile
+    is left out."""
+    nk = -(-k.shape[1] // BLOCK)
+    for i in range(-(-q.shape[1] // BLOCK)):
         off = q_offset + i * BLOCK
         seen = min(nk, (off + BLOCK - 1) // BLOCK + 1) if causal else nk
-        yield slice(i * BLOCK, (i + 1) * BLOCK), off, (seen - 1) * BLOCK
+        yield (slice(i * BLOCK, min((i + 1) * BLOCK, q.shape[1])), off,
+               (seen - 1) * BLOCK)
 
 
 def _fwd_without_last_tile(q, k, v, causal, q_offset):
@@ -548,7 +644,8 @@ def _fwd_without_last_tile(q, k, v, causal, q_offset):
     for rows, off, keep in _last_tile_cuts(q, k, causal, q_offset):
         if keep == 0:
             outs.append(torch.zeros_like(q[:, rows]))
-            lses.append(torch.full((q.shape[0], q.shape[2], BLOCK),
+            lses.append(torch.full((q.shape[0], q.shape[2],
+                                    rows.stop - rows.start),
                                    fa.NEG_INF, device=q.device))
             continue
         out, lse = fa._fwd_reference(q[:, rows], k[:, :keep], v[:, :keep],
@@ -570,9 +667,64 @@ def _dq_without_last_tile(q, k, v, lse, do, delta, causal, q_offset):
     return torch.cat(parts, dim=1)
 
 
+def tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest even), as f32."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0xFFF + ((i >> 13) & 1)) & -8192).view(torch.float32)
+
+
+def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
+    """Plain-version outputs of kernels that handle the domain's edges
+    wrong, which the check must reject; only those that apply to these
+    inputs: ragged edges, head_dim > 128, f32."""
+    lse, sq, sk, d = ref["lse"], q.shape[1], k.shape[1], q.shape[3]
+    wrong = {}
+    keep_k = sk // BLOCK * BLOCK
+    if sk % BLOCK and keep_k:
+        # The partial last k tile never loaded: its keys are out of every
+        # softmax and dQ sum, and their dK/dV rows are never written.
+        kc, vc = k[:, :keep_k], v[:, :keep_k]
+        out, lse_cut = fa._fwd_reference(q, kc, vc, causal, q_offset)
+        tail = {n: ref[n].clone() for n in ("dk", "dv")}
+        for t in tail.values():
+            t[:, keep_k:] = 0
+        wrong["keys_past_last_full_tile_dropped"] = {
+            "out": out, "lse": lse_cut,
+            "dq": fa._dq_reference(q, kc, vc, lse, do, delta, causal,
+                                   q_offset), **tail}
+    if sq % BLOCK:
+        # Rows past the last full q tile never stored (left as zeros).
+        keep_q = sq // BLOCK * BLOCK
+        rows = {n: ref[n].clone() for n in ("out", "dq")}
+        for t in rows.values():
+            t[:, keep_q:] = 0
+        wrong["rows_past_last_full_tile_zero"] = rows
+    if d > 128:
+        # Scores from the first 128 of head_dim only (one chunk).
+        q_cut = q.clone()
+        q_cut[..., 128:] = 0
+        out, lse_cut = fa._fwd_reference(q_cut, k, v, causal, q_offset)
+        dq, dk, dv = fa._bwd_reference(q_cut, k, v, out, lse_cut, do,
+                                       causal, q_offset)
+        wrong["scores_from_first_128_of_d"] = {
+            "out": out, "lse": lse_cut, "dq": dq, "dk": dk, "dv": dv}
+    if q.dtype == torch.float32:
+        # A TF32 kernel: every product on TF32-rounded operands.
+        qt, kt, vt, dot = (tf32(x) for x in (q, k, v, do))
+        out, lse_t = fa._fwd_reference(qt, kt, vt, causal, q_offset)
+        dq, dk, dv = fa._bwd_reference(qt, kt, vt, out, lse_t, dot, causal,
+                                       q_offset)
+        wrong["tf32"] = {"out": out, "lse": lse_t, "dq": dq, "dk": dk,
+                         "dv": dv}
+    return wrong
+
+
 def perturbed(q, k, v, do, ref, delta, causal, q_offset):
     """Plain-version outputs of kernels gone wrong in typical ways, which
-    the check must reject: each a dict of the outputs it changes."""
+    the check must reject: each a dict of the outputs it changes. Beyond
+    zeros, these need more than one k tile (k_seq > BLOCK)."""
+    if k.shape[1] <= BLOCK:
+        return {"zeros": {n: torch.zeros_like(t) for n, t in ref.items()}}
     lse = ref["lse"]
     k_rest, v_rest, k_off = k[:, BLOCK:], v[:, BLOCK:], q_offset - BLOCK
     out_skip, lse_skip = fa._fwd_reference(q, k_rest, v_rest, causal, k_off)
@@ -627,34 +779,48 @@ def perturbed(q, k, v, do, ref, delta, causal, q_offset):
     }
 
 
-def check_case(gen, sq, sk, causal, q_offset, timed: bool):
-    """One shape case: each kernel against its plain version, and the
-    check itself against perturbed plain outputs that it must reject."""
-    q, k, v, do = make_inputs(gen, sq, sk)
-    ref_out, ref_lse = fa._fwd_reference(q, k, v, causal, q_offset)
+def check_case(gen, sq, sk, causal, q_offset, timed: bool,
+               dtype=torch.bfloat16, d=D, h=H, hkv=HKV):
+    """One case: each kernel against its plain version, and the check
+    itself against perturbed plain outputs that it must reject. The
+    kernels run before the plain versions they are held to, so an output
+    a kernel failed to write cannot hold a plain result left in memory
+    the allocator hands out again."""
+    q, k, v, do = make_inputs(gen, sq, sk, dtype, d, h, hkv)
+    lim = limits(dtype)
     out, lse = fa._fwd_cuda(q, k, v, causal, q_offset)
+    ref_out, ref_lse = fa._fwd_reference(q, k, v, causal, q_offset)
     delta = fa._delta(ref_out, do)
+    dq = fa._dq_cuda(q, k, v, ref_lse, do, delta, causal, q_offset)
+    dk, dv = fa._dkv_cuda(q, k, v, ref_lse, do, delta, causal, q_offset)
     ref_dq = fa._dq_reference(q, k, v, ref_lse, do, delta, causal, q_offset)
     ref_dk, ref_dv = fa._dkv_reference(q, k, v, ref_lse, do, delta, causal,
                                        q_offset)
-    dq = fa._dq_cuda(q, k, v, ref_lse, do, delta, causal, q_offset)
-    dk, dv = fa._dkv_cuda(q, k, v, ref_lse, do, delta, causal, q_offset)
     torch.cuda.synchronize()
     ref = {"out": ref_out, "lse": ref_lse, "dq": ref_dq, "dk": ref_dk,
            "dv": ref_dv}
     got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
-    checks = {n: check(n, got[n], ref[n]) for n in ref}
+    checks = {n: check(n, got[n], ref[n], **lim) for n in ref}
     errs = {kn: max(checks[n]["max_abs_err"] for n in names)
             for kn, names in OUTPUTS.items()}
     ok = {kn: all(checks[n]["ok"] for n in names)
           for kn, names in OUTPUTS.items()}
     # ratio > 1 means the check rejects that wrong output.
-    caught = {p: {n: check(n, t, ref[n])["ratio"] for n, t in outs.items()}
+    caught = {p: {n: check(n, t, ref[n], **lim)["ratio"]
+                  for n, t in outs.items()}
               for p, outs in perturbed(q, k, v, do, ref, delta, causal,
                                        q_offset).items()}
-    case = {"sq": sq, "sk": sk, "causal": causal, "q_offset": q_offset,
+    domain_caught = {p: {n: check(n, t, ref[n], **lim)["ratio"]
+                         for n, t in outs.items()}
+                     for p, outs in domain_perturbed(
+                         q, k, v, do, ref, delta, causal, q_offset).items()}
+    suffix = fa.kernel_suffix(dtype, d)
+    case = {"dtype": DTYPE_NAME[dtype], "d": d, "h": h, "hkv": hkv,
+            "sq": sq, "sk": sk, "causal": causal, "q_offset": q_offset,
+            "kernels": {kn: kn + suffix for kn in OUTPUTS},
             "max_abs_err": errs, "ok": ok, "checks": checks,
-            "perturbed_ratio": caught}
+            "perturbed_ratio": caught,
+            "domain_perturbed_ratio": domain_caught}
     # Keys no query row sees (causal, k >= sq + q_offset) must get exact
     # zeros: the kernel's outputs come from torch.empty.
     unseen = sq + q_offset if causal else sk
@@ -664,17 +830,19 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool):
     if not timed:
         return case, None
 
-    pairs = visible_pairs(sq, sk, causal, q_offset) * H * B
-    act_q, act_kv, rows = B * sq * H * D * 2, B * sk * HKV * D * 2, \
-        B * H * sq * 4
+    size = q.element_size()
+    pairs = visible_pairs(sq, sk, causal, q_offset) * h * B
+    act_q, act_kv, rows = B * sq * h * d * size, B * sk * hkv * d * size, \
+        B * h * sq * 4
     work = {  # (matmul FLOPs, bytes read once + written once)
-        "flash_fwd": (pairs * 4 * D, act_q + 2 * act_kv + act_q + rows),
-        "flash_dq": (pairs * 6 * D, 2 * act_q + 2 * act_kv + 2 * rows
+        "flash_fwd": (pairs * 4 * d, act_q + 2 * act_kv + act_q + rows),
+        "flash_dq": (pairs * 6 * d, 2 * act_q + 2 * act_kv + 2 * rows
                      + act_q),
-        "flash_dkv": (pairs * 8 * D, 2 * act_q + 2 * act_kv + 2 * rows
+        "flash_dkv": (pairs * 8 * d, 2 * act_q + 2 * act_kv + 2 * rows
                       + 2 * act_kv),
     }
-    reps = 20
+    peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
+    reps = 20 if suffix == "" else 3
     kernel_calls = {
         "flash_fwd": lambda: fa._fwd_cuda(q, k, v, causal, q_offset),
         "flash_dq": lambda: fa._dq_cuda(q, k, v, ref_lse, do, delta, causal,
@@ -710,55 +878,99 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool):
                "flash_dkv": times["bwd"]}
     stats = {}
     for name, (flops, nbytes) in work.items():
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = bound(flops, nbytes, peak)
         ms, host_ms = times[name]
-        stats[name] = {"ms": ms, "host_launched_ms": host_ms,
-                       "tflop_per_s": flops / ms / 1e9,
-                       "plain_ms": plain[name],
-                       "library_ms": library[name][0],
-                       "library_host_launched_ms": library[name][1],
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "flops": flops, "bytes": nbytes}
+        stats[name + suffix] = {
+            "dtype": DTYPE_NAME[dtype], "d": d, "sq": sq, "sk": sk,
+            "ms": ms, "host_launched_ms": host_ms,
+            "tflop_per_s": flops / ms / 1e9, "plain_ms": plain[name],
+            "library_ms": library[name][0],
+            "library_host_launched_ms": library[name][1],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "peak_flop_per_s": peak, "flops": flops, "bytes": nbytes}
     case["timing"] = stats
     return case, stats
+
+
+# The kernels phase's cases: (dtype, head_dim, q_seq, k_seq, causal,
+# q_offset, timed); B, H and Hkv are the module's (GQA 4:1). The first is
+# the training step's; the timed ones give the summary's numbers.
+KERNEL_CASES = (
+    (torch.bfloat16, D, S, S, True, 0, True),
+    (torch.bfloat16, D, S, S, False, 0, False),
+    (torch.bfloat16, D, S // 2, S, True, S // 2, False),
+    (torch.bfloat16, D, S // 2 + BLOCK, S // 2 + BLOCK, True, 0, False),
+    (torch.bfloat16, D, S // 2, S, True, 0, False),  # half the k tiles unseen
+    # Ragged sequences (partial last tiles), wgmma kernels.
+    (torch.bfloat16, D, 2000, 2000, True, 0, True),
+    (torch.bfloat16, D, 72, 200, True, 128, False),
+    (torch.bfloat16, D, 8, 8, True, 0, False),
+    (torch.float16, D, S, S, True, 0, True),
+    (torch.float16, D, 200, 200, True, 0, False),
+    # The SIMT kernels: f32 at every head_dim, bf16/fp16 at 256-512.
+    (torch.float32, 128, S, S, True, 0, True),
+    (torch.float32, 128, 200, 200, False, 0, False),
+    (torch.float32, 512, S, S, True, 0, True),
+    (torch.float32, 512, 200, 200, False, 0, False),
+    (torch.bfloat16, 256, S, S, True, 0, True),
+    (torch.bfloat16, 256, 200, 200, False, 0, False),
+    (torch.float16, 384, S, S, True, 0, False),
+    (torch.float16, 384, 200, 200, False, 0, False),
+    (torch.bfloat16, 512, S, S, True, 0, True),
+    (torch.bfloat16, 512, 200, 200, False, 0, False),
+)
 
 
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases, stats = [], None
-    for sq, sk, causal, q_offset, timed in (
-            (S, S, True, 0, True),            # the training step's shape
-            (S, S, False, 0, False),
-            (S // 2, S, True, S // 2, False),
-            (S // 2 + BLOCK, S // 2 + BLOCK, True, 0, False),  # odd tiles
-            (S // 2, S, True, 0, False)):     # half the k tiles unseen
-        case, st = check_case(gen, sq, sk, causal, q_offset, timed)
+    cases, stats, variants = [], {}, []
+    for dtype, d, sq, sk, causal, q_offset, timed in KERNEL_CASES:
+        case, st = check_case(gen, sq, sk, causal, q_offset, timed, dtype, d)
         cases.append(case)
-        stats = stats or st
+        for name, row in (st or {}).items():
+            # Each kernel's summary numbers: its first timed case.
+            stats.setdefault(name, row)
+            variants.append({"kernel": name, **row})
+        free_cuda()
     emit({"phase": "kernels",
           "tolerance": {"atol": f"min({ATOL}, {REL} * max|ref|)",
-                        "rtol": ATOL, "rel_l2": REL, "lse_atol": LSE_ATOL},
+                        "rtol": ATOL, "rel_l2": REL, "lse_atol": LSE_ATOL,
+                        "f32": {"atol": f"min({F32_TOL}, {F32_REL} * "
+                                        f"max|ref|)",
+                                "rtol": F32_TOL, "rel_l2": F32_REL,
+                                "lse_atol": F32_LSE_ATOL}},
           "cases": cases})
-    bad = [(c["sq"], c["sk"], c["causal"], n) for c in cases
+    tag = lambda c: (c["dtype"], c["d"], c["sq"], c["sk"], c["causal"])
+    bad = [(*tag(c), n) for c in cases
            for n, good in c["ok"].items() if not good]
-    bad += [(c["sq"], c["sk"], c["causal"], "unseen keys not zero")
-            for c in cases if c.get("unseen_keys_zero") is False]
+    bad += [(*tag(c), "unseen keys not zero") for c in cases
+            if c.get("unseen_keys_zero") is False]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"beyond the scaled limits: {bad}")
-    # The check must reject wrong outputs: zeros in every case, and every
-    # perturbed output at the training step's shape.
-    missed = [(c["sq"], c["causal"], p, n) for i, c in enumerate(cases)
+    # The check must reject wrong outputs: zeros in every case, every
+    # perturbed output at the training step's shape, and every domain
+    # perturbation wherever it applies (through at least one of the
+    # outputs it changes: a ragged edge moves some outputs by a few rows'
+    # worth, which only lse or the rows themselves show).
+    missed = [(*tag(c), p, n) for i, c in enumerate(cases)
               for p, ratios in c["perturbed_ratio"].items()
               for n, r in ratios.items()
               if r <= 1.0 and (i == 0 or p == "zeros")]
+    missed += [(*tag(c), p) for c in cases
+               for p, ratios in c["domain_perturbed_ratio"].items()
+               if max(ratios.values()) <= 1.0]
     if missed:
         raise AssertionError(f"the kernel check accepts wrong outputs: "
                              f"{missed}")
-    errs = {n: max(c["max_abs_err"][n] for c in cases) for n in PER_STEP}
-    return stats, errs
+    errs = {}
+    for c in cases:
+        for kn, err in c["max_abs_err"].items():
+            name = c["kernels"][kn]
+            errs[name] = max(errs.get(name, 0.0), err)
+    return stats, variants, errs
 
 
 def slice_config():
@@ -766,38 +978,207 @@ def slice_config():
                                remat_policy="full")
 
 
-def phase_model(model, tokens):
-    """On a short input, the bf16 logits through the kernels and through
-    the reference attention, each against the same weights in f32 with the
-    reference attention (relative L2). The kernel path passes when it is
-    no further from f32 than the bf16 reference path is (x1.25)."""
-    def logits_of(**fields):
-        other = Llama(dataclasses.replace(model.cfg, **fields),
-                      device="cuda")
-        other.load_state_dict(model.state_dict())
-        with torch.no_grad():
-            out = other(tokens).float()
-        del other
-        torch.cuda.empty_cache()
-        return out
-
+def logits_of(model, tokens, **fields):
+    """Logits of ``model``'s weights in a model with ``fields`` changed."""
+    other = Llama(dataclasses.replace(model.cfg, **fields), device=DEVICE)
+    other.load_state_dict(model.state_dict())
     with torch.no_grad():
+        out = other(tokens).float()
+    del other
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_model(model, tokens, phase: str = "model") -> dict:
+    """The logits through the kernels and through the reference attention
+    in the model's dtype (bf16 or fp16), each against the same weights in
+    f32 with the reference attention (relative L2). The kernel path passes
+    when it is no further from f32 than the reference path is (x1.25);
+    its forward must launch the kernels, one a layer, and call the
+    reference attention never. Returns the launches."""
+    fa.reset_launches()
+    with torch.no_grad(), reference_attention_calls() as calls:
         got = model(tokens).float()
-    plain = logits_of(attention_impl="xla")
-    truth = logits_of(attention_impl="xla", dtype=torch.float32)
-    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
-    kernel_err, plain_err = rel(got, truth), rel(plain, truth)
-    emit({"phase": "model", "tokens": list(tokens.shape),
+    torch.cuda.synchronize()
+    launches, ref_calls = dict(fa.LAUNCHES), calls[0]
+    plain = logits_of(model, tokens, attention_impl="xla")
+    truth = logits_of(model, tokens, attention_impl="xla",
+                      dtype=torch.float32)
+    kernel_err, plain_err = rel_l2(got, truth), rel_l2(plain, truth)
+    name = DTYPE_NAME[model.cfg.dtype]
+    emit({"phase": phase, "dtype": name, "tokens": list(tokens.shape),
           "logits_shape": list(got.shape),
           "finite": bool(torch.isfinite(got).all()),
           "rel_l2_kernel_vs_f32": kernel_err,
           "rel_l2_plain_vs_f32": plain_err,
-          "rel_l2_kernel_vs_plain": rel(got, plain)})
+          "rel_l2_kernel_vs_plain": rel_l2(got, plain),
+          "launches": launches, "reference_attention_calls": ref_calls})
     if not torch.isfinite(got).all() or kernel_err > 1.25 * plain_err:
         raise AssertionError(
-            f"bf16 logits through the kernels are further from the f32 "
-            f"model ({kernel_err}) than 1.25x the bf16 reference path's "
+            f"{name} logits through the kernels are further from the f32 "
+            f"model ({kernel_err}) than 1.25x the {name} reference path's "
             f"({plain_err})")
+    want = counts({"flash_fwd": model.cfg.n_layers})
+    if launches != want or ref_calls:
+        raise AssertionError(f"{phase}: launches {launches} != {want} or "
+                             f"{ref_calls} reference attention calls")
+    return launches
+
+
+@contextlib.contextmanager
+def reference_attention_calls():
+    """Count the calls of the reference attention (ops.layers.attention),
+    from the model and from best_attention's fallback."""
+    calls, real = [0], fa.attention
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    with mock.patch.object(fa, "attention", counted), \
+            mock.patch.object(tllama, "attention", counted):
+        yield calls
+
+
+def train_run(model, batch, steps: int) -> dict:
+    """``steps`` Trainer steps (adamw(3e-4)) on one batch, with the kernel
+    launches and the reference-attention calls counted over them."""
+    trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE)
+    state = trainer.init()
+    step = trainer.make_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, norms, step_s = [], [], []
+    with reference_attention_calls() as calls:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = batch["inputs"].shape[0] * (batch["inputs"].shape[1] - 1)
+    return {"losses": losses, "grad_norms": norms,
+            "step_ms": [t * 1e3 for t in step_s],
+            "ms_per_step": steady * 1e3, "tokens_per_s": tokens / steady,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": dict(fa.LAUNCHES),
+            "reference_attention_calls": calls[0]}
+
+
+def full_remat_launches(layers: int, suffix: str = "") -> dict:
+    """Launches of one training step under full remat: the forward kernel
+    twice a layer (forward and recompute), dQ and dK/dV once."""
+    return {"flash_fwd" + suffix: 2 * layers, "flash_dq" + suffix: layers,
+            "flash_dkv" + suffix: layers}
+
+
+def seeded(cfg):
+    return Llama(cfg, device=DEVICE,
+                 generator=torch.Generator(device=DEVICE).manual_seed(0))
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_fp16_model() -> dict:
+    """The model phase's logits check in fp16 at S=2048 (module
+    docstring, phase 3a); returns the launches."""
+    model = seeded(dataclasses.replace(slice_config(), dtype=torch.float16))
+    tokens = np.random.default_rng(3).integers(0, model.cfg.vocab_size,
+                                               (B, S))
+    launches = phase_model(model, torch.as_tensor(tokens, device=DEVICE),
+                           "fp16_model")
+    del model
+    free_cuda()
+    return launches
+
+
+def phase_ragged_train() -> dict:
+    """The main path at a sequence that is no multiple of the kernels'
+    tile (module docstring, phase 3b); returns the kernel run's
+    launches."""
+    cfg = slice_config()
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (B, RAGGED_S + 1))
+    model = seeded(cfg)
+    phase_model(model, torch.as_tensor(tokens[:, :RAGGED_S], device=DEVICE),
+                "ragged_model")
+    runs = {"flash": train_run(model, {"inputs": tokens}, RAGGED_STEPS)}
+    del model
+    free_cuda()
+    # What the port ran here before the kernels took ragged sequences.
+    model = seeded(dataclasses.replace(cfg, attention_impl="xla"))
+    runs["xla"] = train_run(model, {"inputs": tokens}, RAGGED_STEPS)
+    del model
+    free_cuda()
+    emit({"phase": "ragged_train", "nvidia_smi": nvidia_smi(),
+          "layers": cfg.n_layers, "batch": B, "seq": RAGGED_S,
+          "steps": RAGGED_STEPS, "runs": runs,
+          "flash_over_xla_tokens_per_s":
+              runs["flash"]["tokens_per_s"] / runs["xla"]["tokens_per_s"]})
+    flash = runs["flash"]
+    if not all(math.isfinite(x) for x in flash["losses"] +
+               flash["grad_norms"]):
+        raise AssertionError(f"ragged_train: non-finite loss or grad norm: "
+                             f"{flash}")
+    want = counts(full_remat_launches(cfg.n_layers), RAGGED_STEPS)
+    if flash["launches"] != want or flash["reference_attention_calls"]:
+        raise AssertionError(
+            f"ragged_train: launches {flash['launches']} != {want} or "
+            f"{flash['reference_attention_calls']} reference attention "
+            f"calls")
+    return flash["launches"]
+
+
+def phase_f32_train() -> dict:
+    """The main path in f32 through the SIMT kernels (module docstring,
+    phase 3c); returns the launches of its steps."""
+    cfg = dataclasses.replace(slice_config(), dtype=torch.float32)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                               (B, S + 1))
+    model = seeded(cfg)
+    inputs = torch.as_tensor(tokens[:, :S], device=DEVICE)
+    fa.reset_launches()
+    with torch.no_grad(), reference_attention_calls() as calls:
+        got = model(inputs).float()
+    forward_launches, forward_ref_calls = dict(fa.LAUNCHES), calls[0]
+    want_logits = logits_of(model, inputs, attention_impl="xla")
+    logits_err = rel_l2(got, want_logits)
+    del got, want_logits
+    run = train_run(model, {"inputs": tokens}, F32_STEPS)
+    del model
+    free_cuda()
+    emit({"phase": "f32_train", "nvidia_smi": nvidia_smi(),
+          "layers": cfg.n_layers, "batch": B, "seq": S,
+          "rel_l2_logits_vs_reference_attention": logits_err,
+          "limit": F32_LOGITS_REL, "forward_launches": forward_launches,
+          "forward_reference_attention_calls": forward_ref_calls, **run})
+    if not logits_err <= F32_LOGITS_REL:
+        raise AssertionError(f"f32 logits through the kernels are "
+                             f"{logits_err} from the reference attention's "
+                             f"(limit {F32_LOGITS_REL})")
+    want = counts(full_remat_launches(cfg.n_layers, "_simt"), F32_STEPS)
+    if (run["launches"] != want or run["reference_attention_calls"]
+            or forward_ref_calls
+            or forward_launches != counts({"flash_fwd_simt": cfg.n_layers})):
+        raise AssertionError(
+            f"f32_train: launches {run['launches']} != {want}, forward "
+            f"{forward_launches}, or reference attention calls "
+            f"{run['reference_attention_calls']} / {forward_ref_calls}")
+    if not all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]):
+        raise AssertionError(f"f32_train: non-finite loss or grad norm: "
+                             f"{run}")
+    return run["launches"]
 
 
 def phase_train(model, batch):
@@ -844,7 +1225,7 @@ def phase_train(model, batch):
                              f"{norms}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    want = {n: c * STEPS for n, c in PER_STEP.items()}
+    want = counts(PER_STEP, STEPS)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} "
                              f"({PER_STEP} per step)")
@@ -1186,7 +1567,7 @@ def phase_dist(batch, train, train_profile, root):
         raise AssertionError(f"the sharded steps differ from the unsharded "
                              f"ones beyond {DIST_REL}: {losses} {norms} vs "
                              f"{train['losses']} {train['grad_norms']}")
-    want = {n: c * STEPS for n, c in PER_STEP.items()}
+    want = counts(PER_STEP, STEPS)
     if launches != want:
         raise AssertionError(f"sharded kernel launches {launches} != {want}: "
                              f"the sharded path left the kernels")
@@ -1287,12 +1668,21 @@ def phase_ring():
     (module docstring, phase 8a)."""
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    mk = lambda *shape: (torch.randn(*shape, generator=gen, device=DEVICE)
-                         * 0.5).to(torch.bfloat16)
-    cases, launches_total = [], {n: 0 for n in PER_STEP}
-    want_launches = {n: RING_LANES * RING_LANES for n in PER_STEP}
-    for causal in (True, False):
-        q, k, v, do = (mk(B, RING_S, h, D) for h in (H, HKV, HKV, H))
+    cases, launches_total = [], dict.fromkeys(fa.LAUNCHES, 0)
+    for causal, s_blk, dtype in RING_CASES:
+        # The block's ring as JAX's impl="auto" picks it: the flash ring
+        # for every block in the kernels' domain, f32 included.
+        impl = ra.resolve_impl("auto", s_blk, D, H, HKV, dtype)
+        if impl != "flash":
+            raise AssertionError(f"resolve_impl('auto') chose {impl} for a "
+                                 f"{dtype} block of {s_blk}")
+        suffix = fa.kernel_suffix(dtype, D)
+        want_launches = counts({n + suffix: RING_LANES * RING_LANES
+                                for n in PER_STEP})
+        lim = limits(dtype)
+        q, k, v, do = ((torch.randn(B, RING_LANES * s_blk, h, D,
+                                    generator=gen, device=DEVICE) * 0.5)
+                       .to(dtype) for h in (H, HKV, HKV, H))
         got, launches, ring = ring_outputs(q, k, v, do, causal)
         for name, count in launches.items():
             launches_total[name] += count
@@ -1302,11 +1692,11 @@ def phase_ring():
         plain = dict(zip(("out", "lse", "dq", "dk", "dv"),
                          plain_by_kv_head(q, k, v, do, causal)))
         plain.pop("lse")
-        checks = {n: check(n, got[n], plain[n]) for n in got}
-        vs_single = {n: check(n, got[n], single[n]) for n in got}
-        single_vs_plain = {n: check(n, single[n], plain[n])["ratio"]
+        checks = {n: check(n, got[n], plain[n], **lim) for n in got}
+        vs_single = {n: check(n, got[n], single[n], **lim) for n in got}
+        single_vs_plain = {n: check(n, single[n], plain[n], **lim)["ratio"]
                            for n in got}
-        caught = {p: {n: check(n, t, plain[n])["ratio"]
+        caught = {p: {n: check(n, t, plain[n], **lim)["ratio"]
                       for n, t in outs.items()}
                   for p, outs in ring_perturbed(q, k, v, do, causal, got,
                                                 ring).items()}
@@ -1328,7 +1718,9 @@ def phase_ring():
         ring_ms = sorted(cuda_ms(ring_call, 1) for _ in range(3))[1]
         single_ms = sorted(cuda_ms(single_call, 1) for _ in range(3))[1]
         cases.append({
-            "causal": causal, "launches": launches,
+            "causal": causal, "block": s_blk, "dtype": DTYPE_NAME[dtype],
+            "impl_auto": impl, "launches": launches,
+            "want_launches": want_launches,
             "checks_vs_plain": checks, "checks_vs_one_call": vs_single,
             "one_call_vs_plain_ratio": single_vs_plain,
             "perturbed_ratio": caught,
@@ -1340,27 +1732,27 @@ def phase_ring():
         gc.collect()
         torch.cuda.empty_cache()
     emit({"phase": "ring", "nvidia_smi": nvidia_smi(), "lanes": RING_LANES,
-          "seq": RING_S, "block": RING_S // RING_LANES,
           "shape": {"B": B, "H": H, "Hkv": HKV, "D": D},
-          "tolerance": {"atol": f"min({ATOL}, {REL} * max|ref|)",
-                        "rtol": ATOL, "rel_l2": REL},
+          "tolerance": {"bf16": limits(torch.bfloat16),
+                        "f32": limits(torch.float32)},
           "cases": cases})
-    bad = [(c["causal"], which, n) for c in cases
+    bad = [(c["causal"], c["block"], c["dtype"], which, n) for c in cases
            for which in ("checks_vs_plain", "checks_vs_one_call")
            for n, r in c[which].items() if not r["ok"]]
     if bad:
         raise AssertionError(f"the ring disagrees beyond the scaled "
                              f"limits: {bad}")
-    missed = [(c["causal"], p, n) for c in cases
+    missed = [(c["causal"], c["block"], c["dtype"], p, n) for c in cases
               for p, ratios in c["perturbed_ratio"].items()
               for n, r in ratios.items() if r <= 1.0]
     if missed:
         raise AssertionError(f"the ring check accepts broken rings: "
                              f"{missed}")
-    wrong = [c["launches"] for c in cases if c["launches"] != want_launches]
+    wrong = [(c["launches"], c["want_launches"]) for c in cases
+             if c["launches"] != c["want_launches"]]
     if wrong:
-        raise AssertionError(f"ring launches {wrong} != {want_launches} "
-                             f"(forward, dQ, dK/dV {RING_LANES} a position)")
+        raise AssertionError(f"ring launches (got, want) {wrong} (forward, "
+                             f"dQ, dK/dV {RING_LANES} a position)")
     return launches_total
 
 
@@ -1413,7 +1805,7 @@ def phase_ring_train(batch, train):
             and record["max_rel_grad_norm_vs_train"] <= DIST_REL):
         raise AssertionError(f"the ring steps differ from the train phase's "
                              f"beyond {DIST_REL}: {losses} {norms}")
-    want = {n: c * STEPS for n, c in PER_STEP.items()}
+    want = counts(PER_STEP, STEPS)
     if launches != want:
         raise AssertionError(f"ring_train kernel launches {launches} != "
                              f"{want}: the ring left the kernels")
@@ -1442,7 +1834,7 @@ def phase_tp_kv():
         return {"out": out.detach(), "dq": leaves[0].grad,
                 "dk": leaves[1].grad, "dv": leaves[2].grad}
 
-    launches = {n: 0 for n in PER_STEP}
+    launches = dict.fromkeys(fa.LAUNCHES, 0)
     worst, caught = {}, []
     for rank in range(TP_KV):
         first = rank * heads
@@ -1472,7 +1864,7 @@ def phase_tp_kv():
         del q, k, v, do, got, wrong, plain
     gc.collect()
     torch.cuda.empty_cache()
-    want = {n: TP_KV for n in PER_STEP}
+    want = counts(dict.fromkeys(PER_STEP, TP_KV))
     emit({"phase": "tp_kv", "nvidia_smi": nvidia_smi(), "tp": TP_KV,
           "heads_per_rank": heads, "kv_heads": HKV, "seq": S,
           "worst_vs_plain": worst, "launches": launches,
@@ -1550,8 +1942,8 @@ def phase_pp():
                                      for a, b in zip(xs, ys))
             runs[schedule] = {
                 "losses": losses, "grad_norms": norms, "launches": launches,
-                "want_launches": {n: c * PP_STEPS for n, c in pp_launches(
-                    schedule, 0, 1, cfg.n_layers, PP_MICROBATCHES).items()},
+                "want_launches": counts(pp_launches(
+                    schedule, 0, 1, cfg.n_layers, PP_MICROBATCHES), PP_STEPS),
                 "max_rel_loss_vs_trainer": rel(losses, reference),
                 "max_rel_grad_norm_vs_trainer": rel(norms, reference_norms),
                 "step_ms": [t * 1e3 for t in step_s],
@@ -1586,7 +1978,7 @@ def phase_pp():
         raise AssertionError(f"auto made no probed choice: {choice}")
     phase_pp_payload()
     return {n: sum(r["launches"][n] for r in runs.values())
-            for n in PER_STEP}
+            for n in fa.LAUNCHES}
 
 
 def phase_pp_payload():
@@ -1733,7 +2125,7 @@ def phase_remat(batch, full):
                              f"{handover} s")
     for policy, r in policies.items():
         per_step = PER_STEP if policy == "full" else REMAT_PER_STEP
-        want = {n: c * REMAT_STEPS for n, c in per_step.items()}
+        want = counts(per_step, REMAT_STEPS)
         got = {n: c * REMAT_STEPS for n, c in r["launches_per_step"].items()}
         if got != want:
             raise AssertionError(f"{policy}: kernel launches {got} != {want}")
@@ -2690,7 +3082,7 @@ def phase_mixtral_train():
     capacity = max(cfg.experts_per_token,
                    int(B * S * cfg.experts_per_token * cfg.capacity_factor
                        / cfg.n_experts))
-    runs, total = {}, dict.fromkeys(MIXTRAL_PER_STEP, 0)
+    runs, total = {}, dict.fromkeys(fa.LAUNCHES, 0)
     start_gb = torch.cuda.memory_allocated() / 2 ** 30
     for dispatch in tmix.DISPATCHES:
         gc.collect()
@@ -2758,7 +3150,7 @@ def phase_mixtral_train():
         if not run["losses"][-1] < run["losses"][0]:
             raise AssertionError(f"{dispatch}: loss did not fall: "
                                  f"{run['losses']}")
-        want = {n: c * MIXTRAL_STEPS for n, c in MIXTRAL_PER_STEP.items()}
+        want = counts(MIXTRAL_PER_STEP, MIXTRAL_STEPS)
         if run["launches"] != want:
             raise AssertionError(f"{dispatch}: flash launches "
                                  f"{run['launches']} != {want}")
@@ -3273,7 +3665,10 @@ def main() -> int:
     started = time.perf_counter()
     phase_env()
     phase_build()
-    stats, errs = phase_kernels()
+    stats, variants, errs = phase_kernels()
+    fp16_launches = phase_fp16_model()
+    ragged_launches = phase_ragged_train()
+    f32_launches = phase_f32_train()
 
     cfg = slice_config()
     model = Llama(cfg, device="cuda",
@@ -3316,22 +3711,34 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # One entry a kernel (launch key): the wgmma kernels' numbers from the
+    # training step's case and their launches from the train phase; the
+    # SIMT kernels' from the f32 D=128 case and the f32_train phase; every
+    # timed variant under "variants".
     summary = []
-    for name in PER_STEP:
-        st = stats[name]
-        summary.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "launches_by_path": {"train": launches[name],
-                                 "dist": dist_launches[name],
-                                 "ring": ring_launches[name],
-                                 "ring_train": ring_train_launches[name],
-                                 "pp": pp_launches_run[name],
-                                 "mixtral": mixtral_launches[name],
-                                 "bert": bert_launches[name]},
-            "max_abs_err": errs[name], "ms": st["ms"],
-            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-            "bound_by": st["bound_by"], "library_ms": st["library_ms"]})
+    by_path = {"train": launches, "fp16_model": fp16_launches,
+               "ragged_train": ragged_launches, "f32_train": f32_launches,
+               "dist": dist_launches, "ring": ring_launches,
+               "ring_train": ring_train_launches, "pp": pp_launches_run,
+               "mixtral": mixtral_launches, "bert": bert_launches}
+    for suffix in fa._LIBRARY:
+        main_path = "train" if suffix == "" else "f32_train"
+        for kernel in OUTPUTS:
+            name = kernel + suffix
+            st = stats[name]
+            summary.append({
+                "name": name, "route": "cuda", "source": SOURCE[suffix],
+                "replaces": REPLACES[kernel],
+                "launches": by_path[main_path][name], "main_path": main_path,
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
+                "max_abs_err": errs[name], "ms": st["ms"],
+                "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+                "timed_at": {k: st[k] for k in ("dtype", "d", "sq", "sk")},
+                "variants": [{k: row[k] for k in (
+                    "dtype", "d", "sq", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}
+                    for row in variants if row["kernel"] == name]})
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     emit({"kernels": summary})
     print(nvidia_smi(), flush=True)

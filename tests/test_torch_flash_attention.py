@@ -137,16 +137,24 @@ def test_bf16_forward_close_to_jax():
 
 
 def test_flash_supported_gate():
-    # The card's tiles: sequences in multiples of 64, head_dim 128, bf16.
+    # The TPU kernels' domain: lengths >= 8 in multiples of 8, head_dim a
+    # multiple of 128 up to 512; bf16, fp16 and f32.
     assert tfa.flash_supported(2048, 2048, 128)
     assert tfa.flash_supported(64, 192, 128, torch.bfloat16)
-    assert not tfa.flash_supported(2048, 2048, 128, torch.float32)
-    assert not tfa.flash_supported(100, 128, 128)     # ragged q
-    assert not tfa.flash_supported(128, 96, 128)      # ragged k
-    assert not tfa.flash_supported(32, 128, 128)      # shorter than a tile
+    for dtype in (torch.float32, torch.float16):
+        assert tfa.flash_supported(2048, 2048, 128, dtype)
+    assert not tfa.flash_supported(2048, 2048, 128, torch.float64)
+    assert tfa.flash_supported(200, 2000, 512)         # ragged, wide
+    assert tfa.flash_supported(8, 8, 384)
+    assert not tfa.flash_supported(100, 128, 128)     # no multiple of 8
+    assert not tfa.flash_supported(128, 4, 128)       # shorter than 8
     assert not tfa.flash_supported(128, 128, 64)      # head_dim
-    assert not tfa.flash_supported(128, 128, 256)
-    assert tfa._fit_block(192) == 64 and tfa._fit_block(100) == 0
+    assert not tfa.flash_supported(128, 128, 640)
+    assert tfa._fit_block(2000, 512) == 400 and tfa._fit_block(4, 512) == 0
+    assert tfa.kernel_suffix(torch.bfloat16, 128) == ""
+    assert tfa.kernel_suffix(torch.float16, 128) == ""
+    assert tfa.kernel_suffix(torch.float32, 128) == "_simt"
+    assert tfa.kernel_suffix(torch.bfloat16, 256) == "_simt"
     bad = torch.zeros(1, 100, 2, D)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.flash_attention(bad, bad, bad)
@@ -185,7 +193,9 @@ def test_kernel_wrappers_refuse_host_tensors():
 def test_launch_counters_reset():
     tfa.LAUNCHES["flash_fwd"] += 3
     tfa.reset_launches()
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                            "flash_fwd_simt": 0, "flash_dq_simt": 0,
+                            "flash_dkv_simt": 0}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -6,10 +6,13 @@ false. The file imports no JAX, so it runs on the machine with the card:
 
     python -m pytest tests/test_torch_flash_kernels.py -q
 
-bf16 inputs; each output is held to its plain version by chip_smoke.py's
-``check``: every element within atol + 2e-2 |want|, with atol = min(2e-2,
-1e-2 max|want|) scaled to that output, relative L2 within 1e-2, and lse
-within 1e-3.
+Each output is held to its plain version by chip_smoke.py's ``check``
+at the limits of its dtype (``limits``): bf16 and fp16, every element
+within atol + 2e-2 |want|, with atol = min(2e-2, 1e-2 max|want|) scaled
+to that output, relative L2 within 1e-2, and lse within 1e-3; f32 the
+same with 1e-5 for each. ``CASES`` are the wgmma kernels' bf16, head_dim
+128 cases at whole tiles; ``DOMAIN_CASES`` the rest of the TPU kernels'
+domain (ragged lengths, fp16, f32, head_dim 256-512).
 """
 
 import importlib.util
@@ -43,6 +46,23 @@ CASES = {
 }
 
 
+# (batch, q_seq, k_seq, heads, kv_heads, causal, q_offset, dtype, head_dim)
+DOMAIN_CASES = {
+    "ragged_200": (1, 200, 200, 4, 2, True, 0, torch.bfloat16, 128),
+    "ragged_q_offset": (1, 72, 200, 4, 2, True, 128, torch.bfloat16, 128),
+    "ragged_2000": (1, 2000, 2000, 4, 1, True, 0, torch.bfloat16, 128),
+    "s8": (2, 8, 8, 4, 2, True, 0, torch.bfloat16, 128),
+    "fp16": (1, 256, 256, 4, 2, True, 0, torch.float16, 128),
+    "fp16_ragged": (1, 200, 136, 4, 2, False, 0, torch.float16, 128),
+    "f32": (1, 256, 256, 4, 2, True, 0, torch.float32, 128),
+    "f32_ragged": (1, 72, 200, 4, 2, True, 128, torch.float32, 128),
+    "f32_512_gqa_4_1": (1, 200, 200, 4, 1, True, 0, torch.float32, 512),
+    "bf16_256": (1, 200, 200, 4, 2, False, 0, torch.bfloat16, 256),
+    "fp16_384": (1, 136, 256, 4, 2, True, 0, torch.float16, 384),
+    "bf16_512_s8": (2, 8, 8, 4, 4, True, 0, torch.bfloat16, 512),
+}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -51,19 +71,22 @@ def cuda():
 
 
 def _inputs(case, device, seed=0):
-    b, sq, sk, h, hkv, _, _ = CASES[case]
+    b, sq, sk, h, hkv, _, _, dtype, d = (
+        (*CASES[case], torch.bfloat16, D) if case in CASES
+        else DOMAIN_CASES[case])
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def mk(*shape):
         return (torch.randn(*shape, generator=gen, device=device)
-                * 0.5).bfloat16()
-    return mk(b, sq, h, D), mk(b, sk, hkv, D), mk(b, sk, hkv, D), \
-        mk(b, sq, h, D)
+                * 0.5).to(dtype)
+    return mk(b, sq, h, d), mk(b, sk, hkv, d), mk(b, sk, hkv, d), \
+        mk(b, sq, h, d)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_kernels_match_plain_versions(case, cuda):
-    *_, causal, q_offset = CASES[case]
+def _hold_kernels_to_plain(case, causal, q_offset, cuda):
+    """Every kernel output of ``case`` within check's limits of its plain
+    version (the kernels run first, so no plain result can sit in the
+    memory their outputs get); returns the kernels' dq, dk, dv."""
     q, k, v, do = _inputs(case, cuda)
     out, lse = tfa._fwd_cuda(q, k, v, causal, q_offset)
     ref_out, ref_lse = tfa._fwd_reference(q, k, v, causal, q_offset)
@@ -73,12 +96,31 @@ def test_kernels_match_plain_versions(case, cuda):
     torch.cuda.synchronize()
     for name, g, w in zip(("out", "lse", "dq", "dk", "dv"),
                           (out, lse, *got), (ref_out, ref_lse, *want)):
-        result = smoke.check(name, g, w)
+        result = smoke.check(name, g, w, **smoke.limits(q.dtype))
         assert result["ok"], (name, result)
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernels_match_plain_versions(case, cuda):
+    _, sq, sk, _, _, causal, q_offset = CASES[case]
+    got = _hold_kernels_to_plain(case, causal, q_offset, cuda)
     # Keys no query row sees get exact zeros (the outputs are torch.empty).
-    unseen = q.shape[1] + q_offset if causal else k.shape[1]
+    unseen = sq + q_offset if causal else sk
     for name, g in zip(("dk", "dv"), got[1:]):
         assert (g[:, unseen:] == 0).all(), name
+
+
+@pytest.mark.parametrize("case", sorted(DOMAIN_CASES))
+def test_domain_kernels_match_plain_versions(case, cuda):
+    """Ragged lengths, fp16, f32 and head_dim 256-512: each case launches
+    its kernel family (kernel_suffix) and is held to the plain versions."""
+    *_, causal, q_offset, dtype, d = DOMAIN_CASES[case]
+    suffix = tfa.kernel_suffix(dtype, d)
+    tfa.reset_launches()
+    _hold_kernels_to_plain(case, causal, q_offset, cuda)
+    assert tfa.LAUNCHES == smoke.counts(
+        {n + suffix: 1 for n in ("flash_fwd", "flash_dq", "flash_dkv")})
 
 
 def _strided_view(x, cuda):
@@ -119,39 +161,77 @@ def test_dq_is_deterministic(cuda):
     assert torch.equal(first, second)
 
 
-def test_autograd_through_kernels_matches_reference_attention(cuda):
+@pytest.mark.parametrize("case", ["gqa_4_2", "bf16_256",
+                                  "f32_512_gqa_4_1", "f32"])
+def test_autograd_through_kernels_matches_reference_attention(case, cuda):
     """flash_attention on the card (kernels forward and backward) against
-    the reference attention's autograd on repeated KV."""
-    q, k, v, do = _inputs("gqa_4_2", cuda, seed=1)
+    the reference attention's autograd on repeated KV: bf16 at head_dim
+    128 and 256, f32 at 512 and 128 (the reference in f32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _inputs(case, cuda, seed=1)
+    causal = (CASES[case] if case in CASES else DOMAIN_CASES[case])[5]
+    group = q.shape[2] // k.shape[2]
+    suffix = tfa.kernel_suffix(q.dtype, q.shape[3])
     tfa.reset_launches()
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    out = tfa.flash_attention(*leaves)
+    out = tfa.flash_attention(*leaves, causal=causal)
     out.backward(do)
-    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert tfa.LAUNCHES == smoke.counts(
+        {n + suffix: 1 for n in ("flash_fwd", "flash_dq", "flash_dkv")})
     ref = [x.float().clone().requires_grad_() for x in (q, k, v)]
-    ref_out = attention(ref[0], repeat_kv(ref[1], 2), repeat_kv(ref[2], 2))
+    ref_out = attention(ref[0], repeat_kv(ref[1], group),
+                        repeat_kv(ref[2], group), causal=causal)
     ref_out.backward(do.float())
-    result = smoke.check("out", out, ref_out.detach())
+    lim = smoke.limits(q.dtype)
+    result = smoke.check("out", out, ref_out.detach(), **lim)
     assert result["ok"], ("out", result)
     for name, a, b in zip("qkv", leaves, ref):
-        result = smoke.check(f"d{name}", a.grad, b.grad)
+        result = smoke.check(f"d{name}", a.grad, b.grad, **lim)
         assert result["ok"], (f"d{name}", result)
 
 
 def test_dispatch_and_refusals_on_card(cuda):
-    """Auto dispatch sends f32 to the reference; the kernels refuse what
-    they cannot take instead of computing it some other way."""
+    """Auto dispatch launches a kernel for f32 as for bf16; the kernels
+    refuse what they cannot take instead of computing it some other
+    way."""
     q, k, v, _ = _inputs("gqa_4_2", cuda)
     tfa.reset_launches()
     tfa.best_attention(q.float(), k.float(), v.float())
-    assert tfa.LAUNCHES["flash_fwd"] == 0
+    assert tfa.LAUNCHES["flash_fwd_simt"] == 1
     tfa.best_attention(q, k, v)
     assert tfa.LAUNCHES["flash_fwd"] == 1
-    with pytest.raises(ValueError, match="bf16"):
-        tfa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="one dtype"):
+        tfa.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="bf16, fp16 or f32"):
+        tfa.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="q_offset"):
         tfa._fwd_cuda(q, k, v, True, -64)
     with pytest.raises(ValueError, match="shapes disagree"):
         tfa._fwd_cuda(q, k, v[:, :64], True, 0)
-    with pytest.raises(ValueError, match="multiples of 64"):
-        tfa._fwd_cuda(q[:, :96], k, v, True, 0)
+    with pytest.raises(ValueError, match="domain"):
+        tfa._fwd_cuda(q[:, :100], k, v, True, 0)
+
+
+# Shapes (q_seq, k_seq, head_dim) across the edge of the domain.
+DISPATCH_SHAPES = [(sq, sk, d) for sq, sk in ((8, 8), (200, 2000), (4, 64),
+                                              (100, 128), (64, 60))
+                   for d in (64, 128, 256, 512, 640)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_best_attention_launches_exactly_in_domain(dtype, cuda):
+    """On a CUDA tensor every shape in the domain launches a kernel (the
+    forward of its family) and every shape outside it launches none."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for sq, sk, d in DISPATCH_SHAPES:
+        q = torch.randn(1, sq, 2, d, generator=gen, device=cuda).to(dtype)
+        kv = torch.randn(1, sk, 1, d, generator=gen, device=cuda).to(dtype)
+        tfa.reset_launches()
+        out = tfa.best_attention(q, kv, kv, causal=False)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape
+        inside = tfa.flash_supported(sq, sk, d, dtype)
+        name = "flash_fwd" + tfa.kernel_suffix(dtype, d)
+        want = smoke.counts({name: 1} if inside else {})
+        assert tfa.LAUNCHES == want, (sq, sk, d, tfa.LAUNCHES)

@@ -133,6 +133,71 @@ def test_sgd_steps_match_jax_server(servers, momentum):
         assert not np.array_equal(got[k], init[k])
 
 
+BAD_PUSH_INIT = {"a": np.ones(4, np.float32), "b": np.ones(3, np.float32)}
+BAD_PUSH = {"a": np.full(4, 0.5, np.float32), "b": np.ones(5, np.float32)}
+
+
+def _state(server):
+    """(params, momentum trace leaves, version) of either side's shard."""
+    params, version = server.pull()
+    if isinstance(server, jps.ParameterServer):
+        trace = [np.asarray(x)
+                 for x in jax.tree_util.tree_leaves(server._opt_state)]
+    else:
+        trace = ([] if server._trace is None else
+                 [server._trace[k].numpy() for k in sorted(server._trace)])
+    return params, trace, version
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_failed_push_leaves_shard_as_jax_server(momentum):
+    """A push whose second gradient does not fit its parameter leaves the
+    port's shard as the JAX server leaves its own: params, momentum trace
+    and version untouched (one good push first, so the trace is not
+    zero). Both raise; the exception types differ by framework."""
+    opt = (optax.sgd(0.1, momentum=momentum) if momentum
+           else optax.sgd(0.1))
+    jserver = jps.ParameterServer(optimizer=opt)
+    tserver = port_server(lr=0.1, momentum=momentum)
+    good = {"a": np.full(4, 0.25, np.float32), "b": np.ones(3, np.float32)}
+    for s in (jserver, tserver):
+        s.init(BAD_PUSH_INIT)
+        s.push(good)
+    before = _state(tserver)
+    for s in (jserver, tserver):
+        with pytest.raises(Exception):
+            s.push(BAD_PUSH)
+    (jp, jt, jv), (tp, tt, tv) = _state(jserver), _state(tserver)
+    assert jv == tv == before[2] == 1
+    for k in BAD_PUSH_INIT:
+        np.testing.assert_allclose(tp[k], jp[k], atol=SGD_TOL, rtol=0)
+        np.testing.assert_array_equal(tp[k], before[0][k])
+    assert len(jt) == len(tt) == (2 if momentum else 0)
+    # JAX's trace leaves follow its sorted keys, as the port's list does.
+    for j, t in zip(jt, tt):
+        np.testing.assert_allclose(t, j, atol=SGD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_failed_push_drops_the_connection(servers, side):
+    """Over HTTP a push that does not fit a momentum shard is no 400 on
+    either side: the handler raises and the connection drops, and the
+    shard is unmoved. (Without momentum the JAX server's numpy add raises
+    a ValueError, which it answers with a 400; the port drops there too.)"""
+    server = servers(jps.ParameterServer(
+        optimizer=optax.sgd(0.1, momentum=0.9), host="127.0.0.1")
+        if side == "jax" else port_server(lr=0.1, momentum=0.9))
+    server.init(BAD_PUSH_INIT)
+    with pytest.raises((urllib.error.URLError, ConnectionError)) as e:
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://{addr(server)}/push", data=tps._pack(BAD_PUSH),
+            method="POST"), timeout=5)
+    assert not isinstance(e.value, urllib.error.HTTPError)
+    params, version = server.pull()
+    assert version == 0
+    np.testing.assert_array_equal(params["a"], BAD_PUSH_INIT["a"])
+
+
 def test_pull_is_a_copy_and_init_keeps_no_reference():
     server = port_server(lr=1.0)
     w = np.ones(3, np.float32)

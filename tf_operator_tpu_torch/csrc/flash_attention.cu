@@ -7,15 +7,25 @@
 //   flash_dkv_kernel  <- _dkv_kernel  (launched by _bwd_impl, pallas_call :289)
 //
 // What each computes is the TPU kernel's function, with its cast points:
-// scores and softmax statistics in f32, P cast to bf16 before P.V and
-// P^T.dO, dS cast to bf16 before dS.K and dS^T.Q, every product
+// scores and softmax statistics in f32, P cast to the input type before
+// P.V and P^T.dO, dS cast to it before dS.K and dS^T.Q, every product
 // accumulated in f32. Masked scores are the finite -1e30 of the TPU
 // kernel, never -inf, so a fully masked row gives exp(0), not NaN; a
 // softmax sum of 0 is guarded as 1. lse and delta are [B, H, S] f32.
 // Tensors are read as [B, S, H, 128] through their strides (no
-// transpose); head h reads KV head h / (H / Hkv) (native GQA). Sequence
-// lengths must be multiples of 64 and D must be 128; the Python gate
-// (flash_supported) states exactly that.
+// transpose); head h reads KV head h / (H / Hkv) (native GQA). The kernels
+// are templates over the element type E, bf16 or fp16 (wgmma's bf16 and
+// f16 variants); D is 128. The other cases of the domain (f32, and D of
+// 256-512) go to the SIMT kernels of flash_attention_simt.cu.
+//
+// Ragged sequences. Sq and Sk are any multiples of 8 (>= 8), tiled in 64
+// rows with a partial last tile. The tensor maps carry the real lengths,
+// so TMA loads the rows past the end as zeros. Zero keys would still
+// score 0, so keys >= Sk are set to -1e30 in every kernel (last k tile
+// only); rows >= Sq of O, lse and dQ and rows >= Sk of dK/dV are never
+// stored; lse and delta are read only for rows < Sq (the dK/dV kernel's
+// bulk copies stop at Sq, and query columns >= Sq get P = dS = 0, so the
+// stale row statistics of a stage never reach a sum).
 //
 // What bounds them on the card: at D = 128 every (64 x 64) tile pair does
 // 2-4 tensor-core products of 64x64x128 for 2-4 tile loads of 16 KB, so
@@ -45,12 +55,11 @@
 // built; the Python wrapper raises on any non-zero value.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -87,15 +96,25 @@ __device__ __forceinline__ int acc_col(int i, int lane) {
   return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
 }
 
-// Write a 64 x 128 f32 accumulator as bf16 rows of a [.., 128] tensor.
-__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[64],
-                                          int row_stride, int warp,
+// Write the first `rows` rows of a 64 x 128 f32 accumulator as rows of E
+// of a [.., 128] tensor (rows past the sequence's end are not stored).
+template <typename E>
+__device__ __forceinline__ void store_acc(E* dst, const float (&acc)[64],
+                                          int row_stride, int rows, int warp,
                                           int lane) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    *reinterpret_cast<__nv_bfloat162*>(
-        dst + static_cast<int64_t>(acc_row(i, warp, lane)) * row_stride +
-        acc_col(i, lane)) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  for (int i = 0; i < 64; i += 2) {
+    const int r = acc_row(i, warp, lane);
+    if (r < rows)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<int64_t>(r) * row_stride +
+                                   acc_col(i, lane)) =
+          hopper::pack2<E>(acc[i], acc[i + 1]);
+  }
+}
+
+// Tiles of T rows over a sequence of `len` (the last may be partial).
+__host__ __device__ __forceinline__ int n_tiles(int len) {
+  return (len + T - 1) / T;
 }
 
 // Last k tile (exclusive) visible to q tile i: the TPU's _block_visible,
@@ -165,20 +184,25 @@ __device__ __forceinline__ void stream_kv(unsigned char* sKV, uint64_t* full,
 //   * Per k tile: S = Q K^T (8 wgmma m64n64k16, both K-major from shared
 //     memory), scale and the causal mask (diagonal tiles only) in
 //     registers, online softmax on the accumulator layout (quad shuffles),
-//     P rounded to bf16 in registers and O += P V (4 wgmma m64n128k16, A
+//     P rounded to E in registers and O += P V (4 wgmma m64n128k16, A
 //     from registers, V N-major). O, m and l never leave registers; O is
 //     rescaled there and written once.
 //   * Causal k tiles past a q tile's diagonal are never loaded (the
-//     producer stops at the CTA's last visible tile).
+//     producer stops at the CTA's last visible tile). With a partial last
+//     q tile, a tile that only its rows past Sq would see may be loaded;
+//     the per-element mask gives it no weight in any real row, whose
+//     running max is finite from k tile 0 on (key 0 is visible to every
+//     row at q_offset >= 0).
 // ---------------------------------------------------------------------------
 constexpr int FWD_STAGES = 2;
 constexpr int SMEM_FWD = 1024 + 2 * TILE + FWD_STAGES * 2 * TILE +
                          8 * (1 + 2 * FWD_STAGES);
 
+template <typename E>
 __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
+    const __grid_constant__ CUtensorMap vmap, E* __restrict__ out,
     float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int causal,
     int q_offset, float scale) {
   using namespace hopper;
@@ -189,7 +213,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
   uint64_t* kv_full = q_full + 1;
   uint64_t* kv_empty = kv_full + FWD_STAGES;
 
-  const int nqt = Sq / T, nkt = Sk / T;
+  const int nqt = n_tiles(Sq), nkt = n_tiles(Sk);
   const QPair w = q_pair(nqt, H);
   const int c = w.c, h = w.h, b = w.b, tiles_here = w.tiles;
   const int hk = h / (H / Hkv);
@@ -240,24 +264,30 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
-          wgmma_m64n64k16_ss(sc, desc_kmajor(myQ, kk), desc_kmajor(sK, kk),
-                             kk > 0);
+          wgmma_m64n64k16_ss<E>(sc, desc_kmajor(myQ, kk), desc_kmajor(sK, kk),
+                                kk > 0);
         wgmma_commit();
         wgmma_wait_all();
         reg_fence(sc);
 
-        // Scale, mask (diagonal tiles only), online softmax.
+        // Scale, mask (diagonal tiles and a partial last k tile only: a
+        // uniform branch, so whole interior tiles skip it), online softmax.
         const bool diag = causal && j * T + T - 1 > iq * T + q_offset;
+        const int keys = Sk - j * T;              // < T on a partial tile
         float mx[2] = {m[0], m[1]};
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          float x = sc[i] * scale;
-          if (diag && iq * T + acc_row(i, warp, lane) + q_offset <
-                          j * T + acc_col(i, lane))
-            x = NEG_INF;
-          sc[i] = x;
-          mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+        for (int i = 0; i < 32; ++i) sc[i] *= scale;
+        if (diag || keys < T) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            if ((diag && iq * T + acc_row(i, warp, lane) + q_offset <
+                             j * T + acc_col(i, lane)) ||
+                acc_col(i, lane) >= keys)
+              sc[i] = NEG_INF;
         }
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sc[i]);
         float corr[2], psum[2] = {0.0f, 0.0f};
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -276,14 +306,14 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
 #pragma unroll
         for (int i = 0; i < 64; ++i) o[i] *= corr[(i % 4) / 2];
 
-        // O += P V, P as bf16 register fragments.
+        // O += P V, P as register fragments of E.
         uint32_t pa[4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) frag_a(pa[kk], sc, kk);
+        for (int kk = 0; kk < 4; ++kk) frag_a<E>(pa[kk], sc, kk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k16_rs(o, pa[kk], desc_nmajor(sV, kk));
+          wgmma_m64n128k16_rs<E>(o, pa[kk], desc_nmajor(sV, kk));
         wgmma_commit();
         wgmma_wait_all();
         reg_fence(o);
@@ -301,14 +331,14 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
       const float safe = sum == 0.0f ? 1.0f : sum;
       inv[r] = 1.0f / safe;
       const int row = iq * T + 16 * warp + lane / 4 + 8 * r;
-      if (lane % 4 == 0)
+      if (lane % 4 == 0 && row < Sq)
         lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[r] + logf(safe);
     }
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] *= inv[(i % 4) / 2];
-    store_acc(out + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
-                  static_cast<int64_t>(h) * D,
-              o, H * D, warp, lane);
+    store_acc<E>(out + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
+                     static_cast<int64_t>(h) * D,
+                 o, H * D, Sq - iq * T, warp, lane);
   }
 }
 
@@ -327,10 +357,10 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
 //   * Per k tile: S = Q K^T and dP = dO V^T (16 wgmma m64n64k16 in one
 //     commit group, every operand K-major), scale and the causal mask
 //     (diagonal tiles only, per element) in registers, P = exp(S - lse)
-//     and dS = P (dP - delta) scale there, dS rounded to bf16 register
+//     and dS = P (dP - delta) scale there, dS rounded to E register
 //     fragments, and dQ += dS K (4 wgmma m64n128k16, A from registers): the
 //     K tile that was the K-major B of S is read N-major here.
-//   * dQ (64 f32 registers a thread) is written once, as bf16, straight
+//   * dQ (64 f32 registers a thread) is written once, as E, straight
 //     from registers. Each dQ row is summed by one warpgroup in k-tile
 //     order: no atomics, deterministic.
 //   * Causal k tiles past the CTA's last diagonal are never loaded.
@@ -339,12 +369,13 @@ constexpr int DQ_STAGES = 2;
 constexpr int SMEM_DQ = 1024 + 4 * TILE + DQ_STAGES * 2 * TILE +
                         8 * (1 + 2 * DQ_STAGES);
 
+template <typename E>
 __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap,
     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Hkv,
+    const float* __restrict__ delta, E* __restrict__ dq, int H, int Hkv,
     int Sq, int Sk, int causal, int q_offset, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -355,7 +386,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
   uint64_t* kv_full = qdo_full + 1;
   uint64_t* kv_empty = kv_full + DQ_STAGES;
 
-  const int nqt = Sq / T, nkt = Sk / T;
+  const int nqt = n_tiles(Sq), nkt = n_tiles(Sk);
   const QPair w = q_pair(nqt, H);
   const int c = w.c, h = w.h, b = w.b, tiles_here = w.tiles;
   const int hk = h / (H / Hkv);
@@ -393,14 +424,18 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
     const unsigned char* myQ = sQ + wg * TILE;
     const unsigned char* mydO = sdO + wg * TILE;
 
+    // Rows past Sq keep lse = delta = 0: their Q and dO rows are zeros,
+    // so their P and dS stay finite, and they are never stored.
     float row_lse[2] = {0.0f, 0.0f}, row_delta[2] = {0.0f, 0.0f};
     if (active) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq + iq * T +
-                            16 * warp + lane / 4 + 8 * r;
-        row_lse[r] = lse[row];
-        row_delta[r] = delta[row];
+        const int pos = iq * T + 16 * warp + lane / 4 + 8 * r;
+        const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq + pos;
+        if (pos < Sq) {
+          row_lse[r] = lse[row];
+          row_delta[r] = delta[row];
+        }
       }
     }
 
@@ -419,38 +454,46 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
-          wgmma_m64n64k16_ss(sc, desc_kmajor(myQ, kk), desc_kmajor(sK, kk),
-                             kk > 0);
+          wgmma_m64n64k16_ss<E>(sc, desc_kmajor(myQ, kk), desc_kmajor(sK, kk),
+                                kk > 0);
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
-          wgmma_m64n64k16_ss(dp, desc_kmajor(mydO, kk), desc_kmajor(sV, kk),
-                             kk > 0);
+          wgmma_m64n64k16_ss<E>(dp, desc_kmajor(mydO, kk), desc_kmajor(sV, kk),
+                                kk > 0);
         wgmma_commit();
         wgmma_wait_all();
         reg_fence(sc);
         reg_fence(dp);
 
-        // Scale, mask (diagonal tiles only), P and dS; dS overwrites S.
+        // Scale, mask (diagonal tiles and a partial last k tile only, a
+        // uniform branch), P and dS; dS overwrites S.
         const bool diag = causal && j * T + T - 1 > iq * T + q_offset;
+        const int keys = Sk - j * T;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] *= scale;
+        if (diag || keys < T) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            if ((diag && iq * T + acc_row(i, warp, lane) + q_offset <
+                             j * T + acc_col(i, lane)) ||
+                acc_col(i, lane) >= keys)
+              sc[i] = NEG_INF;
+        }
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int r = (i % 4) / 2;
-          float x = sc[i] * scale;
-          if (diag && iq * T + acc_row(i, warp, lane) + q_offset <
-                          j * T + acc_col(i, lane))
-            x = NEG_INF;
-          const float p = exp2f((x - row_lse[r]) * LOG2E);
+          const float p = exp2f((sc[i] - row_lse[r]) * LOG2E);
           sc[i] = p * (dp[i] - row_delta[r]) * scale;
         }
 
-        // dQ += dS K, dS as bf16 register fragments.
+        // dQ += dS K, dS as register fragments of E.
         uint32_t da[4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) frag_a(da[kk], sc, kk);
+        for (int kk = 0; kk < 4; ++kk) frag_a<E>(da[kk], sc, kk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k16_rs(acc, da[kk], desc_nmajor(sK, kk));
+          wgmma_m64n128k16_rs<E>(acc, da[kk], desc_nmajor(sK, kk));
         wgmma_commit();
         wgmma_wait_all();
         reg_fence(acc);
@@ -459,9 +502,9 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
       if (lane == 0) mbar_arrive(&kv_empty[s]);
     }
     if (!active) return;
-    store_acc(dq + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
-                  static_cast<int64_t>(h) * D,
-              acc, H * D, warp, lane);
+    store_acc<E>(dq + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
+                     static_cast<int64_t>(h) * D,
+                 acc, H * D, Sq - iq * T, warp, lane);
   }
 }
 
@@ -490,19 +533,22 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
 //     through shared memory, which adds and writes: the GQA sum stays
 //     inside the CTA in a fixed order (deterministic, no atomics). A k
 //     tile no query row sees gets zeros.
+//   * A partial last q tile: its lse and delta are copied up to Sq only,
+//     and its query columns >= Sq get P = dS = 0.
 // ---------------------------------------------------------------------------
 constexpr int DKV_STAGES = 4;
 constexpr int DKV_STAGE = 2 * TILE + 1024;  // Q, dO, lse[64], delta[64]
 constexpr int SMEM_DKV = 1024 + 2 * TILE + DKV_STAGES * DKV_STAGE +
                          T * D * 4 + 8 * (2 + 2 * DKV_STAGES);
 
+template <typename E>
 __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap,
     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk, int causal,
+    const float* __restrict__ delta, E* __restrict__ dk,
+    E* __restrict__ dv, int H, int Hkv, int Sq, int Sk, int causal,
     int q_offset, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -515,7 +561,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
   uint64_t* st_full = kv_empty + 1;
   uint64_t* st_empty = st_full + DKV_STAGES;
 
-  const int nqt = Sq / T, nkt = Sk / T, group = H / Hkv;
+  const int nqt = n_tiles(Sq), nkt = n_tiles(Sk), group = H / Hkv;
   const int hb = gridDim.x / ((nkt + 1) / 2);            // Hkv * B
   const int pair = static_cast<int>(blockIdx.x) / hb;
   const int hk = static_cast<int>(blockIdx.x) % hb % Hkv;
@@ -555,11 +601,15 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
           const int h = hk * group + t / nqv, i = i0 + t % nqv;
           unsigned char* st = sStage + s * DKV_STAGE;
           const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq + i * T;
-          mbar_expect_tx(&st_full[s], 2 * TILE + 2 * T * 4);
+          // lse and delta up to Sq only: a multiple of 8 rows, so 32-byte
+          // aligned copies of a multiple of 32 bytes.
+          const uint32_t stat_bytes = min(T, Sq - i * T) * 4;
+          mbar_expect_tx(&st_full[s], 2 * TILE + 2 * stat_bytes);
           tma_load_tile(st, &qmap, &st_full[s], h, i * T, b);
           tma_load_tile(st + TILE, &domap, &st_full[s], h, i * T, b);
-          bulk_load(st + 2 * TILE, lse + row, T * 4, &st_full[s]);
-          bulk_load(st + 2 * TILE + T * 4, delta + row, T * 4, &st_full[s]);
+          bulk_load(st + 2 * TILE, lse + row, stat_bytes, &st_full[s]);
+          bulk_load(st + 2 * TILE + T * 4, delta + row, stat_bytes,
+                    &st_full[s]);
         }
       }
     }
@@ -591,19 +641,23 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
-          wgmma_m64n64k16_ss(st, desc_kmajor(sK, kk), desc_kmajor(sQ, kk),
-                             kk > 0);
+          wgmma_m64n64k16_ss<E>(st, desc_kmajor(sK, kk), desc_kmajor(sQ, kk),
+                                kk > 0);
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
-          wgmma_m64n64k16_ss(dpt, desc_kmajor(sV, kk), desc_kmajor(sdO, kk),
-                             kk > 0);
+          wgmma_m64n64k16_ss<E>(dpt, desc_kmajor(sV, kk), desc_kmajor(sdO, kk),
+                                kk > 0);
         wgmma_commit();
         wgmma_wait_all();
         reg_fence(st);
         reg_fence(dpt);
 
-        // Rows are keys, columns queries of this item.
+        // Rows are keys, columns queries of this item. Query columns
+        // past Sq (a partial last q tile) read stale lse and delta: they
+        // get P = dS = 0, set after the fact on that tile only (a uniform
+        // branch). Key rows past Sk are never stored.
         const bool diag = causal && j * T + T - 1 > i * T + q_offset;
+        const int queries = Sq - i * T;
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
           const int col = acc_col(e, lane);
@@ -614,20 +668,25 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
           dpt[e] = p * (dpt[e] - sDelta[col]) * scale;
           st[e] = p;
         }
+        if (queries < T) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            if (acc_col(e, lane) >= queries) st[e] = dpt[e] = 0.0f;
+        }
 
         uint32_t pa[4][4], da[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          frag_a(pa[kk], st, kk);
-          frag_a(da[kk], dpt, kk);
+          frag_a<E>(pa[kk], st, kk);
+          frag_a<E>(da[kk], dpt, kk);
         }
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k16_rs(acc_dv, pa[kk], desc_nmajor(sdO, kk));
+          wgmma_m64n128k16_rs<E>(acc_dv, pa[kk], desc_nmajor(sdO, kk));
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k16_rs(acc_dk, da[kk], desc_nmajor(sQ, kk));
+          wgmma_m64n128k16_rs<E>(acc_dk, da[kk], desc_nmajor(sQ, kk));
         wgmma_commit();
         wgmma_wait_all();
         reg_fence(acc_dv);
@@ -649,7 +708,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
       if (wg == 0) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc_dv[i] += xbuf[i * 128 + tid];
-        store_acc(dv + base, acc_dv, Hkv * D, warp, lane);
+        store_acc<E>(dv + base, acc_dv, Hkv * D, Sk - j * T, warp, lane);
       }
       named_sync(1, 256);
       if (wg == 1)
@@ -659,7 +718,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
       if (wg == 0) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc_dk[i] += xbuf[i * 128 + tid];
-        store_acc(dk + base, acc_dk, Hkv * D, warp, lane);
+        store_acc<E>(dk + base, acc_dk, Hkv * D, Sk - j * T, warp, lane);
       }
       named_sync(1, 256);
     }
@@ -670,6 +729,57 @@ static_assert(SMEM_FWD <= 232448 && SMEM_DQ <= 232448 &&
                   SMEM_DKV <= 232448,
               "shared memory over the 227 KB a block can use");
 
+// Element types of the C entries' `dtype` argument (the Python wrapper's
+// codes): 0 bf16, 1 fp16. These kernels take head_dim 128 only.
+enum { DT_BF16 = 0, DT_FP16 = 1 };
+
+template <typename K>
+void set_smem(K kernel, int bytes) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       bytes);
+}
+
+template <typename E>
+int launch_fwd(const CUtensorMap& qm, const CUtensorMap& km,
+               const CUtensorMap& vm, void* out, void* lse, int B, int H,
+               int Hkv, int Sq, int Sk, int causal, int q_offset, float scale,
+               cudaStream_t stream) {
+  set_smem(flash_fwd_kernel<E>, SMEM_FWD);
+  const int ncta = (n_tiles(Sq) + 1) / 2;
+  flash_fwd_kernel<E><<<ncta * H * B, NT_WS, SMEM_FWD, stream>>>(
+      qm, km, vm, (E*)out, (float*)lse, H, Hkv, Sq, Sk, causal, q_offset,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch_dq(const CUtensorMap& qm, const CUtensorMap& km,
+              const CUtensorMap& vm, const CUtensorMap& dom, const void* lse,
+              const void* delta, void* dq, int B, int H, int Hkv, int Sq,
+              int Sk, int causal, int q_offset, float scale,
+              cudaStream_t stream) {
+  set_smem(flash_dq_kernel<E>, SMEM_DQ);
+  const int ncta = (n_tiles(Sq) + 1) / 2;
+  flash_dq_kernel<E><<<ncta * H * B, NT_WS, SMEM_DQ, stream>>>(
+      qm, km, vm, dom, (const float*)lse, (const float*)delta, (E*)dq, H, Hkv,
+      Sq, Sk, causal, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km,
+               const CUtensorMap& vm, const CUtensorMap& dom, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int H, int Hkv,
+               int Sq, int Sk, int causal, int q_offset, float scale,
+               cudaStream_t stream) {
+  set_smem(flash_dkv_kernel<E>, SMEM_DKV);
+  const int npair = (n_tiles(Sk) + 1) / 2;
+  flash_dkv_kernel<E><<<npair * Hkv * B, NT_WS, SMEM_DKV, stream>>>(
+      qm, km, vm, dom, (const float*)lse, (const float*)delta, (E*)dk, (E*)dv,
+      H, Hkv, Sq, Sk, causal, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -678,20 +788,23 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out,
               void* lse, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
               int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
               int v_ss, int v_sh, int causal, int q_offset, float scale,
-              void* stream) {
+              int dtype, int head_dim, void* stream) {
+  if (head_dim != D || (dtype != DT_BF16 && dtype != DT_FP16))
+    return (int)cudaErrorInvalidValue;
+  const bool f16 = dtype == DT_FP16;
   CUtensorMap qm, km, vm;
   CUresult rc;
-  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh)) ||
-      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh)) ||
-      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh)))
+  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh, f16)) ||
+      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh, f16)) ||
+      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh, f16)))
     return -static_cast<int>(rc);
-  cudaFuncSetAttribute(flash_fwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_FWD);
-  const int ncta = (Sq / T + 1) / 2;
-  flash_fwd_kernel<<<ncta * H * B, NT_WS, SMEM_FWD, (cudaStream_t)stream>>>(
-      qm, km, vm, (bf16*)out, (float*)lse, H, Hkv, Sq, Sk, causal, q_offset,
-      scale);
-  return (int)cudaGetLastError();
+  if (f16)
+    return launch_fwd<__half>(
+        qm, km, vm, out, lse, B, H, Hkv, Sq, Sk, causal, q_offset, scale,
+        (cudaStream_t)stream);
+  return launch_fwd<__nv_bfloat16>(
+      qm, km, vm, out, lse, B, H, Hkv, Sq, Sk, causal, q_offset, scale,
+      (cudaStream_t)stream);
 }
 
 int flash_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -699,21 +812,25 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              int Hkv, int Sq, int Sk, int q_sb, int q_ss, int q_sh, int k_sb,
              int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb,
              int do_ss, int do_sh, int causal, int q_offset, float scale,
-             void* stream) {
+             int dtype, int head_dim, void* stream) {
+  if (head_dim != D || (dtype != DT_BF16 && dtype != DT_FP16))
+    return (int)cudaErrorInvalidValue;
+  const bool f16 = dtype == DT_FP16;
   CUtensorMap qm, km, vm, dom;
   CUresult rc;
-  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh)) ||
-      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh)) ||
-      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh)) ||
-      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, do_sb, do_ss, do_sh)))
+  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh, f16)) ||
+      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh, f16)) ||
+      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh, f16)) ||
+      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, do_sb, do_ss, do_sh,
+                                  f16)))
     return -static_cast<int>(rc);
-  cudaFuncSetAttribute(flash_dq_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DQ);
-  const int ncta = (Sq / T + 1) / 2;
-  flash_dq_kernel<<<ncta * H * B, NT_WS, SMEM_DQ, (cudaStream_t)stream>>>(
-      qm, km, vm, dom, (const float*)lse, (const float*)delta, (bf16*)dq, H,
-      Hkv, Sq, Sk, causal, q_offset, scale);
-  return (int)cudaGetLastError();
+  if (f16)
+    return launch_dq<__half>(
+        qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq, Sk, causal, q_offset,
+        scale, (cudaStream_t)stream);
+  return launch_dq<__nv_bfloat16>(
+      qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq, Sk, causal, q_offset,
+      scale, (cudaStream_t)stream);
 }
 
 int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -721,21 +838,25 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
               int H, int Hkv, int Sq, int Sk, int q_sb, int q_ss, int q_sh,
               int k_sb, int k_ss, int k_sh, int v_sb, int v_ss, int v_sh,
               int do_sb, int do_ss, int do_sh, int causal, int q_offset,
-              float scale, void* stream) {
+              float scale, int dtype, int head_dim, void* stream) {
+  if (head_dim != D || (dtype != DT_BF16 && dtype != DT_FP16))
+    return (int)cudaErrorInvalidValue;
+  const bool f16 = dtype == DT_FP16;
   CUtensorMap qm, km, vm, dom;
   CUresult rc;
-  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh)) ||
-      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh)) ||
-      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh)) ||
-      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, do_sb, do_ss, do_sh)))
+  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh, f16)) ||
+      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh, f16)) ||
+      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh, f16)) ||
+      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, do_sb, do_ss, do_sh,
+                                  f16)))
     return -static_cast<int>(rc);
-  cudaFuncSetAttribute(flash_dkv_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DKV);
-  const int npair = (Sk / T + 1) / 2;
-  flash_dkv_kernel<<<npair * Hkv * B, NT_WS, SMEM_DKV, (cudaStream_t)stream>>>(
-      qm, km, vm, dom, (const float*)lse, (const float*)delta, (bf16*)dk,
-      (bf16*)dv, H, Hkv, Sq, Sk, causal, q_offset, scale);
-  return (int)cudaGetLastError();
+  if (f16)
+    return launch_dkv<__half>(
+        qm, km, vm, dom, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, causal,
+        q_offset, scale, (cudaStream_t)stream);
+  return launch_dkv<__nv_bfloat16>(
+      qm, km, vm, dom, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, causal,
+      q_offset, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,596 @@
+// Flash attention for Hopper (sm_90a), SIMT kernels: forward, dQ and dK/dV
+// for the cases of the TPU kernels' domain that the wgmma kernels of
+// flash_attention.cu do not take: f32 inputs at head_dim 128, 256, 384 and
+// 512, and bf16 or fp16 inputs at head_dim 256, 384 and 512.
+//
+// Replaces, for those cases, the three Pallas TPU kernels of
+// tf_operator_tpu/ops/flash_attention.py:
+//   flash_fwd_simt_kernel <- _fwd_kernel (:95; _fwd, pallas_call :143)
+//   flash_dq_simt_kernel  <- _dq_kernel  (:183; _bwd_impl, pallas_call :261)
+//   flash_dkv_simt_kernel <- _dkv_kernel (:207; _bwd_impl, pallas_call :289)
+//
+// Each computes the TPU kernel's function with its cast points, as the
+// wgmma kernels do: scores, softmax statistics and every product in f32;
+// P rounded to the input type E before P.V and P^T.dO, dS rounded to E
+// before dS.K and dS^T.Q (no-ops for f32); masked scores the finite
+// -1e30; a softmax sum of 0 guarded as 1; lse and delta [B, H, S] f32.
+// Tensors are read as [B, S, H, D] through their element strides; head h
+// reads KV head h / (H / Hkv). Sequences are any length >= 8 (the gate
+// asks for multiples of 8): rows past the end load as zeros, keys past Sk
+// score -1e30, and rows past the end are never stored.
+//
+// Why SIMT f32 FMA, not tensor cores: wgmma takes no f32 operands, and
+// TF32 keeps about three decimal digits where the f32 kernels must hold
+// the JAX package's 2e-5 (its f32 flash tests); the port's plain versions
+// also run with TF32 off. So every product is an f32 fmaf. The wide bf16
+// and fp16 cases use the same kernels: their products are exact in f32,
+// so the results are those of a tensor-core product with f32 sums.
+//
+// What bounds them on the card: f32 FMA, 67 TFLOP/s on an H100 SXM
+// without tensor cores. Each (64 x 64) tile product reads its two operand
+// chunks once from device memory (mostly L2) for 64 x 64 x 64 FMAs, so
+// arithmetic, not bytes, is the limit. Design, simple before fast:
+//   * 256 threads as a 16 x 16 grid (ty, tx); each thread holds a 4 x 4
+//     (dK/dV: 2 x 4) block of every tile product in registers and reads
+//     its operands from shared memory as float4/float2, with both operand
+//     tiles stored with the reduced index outermost (rows padded to 68 or
+//     36 floats, so the reads are 16-byte aligned and broadcast).
+//   * head_dim is walked in chunks of C = 64 columns through two to four
+//     shared-memory tiles (at most 44 KB, static), so one template serves
+//     every D; the output accumulators stay in registers (O and dQ: 4 x
+//     D / 16 a thread; dK and dV: 2 x D / 16 each).
+//   * Forward and dQ: one CTA per (64 query rows, head, batch), heaviest
+//     causal q tiles first; k tiles of 64 keys in order; causal k tiles
+//     past the CTA's last real row are skipped. dK/dV: one CTA per (32
+//     keys, KV head, batch), heaviest first, summing every GQA member and
+//     visible q tile inside the CTA in a fixed order: no atomics, so the
+//     results are deterministic.
+//   * No cp.async pipeline, no tensor cores: each chunk is loaded, the
+//     block synchronises, and multiplies. The redesign is queued.
+//
+// Each extern "C" entry launches on the caller's stream and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a (dtype, head_dim)
+// these kernels were not built for; the Python wrapper raises on any
+// non-zero value.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;    // query rows of a forward/dQ CTA and a dK/dV item
+constexpr int BK = 64;    // keys of a forward/dQ k tile
+constexpr int BKV = 32;   // keys of a dK/dV CTA
+constexpr int C = 64;     // head_dim columns a chunk
+constexpr int NT = 256;   // threads: a 16 x 16 grid
+constexpr float NEG_INF = -1e30f;
+
+// Element types of the C entries' `dtype` argument (the Python wrapper's
+// codes).
+enum { DT_BF16 = 0, DT_FP16 = 1, DT_F32 = 2 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+template <typename E>
+__device__ __forceinline__ E from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// x rounded to E and back (the cast points; exact for f32).
+template <typename E>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<E>(x));
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// Reductions over the 16 lanes (tx) that share a row of a tile product.
+__device__ __forceinline__ float max16(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o *= 2)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float sum16(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Rows s0 .. s0 + ROWS - 1 (zeros at or past S) and C columns of a tensor
+// whose element (s, c) is src[s * ss + c], as f32 into shared memory:
+// transposed, dst[c * (ROWS + 4) + r], or not, dst[r * (C + 4) + c].
+template <typename E, int ROWS, bool TRANS>
+__device__ __forceinline__ void load_tile(float* dst, const E* src, int ss,
+                                          int s0, int S) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * C; e += NT) {
+    const int r = e / C, c = e % C, s = s0 + r;
+    const float x = s < S ? to_f(src[static_cast<int64_t>(s) * ss + c]) : 0.0f;
+    if (TRANS)
+      dst[c * (ROWS + 4) + r] = x;
+    else
+      dst[r * (C + 4) + c] = x;
+  }
+}
+
+// acc[i][j] += sum over kk < 64 of A[kk * LDA + ty * MR + i] *
+// B[kk * LDB + tx * 4 + j]: this thread's MR x 4 block of a tile product
+// whose operands are stored with the reduced index outermost.
+template <int MR, int LDA, int LDB>
+__device__ __forceinline__ void mm_acc(float (&acc)[MR][4], const float* A,
+                                       const float* B) {
+  const float* a = A + (threadIdx.x / 16) * MR;
+  const float* b = B + (threadIdx.x % 16) * 4;
+#pragma unroll 16
+  for (int kk = 0; kk < 64; ++kk) {
+    float av[MR];
+    if constexpr (MR == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(a + kk * LDA);
+      av[0] = t.x, av[1] = t.y, av[2] = t.z, av[3] = t.w;
+    } else {
+      const float2 t = *reinterpret_cast<const float2*>(a + kk * LDA);
+      av[0] = t.x, av[1] = t.y;
+    }
+    const float4 bv = *reinterpret_cast<const float4*>(b + kk * LDB);
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      acc[i][0] = fmaf(av[i], bv.x, acc[i][0]);
+      acc[i][1] = fmaf(av[i], bv.y, acc[i][1]);
+      acc[i][2] = fmaf(av[i], bv.z, acc[i][2]);
+      acc[i][3] = fmaf(av[i], bv.w, acc[i][3]);
+    }
+  }
+}
+
+constexpr int LQ = BQ + 4;    // row stride of a tile transposed from 64 rows
+constexpr int LKV = BKV + 4;  // ... from 32 rows
+constexpr int LC = C + 4;     // row stride of a chunk kept as rows
+
+// The (query tile, head, batch) of a forward or dQ CTA, heaviest causal q
+// tiles first.
+struct QTile {
+  int q0, h, b;
+};
+
+__device__ __forceinline__ QTile q_tile(int Sq, int H) {
+  const int nqt = cdiv(Sq, BQ);
+  const int hb = gridDim.x / nqt;  // H * B
+  const int blk = static_cast<int>(blockIdx.x);
+  return {(nqt - 1 - blk / hb) * BQ, blk % hb % H, blk % hb / H};
+}
+
+// k tiles a CTA of q rows q0 .. needs: causal tiles past its last real row
+// are skipped.
+__device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int causal,
+                                       int q_offset) {
+  const int nkt = cdiv(Sk, BK);
+  if (!causal) return nkt;
+  const int last = min(q0 + BQ, Sq) - 1 + q_offset;
+  return min(nkt, last / BK + 1);
+}
+
+// ---------------------------------------------------------------------------
+// Forward. Replaces _fwd_kernel for f32 and wide D. Per k tile: S = Q K^T
+// over D / C chunks (Q^T and K^T chunks in sA, sB), scale, mask, online
+// softmax on the thread's 4 x 4 block (row max and sum over 16 lanes), P
+// rounded to E into sA as P^T, then O += P V over the chunks of V (in
+// sB). O, m and the thread's partial l stay in registers.
+// ---------------------------------------------------------------------------
+template <typename E, int D>
+__global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
+    const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+    E* __restrict__ out, float* __restrict__ lse, int H, int Hkv, int Sq,
+    int Sk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+    int v_sb, int v_ss, int v_sh, int causal, int q_offset, float scale) {
+  constexpr int NC = D / C;
+  __shared__ __align__(16) float sA[C * LQ];
+  __shared__ __align__(16) float sB[C * LC];
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const QTile w = q_tile(Sq, H);
+  const int q0 = w.q0, h = w.h, b = w.b, hk = h / (H / Hkv);
+  const E* qp = q + static_cast<int64_t>(b) * q_sb + static_cast<int64_t>(h) * q_sh;
+  const E* kp = k + static_cast<int64_t>(b) * k_sb + static_cast<int64_t>(hk) * k_sh;
+  const E* vp = v + static_cast<int64_t>(b) * v_sb + static_cast<int64_t>(hk) * v_sh;
+  const int nk = k_tiles(q0, Sq, Sk, causal, q_offset);
+
+  float o[NC][4][4] = {};
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = NEG_INF, l[i] = 0.0f;
+
+  for (int j = 0; j < nk; ++j) {
+    float s[4][4] = {};
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();
+      load_tile<E, BQ, true>(sA, qp + c * C, q_ss, q0, Sq);
+      load_tile<E, BK, true>(sB, kp + c * C, k_ss, j * BK, Sk);
+      __syncthreads();
+      mm_acc<4, LQ, LQ>(s, sA, sB);
+    }
+    float mx[4], corr[4], psum[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx[i] = m[i];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int row = q0 + ty * 4 + i, key = j * BK + tx * 4 + jj;
+        float x = s[i][jj] * scale;
+        if (key >= Sk || (causal && row + q_offset < key)) x = NEG_INF;
+        s[i][jj] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+      mx[i] = max16(mx[i]);
+      corr[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+      psum[i] = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p = expf(s[i][jj] - mx[i]);
+        psum[i] += p;
+        s[i][jj] = round_to<E>(p);
+      }
+      l[i] = l[i] * corr[i] + psum[i];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) o[c][i][jj] *= corr[i];
+    }
+    __syncthreads();  // every thread is done reading sA's last chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        sA[(tx * 4 + jj) * LQ + ty * 4 + i] = s[i][jj];  // P^T [key][row]
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c > 0) __syncthreads();
+      load_tile<E, BK, false>(sB, vp + c * C, v_ss, j * BK, Sk);
+      __syncthreads();
+      mm_acc<4, LQ, LC>(o[c], sA, sB);
+    }
+  }
+
+  // Finalize: O / l (l == 0 guarded as 1), lse; rows past Sq not stored.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const float sum = sum16(l[i]);
+    const float safe = sum == 0.0f ? 1.0f : sum;
+    const float inv = 1.0f / safe;
+    if (row >= Sq) continue;
+    if (tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[i] + logf(safe);
+    E* dst = out + (static_cast<int64_t>(b) * Sq + row) * H * D +
+             static_cast<int64_t>(h) * D + tx * 4;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        dst[c * C + jj] = from_f<E>(o[c][i][jj] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, dQ. Replaces _dq_kernel for f32 and wide D. Per k tile: S =
+// Q K^T and dP = dO V^T over the chunks (through sA, sB), P = exp(S - lse)
+// and dS = P (dP - delta) scale on the thread's block, dS rounded to E
+// into sA as dS^T, then dQ += dS K over the chunks of K. Each dQ row is
+// summed by one thread block in k-tile order: deterministic.
+// ---------------------------------------------------------------------------
+template <typename E, int D>
+__global__ void __launch_bounds__(NT) flash_dq_simt_kernel(
+    const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+    const E* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, E* __restrict__ dq, int H, int Hkv,
+    int Sq, int Sk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss,
+    int k_sh, int v_sb, int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
+    int causal, int q_offset, float scale) {
+  constexpr int NC = D / C;
+  __shared__ __align__(16) float sA[C * LQ];
+  __shared__ __align__(16) float sB[C * LC];
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const QTile w = q_tile(Sq, H);
+  const int q0 = w.q0, h = w.h, b = w.b, hk = h / (H / Hkv);
+  const E* qp = q + static_cast<int64_t>(b) * q_sb + static_cast<int64_t>(h) * q_sh;
+  const E* dop = dout + static_cast<int64_t>(b) * do_sb + static_cast<int64_t>(h) * do_sh;
+  const E* kp = k + static_cast<int64_t>(b) * k_sb + static_cast<int64_t>(hk) * k_sh;
+  const E* vp = v + static_cast<int64_t>(b) * v_sb + static_cast<int64_t>(hk) * v_sh;
+  const int nk = k_tiles(q0, Sq, Sk, causal, q_offset);
+
+  // Rows past Sq keep lse = delta = 0: their Q and dO rows are zeros, so
+  // their P and dS stay finite, and they are never stored.
+  float row_lse[4], row_delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const int64_t at = (static_cast<int64_t>(b) * H + h) * Sq + row;
+    row_lse[i] = row < Sq ? lse[at] : 0.0f;
+    row_delta[i] = row < Sq ? delta[at] : 0.0f;
+  }
+
+  float acc[NC][4][4] = {};
+  for (int j = 0; j < nk; ++j) {
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();
+      load_tile<E, BQ, true>(sA, qp + c * C, q_ss, q0, Sq);
+      load_tile<E, BK, true>(sB, kp + c * C, k_ss, j * BK, Sk);
+      __syncthreads();
+      mm_acc<4, LQ, LQ>(s, sA, sB);
+    }
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();
+      load_tile<E, BQ, true>(sA, dop + c * C, do_ss, q0, Sq);
+      load_tile<E, BK, true>(sB, vp + c * C, v_ss, j * BK, Sk);
+      __syncthreads();
+      mm_acc<4, LQ, LQ>(dp, sA, sB);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int row = q0 + ty * 4 + i, key = j * BK + tx * 4 + jj;
+        float x = s[i][jj] * scale;
+        if (key >= Sk || (causal && row + q_offset < key)) x = NEG_INF;
+        const float p = expf(x - row_lse[i]);
+        s[i][jj] = round_to<E>(p * (dp[i][jj] - row_delta[i]) * scale);
+      }
+    __syncthreads();  // every thread is done reading sA's last chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        sA[(tx * 4 + jj) * LQ + ty * 4 + i] = s[i][jj];  // dS^T [key][row]
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c > 0) __syncthreads();
+      load_tile<E, BK, false>(sB, kp + c * C, k_ss, j * BK, Sk);
+      __syncthreads();
+      mm_acc<4, LQ, LC>(acc[c], sA, sB);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= Sq) continue;
+    E* dst = dq + (static_cast<int64_t>(b) * Sq + row) * H * D +
+             static_cast<int64_t>(h) * D + tx * 4;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) dst[c * C + jj] = from_f<E>(acc[c][i][jj]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, dK/dV. Replaces _dkv_kernel for f32 and wide D. One CTA owns
+// 32 keys of one KV head and walks every (GQA member, visible q tile of 64
+// rows) item in order. Per item: S^T = K Q^T and dP^T = V dO^T over the
+// chunks (K^T/V^T chunks in sK, Q^T/dO^T in sQ), P^T = exp(S^T - lse) and
+// dS^T = P^T (dP^T - delta) scale with lse and delta per query column
+// (query columns past Sq get P = dS = 0), both rounded to E into sP and sS
+// as [query][key], then dV += P^T dO and dK += dS^T Q over the chunks of
+// dO and Q (as rows in sQ). dK and dV stay in registers; a key no query
+// row sees gets zeros.
+// ---------------------------------------------------------------------------
+template <typename E, int D>
+__global__ void __launch_bounds__(NT) flash_dkv_simt_kernel(
+    const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+    const E* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, E* __restrict__ dk, E* __restrict__ dv,
+    int H, int Hkv, int Sq, int Sk, int q_sb, int q_ss, int q_sh, int k_sb,
+    int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb, int do_ss,
+    int do_sh, int causal, int q_offset, float scale) {
+  constexpr int NC = D / C;
+  __shared__ __align__(16) float sK[C * LKV];   // K^T or V^T chunk
+  __shared__ __align__(16) float sQ[C * LQ];    // Q^T/dO^T, or Q/dO rows
+  __shared__ __align__(16) float sP[BQ * LKV];  // P as [query][key]
+  __shared__ __align__(16) float sS[BQ * LKV];  // dS as [query][key]
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int hb = gridDim.x / cdiv(Sk, BKV);  // Hkv * B
+  const int blk = static_cast<int>(blockIdx.x);
+  const int k0 = blk / hb * BKV, hk = blk % hb % Hkv, b = blk % hb / Hkv;
+  const int group = H / Hkv, nqt = cdiv(Sq, BQ);
+  const E* kp = k + static_cast<int64_t>(b) * k_sb + static_cast<int64_t>(hk) * k_sh;
+  const E* vp = v + static_cast<int64_t>(b) * v_sb + static_cast<int64_t>(hk) * v_sh;
+  // First q tile with a row that sees key k0 (causal).
+  int i0 = 0;
+  if (causal) {
+    const int need = k0 - q_offset - (BQ - 1);
+    i0 = need > 0 ? cdiv(need, BQ) : 0;
+  }
+
+  float acc_dk[NC][2][4] = {}, acc_dv[NC][2][4] = {};
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const E* qp = q + static_cast<int64_t>(b) * q_sb + static_cast<int64_t>(h) * q_sh;
+    const E* dop = dout + static_cast<int64_t>(b) * do_sb + static_cast<int64_t>(h) * do_sh;
+    for (int i = i0; i < nqt; ++i) {
+      const int q0 = i * BQ;
+      float st[2][4] = {}, dpt[2][4] = {};
+      for (int c = 0; c < NC; ++c) {
+        __syncthreads();
+        load_tile<E, BKV, true>(sK, kp + c * C, k_ss, k0, Sk);
+        load_tile<E, BQ, true>(sQ, qp + c * C, q_ss, q0, Sq);
+        __syncthreads();
+        mm_acc<2, LKV, LQ>(st, sK, sQ);
+      }
+      for (int c = 0; c < NC; ++c) {
+        __syncthreads();
+        load_tile<E, BKV, true>(sK, vp + c * C, v_ss, k0, Sk);
+        load_tile<E, BQ, true>(sQ, dop + c * C, do_ss, q0, Sq);
+        __syncthreads();
+        mm_acc<2, LKV, LQ>(dpt, sK, sQ);
+      }
+      // Rows are keys, columns queries. sP and sS were last read before
+      // the syncs above, so they are free to write.
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int qpos = q0 + tx * 4 + jj;
+        const bool real = qpos < Sq;
+        const int64_t at = (static_cast<int64_t>(b) * H + h) * Sq + qpos;
+        const float l = real ? lse[at] : 0.0f;
+        const float d = real ? delta[at] : 0.0f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = k0 + ty * 2 + r;
+          float x = st[r][jj] * scale;
+          if (causal && qpos + q_offset < key) x = NEG_INF;
+          const float p = real ? expf(x - l) : 0.0f;
+          const float ds = real ? p * (dpt[r][jj] - d) * scale : 0.0f;
+          sP[(tx * 4 + jj) * LKV + ty * 2 + r] = round_to<E>(p);
+          sS[(tx * 4 + jj) * LKV + ty * 2 + r] = round_to<E>(ds);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        __syncthreads();
+        load_tile<E, BQ, false>(sQ, dop + c * C, do_ss, q0, Sq);
+        __syncthreads();
+        mm_acc<2, LKV, LC>(acc_dv[c], sP, sQ);
+        __syncthreads();
+        load_tile<E, BQ, false>(sQ, qp + c * C, q_ss, q0, Sq);
+        __syncthreads();
+        mm_acc<2, LKV, LC>(acc_dk[c], sS, sQ);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + ty * 2 + r;
+    if (key >= Sk) continue;
+    const int64_t at = (static_cast<int64_t>(b) * Sk + key) * Hkv * D +
+                       static_cast<int64_t>(hk) * D + tx * 4;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        dk[at + c * C + jj] = from_f<E>(acc_dk[c][r][jj]);
+        dv[at + c * C + jj] = from_f<E>(acc_dv[c][r][jj]);
+      }
+  }
+}
+
+// Launchers, one instantiation a (E, D) of the domain.
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *o1, *o2;  // forward: out, lse; dQ: dq; dK/dV: dk, dv
+  int B, H, Hkv, Sq, Sk;
+  int q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,
+      do_sh;
+  int causal, q_offset;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename E, int D>
+int launch_fwd(const Args& a) {
+  flash_fwd_simt_kernel<E, D><<<cdiv(a.Sq, BQ) * a.H * a.B, NT, 0, a.stream>>>(
+      (const E*)a.q, (const E*)a.k, (const E*)a.v, (E*)a.o1, (float*)a.o2,
+      a.H, a.Hkv, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
+      a.v_sb, a.v_ss, a.v_sh, a.causal, a.q_offset, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename E, int D>
+int launch_dq(const Args& a) {
+  flash_dq_simt_kernel<E, D><<<cdiv(a.Sq, BQ) * a.H * a.B, NT, 0, a.stream>>>(
+      (const E*)a.q, (const E*)a.k, (const E*)a.v, (const E*)a.dout,
+      (const float*)a.lse, (const float*)a.delta, (E*)a.o1, a.H, a.Hkv, a.Sq,
+      a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
+      a.v_sh, a.do_sb, a.do_ss, a.do_sh, a.causal, a.q_offset, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename E, int D>
+int launch_dkv(const Args& a) {
+  flash_dkv_simt_kernel<E, D>
+      <<<cdiv(a.Sk, BKV) * a.Hkv * a.B, NT, 0, a.stream>>>(
+          (const E*)a.q, (const E*)a.k, (const E*)a.v, (const E*)a.dout,
+          (const float*)a.lse, (const float*)a.delta, (E*)a.o1, (E*)a.o2,
+          a.H, a.Hkv, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss,
+          a.k_sh, a.v_sb, a.v_ss, a.v_sh, a.do_sb, a.do_ss, a.do_sh, a.causal,
+          a.q_offset, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation for (dtype, head_dim): f32 at 128-512, bf16 and fp16
+// at 256-512 (bf16 and fp16 at 128 are the wgmma kernels' cases).
+#define SIMT_CASES(L)                                    \
+  switch (dtype * 1024 + head_dim) {                     \
+    case DT_F32 * 1024 + 128: return L<float, 128>(a);   \
+    case DT_F32 * 1024 + 256: return L<float, 256>(a);   \
+    case DT_F32 * 1024 + 384: return L<float, 384>(a);   \
+    case DT_F32 * 1024 + 512: return L<float, 512>(a);   \
+    case DT_BF16 * 1024 + 256: return L<__nv_bfloat16, 256>(a); \
+    case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384>(a); \
+    case DT_BF16 * 1024 + 512: return L<__nv_bfloat16, 512>(a); \
+    case DT_FP16 * 1024 + 256: return L<__half, 256>(a); \
+    case DT_FP16 * 1024 + 384: return L<__half, 384>(a); \
+    case DT_FP16 * 1024 + 512: return L<__half, 512>(a); \
+  }                                                      \
+  return (int)cudaErrorInvalidValue;
+
+}  // namespace
+
+extern "C" {
+
+int flash_fwd_simt(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
+                   int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+                   int v_ss, int v_sh, int causal, int q_offset, float scale,
+                   int dtype, int head_dim, void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, B, H, Hkv,
+               Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+               0, 0, 0, causal, q_offset, scale, (cudaStream_t)stream};
+  SIMT_CASES(launch_fwd)
+}
+
+int flash_dq_simt(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
+                  int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+                  int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
+                  int causal, int q_offset, float scale, int dtype,
+                  int head_dim, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, H, Hkv, Sq, Sk,
+               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
+               do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
+  SIMT_CASES(launch_dq)
+}
+
+int flash_dkv_simt(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
+                   int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+                   int v_sb, int v_ss, int v_sh, int do_sb, int do_ss,
+                   int do_sh, int causal, int q_offset, float scale,
+                   int dtype, int head_dim, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
+               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
+               do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
+  SIMT_CASES(launch_dkv)
+}
+
+}  // extern "C"

@@ -1,14 +1,18 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the two
-// wgmma shapes the kernels use, register-count hand-off (setmaxnreg), and
-// the host-side tensor map of a [B, S, H, 128] bf16 operand.
+// wgmma shapes the kernels use (bf16 or fp16 operands, f32 accumulators),
+// register-count hand-off (setmaxnreg), and the host-side tensor map of a
+// [B, S, H, 128] bf16 or fp16 operand.
 //
 // Tile layout shared by TMA and wgmma. Every operand tile is 64 rows of
-// 128 bf16 (16 KB), stored as two 8 KB halves (columns 0-63 and 64-127),
-// each 64 rows of 128 bytes with the 128-byte swizzle (16-byte chunk c of
-// row r sits at chunk c ^ (r % 8)). One TMA box is one half
-// ({64 columns, 1 head, 64 rows, 1 batch}); a half is 1024-byte aligned,
-// so the swizzle phase matches what wgmma's SWIZZLE_128B layout expects.
+// 128 two-byte elements (16 KB), stored as two 8 KB halves (columns 0-63
+// and 64-127), each 64 rows of 128 bytes with the 128-byte swizzle
+// (16-byte chunk c of row r sits at chunk c ^ (r % 8)). One TMA box is one
+// half ({64 columns, 1 head, 64 rows, 1 batch}); a half is 1024-byte
+// aligned, so the swizzle phase matches what wgmma's SWIZZLE_128B layout
+// expects. Rows past the end of the sequence are filled with zeros by
+// TMA (the box may reach past it; a load still completes the whole box's
+// bytes on its mbarrier).
 //   * K-major operand (rows are M or N, the 128 columns are K): k-step kk
 //     (16 columns) starts at half kk / 4, byte 32 * (kk % 4); 8-row groups
 //     are 1024 bytes apart (SBO).
@@ -25,16 +29,19 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace hopper {
 
 constexpr int TILE_ROWS = 64;
-constexpr int HALF_BYTES = TILE_ROWS * 128;  // 64 rows x 64 bf16
-constexpr int TILE_BYTES = 2 * HALF_BYTES;   // 64 rows x 128 bf16
+constexpr int HALF_BYTES = TILE_ROWS * 128;  // 64 rows x 64 elements
+constexpr int TILE_BYTES = 2 * HALF_BYTES;   // 64 rows x 128 elements
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -159,70 +166,94 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 
 // D[64 x 64] (f32, 32 registers a thread) (+)= A[64 x 16] . B[64 x 16]^T,
 // A and B both K-major in shared memory (descriptors); accumulate = 0
-// overwrites D.
+// overwrites D. T is __nv_bfloat16 or __half.
+#define HOPPER_WGMMA_SS(TY)                                                   \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "         \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "         \
+      "%26, %27, %28, %29, %30, %31 "                                        \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                             \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
                                                    uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (std::is_same<T, __half>::value)
+    HOPPER_WGMMA_SS("f16");
+  else
+    HOPPER_WGMMA_SS("bf16");
 }
 
 // D[64 x 128] (f32, 64 registers a thread) += A[64 x 16] . B[16 x 128],
-// A from registers (bf16 pairs, see frag_a), B N-major in shared memory
+// A from registers (pairs of T, see frag_a), B N-major in shared memory
 // (transposed read, imm-trans-b = 1).
+#define HOPPER_WGMMA_RS(TY)                                                   \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "         \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "         \
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "         \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "         \
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "         \
+      "%62, %63 "                                                            \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),     \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),     \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),     \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                    const uint32_t (&a)[4],
                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    HOPPER_WGMMA_RS("f16");
+  else
+    HOPPER_WGMMA_RS("bf16");
+}
+
+// Two f32 values rounded to a pair of T (round to nearest even), low
+// half first.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // A-operand fragment (k-step kk: columns 16kk..16kk+15) of a 64 x 64 f32
-// accumulator, rounded to bf16: wgmma's register A layout is the
-// accumulator layout of those 16 columns, two values to a register.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
+// accumulator, rounded to T: wgmma's register A layout is the accumulator
+// layout of those 16 columns, two values to a register.
+template <typename T>
 __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const float (&s)[32],
                                        int kk) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) a[r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  for (int r = 0; r < 4; ++r)
+    a[r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // ------------------------------------------------ warp specialisation
@@ -243,13 +274,14 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 
 // ------------------------------------------------------------------ host
 
-// Tensor map of a [B, S, H, 128] bf16 tensor with element strides
-// (sb, ss, sh) and unit stride over the 128: one box is one tile half
-// (see tma_load_half). cuTensorMapEncodeTiled is looked up in libcuda,
-// which the CUDA runtime has already loaded, so the library links no
-// -lcuda.
+// Tensor map of a [B, S, H, 128] bf16 (or, with fp16 set, fp16) tensor
+// with element strides (sb, ss, sh) and unit stride over the 128: one box
+// is one tile half (see tma_load_half). S is the real length: rows of a
+// box at or past it load as zeros. cuTensorMapEncodeTiled is looked up in
+// libcuda, which the CUDA runtime has already loaded, so the library
+// links no -lcuda.
 inline CUresult make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
-                              int H, int sb, int ss, int sh) {
+                              int H, int sb, int ss, int sh, bool fp16) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
@@ -264,7 +296,10 @@ inline CUresult make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, TILE_ROWS, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  return encode(map,
+                fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(base),
                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

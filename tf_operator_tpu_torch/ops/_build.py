@@ -1,10 +1,13 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and bind them by ctypes.
 
-The library is built on first use into ``build/torch_kernels/`` at the
-root of the checkout, named by a hash of its sources and flags, so an edit
-to a source rebuilds it and an unchanged tree reuses the last build. The
-sources have a plain C interface (no PyTorch headers), which keeps one
-build to seconds. Nothing here runs at import time.
+Each library (one ``csrc/<name>.cu`` and every ``.cuh``) is built on
+first use into ``build/torch_kernels/`` at the root of the checkout, named
+by a hash of its sources and flags, so an edit to a source rebuilds it and
+an unchanged tree reuses the last build. The sources have a plain C
+interface (no PyTorch headers), which keeps one build to seconds or tens
+of seconds. Two libraries build in parallel (one nvcc each, ``load_all``);
+one library is built once however many threads ask for it. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -16,15 +19,17 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds the build took, path of the library, compiler output)
 build_info: Dict[str, Tuple[float, str, str]] = {}
@@ -60,7 +65,9 @@ def library_path(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raise if nvcc fails."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         main, _ = _sources(name)
@@ -82,3 +89,10 @@ def load(name: str) -> ctypes.CDLL:
             build_info[name] = (0.0, str(lib), "")
         _loaded[name] = ctypes.CDLL(str(lib))
         return _loaded[name]
+
+
+def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """Build and load several libraries at once, one nvcc each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))

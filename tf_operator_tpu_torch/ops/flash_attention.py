@@ -1,9 +1,20 @@
 """Flash attention (forward + backward) over hand-written Hopper kernels.
 
 Port of ``tf_operator_tpu/ops/flash_attention.py``. The three Pallas TPU
-kernels (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) become the CUDA
-kernels of ``csrc/flash_attention.cu``, built for ``sm_90a`` and bound by
-ctypes (``ops/_build.py``). The forward is the custom op
+kernels (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) become CUDA
+kernels built for ``sm_90a`` and bound by ctypes (``ops/_build.py``), over
+the TPU kernels' whole domain (``flash_supported``: sequences of any
+multiple of 8 from 8 up, head_dim 128, 256, 384 or 512, bf16, fp16 or
+f32), in two families picked by (dtype, head_dim) (``kernel_suffix``):
+
+- bf16 and fp16 at head_dim 128, the training step's case: the wgmma/TMA
+  kernels of ``csrc/flash_attention.cu`` (launch keys ``flash_fwd``,
+  ``flash_dq``, ``flash_dkv``);
+- f32 at every head_dim, and bf16/fp16 at 256-512: the SIMT (f32 FMA)
+  kernels of ``csrc/flash_attention_simt.cu`` (``flash_fwd_simt``,
+  ``flash_dq_simt``, ``flash_dkv_simt``). f32 stays f32 there: no TF32.
+
+Both mask ragged sequence edges in the kernel. The forward is the custom op
 ``tf_operator_tpu_torch::flash_fwd`` returning ``(out, lse)``; its autograd
 formula saves ``(q, k, v, out, lse)`` and launches the dQ and dK/dV
 kernels, recomputing ``P = exp(S - lse)`` as the TPU kernels do, so no
@@ -22,8 +33,9 @@ Beside each kernel sits its plain PyTorch version (``_fwd_reference``,
 ``_bwd_reference``) with the kernels' cast points. A tensor on the CPU goes
 to the plain version; a CUDA tensor launches the kernel or raises. The one
 dispatch is ``best_attention``: shapes or dtypes outside
-``flash_supported`` go to ``ops.layers.attention``, as the JAX
-``best_attention`` does.
+``flash_supported`` (BERT's head_dim 64, decode's single rows, lengths
+that are no multiple of 8) go to ``ops.layers.attention``, as the JAX
+``best_attention`` does; everything inside it launches a kernel.
 
 Layout is [B, S, H, D] at every public function; k/v may carry fewer heads
 (GQA, H % Hkv == 0), read directly by the kernels and never repeated.
@@ -54,12 +66,25 @@ from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops.layers import NEG_INF, attention, repeat_kv
 from tf_operator_tpu_torch.parallel.mesh import batch_placements
 
-# The CUDA kernels' tile: 64 query rows by 64 key rows, head_dim 128.
+# The wgmma kernels' tile rows: an internal tile, not a limit of the
+# domain (a partial last tile is masked in the kernel).
 BLOCK = 64
-HEAD_DIM = 128
+# The JAX package's default blocks and lane width, which its
+# flash_supported judges shapes by (copied, not imported).
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 1024
+_LANES = 128
+MAX_HEAD_DIM = 512
+# Input dtypes the kernels take, with the C entries' codes for them.
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+# The library of each kernel family (by launch-key suffix).
+_LIBRARY = {"": "flash_attention", "_simt": "flash_attention_simt"}
 
 # Launches of each kernel, counted by the wrapper where it launches it.
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES: Dict[str, int] = {
+    f"flash_{kind}{suffix}": 0 for suffix in _LIBRARY
+    for kind in ("fwd", "dq", "dkv")}
 
 
 def reset_launches() -> None:
@@ -67,21 +92,38 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _fit_block(seq: int) -> int:
-    """The card's tile rule: the kernels use fixed ``BLOCK``-row tiles and
-    do not mask a ragged edge, so a sequence tiles only as a positive
-    multiple of ``BLOCK`` (returns the tile, or 0 when it does not fit)."""
-    return BLOCK if seq >= BLOCK and seq % BLOCK == 0 else 0
+def kernel_suffix(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel family for (dtype, head_dim) in the domain, as the
+    suffix of its launch keys: "" for the wgmma kernels (bf16 and fp16 at
+    head_dim 128), "_simt" for every other case."""
+    return ("" if dtype in (torch.bfloat16, torch.float16)
+            and head_dim == 128 else "_simt")
+
+
+def _fit_block(seq: int, want: int) -> int:
+    """JAX's block rule: the largest 8-aligned block <= ``want`` that
+    divides ``seq`` (8 when none does, 0 for a sequence under 8)."""
+    b = min(want, seq)
+    b -= b % 8
+    while b > 8 and seq % b:
+        b -= 8
+    return b
 
 
 def flash_supported(q_seq: int, k_seq: int, head_dim: int,
                     dtype: Optional[torch.dtype] = None) -> bool:
-    """Whether the CUDA kernels take these shapes (and ``dtype``, if given):
-    both sequence lengths multiples of 64, head_dim exactly 128, bf16."""
-    if dtype is not None and dtype != torch.bfloat16:
+    """Whether the kernels take these shapes (and ``dtype``, if given):
+    exactly the JAX package's ``flash_supported`` at its default blocks
+    (both lengths >= 8 and multiples of 8, head_dim a multiple of 128 up
+    to 512), and a dtype of bf16, fp16 or f32."""
+    if dtype is not None and dtype not in DTYPES:
         return False
-    return (_fit_block(q_seq) > 0 and _fit_block(k_seq) > 0
-            and head_dim == HEAD_DIM)
+    bq = _fit_block(q_seq, DEFAULT_BLOCK_Q)
+    bk = _fit_block(k_seq, DEFAULT_BLOCK_K)
+    if bq < 8 or bk < 8:
+        return False
+    return (q_seq % bq == 0 and k_seq % bk == 0
+            and head_dim % _LANES == 0 and head_dim <= MAX_HEAD_DIM)
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +146,8 @@ def _scores(q, k, causal, q_offset):
 def _fwd_reference(q, k, v, causal: bool = True, q_offset: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense forward: (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq] f32).
-    P is cast to v's dtype before P.V, as in the TPU kernel."""
+    P is cast to v's dtype before P.V, as in the TPU kernel. Any dtype
+    and head_dim."""
     b, sq, h, d = q.shape
     s, _ = _scores(q, k, causal, q_offset)
     m = s.amax(dim=-1, keepdim=True)
@@ -167,37 +210,41 @@ def _bwd_reference(q, k, v, out, lse, do, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every entry ends (causal, q_offset, scale, dtype code, head_dim, stream).
+_TAIL = [_I, _I, _F, _I, _I, _P]
 _ARGTYPES = {
-    "flash_fwd": [_P] * 5 + [_I] * 5 + [_I] * 9 + [_I, _I, _F, _P],
-    "flash_dq": [_P] * 7 + [_I] * 5 + [_I] * 12 + [_I, _I, _F, _P],
-    "flash_dkv": [_P] * 8 + [_I] * 5 + [_I] * 12 + [_I, _I, _F, _P],
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_I] * 9 + _TAIL,
+    "flash_dq": [_P] * 7 + [_I] * 5 + [_I] * 12 + _TAIL,
+    "flash_dkv": [_P] * 8 + [_I] * 5 + [_I] * 12 + _TAIL,
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+def _lib(suffix: str = "") -> ctypes.CDLL:
+    """The built library of one kernel family, its entries typed."""
+    lib = _build.load(_LIBRARY[suffix])
     for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name + suffix)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_operand(name: str, x: torch.Tensor,
-                   device: torch.device) -> Tuple[int, int, int]:
-    """Validate one [B, S, H, 128] bf16 operand on ``device`` (a CUDA
-    device); return its strides."""
+def _check_operand(name: str, x: torch.Tensor, device: torch.device,
+                   dtype: torch.dtype, head_dim: int) -> Tuple[int, int, int]:
+    """Validate one [B, S, H, head_dim] operand of ``dtype`` on ``device``
+    (a CUDA device); return its strides."""
     if not x.is_cuda or x.device != device:
         raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
                          f"{x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the flash kernels take bf16 only; {name} is "
-                         f"{x.dtype}")
-    if x.dim() != 4 or x.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name} must be [B, S, H, {HEAD_DIM}], got "
+    if x.dtype != dtype:
+        raise ValueError(f"the flash kernels take q, k, v and dO of one "
+                         f"dtype; q is {dtype}, {name} is {x.dtype}")
+    if x.dim() != 4 or x.shape[-1] != head_dim:
+        raise ValueError(f"{name} must be [B, S, H, {head_dim}], got "
                          f"{tuple(x.shape)}")
     sb, ss, sh, sd = x.stride()
-    if sd != 1 or any(st % 8 or st >= 2 ** 31 for st in (sb, ss, sh)) \
+    align = 16 // x.element_size()
+    if sd != 1 or any(st % align or st >= 2 ** 31 for st in (sb, ss, sh)) \
             or x.data_ptr() % 16:
         raise ValueError(f"{name} needs a unit head_dim stride, 16-byte "
                          f"aligned rows and int32 strides; got strides "
@@ -206,13 +253,18 @@ def _check_operand(name: str, x: torch.Tensor,
 
 
 def _check_operands(q, k, v, q_offset, do=None):
-    """Validate the kernels' operands; return (dims, flat strides)."""
+    """Validate the kernels' operands; return (dims, flat strides, dtype
+    code and head_dim, launch-key suffix)."""
     device = q.device if q.is_cuda else torch.device("cuda")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"the flash kernels take bf16, fp16 or f32; q is "
+                         f"{q.dtype}")
+    d = q.shape[-1]
     operands = [("q", q), ("k", k), ("v", v)]
     if do is not None:
         operands.append(("do", do))
     strides = [st for name, x in operands
-               for st in _check_operand(name, x, device)]
+               for st in _check_operand(name, x, device, q.dtype, d)]
     b, sq, h, _ = q.shape
     _, sk, hkv, _ = k.shape
     if k.shape[0] != b or v.shape != k.shape or (
@@ -220,16 +272,18 @@ def _check_operands(q, k, v, q_offset, do=None):
         raise ValueError(f"operand shapes disagree: q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}"
                          + ("" if do is None else f" do={tuple(do.shape)}"))
-    if not flash_supported(sq, sk, HEAD_DIM):
-        raise ValueError(f"flash kernels need sequence lengths that are "
-                         f"multiples of {BLOCK}: q={tuple(q.shape)} "
+    if not flash_supported(sq, sk, d):
+        raise ValueError(f"outside the flash kernels' domain (sequence "
+                         f"lengths >= 8 and multiples of 8, head_dim 128, "
+                         f"256, 384 or 512): q={tuple(q.shape)} "
                          f"k={tuple(k.shape)}")
     if h % hkv:
         raise ValueError(f"GQA head counts must divide: q heads {h}, kv "
                          f"heads {hkv}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    return (b, h, hkv, sq, sk), strides
+    return ((b, h, hkv, sq, sk), strides, (_DTYPE_CODE[q.dtype], d),
+            kernel_suffix(q.dtype, d))
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -243,57 +297,63 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def _fwd_cuda(q, k, v, causal, q_offset):
-    (b, h, hkv, sq, sk), strides = _check_operands(q, k, v, q_offset)
-    out = torch.empty((b, sq, h, HEAD_DIM), dtype=q.dtype, device=q.device)
+    (b, h, hkv, sq, sk), strides, (code, d), suffix = _check_operands(
+        q, k, v, q_offset)
+    name = "flash_fwd" + suffix
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), lse.data_ptr(), b, h, hkv, sq,
-                              sk, *strides, int(causal), q_offset,
-                              HEAD_DIM ** -0.5, stream)
-    _raise_on(rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+        rc = getattr(_lib(suffix), name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, hkv, sq, sk, *strides, int(causal),
+            q_offset, d ** -0.5, code, d, stream)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out, lse
 
 
 def _bwd_args(q, k, v, lse, do, delta, causal, q_offset):
-    """Validated scalar arguments shared by the dQ and dK/dV entries."""
-    (b, h, hkv, sq, sk), strides = _check_operands(q, k, v, q_offset, do)
+    """Validated scalar arguments shared by the dQ and dK/dV entries, and
+    the launch-key suffix."""
+    (b, h, hkv, sq, sk), strides, (code, d), suffix = _check_operands(
+        q, k, v, q_offset, do)
     for name, row in (("lse", lse), ("delta", delta)):
         if (row.dtype != torch.float32 or tuple(row.shape) != (b, h, sq)
                 or not row.is_contiguous() or row.device != q.device):
             raise ValueError(f"{name} must be contiguous f32 [B, H, Sq] on "
                              f"{q.device}, got {row.dtype} "
                              f"{tuple(row.shape)}")
-    return (b, h, hkv, sq, sk, *strides, int(causal), q_offset,
-            HEAD_DIM ** -0.5)
+    return (b, h, hkv, sq, sk, *strides, int(causal), q_offset, d ** -0.5,
+            code, d), suffix
 
 
 def _dq_cuda(q, k, v, lse, do, delta, causal, q_offset):
-    args = _bwd_args(q, k, v, lse, do, delta, causal, q_offset)
+    args, suffix = _bwd_args(q, k, v, lse, do, delta, causal, q_offset)
+    name = "flash_dq" + suffix
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _lib().flash_dq(
+        rc = getattr(_lib(suffix), name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "flash_dq")
-    LAUNCHES["flash_dq"] += 1
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return dq
 
 
 def _dkv_cuda(q, k, v, lse, do, delta, causal, q_offset):
-    args = _bwd_args(q, k, v, lse, do, delta, causal, q_offset)
+    args, suffix = _bwd_args(q, k, v, lse, do, delta, causal, q_offset)
+    name = "flash_dkv" + suffix
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _lib().flash_dkv(
+        rc = getattr(_lib(suffix), name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *args, torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return dk, dv
 
 
@@ -434,7 +494,9 @@ def best_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, q_offset: int = 0,
                    force_flash: bool = False) -> torch.Tensor:
     """Dispatch: the CUDA kernels for CUDA tensors whose shapes and dtype
-    they take, else the reference (repeating GQA KV itself).
+    are in their domain (``flash_supported``), else the reference
+    (repeating GQA KV itself), as the JAX ``best_attention`` sends to
+    Pallas or to XLA.
     ``force_flash`` always takes ``flash_attention`` (the plain version on
     the CPU), so unsupported shapes raise instead of falling back."""
     if q.shape[2] % k.shape[2]:

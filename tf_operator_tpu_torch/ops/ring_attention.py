@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -305,7 +305,7 @@ def _ring_flash_lanes(qs: List[torch.Tensor], ks: List[torch.Tensor],
     """``ring_flash_attention`` of each lane's block; returns one output a
     lane."""
     s_blk, h, d = qs[0].shape[1:]
-    if not fa.flash_supported(s_blk, s_blk, d):
+    if not fa.flash_supported(s_blk, s_blk, d, qs[0].dtype):
         raise ValueError(
             f"ring_flash_attention unsupported for block shape "
             f"{tuple(qs[0].shape)}; use the einsum ring (ring_attention, "
@@ -328,11 +328,12 @@ def sequence_placements(mesh) -> list:
 
 
 def resolve_impl(impl: str, s_blk: int, head_dim: int, q_heads: int,
-                 kv_heads: int) -> str:
+                 kv_heads: int, dtype: Optional[torch.dtype] = None) -> str:
     """JAX's ``impl="auto"``: the flash ring where the kernels take the
-    block shape (and the GQA heads divide), else the einsum ring."""
+    block shape and ``dtype`` (and the GQA heads divide), else the einsum
+    ring."""
     if impl == "auto":
-        return ("flash" if fa.flash_supported(s_blk, s_blk, head_dim)
+        return ("flash" if fa.flash_supported(s_blk, s_blk, head_dim, dtype)
                 and q_heads % kv_heads == 0 else "einsum")
     if impl not in ("flash", "einsum"):
         raise ValueError(f"unknown ring impl {impl!r}")
@@ -352,7 +353,7 @@ def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor,
 
     sp = mesh.size(mesh.mesh_dim_names.index("sp"))
     impl = resolve_impl(impl, q.shape[1] // sp, q.shape[3], q.shape[2],
-                        k.shape[2])
+                        k.shape[2], q.dtype)
     if impl == "einsum" and k.shape[2] != q.shape[2]:
         group = q.shape[2] // k.shape[2]
         k, v = repeat_kv(k, group), repeat_kv(v, group)

@@ -246,16 +246,32 @@ class ParameterServer:
     def push(self, grads: Dict[str, np.ndarray]) -> int:
         """Apply one async gradient update; returns the new version.
         Gradients are cast to each parameter's dtype; keys the shard does
-        not hold are ignored, one it holds missing is a ValueError."""
+        not hold are ignored, one it holds missing is a ValueError. The
+        update is all or nothing, as the JAX server's: every gradient is
+        converted and checked against its parameter (a TypeError where
+        its shape does not broadcast to the parameter's) before any
+        parameter or trace moves."""
         with self._lock:
             if self._params is None:
                 raise KeyError("parameters not initialized")
             missing = set(self._params) - set(grads)
             if missing:
                 raise ValueError(f"push missing keys: {sorted(missing)[:3]}")
+            converted = {}
             for k, p in self._params.items():
                 g = torch.tensor(np.asarray(grads[k]), dtype=p.dtype,
                                  device=self.device)
+                try:
+                    fits = torch.broadcast_shapes(g.shape, p.shape) == p.shape
+                except RuntimeError:
+                    fits = False
+                if not fits:
+                    raise TypeError(f"push gradient {k!r} of shape "
+                                    f"{tuple(g.shape)} does not fit its "
+                                    f"parameter's {tuple(p.shape)}")
+                converted[k] = g
+            for k, p in self._params.items():
+                g = converted[k]
                 if self._trace is not None:
                     g = self._trace[k].mul_(self.momentum).add_(g)
                 # optax: updates = -lr * g; apply_updates: p + updates.
