@@ -8,11 +8,12 @@ Phases, each printing one JSON line:
 1. env     torch, CUDA and nvcc versions; the card's name and power limit.
 2. build   nvcc builds the two kernel libraries for sm_90a, one nvcc each,
            started together: tf_operator_tpu_torch/csrc/flash_attention.cu
-           (the wgmma kernels: bf16 and fp16 at head_dim 128) and
-           csrc/flash_attention_simt.cu (the SIMT kernels: f32 at every
-           head_dim, bf16/fp16 at 256-512); seconds, library paths, and
-           per kernel variant the registers, stack and spill bytes that
-           ptxas reports.
+           (the wgmma kernels: bf16 and fp16, forward and dK/dV at head_dim
+           128 and 256, dQ at 128) and csrc/flash_attention_simt.cu (the
+           SIMT kernels: f32 at every head_dim, bf16/fp16 at 384-512 and
+           the dQ at 256); seconds, library paths, and per kernel variant
+           ("flash_fwd[bf16,256]") the registers, stack and spill bytes
+           that ptxas reports.
 3. kernels each flash-attention kernel (forward, dQ, dK/dV) against its
            plain PyTorch version on the card (KERNEL_CASES; B=1, H=32,
            Hkv=8, GQA 4:1): in bf16 at head_dim 128 the training step's
@@ -21,21 +22,28 @@ Phases, each printing one JSON line:
            and q_seq = k_seq / 2 with q_offset 0 (half the k tiles seen by
            no row: their dK/dV must be exact zeros); ragged lengths
            (S=2000 causal, Sq=72 / Sk=200 at q_offset 128, S=8); fp16 at
-           S=2048 and 200; and the SIMT kernels at f32 128 and 512, bf16
-           256 and 512 and fp16 384, each at S=2048 causal and S=200 not.
+           S=2048 and 200; the SIMT kernels at f32 128-512, bf16 384 and
+           512 and fp16 384 and 512 at S=2048 causal, and f32 128 and 512,
+           fp16 384 and bf16 512 at S=200 not; and head_dim 256 (the
+           wgmma forward and dK/dV, the SIMT dQ) in bf16 and fp16 at
+           S=2048 causal, bf16 at S=2000, Sq=1024 / Sk=2048 at q_offset
+           1024 and at 0 (half the k tiles unseen), S=200 not causal, and
+           fp16 Sq=72 / Sk=200 at q_offset 128.
            Each output within a limit scaled to its own largest value (REL
            below; f32 F32_REL); the check must also reject perturbed plain
            outputs (zeros, δ dropped, the first or last k or q tile
            skipped, one GQA member left out of dK/dV) and, wherever they
            apply, the domain's edge cases (the partial last k tile
            dropped, rows past the last full q tile left as zeros, scores
-           from the first 128 of head_dim, f32 products in TF32). Kernel,
+           from the first 128 of head_dim, head_dim columns 128-255 left
+           as zeros or copied from columns 0-127, f32 products in TF32).
+           Kernel,
            plain and library (scaled_dot_product_attention, a yardstick
            the port never calls) device times from CUDA events around
            calls queued behind a sleep kernel (``cuda_ms``), and beside
            them the same calls launched by the host as it goes, at B=1,
-           S=2048, H=32, Hkv=8, causal for bf16/fp16/f32 at 128, bf16 at
-           256 and 512, f32 at 512, and bf16 at S=2000; the bound takes
+           S=2048, H=32, Hkv=8, causal for every timed case above (the
+           SIMT kernels 3 calls, the wgmma ones 20); the bound takes
            989 TFLOP/s for bf16/fp16 and 67 for f32, against 3.35 TB/s.
 3a. fp16_model  the model phase's logits check in fp16 at S=2048
            (phase 4's rule; forward only): launches flash_fwd 4.
@@ -45,12 +53,22 @@ Phases, each printing one JSON line:
            launching fwd 8 / dQ 4 / dK/dV 4 each and calling the reference
            attention never (counted); tokens/s and peak memory beside the
            same 3 steps with attention_impl="xla", what the port ran there
-           before its kernels took ragged lengths.
+           before its kernels took ragged lengths; losses finite and
+           falling.
 3c. f32_train  the main path with LlamaConfig.dtype = f32 at S=2048,
            through the SIMT kernels: the logits within relative L2
            F32_LOGITS_REL of the reference attention's on the same f32
            weights, then 2 steps launching the _simt kernels 8 / 4 / 4
            each, no reference attention; the step time.
+3d. d256_train  the main path with the attention at head_dim 256: the
+           same model with n_heads 16, n_kv_heads 4, head_dim 256 (the
+           projections keep llama_3_8b's shapes), bf16, S=2048: the logits
+           through the kernels against the reference attention (phase 4's
+           rule), then 3 Trainer steps launching flash_fwd_d256 8,
+           flash_dq_simt 4 and flash_dkv_d256 4 each and the reference
+           attention never, losses finite and falling; ms a step, tokens/s
+           and peak memory beside the same 3 steps with
+           attention_impl="xla".
 4. model   the 4-layer llama_3_8b-width model's logits through the kernels
            against the same weights through the reference attention.
 5. train   the main path: Trainer + Llama (llama_3_8b widths, 4 layers,
@@ -264,10 +282,12 @@ no flash kernel, as the JAX decode path runs none):
            by SIGTERM exits 0.
 
 Then the whole script's seconds, a {"kernels": [...]} summary line (one
-entry a launch key: the wgmma kernels' numbers from the training step's
-case and launches from the train phase, the SIMT kernels' from the f32
-D=128 case and the f32_train phase; every path's launches and every timed
-variant beside them), the nvidia-smi name/power line, and last {"ok":
+entry a launch key: the wgmma D=128 kernels' numbers from the training
+step's case and launches from the train phase, the wgmma D=256 kernels'
+(flash_fwd_d256, flash_dkv_d256) from the bf16 D=256 case and the
+d256_train phase, the SIMT kernels' from the f32 D=128 case and the
+f32_train phase; every path's launches and every timed variant beside
+them), the nvidia-smi name/power line, and last {"ok":
 true, "device": {...}}. Any
 failure exits non-zero before the last line; so does a machine without a
 CUDA card.
@@ -366,6 +386,7 @@ PEAK_BF16 = 989e12      # H100 SXM dense bf16/fp16 tensor-core FLOP/s
 PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s without tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 SOURCE = {"": "tf_operator_tpu_torch/csrc/flash_attention.cu",
+          "_d256": "tf_operator_tpu_torch/csrc/flash_attention.cu",
           "_simt": "tf_operator_tpu_torch/csrc/flash_attention_simt.cu"}
 REPLACES = {
     "flash_fwd": "tf_operator_tpu/ops/flash_attention.py:95",
@@ -384,6 +405,9 @@ RAGGED_S = 2000
 RAGGED_STEPS = 3
 F32_STEPS = 2
 F32_LOGITS_REL = 1e-4
+# The main path at head_dim 256: 16 query and 4 KV heads of 256 keep
+# llama_3_8b's projection shapes and the main path's attention FLOPs.
+D256_HEADS, D256_KV_HEADS, D256_STEPS = 16, 4, 3
 PER_STEP = {"flash_fwd": 8, "flash_dq": 4, "flash_dkv": 4}
 # Under save_attn, save_qkv and mlp_only the backward reuses the forward
 # kernel's outputs: one forward launch a layer.
@@ -539,9 +563,11 @@ def phase_env():
 
 
 def kernel_variant(mangled: str) -> str:
-    """"flash_fwd[bf16]", "flash_dq_simt[f32,512]": the launch key and
-    template arguments of a compiled kernel's mangled name."""
-    found = re.search(r"(flash_\w+?)_kernelI(f|13__nv_bfloat16|6__half)"
+    """"flash_fwd[bf16,256]", "flash_dq_simt[f32,512]": the kernel and
+    template arguments of a compiled kernel's mangled name (the
+    anonymous namespace's own name, which holds the file's name, left
+    out)."""
+    found = re.search(r"(flash_[a-z_]+?)_kernelI(f|13__nv_bfloat16|6__half)"
                       r"(?:Li(\d+)E)?E", mangled)
     if not found:
         return mangled
@@ -577,8 +603,8 @@ def phase_build():
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
     _build.load_all(fa._LIBRARY.values())
-    for suffix in fa._LIBRARY:
-        fa._lib(suffix)
+    for family in fa._LIBRARY:
+        fa._lib(family)
     libraries = {}
     for name in fa._LIBRARY.values():
         seconds, path, log = _build.build_info[name]
@@ -586,6 +612,13 @@ def phase_build():
                            "library": path, "ptxas": ptxas_report(log)}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": libraries})
+
+
+def launch_keys(dtype, d: int) -> dict:
+    """The launch key of the kernel that runs each of fwd, dQ and dK/dV
+    at (dtype, head_dim), by the kind's key in OUTPUTS."""
+    return {kn: kn + fa.kernel_suffix(kn[len("flash_"):], dtype, d)
+            for kn in OUTPUTS}
 
 
 def make_inputs(gen, sq, sk, dtype=torch.bfloat16, d=D, h=H, hkv=HKV):
@@ -708,6 +741,17 @@ def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
                                        causal, q_offset)
         wrong["scores_from_first_128_of_d"] = {
             "out": out, "lse": lse_cut, "dq": dq, "dk": dk, "dv": dv}
+        # Outputs whose head_dim columns 128-255 are never written (left as
+        # zeros) or written from the wrong accumulator (columns 0-127
+        # again), as a kernel with one 128-column accumulator too few
+        # would give.
+        zero, again = {}, {}
+        for n in ("out", "dq", "dk", "dv"):
+            zero[n], again[n] = ref[n].clone(), ref[n].clone()
+            zero[n][..., 128:256] = 0
+            again[n][..., 128:256] = ref[n][..., :128]
+        wrong["d_cols_128_255_zero"] = zero
+        wrong["d_cols_128_255_from_cols_0_127"] = again
     if q.dtype == torch.float32:
         # A TF32 kernel: every product on TF32-rounded operands.
         qt, kt, vt, dot = (tf32(x) for x in (q, k, v, do))
@@ -814,10 +858,10 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                          for n, t in outs.items()}
                      for p, outs in domain_perturbed(
                          q, k, v, do, ref, delta, causal, q_offset).items()}
-    suffix = fa.kernel_suffix(dtype, d)
+    keys = launch_keys(dtype, d)
     case = {"dtype": DTYPE_NAME[dtype], "d": d, "h": h, "hkv": hkv,
             "sq": sq, "sk": sk, "causal": causal, "q_offset": q_offset,
-            "kernels": {kn: kn + suffix for kn in OUTPUTS},
+            "kernels": keys,
             "max_abs_err": errs, "ok": ok, "checks": checks,
             "perturbed_ratio": caught,
             "domain_perturbed_ratio": domain_caught}
@@ -842,7 +886,9 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                       + 2 * act_kv),
     }
     peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
-    reps = 20 if suffix == "" else 3
+    # The SIMT kernels take milliseconds a call: fewer repetitions.
+    reps = {kn: 3 if key.endswith("_simt") else 20
+            for kn, key in keys.items()}
     kernel_calls = {
         "flash_fwd": lambda: fa._fwd_cuda(q, k, v, causal, q_offset),
         "flash_dq": lambda: fa._dq_cuda(q, k, v, ref_lse, do, delta, causal,
@@ -872,7 +918,9 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
     }
     # (device time of calls queued behind a sleep, time of the same calls
     # launched by the host as it goes)
-    times = {n: (cuda_ms(f, reps), cuda_ms(f, reps, queued=False))
+    lib_reps = min(reps.values())
+    times = {n: (cuda_ms(f, reps.get(n, lib_reps)),
+                 cuda_ms(f, reps.get(n, lib_reps), queued=False))
              for n, f in {**kernel_calls, **lib_calls}.items()}
     library = {"flash_fwd": times["fwd"], "flash_dq": times["bwd"],
                "flash_dkv": times["bwd"]}
@@ -880,7 +928,7 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
     for name, (flops, nbytes) in work.items():
         bound_ms, bound_by = bound(flops, nbytes, peak)
         ms, host_ms = times[name]
-        stats[name + suffix] = {
+        stats[keys[name]] = {
             "dtype": DTYPE_NAME[dtype], "d": d, "sq": sq, "sk": sk,
             "ms": ms, "host_launched_ms": host_ms,
             "tflop_per_s": flops / ms / 1e9, "plain_ms": plain[name],
@@ -894,7 +942,8 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
 
 # The kernels phase's cases: (dtype, head_dim, q_seq, k_seq, causal,
 # q_offset, timed); B, H and Hkv are the module's (GQA 4:1). The first is
-# the training step's; the timed ones give the summary's numbers.
+# the training step's; each kernel's first timed case gives the summary's
+# numbers (the SIMT kernels' f32 at 128, the wgmma D=256 kernels' bf16).
 KERNEL_CASES = (
     (torch.bfloat16, D, S, S, True, 0, True),
     (torch.bfloat16, D, S, S, False, 0, False),
@@ -907,17 +956,30 @@ KERNEL_CASES = (
     (torch.bfloat16, D, 8, 8, True, 0, False),
     (torch.float16, D, S, S, True, 0, True),
     (torch.float16, D, 200, 200, True, 0, False),
-    # The SIMT kernels: f32 at every head_dim, bf16/fp16 at 256-512.
+    # The SIMT kernels: f32 at every head_dim, bf16/fp16 at 384-512.
     (torch.float32, 128, S, S, True, 0, True),
     (torch.float32, 128, 200, 200, False, 0, False),
+    (torch.float32, 256, S, S, True, 0, True),
+    (torch.float32, 384, S, S, True, 0, True),
     (torch.float32, 512, S, S, True, 0, True),
     (torch.float32, 512, 200, 200, False, 0, False),
-    (torch.bfloat16, 256, S, S, True, 0, True),
-    (torch.bfloat16, 256, 200, 200, False, 0, False),
-    (torch.float16, 384, S, S, True, 0, False),
+    (torch.bfloat16, 384, S, S, True, 0, True),
+    (torch.float16, 384, S, S, True, 0, True),
     (torch.float16, 384, 200, 200, False, 0, False),
     (torch.bfloat16, 512, S, S, True, 0, True),
     (torch.bfloat16, 512, 200, 200, False, 0, False),
+    (torch.float16, 512, S, S, True, 0, True),
+    # head_dim 256, bf16/fp16: the wgmma forward and dK/dV ("_d256"), the
+    # SIMT dQ; the training step's shapes first, then the edges the D=128
+    # cases cover: q_offset, no multiple of the tile, a ragged q_offset
+    # case and half the k tiles unseen (exact zeros).
+    (torch.bfloat16, 256, S, S, True, 0, True),
+    (torch.float16, 256, S, S, True, 0, True),
+    (torch.bfloat16, 256, 2000, 2000, True, 0, True),
+    (torch.bfloat16, 256, S // 2, S, True, S // 2, False),
+    (torch.bfloat16, 256, 200, 200, False, 0, False),
+    (torch.float16, 256, 72, 200, True, 128, False),
+    (torch.bfloat16, 256, S // 2, S, True, 0, False),  # half unseen
 )
 
 
@@ -1022,7 +1084,8 @@ def phase_model(model, tokens, phase: str = "model") -> dict:
             f"{name} logits through the kernels are further from the f32 "
             f"model ({kernel_err}) than 1.25x the {name} reference path's "
             f"({plain_err})")
-    want = counts({"flash_fwd": model.cfg.n_layers})
+    fwd = launch_keys(model.cfg.dtype, model.cfg.head_dim)["flash_fwd"]
+    want = counts({fwd: model.cfg.n_layers})
     if launches != want or ref_calls:
         raise AssertionError(f"{phase}: launches {launches} != {want} or "
                              f"{ref_calls} reference attention calls")
@@ -1073,11 +1136,14 @@ def train_run(model, batch, steps: int) -> dict:
             "reference_attention_calls": calls[0]}
 
 
-def full_remat_launches(layers: int, suffix: str = "") -> dict:
+def full_remat_launches(layers: int, dtype=torch.bfloat16, d: int = D
+                        ) -> dict:
     """Launches of one training step under full remat: the forward kernel
-    twice a layer (forward and recompute), dQ and dK/dV once."""
-    return {"flash_fwd" + suffix: 2 * layers, "flash_dq" + suffix: layers,
-            "flash_dkv" + suffix: layers}
+    twice a layer (forward and recompute), dQ and dK/dV once, each the
+    kernel that runs it at (dtype, head_dim)."""
+    keys = launch_keys(dtype, d)
+    return {keys["flash_fwd"]: 2 * layers, keys["flash_dq"]: layers,
+            keys["flash_dkv"]: layers}
 
 
 def seeded(cfg):
@@ -1103,6 +1169,46 @@ def phase_fp16_model() -> dict:
     return launches
 
 
+def train_against_xla(phase: str, cfg, tokens, steps: int, **record):
+    """A path beside the main one (phases 3b and 3d): ``cfg``'s logits
+    through the kernels against the reference attention (phase 4's rule,
+    on ``tokens`` less the last), then ``steps`` Trainer steps through the
+    kernels, which must launch full remat's kernels at (dtype, head_dim)
+    and call the reference attention never, with losses finite and
+    falling, beside the same steps with attention_impl="xla". Emits both
+    runs; returns the kernel run."""
+    model = seeded(cfg)
+    phase_model(model, torch.as_tensor(tokens[:, :-1], device=DEVICE),
+                phase.replace("_train", "_model"))
+    runs = {"flash": train_run(model, {"inputs": tokens}, steps)}
+    del model
+    free_cuda()
+    model = seeded(dataclasses.replace(cfg, attention_impl="xla"))
+    runs["xla"] = train_run(model, {"inputs": tokens}, steps)
+    del model
+    free_cuda()
+    emit({"phase": phase, "nvidia_smi": nvidia_smi(),
+          "layers": cfg.n_layers, "batch": B, "seq": tokens.shape[1] - 1,
+          "steps": steps, **record, "runs": runs,
+          "flash_over_xla_tokens_per_s":
+              runs["flash"]["tokens_per_s"] / runs["xla"]["tokens_per_s"]})
+    flash = runs["flash"]
+    losses = flash["losses"]
+    if not all(math.isfinite(x) for x in losses + flash["grad_norms"]):
+        raise AssertionError(f"{phase}: non-finite loss or grad norm: "
+                             f"{flash}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: loss did not fall: {losses}")
+    want = counts(full_remat_launches(cfg.n_layers, cfg.dtype, cfg.head_dim),
+                  steps)
+    if flash["launches"] != want or flash["reference_attention_calls"]:
+        raise AssertionError(
+            f"{phase}: launches {flash['launches']} != {want} or "
+            f"{flash['reference_attention_calls']} reference attention "
+            f"calls")
+    return flash
+
+
 def phase_ragged_train() -> dict:
     """The main path at a sequence that is no multiple of the kernels'
     tile (module docstring, phase 3b); returns the kernel run's
@@ -1110,34 +1216,8 @@ def phase_ragged_train() -> dict:
     cfg = slice_config()
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                (B, RAGGED_S + 1))
-    model = seeded(cfg)
-    phase_model(model, torch.as_tensor(tokens[:, :RAGGED_S], device=DEVICE),
-                "ragged_model")
-    runs = {"flash": train_run(model, {"inputs": tokens}, RAGGED_STEPS)}
-    del model
-    free_cuda()
-    # What the port ran here before the kernels took ragged sequences.
-    model = seeded(dataclasses.replace(cfg, attention_impl="xla"))
-    runs["xla"] = train_run(model, {"inputs": tokens}, RAGGED_STEPS)
-    del model
-    free_cuda()
-    emit({"phase": "ragged_train", "nvidia_smi": nvidia_smi(),
-          "layers": cfg.n_layers, "batch": B, "seq": RAGGED_S,
-          "steps": RAGGED_STEPS, "runs": runs,
-          "flash_over_xla_tokens_per_s":
-              runs["flash"]["tokens_per_s"] / runs["xla"]["tokens_per_s"]})
-    flash = runs["flash"]
-    if not all(math.isfinite(x) for x in flash["losses"] +
-               flash["grad_norms"]):
-        raise AssertionError(f"ragged_train: non-finite loss or grad norm: "
-                             f"{flash}")
-    want = counts(full_remat_launches(cfg.n_layers), RAGGED_STEPS)
-    if flash["launches"] != want or flash["reference_attention_calls"]:
-        raise AssertionError(
-            f"ragged_train: launches {flash['launches']} != {want} or "
-            f"{flash['reference_attention_calls']} reference attention "
-            f"calls")
-    return flash["launches"]
+    return train_against_xla("ragged_train", cfg, tokens,
+                             RAGGED_STEPS)["launches"]
 
 
 def phase_f32_train() -> dict:
@@ -1167,7 +1247,8 @@ def phase_f32_train() -> dict:
         raise AssertionError(f"f32 logits through the kernels are "
                              f"{logits_err} from the reference attention's "
                              f"(limit {F32_LOGITS_REL})")
-    want = counts(full_remat_launches(cfg.n_layers, "_simt"), F32_STEPS)
+    want = counts(full_remat_launches(cfg.n_layers, torch.float32),
+                  F32_STEPS)
     if (run["launches"] != want or run["reference_attention_calls"]
             or forward_ref_calls
             or forward_launches != counts({"flash_fwd_simt": cfg.n_layers})):
@@ -1179,6 +1260,18 @@ def phase_f32_train() -> dict:
         raise AssertionError(f"f32_train: non-finite loss or grad norm: "
                              f"{run}")
     return run["launches"]
+
+
+def phase_d256_train() -> dict:
+    """The main path with the attention at head_dim 256 (module
+    docstring, phase 3d); returns the kernel run's launches."""
+    cfg = dataclasses.replace(slice_config(), n_heads=D256_HEADS,
+                              n_kv_heads=D256_KV_HEADS, head_dim=256)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                               (B, S + 1))
+    return train_against_xla("d256_train", cfg, tokens, D256_STEPS,
+                             heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                             head_dim=cfg.head_dim)["launches"]
 
 
 def phase_train(model, batch):
@@ -1676,9 +1769,8 @@ def phase_ring():
         if impl != "flash":
             raise AssertionError(f"resolve_impl('auto') chose {impl} for a "
                                  f"{dtype} block of {s_blk}")
-        suffix = fa.kernel_suffix(dtype, D)
-        want_launches = counts({n + suffix: RING_LANES * RING_LANES
-                                for n in PER_STEP})
+        want_launches = counts({n: RING_LANES * RING_LANES
+                                for n in launch_keys(dtype, D).values()})
         lim = limits(dtype)
         q, k, v, do = ((torch.randn(B, RING_LANES * s_blk, h, D,
                                     generator=gen, device=DEVICE) * 0.5)
@@ -3669,6 +3761,7 @@ def main() -> int:
     fp16_launches = phase_fp16_model()
     ragged_launches = phase_ragged_train()
     f32_launches = phase_f32_train()
+    d256_launches = phase_d256_train()
 
     cfg = slice_config()
     model = Llama(cfg, device="cuda",
@@ -3711,20 +3804,23 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # One entry a kernel (launch key): the wgmma kernels' numbers from the
-    # training step's case and their launches from the train phase; the
-    # SIMT kernels' from the f32 D=128 case and the f32_train phase; every
-    # timed variant under "variants".
+    # One entry a kernel (launch key): the wgmma D=128 kernels' numbers
+    # from the training step's case and their launches from the train
+    # phase; the wgmma D=256 kernels' from the bf16 D=256 case and the
+    # d256_train phase; the SIMT kernels' from the f32 D=128 case and the
+    # f32_train phase; every timed variant under "variants".
     summary = []
     by_path = {"train": launches, "fp16_model": fp16_launches,
                "ragged_train": ragged_launches, "f32_train": f32_launches,
+               "d256_train": d256_launches,
                "dist": dist_launches, "ring": ring_launches,
                "ring_train": ring_train_launches, "pp": pp_launches_run,
                "mixtral": mixtral_launches, "bert": bert_launches}
-    for suffix in fa._LIBRARY:
-        main_path = "train" if suffix == "" else "f32_train"
-        for kernel in OUTPUTS:
-            name = kernel + suffix
+    main_paths = {"": "train", "_d256": "d256_train", "_simt": "f32_train"}
+    for suffix, kinds in fa._KINDS.items():
+        main_path = main_paths[suffix]
+        for kind in kinds:
+            kernel, name = f"flash_{kind}", f"flash_{kind}{suffix}"
             st = stats[name]
             summary.append({
                 "name": name, "route": "cuda", "source": SOURCE[suffix],

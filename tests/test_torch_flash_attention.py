@@ -151,13 +151,29 @@ def test_flash_supported_gate():
     assert not tfa.flash_supported(128, 128, 64)      # head_dim
     assert not tfa.flash_supported(128, 128, 640)
     assert tfa._fit_block(2000, 512) == 400 and tfa._fit_block(4, 512) == 0
-    assert tfa.kernel_suffix(torch.bfloat16, 128) == ""
-    assert tfa.kernel_suffix(torch.float16, 128) == ""
-    assert tfa.kernel_suffix(torch.float32, 128) == "_simt"
-    assert tfa.kernel_suffix(torch.bfloat16, 256) == "_simt"
     bad = torch.zeros(1, 100, 2, D)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.flash_attention(bad, bad, bad)
+
+
+# The kernel of each (kind, dtype, head_dim) of the domain, by launch-key
+# suffix: the wgmma kernels for bf16/fp16 at 128 (all three kinds) and for
+# the forward and dK/dV at 256 ("_d256"); the SIMT kernels everywhere else.
+WGMMA = {(kind, dtype, 128): "" for kind in ("fwd", "dq", "dkv")
+         for dtype in ("bfloat16", "float16")}
+WGMMA.update({(kind, dtype, 256): "_d256" for kind in ("fwd", "dkv")
+              for dtype in ("bfloat16", "float16")})
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+def test_kernel_dispatch_table(kind, dtype, d):
+    """Each kernel of each domain case goes to its own family, and its
+    launch key is one of LAUNCHES'."""
+    suffix = tfa.kernel_suffix(kind, getattr(torch, dtype), d)
+    assert suffix == WGMMA.get((kind, dtype, d), "_simt")
+    assert f"flash_{kind}{suffix}" in tfa.LAUNCHES
 
 
 def test_best_attention_dispatch_on_cpu():
@@ -194,6 +210,7 @@ def test_launch_counters_reset():
     tfa.LAUNCHES["flash_fwd"] += 3
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                            "flash_fwd_d256": 0, "flash_dkv_d256": 0,
                             "flash_fwd_simt": 0, "flash_dq_simt": 0,
                             "flash_dkv_simt": 0}
 

@@ -183,7 +183,8 @@ def test_kernel_check_rejects_domain_perturbations(case):
     """chip_smoke.py's check, at the limits of the case's dtype, accepts
     the plain outputs and rejects each perturbation of the domain's edges
     that applies (the partial last k tile dropped, rows past the last full
-    q tile left as zeros, scores from the first 128 of head_dim, TF32 in
+    q tile left as zeros, scores from the first 128 of head_dim, head_dim
+    columns 128-255 left as zeros or copied from columns 0-127, TF32 in
     place of f32) through at least one output it changes."""
     sq, sk, causal, q_offset, dtype, d = PERTURBED_CASES[case]
     gen = torch.Generator().manual_seed(0)
@@ -207,7 +208,8 @@ def test_kernel_check_rejects_domain_perturbations(case):
     if sq % 64:
         expect.add("rows_past_last_full_tile_zero")
     if d > 128:
-        expect.add("scores_from_first_128_of_d")
+        expect |= {"scores_from_first_128_of_d", "d_cols_128_255_zero",
+                   "d_cols_128_255_from_cols_0_127"}
     if dtype == torch.float32:
         expect.add("tf32")
     assert set(wrong) == expect

@@ -12,7 +12,8 @@ within atol + 2e-2 |want|, with atol = min(2e-2, 1e-2 max|want|) scaled
 to that output, relative L2 within 1e-2, and lse within 1e-3; f32 the
 same with 1e-5 for each. ``CASES`` are the wgmma kernels' bf16, head_dim
 128 cases at whole tiles; ``DOMAIN_CASES`` the rest of the TPU kernels'
-domain (ragged lengths, fp16, f32, head_dim 256-512).
+domain (ragged lengths, fp16, f32, head_dim 256-512; at 256 in bf16 and
+fp16 the wgmma forward and dK/dV beside the SIMT dQ).
 """
 
 import importlib.util
@@ -58,6 +59,14 @@ DOMAIN_CASES = {
     "f32_ragged": (1, 72, 200, 4, 2, True, 128, torch.float32, 128),
     "f32_512_gqa_4_1": (1, 200, 200, 4, 1, True, 0, torch.float32, 512),
     "bf16_256": (1, 200, 200, 4, 2, False, 0, torch.bfloat16, 256),
+    "bf16_256_causal_gqa_4_1": (1, 256, 256, 4, 1, True, 0, torch.bfloat16,
+                                256),
+    "bf16_256_q_offset": (1, 64, 192, 4, 2, True, 128, torch.bfloat16, 256),
+    "bf16_256_unseen_k_tiles": (1, 512, 1024, 4, 1, True, 0, torch.bfloat16,
+                                256),
+    "fp16_256_ragged_q_offset": (1, 72, 200, 4, 2, True, 128, torch.float16,
+                                 256),
+    "fp16_256_odd_tiles": (2, 1088, 1088, 8, 2, True, 0, torch.float16, 256),
     "fp16_384": (1, 136, 256, 4, 2, True, 0, torch.float16, 384),
     "bf16_512_s8": (2, 8, 8, 4, 4, True, 0, torch.bfloat16, 512),
 }
@@ -113,14 +122,17 @@ def test_kernels_match_plain_versions(case, cuda):
 
 @pytest.mark.parametrize("case", sorted(DOMAIN_CASES))
 def test_domain_kernels_match_plain_versions(case, cuda):
-    """Ragged lengths, fp16, f32 and head_dim 256-512: each case launches
-    its kernel family (kernel_suffix) and is held to the plain versions."""
-    *_, causal, q_offset, dtype, d = DOMAIN_CASES[case]
-    suffix = tfa.kernel_suffix(dtype, d)
+    """Ragged lengths, fp16, f32 and head_dim 256-512: each kernel of a
+    case is the one kernel_suffix picks for it, held to the plain
+    versions; keys no query row sees get exact zeros."""
+    _, sq, sk, _, _, causal, q_offset, dtype, d = DOMAIN_CASES[case]
     tfa.reset_launches()
-    _hold_kernels_to_plain(case, causal, q_offset, cuda)
+    got = _hold_kernels_to_plain(case, causal, q_offset, cuda)
     assert tfa.LAUNCHES == smoke.counts(
-        {n + suffix: 1 for n in ("flash_fwd", "flash_dq", "flash_dkv")})
+        {n: 1 for n in smoke.launch_keys(dtype, d).values()})
+    unseen = sq + q_offset if causal else sk
+    for name, g in zip(("dk", "dv"), got[1:]):
+        assert (g[:, unseen:] == 0).all(), name
 
 
 def _strided_view(x, cuda):
@@ -162,25 +174,28 @@ def test_dq_is_deterministic(cuda):
 
 
 @pytest.mark.parametrize("case", ["gqa_4_2", "bf16_256",
+                                  "fp16_256_ragged_q_offset",
                                   "f32_512_gqa_4_1", "f32"])
 def test_autograd_through_kernels_matches_reference_attention(case, cuda):
     """flash_attention on the card (kernels forward and backward) against
     the reference attention's autograd on repeated KV: bf16 at head_dim
-    128 and 256, f32 at 512 and 128 (the reference in f32, TF32 off)."""
+    128 and 256, fp16 at 256, f32 at 512 and 128 (the reference in f32,
+    TF32 off)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _inputs(case, cuda, seed=1)
-    causal = (CASES[case] if case in CASES else DOMAIN_CASES[case])[5]
+    causal, q_offset = (CASES[case] if case in CASES
+                        else DOMAIN_CASES[case])[5:7]
     group = q.shape[2] // k.shape[2]
-    suffix = tfa.kernel_suffix(q.dtype, q.shape[3])
     tfa.reset_launches()
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    out = tfa.flash_attention(*leaves, causal=causal)
+    out = tfa.flash_attention(*leaves, causal=causal, q_offset=q_offset)
     out.backward(do)
     assert tfa.LAUNCHES == smoke.counts(
-        {n + suffix: 1 for n in ("flash_fwd", "flash_dq", "flash_dkv")})
+        {n: 1 for n in smoke.launch_keys(q.dtype, q.shape[3]).values()})
     ref = [x.float().clone().requires_grad_() for x in (q, k, v)]
     ref_out = attention(ref[0], repeat_kv(ref[1], group),
-                        repeat_kv(ref[2], group), causal=causal)
+                        repeat_kv(ref[2], group), causal=causal,
+                        q_offset=q_offset)
     ref_out.backward(do.float())
     lim = smoke.limits(q.dtype)
     result = smoke.check("out", out, ref_out.detach(), **lim)
@@ -232,6 +247,6 @@ def test_best_attention_launches_exactly_in_domain(dtype, cuda):
         torch.cuda.synchronize()
         assert out.shape == q.shape
         inside = tfa.flash_supported(sq, sk, d, dtype)
-        name = "flash_fwd" + tfa.kernel_suffix(dtype, d)
+        name = "flash_fwd" + tfa.kernel_suffix("fwd", dtype, d)
         want = smoke.counts({name: 1} if inside else {})
         assert tfa.LAUNCHES == want, (sq, sk, d, tfa.LAUNCHES)

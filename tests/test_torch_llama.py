@@ -4,7 +4,10 @@ A 2-layer model at head_dim 128 (hidden 256, 2 heads, 1 KV head, mlp 512,
 vocab 512) in f32, B=2, S=128: the JAX side runs ``attention_impl="flash"``
 (its Pallas kernels in interpret mode), the port its flash path (the plain
 versions on the CPU). Logits agree within 1e-4, the loss and every
-parameter's gradient within 5e-4, bf16 logits within 2e-2.
+parameter's gradient within 5e-4, bf16 logits within 2e-2. The same
+checks hold a head_dim-256 model (hidden 64, 2 heads over 1 KV head of
+256), whose attention on the card runs the wgmma forward and dK/dV at
+head_dim 256 and the SIMT dQ.
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ FLASH = dict(vocab_size=512, hidden=256, n_layers=2, n_heads=2, n_kv_heads=1,
              head_dim=128, mlp_dim=512, max_seq_len=256, rope_theta=10000.0,
              remat=False, attention_impl="flash")
 B, S = 2, 128
+FLASH_D256 = dict(FLASH, hidden=64, head_dim=256, mlp_dim=128)
 
 
 def configs(dtype="float32", **fields):
@@ -66,6 +70,11 @@ def flash_f32():
     return build(FLASH)
 
 
+@pytest.fixture(scope="module")
+def flash_d256_f32():
+    return build(FLASH_D256)
+
+
 def test_bridge_round_trips(flash_f32):
     _, params, tmodel = flash_f32
     back = llama_params_to_flax(tmodel.state_dict(), tmodel.cfg)
@@ -89,10 +98,10 @@ def test_bridge_raises_on_leftover_and_missing(flash_f32):
         llama_params_to_flax(state, tmodel.cfg)
 
 
-@pytest.mark.parametrize("which", ["flash", "tiny_xla"])
-def test_logits_match_jax(which, flash_f32):
-    jmodel, params, tmodel = (flash_f32 if which == "flash"
-                              else build(tiny_fields()))
+@pytest.mark.parametrize("which", ["flash", "flash_d256", "tiny_xla"])
+def test_logits_match_jax(which, request):
+    jmodel, params, tmodel = (build(tiny_fields()) if which == "tiny_xla"
+                              else request.getfixturevalue(which + "_f32"))
     toks = tokens()[:, :-1]
     want = jmodel.apply({"params": params}, jnp.asarray(toks))
     with torch.no_grad():
@@ -110,7 +119,15 @@ def _torch_grads(tmodel, toks):
 
 
 def test_loss_and_every_grad_match_jax(flash_f32):
-    jmodel, params, tmodel = flash_f32
+    _check_loss_and_grads(flash_f32)
+
+
+def test_head_dim_256_loss_and_every_grad_match_jax(flash_d256_f32):
+    _check_loss_and_grads(flash_d256_f32)
+
+
+def _check_loss_and_grads(models):
+    jmodel, params, tmodel = models
     toks = tokens(1)
 
     def loss_of(p):
@@ -148,8 +165,17 @@ def test_bf16_logits_match_jax(flash_f32):
     (up to one bf16 ulp off), while torch's is, so near-zero logits differ
     by a few ulps of the scale. The port must also be no further from
     the f32 model than JAX's own bf16 run is."""
-    jmodel, params, tmodel = build(FLASH, dtype="bfloat16")
-    jf32, params_f32, _ = flash_f32
+    _check_bf16_logits(FLASH, flash_f32)
+
+
+def test_head_dim_256_bf16_logits_match_jax(flash_d256_f32):
+    """test_bf16_logits_match_jax's rule at head_dim 256."""
+    _check_bf16_logits(FLASH_D256, flash_d256_f32)
+
+
+def _check_bf16_logits(fields, models_f32):
+    jmodel, params, tmodel = build(fields, dtype="bfloat16")
+    jf32, params_f32, _ = models_f32
     toks = tokens(3)[:, :-1]
     want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(toks)),
                       np.float32)

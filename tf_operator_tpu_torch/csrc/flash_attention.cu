@@ -12,11 +12,12 @@
 // accumulated in f32. Masked scores are the finite -1e30 of the TPU
 // kernel, never -inf, so a fully masked row gives exp(0), not NaN; a
 // softmax sum of 0 is guarded as 1. lse and delta are [B, H, S] f32.
-// Tensors are read as [B, S, H, 128] through their strides (no
+// Tensors are read as [B, S, H, D] through their strides (no
 // transpose); head h reads KV head h / (H / Hkv) (native GQA). The kernels
 // are templates over the element type E, bf16 or fp16 (wgmma's bf16 and
-// f16 variants); D is 128. The other cases of the domain (f32, and D of
-// 256-512) go to the SIMT kernels of flash_attention_simt.cu.
+// f16 variants), and head_dim D: the forward and dK/dV at D = 128 and
+// 256, dQ at D = 128. The other cases of the domain (f32, dQ at 256, and
+// D of 384-512) go to the SIMT kernels of flash_attention_simt.cu.
 //
 // Ragged sequences. Sq and Sk are any multiples of 8 (>= 8), tiled in 64
 // rows with a partial last tile. The tensor maps carry the real lengths,
@@ -27,10 +28,10 @@
 // bulk copies stop at Sq, and query columns >= Sq get P = dS = 0, so the
 // stale row statistics of a stage never reach a sum).
 //
-// What bounds them on the card: at D = 128 every (64 x 64) tile pair does
-// 2-4 tensor-core products of 64x64x128 for 2-4 tile loads of 16 KB, so
-// with the resident tiles reused across the whole loop the work is bounded
-// by tensor-core operations, not by device memory.
+// What bounds them on the card: every (64 x 64) tile pair does 2-4
+// tensor-core products of 64x64xD for 2-4 tile loads of D / 8 KB, so with
+// the resident tiles reused across the whole loop the work is bounded by
+// tensor-core operations, not by device memory.
 //
 // All three share one Hopper design (hopper.cuh):
 //   * Warp-specialised CTAs of 384 threads: two consumer warpgroups that
@@ -42,8 +43,10 @@
 //     the CTA never calls __syncthreads after the barriers are set up.
 //   * Accumulators live in registers in wgmma's documented layout (each
 //     row on the 4 lanes of a quad), so the softmax statistics need only
-//     quad shuffles, P and dS become wgmma's register A operand without
-//     touching shared memory, and every accumulator is written once.
+//     quad shuffles, P and dS become wgmma's register A operand (the D =
+//     256 dK/dV also hands P^T between its warpgroups through shared
+//     memory), and every accumulator is written once. A 64 x D output is D / 128 accumulators
+//     of 64 x 128 (64 registers a thread each), one wgmma m64n128k16 each.
 //   * The tensor maps are built on the host in each C entry
 //     (cuTensorMapEncodeTiled looked up in libcuda, no -lcuda) and passed
 //     as __grid_constant__ parameters.
@@ -51,7 +54,8 @@
 //     order, so the results are deterministic.
 //
 // Each extern "C" entry launches on the caller's stream and returns
-// cudaGetLastError(), or the negated CUresult when a tensor map cannot be
+// cudaGetLastError(), cudaErrorInvalidValue for a (dtype, head_dim) it was
+// not built for, or the negated CUresult when a tensor map cannot be
 // built; the Python wrapper raises on any non-zero value.
 
 #include <cuda_bf16.h>
@@ -63,14 +67,14 @@
 
 namespace {
 
-constexpr int D = 128;        // head_dim
 constexpr int T = 64;         // tile rows (q and k)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int NT_WS = 384;            // 2 consumer warpgroups + 1 producer
 constexpr int CONSUMER_WARPS = 8;
-constexpr int TILE = hopper::TILE_BYTES;
+template <int D>
+constexpr int TILE = hopper::TILE_BYTES<D>;
 
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return reinterpret_cast<unsigned char*>(
@@ -97,7 +101,8 @@ __device__ __forceinline__ int acc_col(int i, int lane) {
 }
 
 // Write the first `rows` rows of a 64 x 128 f32 accumulator as rows of E
-// of a [.., 128] tensor (rows past the sequence's end are not stored).
+// (128 columns from dst on, rows `row_stride` elements apart; rows past
+// the sequence's end are not stored).
 template <typename E>
 __device__ __forceinline__ void store_acc(E* dst, const float (&acc)[64],
                                           int row_stride, int rows, int warp,
@@ -156,6 +161,7 @@ __device__ __forceinline__ QPair q_pair(int nqt, int H) {
 // Producer side of a K/V ring: K and V tiles 0 .. nk - 1 of kv head hk
 // into `stages` stages of 2 tiles, stage s reused once every consumer warp
 // has released it.
+template <int D>
 __device__ __forceinline__ void stream_kv(unsigned char* sKV, uint64_t* full,
                                           uint64_t* empty, int stages,
                                           const CUtensorMap* kmap,
@@ -165,10 +171,10 @@ __device__ __forceinline__ void stream_kv(unsigned char* sKV, uint64_t* full,
   for (int j = 0; j < nk; ++j) {
     const int s = j % stages, use = j / stages;
     if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
-    unsigned char* st = sKV + s * 2 * TILE;
-    mbar_expect_tx(&full[s], 2 * TILE);
-    tma_load_tile(st, kmap, &full[s], hk, j * T, b);
-    tma_load_tile(st + TILE, vmap, &full[s], hk, j * T, b);
+    unsigned char* st = sKV + s * 2 * TILE<D>;
+    mbar_expect_tx(&full[s], 2 * TILE<D>);
+    tma_load_tile<D>(st, kmap, &full[s], hk, j * T, b);
+    tma_load_tile<D>(st + TILE<D>, vmap, &full[s], hk, j * T, b);
   }
 }
 
@@ -181,24 +187,31 @@ __device__ __forceinline__ void stream_kv(unsigned char* sKV, uint64_t* full,
 //   * Consumer warpgroup g owns q tile 2c + g (64 rows; with an odd count
 //     of q tiles the last CTA's second warpgroup has no rows, computes
 //     nothing and still releases every stage). Its Q tile stays resident.
-//   * Per k tile: S = Q K^T (8 wgmma m64n64k16, both K-major from shared
-//     memory), scale and the causal mask (diagonal tiles only) in
+//   * Per k tile: S = Q K^T (D / 16 wgmma m64n64k16, both K-major from
+//     shared memory), scale and the causal mask (diagonal tiles only) in
 //     registers, online softmax on the accumulator layout (quad shuffles),
-//     P rounded to E in registers and O += P V (4 wgmma m64n128k16, A
-//     from registers, V N-major). O, m and l never leave registers; O is
-//     rescaled there and written once.
+//     P rounded to E in registers and O += P V (4 k-steps of D / 128
+//     wgmma m64n128k16, A from registers, V N-major, one wgmma per 128
+//     columns). O, m and l never leave registers; O is rescaled there and
+//     written once.
 //   * Causal k tiles past a q tile's diagonal are never loaded (the
 //     producer stops at the CTA's last visible tile). With a partial last
 //     q tile, a tile that only its rows past Sq would see may be loaded;
 //     the per-element mask gives it no weight in any real row, whose
 //     running max is finite from k tile 0 on (key 0 is visible to every
 //     row at q_offset >= 0).
+//   * Budgets. Shared memory: 2 resident Q tiles and FWD_STAGES stages of
+//     K and V, 4 + 4 FWD_STAGES tiles of D / 8 KB (D = 128: 96 KB; D = 256:
+//     192 KB, of the 227 KB a block may use). Registers of a consumer
+//     thread: O is D / 2 (128 at D = 256), S 32, the P fragments 16, under
+//     the 240 that setmaxnreg gives it.
 // ---------------------------------------------------------------------------
 constexpr int FWD_STAGES = 2;
-constexpr int SMEM_FWD = 1024 + 2 * TILE + FWD_STAGES * 2 * TILE +
+template <int D>
+constexpr int SMEM_FWD = 1024 + 2 * TILE<D> + FWD_STAGES * 2 * TILE<D> +
                          8 * (1 + 2 * FWD_STAGES);
 
-template <typename E>
+template <typename E, int D>
 __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -206,10 +219,12 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
     float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int causal,
     int q_offset, float scale) {
   using namespace hopper;
+  constexpr int NO = D / 128;                              // O accumulators
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);               // 2 tiles
-  unsigned char* sKV = sQ + 2 * TILE;                     // stage s: K, V
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKV + FWD_STAGES * 2 * TILE);
+  unsigned char* sKV = sQ + 2 * TILE<D>;                  // stage s: K, V
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(sKV + FWD_STAGES * 2 * TILE<D>);
   uint64_t* kv_full = q_full + 1;
   uint64_t* kv_empty = kv_full + FWD_STAGES;
 
@@ -235,10 +250,12 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
     // Producer: Q once, then K and V tile by tile through the ring.
     reg_dealloc<24>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, tiles_here * TILE);
+      mbar_expect_tx(q_full, tiles_here * TILE<D>);
       for (int g = 0; g < tiles_here; ++g)
-        tma_load_tile(sQ + g * TILE, &qmap, q_full, h, (2 * c + g) * T, b);
-      stream_kv(sKV, kv_full, kv_empty, FWD_STAGES, &kmap, &vmap, nk, hk, b);
+        tma_load_tile<D>(sQ + g * TILE<D>, &qmap, q_full, h, (2 * c + g) * T,
+                         b);
+      stream_kv<D>(sKV, kv_full, kv_empty, FWD_STAGES, &kmap, &vmap, nk, hk,
+                   b);
     }
   } else {
     reg_alloc<240>();
@@ -246,11 +263,13 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
     const int iq = 2 * c + wg;                            // this q tile
     const int my_nk =
         wg < tiles_here ? k_tiles_visible(iq, nkt, causal, q_offset) : 0;
-    const unsigned char* myQ = sQ + wg * TILE;
+    const unsigned char* myQ = sQ + wg * TILE<D>;
 
-    float o[64];
+    float o[NO][64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[n][i] = 0.0f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
 
     mbar_wait(q_full, 0);
@@ -258,12 +277,12 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
       const int s = j % FWD_STAGES;
       mbar_wait(&kv_full[s], (j / FWD_STAGES) & 1);
       if (j < my_nk) {
-        const unsigned char* sK = sKV + s * 2 * TILE;
-        const unsigned char* sV = sK + TILE;
+        const unsigned char* sK = sKV + s * 2 * TILE<D>;
+        const unsigned char* sV = sK + TILE<D>;
         float sc[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_m64n64k16_ss<E>(sc, desc_kmajor(myQ, kk), desc_kmajor(sK, kk),
                                 kk > 0);
         wgmma_commit();
@@ -304,19 +323,25 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
 #pragma unroll
         for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
 #pragma unroll
-        for (int i = 0; i < 64; ++i) o[i] *= corr[(i % 4) / 2];
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int i = 0; i < 64; ++i) o[n][i] *= corr[(i % 4) / 2];
 
-        // O += P V, P as register fragments of E.
+        // O += P V, P as register fragments of E, 128 columns a wgmma.
         uint32_t pa[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) frag_a<E>(pa[kk], sc, kk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k16_rs<E>(o, pa[kk], desc_nmajor(sV, kk));
+#pragma unroll
+          for (int n = 0; n < NO; ++n)
+            wgmma_m64n128k16_rs<E>(
+                o[n], pa[kk], desc_nmajor(sV + 2 * n * PANEL_BYTES, kk));
         wgmma_commit();
         wgmma_wait_all();
-        reg_fence(o);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) reg_fence(o[n]);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&kv_empty[s]);
@@ -334,11 +359,14 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
       if (lane % 4 == 0 && row < Sq)
         lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[r] + logf(safe);
     }
+    E* dst = out + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
+             static_cast<int64_t>(h) * D;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= inv[(i % 4) / 2];
-    store_acc<E>(out + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
-                     static_cast<int64_t>(h) * D,
-                 o, H * D, Sq - iq * T, warp, lane);
+    for (int n = 0; n < NO; ++n) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[n][i] *= inv[(i % 4) / 2];
+      store_acc<E>(dst + 128 * n, o[n], H * D, Sq - iq * T, warp, lane);
+    }
   }
 }
 
@@ -348,7 +376,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
 // tensor-core operations: 6 D FLOPs per visible (q, k) pair (S = Q K^T,
 // dP = dO V^T, dQ += dS K) against the K and V tile loads, which the
 // producer streams through a DQ_STAGES ring while the consumers compute
-// (the forward's shape, one product more per tile pair).
+// (the forward's shape, one product more per tile pair). D = 128 only.
 //   * Consumer warpgroup g owns q tile 2c + g; with an odd count of q
 //     tiles the last CTA's second warpgroup computes nothing and still
 //     releases every stage. Its Q and dO tiles come once, on one barrier,
@@ -366,10 +394,11 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
 //   * Causal k tiles past the CTA's last diagonal are never loaded.
 // ---------------------------------------------------------------------------
 constexpr int DQ_STAGES = 2;
-constexpr int SMEM_DQ = 1024 + 4 * TILE + DQ_STAGES * 2 * TILE +
+template <int D>
+constexpr int SMEM_DQ = 1024 + 4 * TILE<D> + DQ_STAGES * 2 * TILE<D> +
                         8 * (1 + 2 * DQ_STAGES);
 
-template <typename E>
+template <typename E, int D>
 __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -377,12 +406,14 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
     const float* __restrict__ delta, E* __restrict__ dq, int H, int Hkv,
     int Sq, int Sk, int causal, int q_offset, float scale) {
+  static_assert(D == 128, "the wgmma dQ kernel takes head_dim 128");
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);               // 2 tiles
-  unsigned char* sdO = sQ + 2 * TILE;                     // 2 tiles
-  unsigned char* sKV = sdO + 2 * TILE;                    // stage s: K, V
-  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sKV + DQ_STAGES * 2 * TILE);
+  unsigned char* sdO = sQ + 2 * TILE<D>;                  // 2 tiles
+  unsigned char* sKV = sdO + 2 * TILE<D>;                 // stage s: K, V
+  uint64_t* qdo_full =
+      reinterpret_cast<uint64_t*>(sKV + DQ_STAGES * 2 * TILE<D>);
   uint64_t* kv_full = qdo_full + 1;
   uint64_t* kv_empty = kv_full + DQ_STAGES;
 
@@ -407,13 +438,15 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
     // Producer: Q and dO once, then K and V tile by tile through the ring.
     reg_dealloc<24>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(qdo_full, 2 * tiles_here * TILE);
+      mbar_expect_tx(qdo_full, 2 * tiles_here * TILE<D>);
       for (int g = 0; g < tiles_here; ++g) {
-        tma_load_tile(sQ + g * TILE, &qmap, qdo_full, h, (2 * c + g) * T, b);
-        tma_load_tile(sdO + g * TILE, &domap, qdo_full, h, (2 * c + g) * T,
-                      b);
+        tma_load_tile<D>(sQ + g * TILE<D>, &qmap, qdo_full, h,
+                         (2 * c + g) * T, b);
+        tma_load_tile<D>(sdO + g * TILE<D>, &domap, qdo_full, h,
+                         (2 * c + g) * T, b);
       }
-      stream_kv(sKV, kv_full, kv_empty, DQ_STAGES, &kmap, &vmap, nk, hk, b);
+      stream_kv<D>(sKV, kv_full, kv_empty, DQ_STAGES, &kmap, &vmap, nk, hk,
+                   b);
     }
   } else {
     reg_alloc<240>();
@@ -421,8 +454,8 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
     const int iq = 2 * c + wg;                            // this q tile
     const bool active = wg < tiles_here;
     const int my_nk = active ? k_tiles_visible(iq, nkt, causal, q_offset) : 0;
-    const unsigned char* myQ = sQ + wg * TILE;
-    const unsigned char* mydO = sdO + wg * TILE;
+    const unsigned char* myQ = sQ + wg * TILE<D>;
+    const unsigned char* mydO = sdO + wg * TILE<D>;
 
     // Rows past Sq keep lse = delta = 0: their Q and dO rows are zeros,
     // so their P and dS stay finite, and they are never stored.
@@ -448,16 +481,16 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
       const int s = j % DQ_STAGES;
       mbar_wait(&kv_full[s], (j / DQ_STAGES) & 1);
       if (j < my_nk) {
-        const unsigned char* sK = sKV + s * 2 * TILE;
-        const unsigned char* sV = sK + TILE;
+        const unsigned char* sK = sKV + s * 2 * TILE<D>;
+        const unsigned char* sV = sK + TILE<D>;
         float sc[32], dp[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_m64n64k16_ss<E>(sc, desc_kmajor(myQ, kk), desc_kmajor(sK, kk),
                                 kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_m64n64k16_ss<E>(dp, desc_kmajor(mydO, kk), desc_kmajor(sV, kk),
                                 kk > 0);
         wgmma_commit();
@@ -519,42 +552,44 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
 //     wave instead of a tail of long CTAs.
 //   * Per k tile, K and V stay resident; the producer streams the items
 //     (q tile i, group member g) -- Q, dO, lse and delta of head hk * G + g
-//     -- through a DKV_STAGES ring, items alternating between the two
-//     consumer warpgroups (two stages each).
-//   * Both consumer warpgroups own the tile's 64 key rows and compute
-//     transposed scores, so nothing is transposed through shared memory:
-//     S^T = K Q^T and dP^T = V dO^T (wgmma, K and V resident, Q and dO
-//     K-major B), P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta) scale
-//     in registers with lse and delta per column from the stage's row,
-//     then dV += P^T dO and dK += dS^T Q (A from registers, dO and Q
-//     N-major B).
-//   * dK and dV stay in registers (64 each a thread). At the end of the
-//     tile the second warpgroup hands its partial sums to the first
-//     through shared memory, which adds and writes: the GQA sum stays
-//     inside the CTA in a fixed order (deterministic, no atomics). A k
-//     tile no query row sees gets zeros.
-//   * A partial last q tile: its lse and delta are copied up to Sq only,
-//     and its query columns >= Sq get P = dS = 0.
+//     -- through a ring of stages.
+//   * Every product is transposed, with the tile's 64 key rows as M, so
+//     nothing is transposed through shared memory: S^T = K Q^T and
+//     dP^T = V dO^T (wgmma, K and V resident, Q and dO K-major B),
+//     P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta) scale in registers
+//     with lse and delta per column from the stage, then dV += P^T dO and
+//     dK += dS^T Q (A from registers, dO and Q N-major B).
+//   * The GQA sum stays inside the CTA in a fixed order (deterministic, no
+//     atomics). A k tile no query row sees gets zeros. A partial last q
+//     tile: its lse and delta are copied up to Sq only, and its query
+//     columns >= Sq get P = dS = 0.
+// The two head_dims split the work between the consumer warpgroups in two
+// ways, dkv_by_items (D = 128) and dkv_by_accumulator (D = 256).
 // ---------------------------------------------------------------------------
+
+// D = 128: items alternate between the two consumer warpgroups (two of
+// DKV_STAGES stages each); each keeps partial dK and dV (64 registers a
+// thread each) and computes all four products of its items. At the end of
+// a k tile the second warpgroup hands its partial sums to the first
+// through shared memory (xbuf), which adds them in a fixed order and
+// writes.
 constexpr int DKV_STAGES = 4;
-constexpr int DKV_STAGE = 2 * TILE + 1024;  // Q, dO, lse[64], delta[64]
-constexpr int SMEM_DKV = 1024 + 2 * TILE + DKV_STAGES * DKV_STAGE +
-                         T * D * 4 + 8 * (2 + 2 * DKV_STAGES);
+constexpr int DKV_STAGE = 2 * TILE<128> + 1024;  // Q, dO, lse[64], delta[64]
+constexpr int SMEM_DKV_ITEMS = 1024 + 2 * TILE<128> +
+                               DKV_STAGES * DKV_STAGE + T * 128 * 4 +
+                               8 * (2 + 2 * DKV_STAGES);
 
 template <typename E>
-__global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
-    const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
-    const float* __restrict__ delta, E* __restrict__ dk,
-    E* __restrict__ dv, int H, int Hkv, int Sq, int Sk, int causal,
-    int q_offset, float scale) {
+__device__ __forceinline__ void dkv_by_items(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* delta, E* dk, E* dv, int H, int Hkv, int Sq, int Sk,
+    int causal, int q_offset, float scale) {
   using namespace hopper;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sK = align_1024(smem_raw);
-  unsigned char* sV = sK + TILE;
-  unsigned char* sStage = sV + TILE;
+  constexpr int D = 128;
+  unsigned char* sK = align_1024(smem);
+  unsigned char* sV = sK + TILE<D>;
+  unsigned char* sStage = sV + TILE<D>;
   float* xbuf = reinterpret_cast<float*>(sStage + DKV_STAGES * DKV_STAGE);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(xbuf + T * D);
   uint64_t* kv_empty = kv_full + 1;
@@ -589,9 +624,9 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
       for (int u = 0; u < n_jt; ++u) {
         const int j = u == 0 ? pair : nkt - 1 - pair;
         if (u > 0) mbar_wait(kv_empty, (u - 1) & 1);
-        mbar_expect_tx(kv_full, 2 * TILE);
-        tma_load_tile(sK, &kmap, kv_full, hk, j * T, b);
-        tma_load_tile(sV, &vmap, kv_full, hk, j * T, b);
+        mbar_expect_tx(kv_full, 2 * TILE<D>);
+        tma_load_tile<D>(sK, kmap, kv_full, hk, j * T, b);
+        tma_load_tile<D>(sV, vmap, kv_full, hk, j * T, b);
         const int i0 = first_q_tile(j, causal, q_offset);
         const int nqv = max(nqt - i0, 0);
         for (int t = 0; t < group * nqv; ++t) {
@@ -604,11 +639,11 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
           // lse and delta up to Sq only: a multiple of 8 rows, so 32-byte
           // aligned copies of a multiple of 32 bytes.
           const uint32_t stat_bytes = min(T, Sq - i * T) * 4;
-          mbar_expect_tx(&st_full[s], 2 * TILE + 2 * stat_bytes);
-          tma_load_tile(st, &qmap, &st_full[s], h, i * T, b);
-          tma_load_tile(st + TILE, &domap, &st_full[s], h, i * T, b);
-          bulk_load(st + 2 * TILE, lse + row, stat_bytes, &st_full[s]);
-          bulk_load(st + 2 * TILE + T * 4, delta + row, stat_bytes,
+          mbar_expect_tx(&st_full[s], 2 * TILE<D> + 2 * stat_bytes);
+          tma_load_tile<D>(st, qmap, &st_full[s], h, i * T, b);
+          tma_load_tile<D>(st + TILE<D>, domap, &st_full[s], h, i * T, b);
+          bulk_load(st + 2 * TILE<D>, lse + row, stat_bytes, &st_full[s]);
+          bulk_load(st + 2 * TILE<D> + T * 4, delta + row, stat_bytes,
                     &st_full[s]);
         }
       }
@@ -632,19 +667,19 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
         const int s = wg + 2 * (n & 1);
         mbar_wait(&st_full[s], (n >> 1) & 1);
         const unsigned char* sQ = sStage + s * DKV_STAGE;
-        const unsigned char* sdO = sQ + TILE;
-        const float* sLse = reinterpret_cast<const float*>(sQ + 2 * TILE);
+        const unsigned char* sdO = sQ + TILE<D>;
+        const float* sLse = reinterpret_cast<const float*>(sQ + 2 * TILE<D>);
         const float* sDelta = sLse + T;
         const int i = i0 + t % nqv;
 
         float st[32], dpt[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_m64n64k16_ss<E>(st, desc_kmajor(sK, kk), desc_kmajor(sQ, kk),
                                 kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_m64n64k16_ss<E>(dpt, desc_kmajor(sV, kk), desc_kmajor(sdO, kk),
                                 kk > 0);
         wgmma_commit();
@@ -725,12 +760,267 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
   }
 }
 
-static_assert(SMEM_FWD <= 232448 && SMEM_DQ <= 232448 &&
-                  SMEM_DKV <= 232448,
+// D = 256: split by accumulator. dK and dV of 64 x 256 are 128 f32
+// registers a thread each, so one warpgroup cannot hold both (the D = 128
+// split would need 256 of the 240 setmaxnreg gives). Instead every item
+// goes to both consumer warpgroups, and each owns one output:
+//   * warpgroup 0 (dV): S^T = K Q^T (16 k-steps), P^T = exp(S^T - lse) in
+//     f32, handed to warpgroup 1 through shared memory, then dV += P^T dO
+//     (4 k-steps of 2 wgmma m64n128k16);
+//   * warpgroup 1 (dK): dP^T = V dO^T (16 k-steps) while warpgroup 0
+//     computes S^T, then, with warpgroup 0's P^T, dS^T = P^T (dP^T -
+//     delta) scale and dK += dS^T Q.
+// Each warpgroup does half the tensor work of an item (the 8 D FLOPs a
+// pair, no product twice) and writes its own output from registers at the
+// end of a k tile: no partial sums to exchange. The other design, each
+// warpgroup owning dK and dV over 128 of the 256 columns, needs the
+// partial S^T and dP^T summed across warpgroups through 32 KB of shared
+// memory an item, which with two stages is over the 227 KB a block may
+// use; recomputing S^T in warpgroup 1 instead of the exchange costs 25%
+// more tensor work.
+//   * The P^T exchange: two buffers of 64 x 64 f32 (16 KB each), item n in
+//     buffer n % 2, stored in accumulator-register order (register e of
+//     thread t at e * 128 + t, so both warpgroups, which share the
+//     accumulator layout, read and write 128 consecutive floats a
+//     register: no bank conflicts). Named barriers: P_FULL + n % 2
+//     (warpgroup 0 arrives once the buffer holds P^T, warpgroup 1 waits)
+//     and P_EMPTY + n % 2 (warpgroup 1 arrives once it has read it,
+//     warpgroup 0 waits before it writes item n + 2). Arrivals are made
+//     only where a wait follows, so no barrier is left half-arrived at
+//     exit.
+//   * Budgets. Shared memory: K and V resident (64 KB), DKV_ACC_STAGES
+//     stages of Q and dO (64 KB each), their lse and delta (512 bytes
+//     each), the exchange (32 KB), the barriers and 1 KB of alignment:
+//     226 KB of the 227 KB a block may use. Registers of a consumer
+//     thread: its output 128, S^T or dP^T 32, the A fragments 16, under
+//     240.
+constexpr int DKV_ACC_STAGES = 2;
+constexpr int P_FULL = 2, P_EMPTY = 4;    // named barrier ids, 2 each
+constexpr int SMEM_DKV_ACC = 1024 + 2 * TILE<256> +
+                             DKV_ACC_STAGES * (2 * TILE<256> + 2 * T * 4) +
+                             2 * T * T * 4 + 8 * (2 + 2 * DKV_ACC_STAGES);
+
+template <typename E, int D>
+__device__ __forceinline__ void dkv_by_accumulator(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* delta, E* dk, E* dv, int H, int Hkv, int Sq, int Sk,
+    int causal, int q_offset, float scale) {
+  using namespace hopper;
+  constexpr int NO = D / 128;                              // accumulators
+  unsigned char* sK = align_1024(smem);
+  unsigned char* sV = sK + TILE<D>;
+  unsigned char* sStage = sV + TILE<D>;                    // stage s: Q, dO
+  float* sStat = reinterpret_cast<float*>(sStage +
+                                          DKV_ACC_STAGES * 2 * TILE<D>);
+  float* sP = sStat + DKV_ACC_STAGES * 2 * T;              // 2 P^T buffers
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sP + 2 * T * T);
+  uint64_t* kv_empty = kv_full + 1;
+  uint64_t* st_full = kv_empty + 1;
+  uint64_t* st_empty = st_full + DKV_ACC_STAGES;
+
+  const int nqt = n_tiles(Sq), nkt = n_tiles(Sk), group = H / Hkv;
+  const int hb = gridDim.x / ((nkt + 1) / 2);            // Hkv * B
+  const int pair = static_cast<int>(blockIdx.x) / hb;
+  const int hk = static_cast<int>(blockIdx.x) % hb % Hkv;
+  const int b = static_cast<int>(blockIdx.x) % hb / Hkv;
+  const int n_jt = nkt - 1 - pair != pair ? 2 : 1;  // k tiles pair, nkt-1-pair
+  // Items of the whole CTA (both k tiles), which both consumers take.
+  int total = 0;
+  for (int u = 0; u < n_jt; ++u) {
+    const int j = u == 0 ? pair : nkt - 1 - pair;
+    total += group * max(nqt - first_q_tile(j, causal, q_offset), 0);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, CONSUMER_WARPS);
+    for (int s = 0; s < DKV_ACC_STAGES; ++s) {
+      mbar_init(&st_full[s], 1);
+      mbar_init(&st_empty[s], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: per k tile, K and V, then every item in order, item n in
+    // stage n % DKV_ACC_STAGES.
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      int n = 0;
+      for (int u = 0; u < n_jt; ++u) {
+        const int j = u == 0 ? pair : nkt - 1 - pair;
+        if (u > 0) mbar_wait(kv_empty, (u - 1) & 1);
+        mbar_expect_tx(kv_full, 2 * TILE<D>);
+        tma_load_tile<D>(sK, kmap, kv_full, hk, j * T, b);
+        tma_load_tile<D>(sV, vmap, kv_full, hk, j * T, b);
+        const int i0 = first_q_tile(j, causal, q_offset);
+        const int nqv = max(nqt - i0, 0);
+        for (int t = 0; t < group * nqv; ++t, ++n) {
+          const int s = n % DKV_ACC_STAGES, use = n / DKV_ACC_STAGES;
+          if (use > 0) mbar_wait(&st_empty[s], (use - 1) & 1);
+          const int h = hk * group + t / nqv, i = i0 + t % nqv;
+          unsigned char* st = sStage + s * 2 * TILE<D>;
+          float* stat = sStat + s * 2 * T;
+          const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq + i * T;
+          // lse and delta up to Sq only (32-byte multiples, as above).
+          const uint32_t stat_bytes = min(T, Sq - i * T) * 4;
+          mbar_expect_tx(&st_full[s], 2 * TILE<D> + 2 * stat_bytes);
+          tma_load_tile<D>(st, qmap, &st_full[s], h, i * T, b);
+          tma_load_tile<D>(st + TILE<D>, domap, &st_full[s], h, i * T, b);
+          bulk_load(stat, lse + row, stat_bytes, &st_full[s]);
+          bulk_load(stat + T, delta + row, stat_bytes, &st_full[s]);
+        }
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    int n = 0;
+    for (int u = 0; u < n_jt; ++u) {
+      const int j = u == 0 ? pair : nkt - 1 - pair;
+      const int i0 = first_q_tile(j, causal, q_offset);
+      const int nqv = max(nqt - i0, 0);
+      float acc[NO][64];
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[c][i] = 0.0f;
+
+      mbar_wait(kv_full, u & 1);
+      for (int t = 0; t < group * nqv; ++t, ++n) {
+        const int s = n % DKV_ACC_STAGES;
+        mbar_wait(&st_full[s], (n / DKV_ACC_STAGES) & 1);
+        const unsigned char* sQ = sStage + s * 2 * TILE<D>;
+        const unsigned char* sdO = sQ + TILE<D>;
+        const float* sLse = sStat + s * 2 * T;
+        const float* sDelta = sLse + T;
+        float* pbuf = sP + (n & 1) * T * T;
+        const int i = i0 + t % nqv;
+        const int queries = Sq - i * T;    // < T on a partial last q tile
+        float x[32];
+        uint32_t a[4][4];
+        if (wg == 0) {
+          // S^T = K Q^T; P^T = exp(S^T scale - lse), masked to 0 (the
+          // causal mask on diagonal tiles, query columns past Sq).
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_m64n64k16_ss<E>(x, desc_kmajor(sK, kk), desc_kmajor(sQ, kk),
+                                  kk > 0);
+          wgmma_commit();
+          wgmma_wait_all();
+          reg_fence(x);
+          const bool diag = causal && j * T + T - 1 > i * T + q_offset;
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int col = acc_col(e, lane);
+            float v = x[e] * scale;
+            if (diag &&
+                i * T + col + q_offset < j * T + acc_row(e, warp, lane))
+              v = NEG_INF;
+            x[e] = exp2f((v - sLse[col]) * LOG2E);
+          }
+          if (queries < T) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              if (acc_col(e, lane) >= queries) x[e] = 0.0f;
+          }
+          if (n >= 2) named_sync(P_EMPTY + (n & 1), 256);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) pbuf[e * 128 + tid] = x[e];
+          named_arrive(P_FULL + (n & 1), 256);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) frag_a<E>(a[kk], x, kk);
+        } else {
+          // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale with
+          // warpgroup 0's P^T; query columns past Sq read stale delta and
+          // get dS = 0.
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_m64n64k16_ss<E>(x, desc_kmajor(sV, kk),
+                                  desc_kmajor(sdO, kk), kk > 0);
+          wgmma_commit();
+          named_sync(P_FULL + (n & 1), 256);
+          wgmma_wait_all();
+          reg_fence(x);
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            x[e] = pbuf[e * 128 + tid] * (x[e] - sDelta[acc_col(e, lane)]) *
+                   scale;
+          if (n + 2 < total) named_arrive(P_EMPTY + (n & 1), 256);
+          if (queries < T) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              if (acc_col(e, lane) >= queries) x[e] = 0.0f;
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) frag_a<E>(a[kk], x, kk);
+        }
+        // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1), 128
+        // columns a wgmma.
+        const unsigned char* sB = wg == 0 ? sdO : sQ;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int c = 0; c < NO; ++c)
+            wgmma_m64n128k16_rs<E>(acc[c], a[kk],
+                                   desc_nmajor(sB + 2 * c * PANEL_BYTES, kk));
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int c = 0; c < NO; ++c) reg_fence(acc[c]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&st_empty[s]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty);  // K, V free for the next tile
+
+      E* dst = (wg == 0 ? dv : dk) +
+               (static_cast<int64_t>(b) * Sk + j * T) * Hkv * D +
+               static_cast<int64_t>(hk) * D;
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+        store_acc<E>(dst + 128 * c, acc[c], Hkv * D, Sk - j * T, warp, lane);
+    }
+  }
+}
+
+template <int D>
+constexpr int SMEM_DKV = D == 128 ? SMEM_DKV_ITEMS : SMEM_DKV_ACC;
+
+template <typename E, int D>
+__global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+    const float* __restrict__ delta, E* __restrict__ dk,
+    E* __restrict__ dv, int H, int Hkv, int Sq, int Sk, int causal,
+    int q_offset, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  if constexpr (D == 128)
+    dkv_by_items<E>(smem_raw, &qmap, &kmap, &vmap, &domap, lse, delta, dk, dv,
+                    H, Hkv, Sq, Sk, causal, q_offset, scale);
+  else
+    dkv_by_accumulator<E, D>(smem_raw, &qmap, &kmap, &vmap, &domap, lse,
+                             delta, dk, dv, H, Hkv, Sq, Sk, causal, q_offset,
+                             scale);
+}
+
+static_assert(SMEM_FWD<128> <= 232448 && SMEM_FWD<256> <= 232448 &&
+                  SMEM_DQ<128> <= 232448 && SMEM_DKV<128> <= 232448 &&
+                  SMEM_DKV<256> <= 232448,
               "shared memory over the 227 KB a block can use");
 
 // Element types of the C entries' `dtype` argument (the Python wrapper's
-// codes): 0 bf16, 1 fp16. These kernels take head_dim 128 only.
+// codes): 0 bf16, 1 fp16. head_dim: 128 or 256 for the forward and dK/dV,
+// 128 for dQ.
 enum { DT_BF16 = 0, DT_FP16 = 1 };
 
 template <typename K>
@@ -739,46 +1029,56 @@ void set_smem(K kernel, int bytes) {
                        bytes);
 }
 
-template <typename E>
+template <typename E, int D>
 int launch_fwd(const CUtensorMap& qm, const CUtensorMap& km,
                const CUtensorMap& vm, void* out, void* lse, int B, int H,
                int Hkv, int Sq, int Sk, int causal, int q_offset, float scale,
                cudaStream_t stream) {
-  set_smem(flash_fwd_kernel<E>, SMEM_FWD);
+  set_smem(flash_fwd_kernel<E, D>, SMEM_FWD<D>);
   const int ncta = (n_tiles(Sq) + 1) / 2;
-  flash_fwd_kernel<E><<<ncta * H * B, NT_WS, SMEM_FWD, stream>>>(
+  flash_fwd_kernel<E, D><<<ncta * H * B, NT_WS, SMEM_FWD<D>, stream>>>(
       qm, km, vm, (E*)out, (float*)lse, H, Hkv, Sq, Sk, causal, q_offset,
       scale);
   return (int)cudaGetLastError();
 }
 
-template <typename E>
+template <typename E, int D>
 int launch_dq(const CUtensorMap& qm, const CUtensorMap& km,
               const CUtensorMap& vm, const CUtensorMap& dom, const void* lse,
               const void* delta, void* dq, int B, int H, int Hkv, int Sq,
               int Sk, int causal, int q_offset, float scale,
               cudaStream_t stream) {
-  set_smem(flash_dq_kernel<E>, SMEM_DQ);
+  set_smem(flash_dq_kernel<E, D>, SMEM_DQ<D>);
   const int ncta = (n_tiles(Sq) + 1) / 2;
-  flash_dq_kernel<E><<<ncta * H * B, NT_WS, SMEM_DQ, stream>>>(
+  flash_dq_kernel<E, D><<<ncta * H * B, NT_WS, SMEM_DQ<D>, stream>>>(
       qm, km, vm, dom, (const float*)lse, (const float*)delta, (E*)dq, H, Hkv,
       Sq, Sk, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename E>
+template <typename E, int D>
 int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km,
                const CUtensorMap& vm, const CUtensorMap& dom, const void* lse,
                const void* delta, void* dk, void* dv, int B, int H, int Hkv,
                int Sq, int Sk, int causal, int q_offset, float scale,
                cudaStream_t stream) {
-  set_smem(flash_dkv_kernel<E>, SMEM_DKV);
+  set_smem(flash_dkv_kernel<E, D>, SMEM_DKV<D>);
   const int npair = (n_tiles(Sk) + 1) / 2;
-  flash_dkv_kernel<E><<<npair * Hkv * B, NT_WS, SMEM_DKV, stream>>>(
+  flash_dkv_kernel<E, D><<<npair * Hkv * B, NT_WS, SMEM_DKV<D>, stream>>>(
       qm, km, vm, dom, (const float*)lse, (const float*)delta, (E*)dk, (E*)dv,
       H, Hkv, Sq, Sk, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
+
+// The instantiation for (dtype, head_dim); the entry has checked both.
+#define WGMMA_CASES(L, ARGS)                                            \
+  switch (dtype * 1024 + head_dim) {                                    \
+    case DT_BF16 * 1024 + 128: return L<__nv_bfloat16, 128> ARGS;       \
+    case DT_FP16 * 1024 + 128: return L<__half, 128> ARGS;              \
+    case DT_BF16 * 1024 + 256: return L<__nv_bfloat16, 256> ARGS;       \
+    case DT_FP16 * 1024 + 256: return L<__half, 256> ARGS;              \
+  }                                                                     \
+  return (int)cudaErrorInvalidValue;
 
 }  // namespace
 
@@ -789,22 +1089,22 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out,
               int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
               int v_ss, int v_sh, int causal, int q_offset, float scale,
               int dtype, int head_dim, void* stream) {
-  if (head_dim != D || (dtype != DT_BF16 && dtype != DT_FP16))
+  if ((head_dim != 128 && head_dim != 256) ||
+      (dtype != DT_BF16 && dtype != DT_FP16))
     return (int)cudaErrorInvalidValue;
   const bool f16 = dtype == DT_FP16;
+  const int d = head_dim;
   CUtensorMap qm, km, vm;
   CUresult rc;
-  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh, f16)) ||
-      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh, f16)) ||
-      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh, f16)))
+  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, d, q_sb, q_ss, q_sh,
+                                  f16)) ||
+      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, d, k_sb, k_ss, k_sh,
+                                  f16)) ||
+      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, d, v_sb, v_ss, v_sh,
+                                  f16)))
     return -static_cast<int>(rc);
-  if (f16)
-    return launch_fwd<__half>(
-        qm, km, vm, out, lse, B, H, Hkv, Sq, Sk, causal, q_offset, scale,
-        (cudaStream_t)stream);
-  return launch_fwd<__nv_bfloat16>(
-      qm, km, vm, out, lse, B, H, Hkv, Sq, Sk, causal, q_offset, scale,
-      (cudaStream_t)stream);
+  WGMMA_CASES(launch_fwd, (qm, km, vm, out, lse, B, H, Hkv, Sq, Sk, causal,
+                           q_offset, scale, (cudaStream_t)stream))
 }
 
 int flash_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -813,22 +1113,26 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb,
              int do_ss, int do_sh, int causal, int q_offset, float scale,
              int dtype, int head_dim, void* stream) {
-  if (head_dim != D || (dtype != DT_BF16 && dtype != DT_FP16))
+  if (head_dim != 128 || (dtype != DT_BF16 && dtype != DT_FP16))
     return (int)cudaErrorInvalidValue;
   const bool f16 = dtype == DT_FP16;
+  const int d = head_dim;
   CUtensorMap qm, km, vm, dom;
   CUresult rc;
-  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh, f16)) ||
-      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh, f16)) ||
-      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh, f16)) ||
-      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, do_sb, do_ss, do_sh,
-                                  f16)))
+  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, d, q_sb, q_ss, q_sh,
+                                  f16)) ||
+      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, d, k_sb, k_ss, k_sh,
+                                  f16)) ||
+      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, d, v_sb, v_ss, v_sh,
+                                  f16)) ||
+      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, d, do_sb, do_ss,
+                                  do_sh, f16)))
     return -static_cast<int>(rc);
   if (f16)
-    return launch_dq<__half>(
+    return launch_dq<__half, 128>(
         qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq, Sk, causal, q_offset,
         scale, (cudaStream_t)stream);
-  return launch_dq<__nv_bfloat16>(
+  return launch_dq<__nv_bfloat16, 128>(
       qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq, Sk, causal, q_offset,
       scale, (cudaStream_t)stream);
 }
@@ -839,24 +1143,25 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
               int k_sb, int k_ss, int k_sh, int v_sb, int v_ss, int v_sh,
               int do_sb, int do_ss, int do_sh, int causal, int q_offset,
               float scale, int dtype, int head_dim, void* stream) {
-  if (head_dim != D || (dtype != DT_BF16 && dtype != DT_FP16))
+  if ((head_dim != 128 && head_dim != 256) ||
+      (dtype != DT_BF16 && dtype != DT_FP16))
     return (int)cudaErrorInvalidValue;
   const bool f16 = dtype == DT_FP16;
+  const int d = head_dim;
   CUtensorMap qm, km, vm, dom;
   CUresult rc;
-  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, q_sb, q_ss, q_sh, f16)) ||
-      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, k_sb, k_ss, k_sh, f16)) ||
-      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, v_sb, v_ss, v_sh, f16)) ||
-      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, do_sb, do_ss, do_sh,
-                                  f16)))
+  if ((rc = hopper::make_bshd_map(&qm, q, B, Sq, H, d, q_sb, q_ss, q_sh,
+                                  f16)) ||
+      (rc = hopper::make_bshd_map(&km, k, B, Sk, Hkv, d, k_sb, k_ss, k_sh,
+                                  f16)) ||
+      (rc = hopper::make_bshd_map(&vm, v, B, Sk, Hkv, d, v_sb, v_ss, v_sh,
+                                  f16)) ||
+      (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, d, do_sb, do_ss,
+                                  do_sh, f16)))
     return -static_cast<int>(rc);
-  if (f16)
-    return launch_dkv<__half>(
-        qm, km, vm, dom, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, causal,
-        q_offset, scale, (cudaStream_t)stream);
-  return launch_dkv<__nv_bfloat16>(
-      qm, km, vm, dom, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, causal,
-      q_offset, scale, (cudaStream_t)stream);
+  WGMMA_CASES(launch_dkv, (qm, km, vm, dom, lse, delta, dk, dv, B, H, Hkv,
+                           Sq, Sk, causal, q_offset, scale,
+                           (cudaStream_t)stream))
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Flash attention for Hopper (sm_90a), SIMT kernels: forward, dQ and dK/dV
 // for the cases of the TPU kernels' domain that the wgmma kernels of
 // flash_attention.cu do not take: f32 inputs at head_dim 128, 256, 384 and
-// 512, and bf16 or fp16 inputs at head_dim 256, 384 and 512.
+// 512, bf16 or fp16 inputs at head_dim 384 and 512, and the dQ of bf16 or
+// fp16 inputs at head_dim 256.
 //
 // Replaces, for those cases, the three Pallas TPU kernels of
 // tf_operator_tpu/ops/flash_attention.py:
@@ -23,8 +24,9 @@
 // TF32 keeps about three decimal digits where the f32 kernels must hold
 // the JAX package's 2e-5 (its f32 flash tests); the port's plain versions
 // also run with TF32 off. So every product is an f32 fmaf. The wide bf16
-// and fp16 cases use the same kernels: their products are exact in f32,
-// so the results are those of a tensor-core product with f32 sums.
+// and fp16 cases the wgmma kernels do not take yet use the same kernels:
+// their products are exact in f32, so the results are those of a
+// tensor-core product with f32 sums.
 //
 // What bounds them on the card: f32 FMA, 67 TFLOP/s on an H100 SXM
 // without tensor cores. Each (64 x 64) tile product reads its two operand
@@ -536,21 +538,26 @@ int launch_dkv(const Args& a) {
 }
 
 // The instantiation for (dtype, head_dim): f32 at 128-512, bf16 and fp16
-// at 256-512 (bf16 and fp16 at 128 are the wgmma kernels' cases).
-#define SIMT_CASES(L)                                    \
+// at 384-512, and (WIDE256) bf16 and fp16 at 256. bf16 and fp16 at 128 are
+// the wgmma kernels' cases, and so are the forward and dK/dV at 256: only
+// dQ takes WIDE256 here.
+#define SIMT_CASES(L, WIDE)                              \
   switch (dtype * 1024 + head_dim) {                     \
     case DT_F32 * 1024 + 128: return L<float, 128>(a);   \
     case DT_F32 * 1024 + 256: return L<float, 256>(a);   \
     case DT_F32 * 1024 + 384: return L<float, 384>(a);   \
     case DT_F32 * 1024 + 512: return L<float, 512>(a);   \
-    case DT_BF16 * 1024 + 256: return L<__nv_bfloat16, 256>(a); \
+    WIDE(L)                                              \
     case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384>(a); \
     case DT_BF16 * 1024 + 512: return L<__nv_bfloat16, 512>(a); \
-    case DT_FP16 * 1024 + 256: return L<__half, 256>(a); \
     case DT_FP16 * 1024 + 384: return L<__half, 384>(a); \
     case DT_FP16 * 1024 + 512: return L<__half, 512>(a); \
   }                                                      \
   return (int)cudaErrorInvalidValue;
+#define WIDE256(L)                                             \
+  case DT_BF16 * 1024 + 256: return L<__nv_bfloat16, 256>(a); \
+  case DT_FP16 * 1024 + 256: return L<__half, 256>(a);
+#define NO_WIDE256(L)
 
 }  // namespace
 
@@ -564,7 +571,7 @@ int flash_fwd_simt(const void* q, const void* k, const void* v, void* out,
   const Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, B, H, Hkv,
                Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                0, 0, 0, causal, q_offset, scale, (cudaStream_t)stream};
-  SIMT_CASES(launch_fwd)
+  SIMT_CASES(launch_fwd, NO_WIDE256)
 }
 
 int flash_dq_simt(const void* q, const void* k, const void* v,
@@ -577,7 +584,7 @@ int flash_dq_simt(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, H, Hkv, Sq, Sk,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
                do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
-  SIMT_CASES(launch_dq)
+  SIMT_CASES(launch_dq, WIDE256)
 }
 
 int flash_dkv_simt(const void* q, const void* k, const void* v,
@@ -590,7 +597,7 @@ int flash_dkv_simt(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
                do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
-  SIMT_CASES(launch_dkv)
+  SIMT_CASES(launch_dkv, NO_WIDE256)
 }
 
 }  // extern "C"

@@ -1,24 +1,25 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the two
 // wgmma shapes the kernels use (bf16 or fp16 operands, f32 accumulators),
-// register-count hand-off (setmaxnreg), and the host-side tensor map of a
-// [B, S, H, 128] bf16 or fp16 operand.
+// register-count hand-off (setmaxnreg), named barriers, and the host-side
+// tensor map of a [B, S, H, D] bf16 or fp16 operand (D = 128 or 256).
 //
-// Tile layout shared by TMA and wgmma. Every operand tile is 64 rows of
-// 128 two-byte elements (16 KB), stored as two 8 KB halves (columns 0-63
-// and 64-127), each 64 rows of 128 bytes with the 128-byte swizzle
-// (16-byte chunk c of row r sits at chunk c ^ (r % 8)). One TMA box is one
-// half ({64 columns, 1 head, 64 rows, 1 batch}); a half is 1024-byte
-// aligned, so the swizzle phase matches what wgmma's SWIZZLE_128B layout
-// expects. Rows past the end of the sequence are filled with zeros by
-// TMA (the box may reach past it; a load still completes the whole box's
-// bytes on its mbarrier).
-//   * K-major operand (rows are M or N, the 128 columns are K): k-step kk
-//     (16 columns) starts at half kk / 4, byte 32 * (kk % 4); 8-row groups
-//     are 1024 bytes apart (SBO).
-//   * N-major operand (rows are K, the 128 columns are N): k-step kk (16
-//     rows) starts at byte 2048 * kk; the two 64-column halves are 8 KB
-//     apart (LBO) and 8-row groups 1024 bytes (SBO).
+// Tile layout shared by TMA and wgmma. Every operand tile is 64 rows of D
+// two-byte elements (D / 64 panels), stored as D / 64 panels of 8 KB
+// (columns 0-63, 64-127, ...), each 64 rows of 128 bytes with the 128-byte
+// swizzle (16-byte chunk c of row r sits at chunk c ^ (r % 8)). One TMA box
+// is one panel ({64 columns, 1 head, 64 rows, 1 batch}); a panel is
+// 1024-byte aligned, so the swizzle phase matches what wgmma's SWIZZLE_128B
+// layout expects. Rows past the end of the sequence are filled with zeros
+// by TMA (the box may reach past it; a load still completes the whole
+// box's bytes on its mbarrier).
+//   * K-major operand (rows are M or N, the D columns are K): k-step kk
+//     (16 columns, kk < D / 16) starts at panel kk / 4, byte 32 * (kk % 4);
+//     8-row groups are 1024 bytes apart (SBO).
+//   * N-major operand (rows are K, the columns are N): k-step kk (16 rows)
+//     starts at byte 2048 * kk of a panel; one wgmma reads N = 128 columns,
+//     two neighbouring panels 8 KB apart (LBO), 8-row groups 1024 bytes
+//     apart (SBO). Columns 128-255 of a D = 256 tile start at panel 2.
 //
 // Accumulator layout of wgmma m64nN (f32): thread t of the warpgroup,
 // warp w = t / 32, lane l; register 4n + e holds row 16w + l/4 + 8(e/2),
@@ -40,8 +41,10 @@
 namespace hopper {
 
 constexpr int TILE_ROWS = 64;
-constexpr int HALF_BYTES = TILE_ROWS * 128;  // 64 rows x 64 elements
-constexpr int TILE_BYTES = 2 * HALF_BYTES;   // 64 rows x 128 elements
+constexpr int PANEL_BYTES = TILE_ROWS * 128;  // 64 rows x 64 elements
+// A whole 64-row tile of head_dim D: D / 64 panels.
+template <int D>
+constexpr int TILE_BYTES = D / 64 * PANEL_BYTES;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -90,9 +93,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---------------------------------------------------------------------- TMA
 
-// One box {64 columns, 1 head, 64 rows, 1 batch} of a [B, S, H, 128] map
+// One box {64 columns, 1 head, 64 rows, 1 batch} of a [B, S, H, D] map
 // at column c0, head h, row s, batch b into `dst` (8 KB, 1024-aligned).
-__device__ __forceinline__ void tma_load_half(void* dst, const CUtensorMap* map,
+__device__ __forceinline__ void tma_load_panel(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int c0, int h,
                                               int s, int b) {
   asm volatile(
@@ -103,12 +106,15 @@ __device__ __forceinline__ void tma_load_half(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A whole 64 x 128 tile: both halves (TILE_BYTES of transactions).
+// A whole 64 x D tile: its D / 64 panels (TILE_BYTES<D> of transactions).
+template <int D>
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int h, int s,
                                               int b) {
-  tma_load_half(dst, map, bar, 0, h, s, b);
-  tma_load_half(static_cast<char*>(dst) + HALF_BYTES, map, bar, 64, h, s, b);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_panel(static_cast<char*>(dst) + c * PANEL_BYTES, map, bar, 64 * c,
+                  h, s, b);
 }
 
 // Contiguous bytes (16-byte aligned, a multiple of 16) into shared memory.
@@ -132,16 +138,17 @@ __device__ __forceinline__ uint64_t desc_encode(const void* p, uint32_t lbo,
   return d;
 }
 
-// k-step kk (16 of the 128 columns) of a K-major tile.
+// k-step kk (16 of the D columns) of a K-major tile.
 __device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk) {
-  const char* p = static_cast<const char*>(tile) + (kk / 4) * HALF_BYTES +
+  const char* p = static_cast<const char*>(tile) + (kk / 4) * PANEL_BYTES +
                   (kk % 4) * 32;
   return desc_encode(p, 16, 1024);
 }
 
-// k-step kk (16 of the 64 rows) of an N-major tile.
+// k-step kk (16 of the 64 rows) of an N-major tile: the 128 columns from
+// `tile`'s first panel on.
 __device__ __forceinline__ uint64_t desc_nmajor(const void* tile, int kk) {
-  return desc_encode(static_cast<const char*>(tile) + kk * 2048, HALF_BYTES,
+  return desc_encode(static_cast<const char*>(tile) + kk * 2048, PANEL_BYTES,
                      1024);
 }
 
@@ -267,21 +274,26 @@ __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads:
+// wait, or (named_arrive) arrive without waiting. Shared-memory writes made
+// before an arrival are visible to the threads that waited on it.
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ------------------------------------------------------------------ host
 
-// Tensor map of a [B, S, H, 128] bf16 (or, with fp16 set, fp16) tensor
-// with element strides (sb, ss, sh) and unit stride over the 128: one box
-// is one tile half (see tma_load_half). S is the real length: rows of a
+// Tensor map of a [B, S, H, D] bf16 (or, with fp16 set, fp16) tensor
+// with element strides (sb, ss, sh) and unit stride over the D: one box
+// is one tile panel (see tma_load_panel). S is the real length: rows of a
 // box at or past it load as zeros. cuTensorMapEncodeTiled is looked up in
 // libcuda, which the CUDA runtime has already loaded, so the library
 // links no -lcuda.
 inline CUresult make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
-                              int H, int sb, int ss, int sh, bool fp16) {
+                              int H, int D, int sb, int ss, int sh, bool fp16) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
@@ -291,7 +303,8 @@ inline CUresult make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
           dlsym(lib, "cuTensorMapEncodeTiled"));
     if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   }
-  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, TILE_ROWS, 1};

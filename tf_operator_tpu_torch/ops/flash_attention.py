@@ -5,13 +5,16 @@ kernels (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) become CUDA
 kernels built for ``sm_90a`` and bound by ctypes (``ops/_build.py``), over
 the TPU kernels' whole domain (``flash_supported``: sequences of any
 multiple of 8 from 8 up, head_dim 128, 256, 384 or 512, bf16, fp16 or
-f32), in two families picked by (dtype, head_dim) (``kernel_suffix``):
+f32), in two families picked per kernel by (kind, dtype, head_dim)
+(``kernel_suffix``):
 
 - bf16 and fp16 at head_dim 128, the training step's case: the wgmma/TMA
   kernels of ``csrc/flash_attention.cu`` (launch keys ``flash_fwd``,
-  ``flash_dq``, ``flash_dkv``);
-- f32 at every head_dim, and bf16/fp16 at 256-512: the SIMT (f32 FMA)
-  kernels of ``csrc/flash_attention_simt.cu`` (``flash_fwd_simt``,
+  ``flash_dq``, ``flash_dkv``), and the forward and dK/dV of that file at
+  head_dim 256 (``flash_fwd_d256``, ``flash_dkv_d256``);
+- everything else -- f32 at every head_dim, bf16/fp16 at 384-512, and
+  the dQ of bf16/fp16 at 256: the SIMT (f32 FMA) kernels of
+  ``csrc/flash_attention_simt.cu`` (``flash_fwd_simt``,
   ``flash_dq_simt``, ``flash_dkv_simt``). f32 stays f32 there: no TF32.
 
 Both mask ragged sequence edges in the kernel. The forward is the custom op
@@ -78,13 +81,18 @@ MAX_HEAD_DIM = 512
 # Input dtypes the kernels take, with the C entries' codes for them.
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-# The library of each kernel family (by launch-key suffix).
+# The library of each kernel family (by the suffix of its C entries).
 _LIBRARY = {"": "flash_attention", "_simt": "flash_attention_simt"}
+# Launch-key suffix of each variant -> its family, and the kinds it has:
+# "_d256" is the wgmma family at head_dim 256 (forward and dK/dV).
+_FAMILY = {"": "", "_d256": "", "_simt": "_simt"}
+_KINDS = {"": ("fwd", "dq", "dkv"), "_d256": ("fwd", "dkv"),
+          "_simt": ("fwd", "dq", "dkv")}
 
 # Launches of each kernel, counted by the wrapper where it launches it.
 LAUNCHES: Dict[str, int] = {
-    f"flash_{kind}{suffix}": 0 for suffix in _LIBRARY
-    for kind in ("fwd", "dq", "dkv")}
+    f"flash_{kind}{suffix}": 0 for suffix, kinds in _KINDS.items()
+    for kind in kinds}
 
 
 def reset_launches() -> None:
@@ -92,12 +100,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def kernel_suffix(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel family for (dtype, head_dim) in the domain, as the
-    suffix of its launch keys: "" for the wgmma kernels (bf16 and fp16 at
-    head_dim 128), "_simt" for every other case."""
-    return ("" if dtype in (torch.bfloat16, torch.float16)
-            and head_dim == 128 else "_simt")
+def kernel_suffix(kind: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that runs ``kind`` ("fwd", "dq" or "dkv") for (dtype,
+    head_dim) in the domain, as the suffix of its launch key: "" for the
+    wgmma kernels at head_dim 128 (bf16 and fp16), "_d256" for the wgmma
+    forward and dK/dV at 256, "_simt" for every other case."""
+    if dtype in (torch.bfloat16, torch.float16):
+        if head_dim == 128:
+            return ""
+        if head_dim == 256 and kind in _KINDS["_d256"]:
+            return "_d256"
+    return "_simt"
 
 
 def _fit_block(seq: int, want: int) -> int:
@@ -219,14 +232,20 @@ _ARGTYPES = {
 }
 
 
-def _lib(suffix: str = "") -> ctypes.CDLL:
+def _lib(family: str = "") -> ctypes.CDLL:
     """The built library of one kernel family, its entries typed."""
-    lib = _build.load(_LIBRARY[suffix])
+    lib = _build.load(_LIBRARY[family])
     for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name + suffix)
+        fn = getattr(lib, name + family)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _entry(kind: str, suffix: str):
+    """The C entry that launches kernel ``flash_<kind><suffix>``."""
+    family = _FAMILY[suffix]
+    return getattr(_lib(family), f"flash_{kind}{family}")
 
 
 def _check_operand(name: str, x: torch.Tensor, device: torch.device,
@@ -254,7 +273,7 @@ def _check_operand(name: str, x: torch.Tensor, device: torch.device,
 
 def _check_operands(q, k, v, q_offset, do=None):
     """Validate the kernels' operands; return (dims, flat strides, dtype
-    code and head_dim, launch-key suffix)."""
+    code and head_dim)."""
     device = q.device if q.is_cuda else torch.device("cuda")
     if q.dtype not in DTYPES:
         raise ValueError(f"the flash kernels take bf16, fp16 or f32; q is "
@@ -282,8 +301,7 @@ def _check_operands(q, k, v, q_offset, do=None):
                          f"heads {hkv}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    return ((b, h, hkv, sq, sk), strides, (_DTYPE_CODE[q.dtype], d),
-            kernel_suffix(q.dtype, d))
+    return (b, h, hkv, sq, sk), strides, (_DTYPE_CODE[q.dtype], d)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -297,14 +315,15 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def _fwd_cuda(q, k, v, causal, q_offset):
-    (b, h, hkv, sq, sk), strides, (code, d), suffix = _check_operands(
+    (b, h, hkv, sq, sk), strides, (code, d) = _check_operands(
         q, k, v, q_offset)
+    suffix = kernel_suffix("fwd", q.dtype, d)
     name = "flash_fwd" + suffix
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_lib(suffix), name)(
+        rc = _entry("fwd", suffix)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, hkv, sq, sk, *strides, int(causal),
             q_offset, d ** -0.5, code, d, stream)
@@ -313,10 +332,10 @@ def _fwd_cuda(q, k, v, causal, q_offset):
     return out, lse
 
 
-def _bwd_args(q, k, v, lse, do, delta, causal, q_offset):
+def _bwd_args(kind, q, k, v, lse, do, delta, causal, q_offset):
     """Validated scalar arguments shared by the dQ and dK/dV entries, and
-    the launch-key suffix."""
-    (b, h, hkv, sq, sk), strides, (code, d), suffix = _check_operands(
+    the launch-key suffix of ``kind``'s kernel."""
+    (b, h, hkv, sq, sk), strides, (code, d) = _check_operands(
         q, k, v, q_offset, do)
     for name, row in (("lse", lse), ("delta", delta)):
         if (row.dtype != torch.float32 or tuple(row.shape) != (b, h, sq)
@@ -325,15 +344,16 @@ def _bwd_args(q, k, v, lse, do, delta, causal, q_offset):
                              f"{q.device}, got {row.dtype} "
                              f"{tuple(row.shape)}")
     return (b, h, hkv, sq, sk, *strides, int(causal), q_offset, d ** -0.5,
-            code, d), suffix
+            code, d), kernel_suffix(kind, q.dtype, d)
 
 
 def _dq_cuda(q, k, v, lse, do, delta, causal, q_offset):
-    args, suffix = _bwd_args(q, k, v, lse, do, delta, causal, q_offset)
+    args, suffix = _bwd_args("dq", q, k, v, lse, do, delta, causal,
+                             q_offset)
     name = "flash_dq" + suffix
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        rc = getattr(_lib(suffix), name)(
+        rc = _entry("dq", suffix)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args,
             torch.cuda.current_stream().cuda_stream)
@@ -343,12 +363,13 @@ def _dq_cuda(q, k, v, lse, do, delta, causal, q_offset):
 
 
 def _dkv_cuda(q, k, v, lse, do, delta, causal, q_offset):
-    args, suffix = _bwd_args(q, k, v, lse, do, delta, causal, q_offset)
+    args, suffix = _bwd_args("dkv", q, k, v, lse, do, delta, causal,
+                             q_offset)
     name = "flash_dkv" + suffix
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        rc = getattr(_lib(suffix), name)(
+        rc = _entry("dkv", suffix)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *args, torch.cuda.current_stream().cuda_stream)
