@@ -6,14 +6,15 @@
 Phases, each printing one JSON line:
 
 1. env     torch, CUDA and nvcc versions; the card's name and power limit.
-2. build   nvcc builds the two kernel libraries for sm_90a, one nvcc each,
-           started together: tf_operator_tpu_torch/csrc/flash_attention.cu
-           (the wgmma kernels: bf16 and fp16, forward and dK/dV at head_dim
-           128 and 256, dQ at 128) and csrc/flash_attention_simt.cu (the
-           SIMT kernels: f32 at every head_dim, bf16/fp16 at 384-512 and
-           the dQ at 256); seconds, library paths, and per kernel variant
-           ("flash_fwd[bf16,256]") the registers, stack and spill bytes
-           that ptxas reports.
+2. build   nvcc builds the three kernel libraries for sm_90a, one nvcc
+           each, started together: tf_operator_tpu_torch/csrc/
+           flash_attention.cu (the wgmma kernels: bf16 and fp16, all three
+           at head_dim 128 and 256), csrc/flash_attention_f32tc.cu (the f32
+           dK/dV on tensor cores, 3xTF32, head_dim 128-512) and
+           csrc/flash_attention_simt.cu (the SIMT kernels: the f32 forward
+           and dQ at every head_dim, bf16/fp16 at 384-512); seconds,
+           library paths, and per kernel variant ("flash_fwd[bf16,256]")
+           the registers, stack and spill bytes that ptxas reports.
 3. kernels each flash-attention kernel (forward, dQ, dK/dV) against its
            plain PyTorch version on the card (KERNEL_CASES; B=1, H=32,
            Hkv=8, GQA 4:1): in bf16 at head_dim 128 the training step's
@@ -22,13 +23,15 @@ Phases, each printing one JSON line:
            and q_seq = k_seq / 2 with q_offset 0 (half the k tiles seen by
            no row: their dK/dV must be exact zeros); ragged lengths
            (S=2000 causal, Sq=72 / Sk=200 at q_offset 128, S=8); fp16 at
-           S=2048 and 200; the SIMT kernels at f32 128-512, bf16 384 and
-           512 and fp16 384 and 512 at S=2048 causal, and f32 128 and 512,
-           fp16 384 and bf16 512 at S=200 not; and head_dim 256 (the
-           wgmma forward and dK/dV, the SIMT dQ) in bf16 and fp16 at
-           S=2048 causal, bf16 at S=2000, Sq=1024 / Sk=2048 at q_offset
-           1024 and at 0 (half the k tiles unseen), S=200 not causal, and
-           fp16 Sq=72 / Sk=200 at q_offset 128.
+           S=2048 and 200; f32 (the SIMT forward and dQ, the 3xTF32
+           dK/dV) at 128-512 and the SIMT kernels at bf16 384 and 512 and
+           fp16 384 and 512 at S=2048 causal, and f32 128 and 512, fp16
+           384 and bf16 512 at S=200 not; and head_dim 256 (the wgmma
+           kernels) in bf16 and fp16 at S=2048 causal, bf16 at S=2000,
+           Sq=1024 / Sk=2048 at q_offset 1024 and at 0 (half the k tiles
+           unseen), S=200 not causal, and fp16 Sq=72 / Sk=200 at q_offset
+           128; and bf16 at head_dim 256, S=2048 causal, at d256_train's
+           heads (H=16, Hkv=4), the shapes that phase launches them at.
            Each output within a limit scaled to its own largest value (REL
            below; f32 F32_REL); the check must also reject perturbed plain
            outputs (zeros, δ dropped, the first or last k or q tile
@@ -36,15 +39,24 @@ Phases, each printing one JSON line:
            apply, the domain's edge cases (the partial last k tile
            dropped, rows past the last full q tile left as zeros, scores
            from the first 128 of head_dim, head_dim columns 128-255 left
-           as zeros or copied from columns 0-127, f32 products in TF32).
+           as zeros or copied from columns 0-127, f32 products in TF32,
+           and in f32 P^T and dS^T rounded to TF32 before dV and dK, as a
+           3xTF32 kernel that split only the loaded operands would give).
+           In f32 the kernel's dK/dV is also held to a float64 version at
+           the same limits (f64_ratio), and that check must reject both
+           TF32 perturbations: the plain version sums its long products in
+           f32 too, so against it alone a right kernel's margin is partly
+           the plain version's own rounding (its f64_ratio is reported).
            Kernel,
            plain and library (scaled_dot_product_attention, a yardstick
            the port never calls) device times from CUDA events around
            calls queued behind a sleep kernel (``cuda_ms``), and beside
            them the same calls launched by the host as it goes, at B=1,
            S=2048, H=32, Hkv=8, causal for every timed case above (the
-           SIMT kernels 3 calls, the wgmma ones 20); the bound takes
-           989 TFLOP/s for bf16/fp16 and 67 for f32, against 3.35 TB/s.
+           SIMT kernels 3 calls, the 3xTF32 one 10, the wgmma ones 20); the
+           bound takes 989 TFLOP/s for bf16/fp16, 67 for the f32 SIMT
+           kernels and three TF32 products at 494.7 for the 3xTF32 one
+           (its f32 FMA bound beside), against 3.35 TB/s.
 3a. fp16_model  the model phase's logits check in fp16 at S=2048
            (phase 4's rule; forward only): launches flash_fwd 4.
 3b. ragged_train  the main path at S=2000 (no multiple of the 64-row
@@ -55,17 +67,17 @@ Phases, each printing one JSON line:
            same 3 steps with attention_impl="xla", what the port ran there
            before its kernels took ragged lengths; losses finite and
            falling.
-3c. f32_train  the main path with LlamaConfig.dtype = f32 at S=2048,
-           through the SIMT kernels: the logits within relative L2
-           F32_LOGITS_REL of the reference attention's on the same f32
-           weights, then 2 steps launching the _simt kernels 8 / 4 / 4
-           each, no reference attention; the step time.
+3c. f32_train  the main path with LlamaConfig.dtype = f32 at S=2048: the
+           logits within relative L2 F32_LOGITS_REL of the reference
+           attention's on the same f32 weights, then 2 steps launching
+           flash_fwd_simt 8, flash_dq_simt 4 and flash_dkv_f32tc 4 each, no
+           reference attention; the step time.
 3d. d256_train  the main path with the attention at head_dim 256: the
            same model with n_heads 16, n_kv_heads 4, head_dim 256 (the
            projections keep llama_3_8b's shapes), bf16, S=2048: the logits
            through the kernels against the reference attention (phase 4's
            rule), then 3 Trainer steps launching flash_fwd_d256 8,
-           flash_dq_simt 4 and flash_dkv_d256 4 each and the reference
+           flash_dq_d256 4 and flash_dkv_d256 4 each and the reference
            attention never, losses finite and falling; ms a step, tokens/s
            and peak memory beside the same 3 steps with
            attention_impl="xla".
@@ -284,10 +296,11 @@ no flash kernel, as the JAX decode path runs none):
 Then the whole script's seconds, a {"kernels": [...]} summary line (one
 entry a launch key: the wgmma D=128 kernels' numbers from the training
 step's case and launches from the train phase, the wgmma D=256 kernels'
-(flash_fwd_d256, flash_dkv_d256) from the bf16 D=256 case and the
-d256_train phase, the SIMT kernels' from the f32 D=128 case and the
-f32_train phase; every path's launches and every timed variant beside
-them), the nvidia-smi name/power line, and last {"ok":
+from the bf16 D=256 case and the d256_train phase, the 3xTF32 dK/dV's
+and the SIMT forward's and dQ's from the f32 D=128 case and the f32_train
+phase, the SIMT dK/dV's from the bf16 D=384 case (0 launches on
+f32_train); every path's launches and every timed variant beside them),
+the nvidia-smi name/power line, and last {"ok":
 true, "device": {...}}. Any
 failure exits non-zero before the last line; so does a machine without a
 CUDA card.
@@ -372,22 +385,24 @@ from tf_operator_tpu_torch.train.trainer import (
 REL = 1e-2
 ATOL = 2e-2
 LSE_ATOL = 1e-3
-# f32 kernels (SIMT f32 FMA) against the plain versions with TF32 off:
-# relative L2 within 1e-5, every element within 1e-5 of the output's
-# largest value plus 1e-5 of itself, lse within 1e-5. Both sum in f32,
-# in orders that differ by about 1e-7 of a value; a TF32 product (10-bit
-# mantissa) is off by about 1e-4, and the tf32 perturbation shows these
-# limits reject it.
+# f32 kernels (SIMT f32 FMA, the 3xTF32 dK/dV) against the plain versions
+# with TF32 off: relative L2 within 1e-5, every element within 1e-5 of the
+# output's largest value plus 1e-5 of itself, lse within 1e-5. Both sum in
+# f32, in orders that differ by about 1e-7 of a value, and 3xTF32 leaves
+# about 2^-21 of a product; a TF32 product (10-bit mantissa) is off by
+# about 1e-4, and the tf32 perturbations show these limits reject it.
 F32_REL = F32_TOL = F32_LSE_ATOL = 1e-5
 OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
            "flash_dkv": ("dk", "dv")}
 BLOCK = fa.BLOCK
 PEAK_BF16 = 989e12      # H100 SXM dense bf16/fp16 tensor-core FLOP/s
 PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s without tensor cores
+PEAK_TF32 = 494.7e12    # H100 SXM dense TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 SOURCE = {"": "tf_operator_tpu_torch/csrc/flash_attention.cu",
           "_d256": "tf_operator_tpu_torch/csrc/flash_attention.cu",
-          "_simt": "tf_operator_tpu_torch/csrc/flash_attention_simt.cu"}
+          "_simt": "tf_operator_tpu_torch/csrc/flash_attention_simt.cu",
+          "_f32tc": "tf_operator_tpu_torch/csrc/flash_attention_f32tc.cu"}
 REPLACES = {
     "flash_fwd": "tf_operator_tpu/ops/flash_attention.py:95",
     "flash_dq": "tf_operator_tpu/ops/flash_attention.py:183",
@@ -567,13 +582,17 @@ def kernel_variant(mangled: str) -> str:
     template arguments of a compiled kernel's mangled name (the
     anonymous namespace's own name, which holds the file's name, left
     out)."""
-    found = re.search(r"(flash_[a-z_]+?)_kernelI(f|13__nv_bfloat16|6__half)"
-                      r"(?:Li(\d+)E)?E", mangled)
-    if not found:
+    end = mangled.find("_kernelI")
+    start = mangled.rfind("flash_", 0, end)
+    found = re.match(r"(f|13__nv_bfloat16|6__half)?(?:Li(\d+)E)?E",
+                     mangled[end + len("_kernelI"):])
+    if end < 0 or start < 0 or not found:
         return mangled
-    dtype = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
-    args = dtype[found[2]] + (f",{found[3]}" if found[3] else "")
-    return f"{found[1]}[{args}]"
+    # A kernel templated on head_dim alone (the 3xTF32 one) takes f32.
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
+             None: "f32"}
+    args = dtype[found[1]] + (f",{found[2]}" if found[2] else "")
+    return f"{mangled[start:end]}[{args}]"
 
 
 def ptxas_report(log: str) -> dict:
@@ -600,7 +619,7 @@ def ptxas_report(log: str) -> dict:
 
 
 def phase_build():
-    """Both kernel libraries, one nvcc each, started together."""
+    """Every kernel library, one nvcc each, started together."""
     t0 = time.perf_counter()
     _build.load_all(fa._LIBRARY.values())
     for family in fa._LIBRARY:
@@ -706,6 +725,26 @@ def tf32(x):
     return ((i + 0xFFF + ((i >> 13) & 1)) & -8192).view(torch.float32)
 
 
+def dkv_float64(q, k, v, lse, do, delta, causal, q_offset):
+    """dK and dV of the plain version's formulas (fa._probs_grads and
+    fa._dkv_reference) computed in float64."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.double().reshape(b, sq, hkv, h // hkv, d)
+    dog = do.double().reshape(b, sq, hkv, h // hkv, d)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.double()) * d ** -0.5
+    if causal:
+        q_pos = torch.arange(sq, device=q.device) + q_offset
+        k_pos = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(q_pos[:, None] < k_pos[None, :], fa.NEG_INF)
+    p = torch.exp(s - lse.double().reshape(b, hkv, h // hkv, sq, 1))
+    dp = torch.einsum("bqkgd,btkd->bkgqt", dog, v.double())
+    ds = p * (dp - delta.double().reshape(b, hkv, h // hkv, sq, 1)) \
+        * d ** -0.5
+    return (torch.einsum("bkgqt,bqkgd->btkd", ds, qg),
+            torch.einsum("bkgqt,bqkgd->btkd", p, dog))
+
+
 def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
     """Plain-version outputs of kernels that handle the domain's edges
     wrong, which the check must reject; only those that apply to these
@@ -760,6 +799,13 @@ def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
                                        q_offset)
         wrong["tf32"] = {"out": out, "lse": lse_t, "dq": dq, "dk": dk,
                          "dv": dv}
+        # A 3xTF32 dK/dV that splits the loaded operands but not P^T and
+        # dS^T: those rounded to TF32 before dV += P^T dO and dK += dS^T Q.
+        p, ds, qg, dog = fa._probs_grads(q, k, v, lse, do, delta, causal,
+                                         q_offset)
+        wrong["tf32_register_operands"] = {
+            "dk": torch.einsum("bkgqt,bqkgd->btkd", tf32(ds), qg),
+            "dv": torch.einsum("bkgqt,bqkgd->btkd", tf32(p), dog)}
     return wrong
 
 
@@ -854,10 +900,10 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                   for n, t in outs.items()}
               for p, outs in perturbed(q, k, v, do, ref, delta, causal,
                                        q_offset).items()}
+    wrong = domain_perturbed(q, k, v, do, ref, delta, causal, q_offset)
     domain_caught = {p: {n: check(n, t, ref[n], **lim)["ratio"]
                          for n, t in outs.items()}
-                     for p, outs in domain_perturbed(
-                         q, k, v, do, ref, delta, causal, q_offset).items()}
+                     for p, outs in wrong.items()}
     keys = launch_keys(dtype, d)
     case = {"dtype": DTYPE_NAME[dtype], "d": d, "h": h, "hkv": hkv,
             "sq": sq, "sk": sk, "causal": causal, "q_offset": q_offset,
@@ -865,6 +911,23 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
             "max_abs_err": errs, "ok": ok, "checks": checks,
             "perturbed_ratio": caught,
             "domain_perturbed_ratio": domain_caught}
+    if dtype == torch.float32:
+        # The f32 plain version sums its long products in f32 as well, so
+        # the kernel's dK and dV are also held to a float64 version at the
+        # same limits (gated), which must reject the TF32 perturbations;
+        # the plain version's own ratio is reported beside.
+        exact = dict(zip(("dk", "dv"), dkv_float64(
+            q, k, v, ref_lse, do, delta, causal, q_offset)))
+        case["f64_ratio"] = {
+            n: {"kernel": check(n, got[n], e, **lim)["ratio"],
+                "plain": check(n, ref[n], e, **lim)["ratio"]}
+            for n, e in exact.items()}
+        case["f64_perturbed_ratio"] = {
+            p: {n: check(n, wrong[p][n], e, **lim)["ratio"]
+                for n, e in exact.items()}
+            for p in ("tf32", "tf32_register_operands")}
+        del exact
+    del wrong
     # Keys no query row sees (causal, k >= sq + q_offset) must get exact
     # zeros: the kernel's outputs come from torch.empty.
     unseen = sq + q_offset if causal else sk
@@ -886,8 +949,10 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                       + 2 * act_kv),
     }
     peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
-    # The SIMT kernels take milliseconds a call: fewer repetitions.
-    reps = {kn: 3 if key.endswith("_simt") else 20
+    # The SIMT and 3xTF32 kernels take milliseconds a call: fewer
+    # repetitions.
+    reps = {kn: 3 if key.endswith("_simt") else
+            10 if key.endswith("_f32tc") else 20
             for kn, key in keys.items()}
     kernel_calls = {
         "flash_fwd": lambda: fa._fwd_cuda(q, k, v, causal, q_offset),
@@ -928,22 +993,30 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
     for name, (flops, nbytes) in work.items():
         bound_ms, bound_by = bound(flops, nbytes, peak)
         ms, host_ms = times[name]
-        stats[keys[name]] = {
-            "dtype": DTYPE_NAME[dtype], "d": d, "sq": sq, "sk": sk,
-            "ms": ms, "host_launched_ms": host_ms,
-            "tflop_per_s": flops / ms / 1e9, "plain_ms": plain[name],
-            "library_ms": library[name][0],
-            "library_host_launched_ms": library[name][1],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "peak_flop_per_s": peak, "flops": flops, "bytes": nbytes}
+        row = {"dtype": DTYPE_NAME[dtype], "d": d, "h": h, "hkv": hkv,
+               "sq": sq, "sk": sk, "ms": ms, "host_launched_ms": host_ms,
+               "tflop_per_s": flops / ms / 1e9, "plain_ms": plain[name],
+               "library_ms": library[name][0],
+               "library_host_launched_ms": library[name][1],
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "peak_flop_per_s": peak, "flops": flops, "bytes": nbytes}
+        if keys[name].endswith("_f32tc"):
+            # 3xTF32: every product as three TF32 products on the tensor
+            # cores, its bound; the f32 FMA bound beside it.
+            row["fma_bound_ms"] = bound_ms
+            row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes,
+                                                     PEAK_TF32)
+            row["peak_flop_per_s"] = PEAK_TF32 / 3
+        stats[keys[name]] = row
     case["timing"] = stats
     return case, stats
 
 
 # The kernels phase's cases: (dtype, head_dim, q_seq, k_seq, causal,
-# q_offset, timed); B, H and Hkv are the module's (GQA 4:1). The first is
-# the training step's; each kernel's first timed case gives the summary's
-# numbers (the SIMT kernels' f32 at 128, the wgmma D=256 kernels' bf16).
+# q_offset, timed) and, where given, (H, Hkv); else B, H and Hkv are the
+# module's (GQA 4:1). The first is the training step's; each kernel's
+# first timed case gives the summary's numbers (the f32 kernels' f32 at
+# 128, the SIMT dK/dV's bf16 at 384, the wgmma D=256 kernels' bf16).
 KERNEL_CASES = (
     (torch.bfloat16, D, S, S, True, 0, True),
     (torch.bfloat16, D, S, S, False, 0, False),
@@ -956,7 +1029,8 @@ KERNEL_CASES = (
     (torch.bfloat16, D, 8, 8, True, 0, False),
     (torch.float16, D, S, S, True, 0, True),
     (torch.float16, D, 200, 200, True, 0, False),
-    # The SIMT kernels: f32 at every head_dim, bf16/fp16 at 384-512.
+    # f32 at every head_dim (the SIMT forward and dQ, the 3xTF32 dK/dV),
+    # and the SIMT kernels at bf16/fp16 384-512.
     (torch.float32, 128, S, S, True, 0, True),
     (torch.float32, 128, 200, 200, False, 0, False),
     (torch.float32, 256, S, S, True, 0, True),
@@ -969,8 +1043,8 @@ KERNEL_CASES = (
     (torch.bfloat16, 512, S, S, True, 0, True),
     (torch.bfloat16, 512, 200, 200, False, 0, False),
     (torch.float16, 512, S, S, True, 0, True),
-    # head_dim 256, bf16/fp16: the wgmma forward and dK/dV ("_d256"), the
-    # SIMT dQ; the training step's shapes first, then the edges the D=128
+    # head_dim 256, bf16/fp16: the wgmma kernels ("_d256"); the training
+    # step's shapes first, then the edges the D=128
     # cases cover: q_offset, no multiple of the tile, a ragged q_offset
     # case and half the k tiles unseen (exact zeros).
     (torch.bfloat16, 256, S, S, True, 0, True),
@@ -980,6 +1054,8 @@ KERNEL_CASES = (
     (torch.bfloat16, 256, 200, 200, False, 0, False),
     (torch.float16, 256, 72, 200, True, 128, False),
     (torch.bfloat16, 256, S // 2, S, True, 0, False),  # half unseen
+    # head_dim 256 at d256_train's heads: the shapes it launches them at.
+    (torch.bfloat16, 256, S, S, True, 0, True, D256_HEADS, D256_KV_HEADS),
 )
 
 
@@ -988,8 +1064,9 @@ def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, stats, variants = [], {}, []
-    for dtype, d, sq, sk, causal, q_offset, timed in KERNEL_CASES:
-        case, st = check_case(gen, sq, sk, causal, q_offset, timed, dtype, d)
+    for dtype, d, sq, sk, causal, q_offset, timed, *heads in KERNEL_CASES:
+        case, st = check_case(gen, sq, sk, causal, q_offset, timed, dtype, d,
+                              *heads)
         cases.append(case)
         for name, row in (st or {}).items():
             # Each kernel's summary numbers: its first timed case.
@@ -1004,11 +1081,14 @@ def phase_kernels():
                                 "rtol": F32_TOL, "rel_l2": F32_REL,
                                 "lse_atol": F32_LSE_ATOL}},
           "cases": cases})
-    tag = lambda c: (c["dtype"], c["d"], c["sq"], c["sk"], c["causal"])
+    tag = lambda c: (c["dtype"], c["d"], c["h"], c["sq"], c["sk"],
+                     c["causal"])
     bad = [(*tag(c), n) for c in cases
            for n, good in c["ok"].items() if not good]
     bad += [(*tag(c), "unseen keys not zero") for c in cases
             if c.get("unseen_keys_zero") is False]
+    bad += [(*tag(c), n, "vs float64") for c in cases
+            for n, r in c.get("f64_ratio", {}).items() if r["kernel"] > 1.0]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"beyond the scaled limits: {bad}")
@@ -1023,6 +1103,9 @@ def phase_kernels():
               if r <= 1.0 and (i == 0 or p == "zeros")]
     missed += [(*tag(c), p) for c in cases
                for p, ratios in c["domain_perturbed_ratio"].items()
+               if max(ratios.values()) <= 1.0]
+    missed += [(*tag(c), p, "vs float64") for c in cases
+               for p, ratios in c.get("f64_perturbed_ratio", {}).items()
                if max(ratios.values()) <= 1.0]
     if missed:
         raise AssertionError(f"the kernel check accepts wrong outputs: "
@@ -3807,8 +3890,10 @@ def main() -> int:
     # One entry a kernel (launch key): the wgmma D=128 kernels' numbers
     # from the training step's case and their launches from the train
     # phase; the wgmma D=256 kernels' from the bf16 D=256 case and the
-    # d256_train phase; the SIMT kernels' from the f32 D=128 case and the
-    # f32_train phase; every timed variant under "variants".
+    # d256_train phase; the f32 kernels' (SIMT forward and dQ, 3xTF32
+    # dK/dV) from the f32 D=128 case and the f32_train phase, the SIMT
+    # dK/dV's from its first timed case, bf16 D=384 (0 launches on
+    # f32_train); every timed variant under "variants".
     summary = []
     by_path = {"train": launches, "fp16_model": fp16_launches,
                "ragged_train": ragged_launches, "f32_train": f32_launches,
@@ -3816,7 +3901,8 @@ def main() -> int:
                "dist": dist_launches, "ring": ring_launches,
                "ring_train": ring_train_launches, "pp": pp_launches_run,
                "mixtral": mixtral_launches, "bert": bert_launches}
-    main_paths = {"": "train", "_d256": "d256_train", "_simt": "f32_train"}
+    main_paths = {"": "train", "_d256": "d256_train", "_simt": "f32_train",
+                  "_f32tc": "f32_train"}
     for suffix, kinds in fa._KINDS.items():
         main_path = main_paths[suffix]
         for kind in kinds:
@@ -3830,9 +3916,10 @@ def main() -> int:
                 "max_abs_err": errs[name], "ms": st["ms"],
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                 "bound_by": st["bound_by"], "library_ms": st["library_ms"],
-                "timed_at": {k: st[k] for k in ("dtype", "d", "sq", "sk")},
+                "timed_at": {k: st[k] for k in ("dtype", "d", "h", "hkv",
+                                                 "sq", "sk")},
                 "variants": [{k: row[k] for k in (
-                    "dtype", "d", "sq", "ms", "plain_ms", "bound_ms",
+                    "dtype", "d", "h", "sq", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")}
                     for row in variants if row["kernel"] == name]})
     emit({"phase": "total", "seconds": time.perf_counter() - started})

@@ -7,7 +7,9 @@ does). Same numpy inputs, D = 128: forward within 2e-5, gradients within
 tests/test_torch_flash_kernels.py, which runs only where there is a card.
 """
 
+import ctypes
 import importlib.util
+import types
 from pathlib import Path
 
 import jax
@@ -157,12 +159,13 @@ def test_flash_supported_gate():
 
 
 # The kernel of each (kind, dtype, head_dim) of the domain, by launch-key
-# suffix: the wgmma kernels for bf16/fp16 at 128 (all three kinds) and for
-# the forward and dK/dV at 256 ("_d256"); the SIMT kernels everywhere else.
-WGMMA = {(kind, dtype, 128): "" for kind in ("fwd", "dq", "dkv")
-         for dtype in ("bfloat16", "float16")}
-WGMMA.update({(kind, dtype, 256): "_d256" for kind in ("fwd", "dkv")
-              for dtype in ("bfloat16", "float16")})
+# suffix: the wgmma kernels for bf16/fp16 at 128 and at 256 ("_d256"), all
+# three kinds; the 3xTF32 tensor-core kernel for the f32 dK/dV at every
+# head_dim ("_f32tc"); the SIMT kernels everywhere else.
+WGMMA = {(kind, dtype, d): "" if d == 128 else "_d256"
+         for kind in ("fwd", "dq", "dkv")
+         for dtype in ("bfloat16", "float16") for d in (128, 256)}
+WGMMA.update({("dkv", "float32", d): "_f32tc" for d in (128, 256, 384, 512)})
 
 
 @pytest.mark.parametrize("d", [128, 256, 384, 512])
@@ -210,9 +213,47 @@ def test_launch_counters_reset():
     tfa.LAUNCHES["flash_fwd"] += 3
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-                            "flash_fwd_d256": 0, "flash_dkv_d256": 0,
-                            "flash_fwd_simt": 0, "flash_dq_simt": 0,
-                            "flash_dkv_simt": 0}
+                            "flash_fwd_d256": 0, "flash_dq_d256": 0,
+                            "flash_dkv_d256": 0, "flash_fwd_simt": 0,
+                            "flash_dq_simt": 0, "flash_dkv_simt": 0,
+                            "flash_dkv_f32tc": 0}
+
+
+@pytest.mark.parametrize("family", sorted(tfa._LIBRARY))
+def test_lib_types_only_the_family_s_own_kinds(family, monkeypatch):
+    """_lib looks up and types the C entries of the family's own kinds
+    only: the "_f32tc" library has a dK/dV entry and nothing else, so
+    asking it for a forward would fail. A stub stands in for the built
+    library (no card, no nvcc): like a ctypes.CDLL it raises
+    AttributeError for an entry it lacks."""
+    own = [f"flash_{kind}{family}" for kind in tfa._KINDS[family]]
+
+    class StubLib:
+        def __init__(self):
+            self.entries = {name: types.SimpleNamespace() for name in own}
+            self.asked = []
+
+        def __getattr__(self, name):
+            self.asked.append(name)
+            if name not in self.entries:
+                raise AttributeError(name)
+            return self.entries[name]
+
+    stub = StubLib()
+    monkeypatch.setattr(tfa._build, "load",
+                        lambda name: stub if name == tfa._LIBRARY[family]
+                        else None)
+    assert tfa._lib(family) is stub
+    assert stub.asked == own
+    for kind in tfa._KINDS[family]:
+        entry = stub.entries[f"flash_{kind}{family}"]
+        assert entry.argtypes == tfa._ARGTYPES[f"flash_{kind}"]
+        assert entry.restype is ctypes.c_int
+    suffixes = [sfx for sfx, fam in tfa._FAMILY.items() if fam == family]
+    for sfx in suffixes:
+        for kind in tfa._KINDS[sfx]:
+            assert tfa._entry(kind, sfx) is stub.entries[
+                f"flash_{kind}{family}"]
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -13,7 +13,8 @@ to that output, relative L2 within 1e-2, and lse within 1e-3; f32 the
 same with 1e-5 for each. ``CASES`` are the wgmma kernels' bf16, head_dim
 128 cases at whole tiles; ``DOMAIN_CASES`` the rest of the TPU kernels'
 domain (ragged lengths, fp16, f32, head_dim 256-512; at 256 in bf16 and
-fp16 the wgmma forward and dK/dV beside the SIMT dQ).
+fp16 all three wgmma kernels, in f32 the SIMT forward and dQ beside the
+3xTF32 tensor-core dK/dV, ``flash_dkv_f32tc``).
 """
 
 import importlib.util
@@ -58,6 +59,9 @@ DOMAIN_CASES = {
     "f32": (1, 256, 256, 4, 2, True, 0, torch.float32, 128),
     "f32_ragged": (1, 72, 200, 4, 2, True, 128, torch.float32, 128),
     "f32_512_gqa_4_1": (1, 200, 200, 4, 1, True, 0, torch.float32, 512),
+    "f32_256_q_offset": (1, 64, 192, 4, 2, True, 128, torch.float32, 256),
+    "f32_384_unseen_k_tiles": (1, 256, 512, 4, 1, True, 0, torch.float32,
+                               384),
     "bf16_256": (1, 200, 200, 4, 2, False, 0, torch.bfloat16, 256),
     "bf16_256_causal_gqa_4_1": (1, 256, 256, 4, 1, True, 0, torch.bfloat16,
                                 256),
@@ -171,6 +175,20 @@ def test_dq_is_deterministic(cuda):
     first = tfa._dq_cuda(q, k, v, lse, do, delta, True, 0)
     second = tfa._dq_cuda(q, k, v, lse, do, delta, True, 0)
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", ["f32_512_gqa_4_1", "bf16_256_causal_gqa_4_1"])
+def test_dkv_is_deterministic(case, cuda):
+    """Two dK/dV launches (the 3xTF32 f32 kernel, the wgmma D=256 one) give
+    bitwise-identical results: the GQA sum runs inside one CTA in a fixed
+    order."""
+    q, k, v, do = _inputs(case, cuda)
+    out, lse = tfa._fwd_reference(q, k, v, True, 0)
+    delta = tfa._delta(out, do)
+    first = tfa._dkv_cuda(q, k, v, lse, do, delta, True, 0)
+    second = tfa._dkv_cuda(q, k, v, lse, do, delta, True, 0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", ["gqa_4_2", "bf16_256",

@@ -15,9 +15,11 @@
 // Tensors are read as [B, S, H, D] through their strides (no
 // transpose); head h reads KV head h / (H / Hkv) (native GQA). The kernels
 // are templates over the element type E, bf16 or fp16 (wgmma's bf16 and
-// f16 variants), and head_dim D: the forward and dK/dV at D = 128 and
-// 256, dQ at D = 128. The other cases of the domain (f32, dQ at 256, and
-// D of 384-512) go to the SIMT kernels of flash_attention_simt.cu.
+// f16 variants), and head_dim D, 128 or 256 (all three kernels at both).
+// The other cases of the domain go elsewhere: the f32 dK/dV to the 3xTF32
+// tensor-core kernel of flash_attention_f32tc.cu, the f32 forward and dQ
+// and every kernel at D of 384-512 to the SIMT kernels of
+// flash_attention_simt.cu.
 //
 // Ragged sequences. Sq and Sk are any multiples of 8 (>= 8), tiled in 64
 // rows with a partial last tile. The tensor maps carry the real lengths,
@@ -375,28 +377,45 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
 // _dq_kernel (tf_operator_tpu/ops/flash_attention.py:183). Bound by
 // tensor-core operations: 6 D FLOPs per visible (q, k) pair (S = Q K^T,
 // dP = dO V^T, dQ += dS K) against the K and V tile loads, which the
-// producer streams through a DQ_STAGES ring while the consumers compute
-// (the forward's shape, one product more per tile pair). D = 128 only.
+// producer streams through a ring while the consumers compute (the
+// forward's shape, one product more per tile pair).
 //   * Consumer warpgroup g owns q tile 2c + g; with an odd count of q
 //     tiles the last CTA's second warpgroup computes nothing and still
-//     releases every stage. Its Q and dO tiles come once, on one barrier,
+//     releases every tile. Its Q and dO tiles come once, on one barrier,
 //     and stay resident; the lse and delta of its rows sit in registers
 //     (the thread's 2 accumulator rows).
-//   * Per k tile: S = Q K^T and dP = dO V^T (16 wgmma m64n64k16 in one
-//     commit group, every operand K-major), scale and the causal mask
-//     (diagonal tiles only, per element) in registers, P = exp(S - lse)
-//     and dS = P (dP - delta) scale there, dS rounded to E register
-//     fragments, and dQ += dS K (4 wgmma m64n128k16, A from registers): the
-//     K tile that was the K-major B of S is read N-major here.
-//   * dQ (64 f32 registers a thread) is written once, as E, straight
+//   * K and V stream through a ring. D = 128: 2 stages of a (K_j, V_j)
+//     pair on one barrier each, as the forward (single tiles there, with
+//     S and dP issued apart, ran 14% slower). D = 256: 3 slots of one
+//     tile, tile n (K_j at n = 2j, V_j at 2j + 1) in slot n % 3 with its
+//     own barriers; S is issued as soon as K_j has landed, V_j is released
+//     after dP and K_j after dQ, so K_j+1 loads during tile j.
+//   * Per k tile: S = Q K^T and dP = dO V^T (D / 16 wgmma m64n64k16 each,
+//     every operand K-major), scale and the causal mask (diagonal tiles
+//     only, per element) in registers, P = exp(S - lse) and dS = P (dP -
+//     delta) scale there, dS rounded to E register fragments, and dQ += dS
+//     K (4 k-steps of D / 128 wgmma m64n128k16, A from registers, one wgmma
+//     per 128 columns): the K tile that was the K-major B of S is read
+//     N-major here.
+//   * dQ (D / 2 f32 registers a thread) is written once, as E, straight
 //     from registers. Each dQ row is summed by one warpgroup in k-tile
 //     order: no atomics, deterministic.
 //   * Causal k tiles past the CTA's last diagonal are never loaded.
+//   * Budgets. Shared memory: 2 resident Q and 2 dO tiles and the ring, of
+//     D / 8 KB a tile: D = 128, 4 tiles, 128 KB; D = 256, 3 tiles (K_j, V_j
+//     and K_j+1 in flight), 224 KB of the 227 KB a block may use.
+//     Registers of a consumer thread: dQ D / 2 (128 at D = 256), S and dP
+//     32 each, the dS fragments 16, under the 240 that setmaxnreg gives it.
 // ---------------------------------------------------------------------------
-constexpr int DQ_STAGES = 2;
+// Ring slots (D = 128: stages of a K, V pair; D = 256: single tiles) and
+// the tiles they hold.
 template <int D>
-constexpr int SMEM_DQ = 1024 + 4 * TILE<D> + DQ_STAGES * 2 * TILE<D> +
-                        8 * (1 + 2 * DQ_STAGES);
+constexpr int DQ_RING = D == 128 ? 2 : 3;
+template <int D>
+constexpr int DQ_RING_TILES = D == 128 ? 4 : 3;
+template <int D>
+constexpr int SMEM_DQ = 1024 + 4 * TILE<D> + DQ_RING_TILES<D> * TILE<D> +
+                        8 * (1 + 2 * DQ_RING<D>);
 
 template <typename E, int D>
 __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
@@ -406,16 +425,17 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
     const float* __restrict__ delta, E* __restrict__ dq, int H, int Hkv,
     int Sq, int Sk, int causal, int q_offset, float scale) {
-  static_assert(D == 128, "the wgmma dQ kernel takes head_dim 128");
   using namespace hopper;
+  constexpr int NO = D / 128;                              // dQ accumulators
+  constexpr int R = DQ_RING<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);               // 2 tiles
   unsigned char* sdO = sQ + 2 * TILE<D>;                  // 2 tiles
-  unsigned char* sKV = sdO + 2 * TILE<D>;                 // stage s: K, V
+  unsigned char* sRing = sdO + 2 * TILE<D>;               // the ring
   uint64_t* qdo_full =
-      reinterpret_cast<uint64_t*>(sKV + DQ_STAGES * 2 * TILE<D>);
-  uint64_t* kv_full = qdo_full + 1;
-  uint64_t* kv_empty = kv_full + DQ_STAGES;
+      reinterpret_cast<uint64_t*>(sRing + DQ_RING_TILES<D> * TILE<D>);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + R;
 
   const int nqt = n_tiles(Sq), nkt = n_tiles(Sk);
   const QPair w = q_pair(nqt, H);
@@ -425,9 +445,9 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
 
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
-    for (int s = 0; s < DQ_STAGES; ++s) {
-      mbar_init(&kv_full[s], 1);
-      mbar_init(&kv_empty[s], CONSUMER_WARPS);
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
     mbar_init_fence();
   }
@@ -435,7 +455,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
-    // Producer: Q and dO once, then K and V tile by tile through the ring.
+    // Producer: Q and dO once, then K and V through the ring.
     reg_dealloc<24>();
     if (threadIdx.x == 256) {
       mbar_expect_tx(qdo_full, 2 * tiles_here * TILE<D>);
@@ -445,8 +465,17 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
         tma_load_tile<D>(sdO + g * TILE<D>, &domap, qdo_full, h,
                          (2 * c + g) * T, b);
       }
-      stream_kv<D>(sKV, kv_full, kv_empty, DQ_STAGES, &kmap, &vmap, nk, hk,
-                   b);
+      if (D == 128) {
+        stream_kv<D>(sRing, full, empty, R, &kmap, &vmap, nk, hk, b);
+      } else {
+        for (int n = 0; n < 2 * nk; ++n) {
+          const int s = n % R, use = n / R;
+          if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+          mbar_expect_tx(&full[s], TILE<D>);
+          tma_load_tile<D>(sRing + s * TILE<D>, n % 2 ? &vmap : &kmap,
+                           &full[s], hk, n / 2 * T, b);
+        }
+      }
     }
   } else {
     reg_alloc<240>();
@@ -472,23 +501,47 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
       }
     }
 
-    float acc[64];
+    float acc[NO][64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[n][i] = 0.0f;
 
     mbar_wait(qdo_full, 0);
     for (int j = 0; j < nk; ++j) {
-      const int s = j % DQ_STAGES;
-      mbar_wait(&kv_full[s], (j / DQ_STAGES) & 1);
-      if (j < my_nk) {
-        const unsigned char* sK = sKV + s * 2 * TILE<D>;
-        const unsigned char* sV = sK + TILE<D>;
-        float sc[32], dp[32];
+      // The slots and barrier phases of K_j and V_j (one pair stage at
+      // D = 128).
+      const int sk = D == 128 ? j % R : (2 * j) % R;
+      const int sv = D == 128 ? sk : (2 * j + 1) % R;
+      const uint32_t pk = (D == 128 ? j / R : (2 * j) / R) & 1;
+      const uint32_t pv = (D == 128 ? j / R : (2 * j + 1) / R) & 1;
+      const unsigned char* sK =
+          sRing + (D == 128 ? 2 * sk : sk) * TILE<D>;
+      const unsigned char* sV =
+          D == 128 ? sK + TILE<D> : sRing + sv * TILE<D>;
+      const bool mine = j < my_nk;
+      float sc[32], dp[32];
+      // At D = 256, S is issued while V_j may still be landing (its slot
+      // was freed only by the previous tile's dQ); at D = 128 both tiles
+      // come on one barrier, and S and dP go out as one group.
+      mbar_wait(&full[sk], pk);
+      if (D > 128 && mine) {
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
           wgmma_m64n64k16_ss<E>(sc, desc_kmajor(myQ, kk), desc_kmajor(sK, kk),
                                 kk > 0);
+        wgmma_commit();
+      }
+      if (D > 128) mbar_wait(&full[sv], pv);
+      if (mine) {
+        wgmma_fence();
+        if (D == 128) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_m64n64k16_ss<E>(sc, desc_kmajor(myQ, kk),
+                                  desc_kmajor(sK, kk), kk > 0);
+        }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
           wgmma_m64n64k16_ss<E>(dp, desc_kmajor(mydO, kk), desc_kmajor(sV, kk),
@@ -497,7 +550,12 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
         wgmma_wait_all();
         reg_fence(sc);
         reg_fence(dp);
-
+      }
+      if (D > 128) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[sv]);  // V_j done
+      }
+      if (mine) {
         // Scale, mask (diagonal tiles and a partial last k tile only, a
         // uniform branch), P and dS; dS overwrites S.
         const bool diag = causal && j * T + T - 1 > iq * T + q_offset;
@@ -519,25 +577,31 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
           sc[i] = p * (dp[i] - row_delta[r]) * scale;
         }
 
-        // dQ += dS K, dS as register fragments of E.
+        // dQ += dS K, dS as register fragments of E, 128 columns a wgmma.
         uint32_t da[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) frag_a<E>(da[kk], sc, kk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k16_rs<E>(acc, da[kk], desc_nmajor(sK, kk));
+#pragma unroll
+          for (int n = 0; n < NO; ++n)
+            wgmma_m64n128k16_rs<E>(
+                acc[n], da[kk], desc_nmajor(sK + 2 * n * PANEL_BYTES, kk));
         wgmma_commit();
         wgmma_wait_all();
-        reg_fence(acc);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) reg_fence(acc[n]);
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(&kv_empty[s]);
+      if (lane == 0) mbar_arrive(&empty[sk]);  // K_j (D = 128: and V_j) done
     }
     if (!active) return;
-    store_acc<E>(dq + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
-                     static_cast<int64_t>(h) * D,
-                 acc, H * D, Sq - iq * T, warp, lane);
+    E* dst = dq + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
+             static_cast<int64_t>(h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store_acc<E>(dst + 128 * n, acc[n], H * D, Sq - iq * T, warp, lane);
   }
 }
 
@@ -1014,13 +1078,12 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
 }
 
 static_assert(SMEM_FWD<128> <= 232448 && SMEM_FWD<256> <= 232448 &&
-                  SMEM_DQ<128> <= 232448 && SMEM_DKV<128> <= 232448 &&
-                  SMEM_DKV<256> <= 232448,
+                  SMEM_DQ<128> <= 232448 && SMEM_DQ<256> <= 232448 &&
+                  SMEM_DKV<128> <= 232448 && SMEM_DKV<256> <= 232448,
               "shared memory over the 227 KB a block can use");
 
 // Element types of the C entries' `dtype` argument (the Python wrapper's
-// codes): 0 bf16, 1 fp16. head_dim: 128 or 256 for the forward and dK/dV,
-// 128 for dQ.
+// codes): 0 bf16, 1 fp16. head_dim: 128 or 256.
 enum { DT_BF16 = 0, DT_FP16 = 1 };
 
 template <typename K>
@@ -1113,7 +1176,8 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb,
              int do_ss, int do_sh, int causal, int q_offset, float scale,
              int dtype, int head_dim, void* stream) {
-  if (head_dim != 128 || (dtype != DT_BF16 && dtype != DT_FP16))
+  if ((head_dim != 128 && head_dim != 256) ||
+      (dtype != DT_BF16 && dtype != DT_FP16))
     return (int)cudaErrorInvalidValue;
   const bool f16 = dtype == DT_FP16;
   const int d = head_dim;
@@ -1128,13 +1192,8 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
       (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, d, do_sb, do_ss,
                                   do_sh, f16)))
     return -static_cast<int>(rc);
-  if (f16)
-    return launch_dq<__half, 128>(
-        qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq, Sk, causal, q_offset,
-        scale, (cudaStream_t)stream);
-  return launch_dq<__nv_bfloat16, 128>(
-      qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq, Sk, causal, q_offset,
-      scale, (cudaStream_t)stream);
+  WGMMA_CASES(launch_dq, (qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq, Sk,
+                          causal, q_offset, scale, (cudaStream_t)stream))
 }
 
 int flash_dkv(const void* q, const void* k, const void* v, const void* dout,

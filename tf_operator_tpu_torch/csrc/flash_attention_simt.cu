@@ -1,8 +1,10 @@
 // Flash attention for Hopper (sm_90a), SIMT kernels: forward, dQ and dK/dV
-// for the cases of the TPU kernels' domain that the wgmma kernels of
-// flash_attention.cu do not take: f32 inputs at head_dim 128, 256, 384 and
-// 512, bf16 or fp16 inputs at head_dim 384 and 512, and the dQ of bf16 or
-// fp16 inputs at head_dim 256.
+// for the cases of the TPU kernels' domain that the tensor-core kernels do
+// not take yet: the forward and dQ of f32 inputs at head_dim 128, 256, 384
+// and 512, and all three kernels of bf16 or fp16 inputs at head_dim 384 and
+// 512. (bf16 and fp16 at 128 and 256 are the wgmma kernels' of
+// flash_attention.cu; the f32 dK/dV is the 3xTF32 kernel's of
+// flash_attention_f32tc.cu.)
 //
 // Replaces, for those cases, the three Pallas TPU kernels of
 // tf_operator_tpu/ops/flash_attention.py:
@@ -20,13 +22,15 @@
 // asks for multiples of 8): rows past the end load as zeros, keys past Sk
 // score -1e30, and rows past the end are never stored.
 //
-// Why SIMT f32 FMA, not tensor cores: wgmma takes no f32 operands, and
-// TF32 keeps about three decimal digits where the f32 kernels must hold
-// the JAX package's 2e-5 (its f32 flash tests); the port's plain versions
-// also run with TF32 off. So every product is an f32 fmaf. The wide bf16
-// and fp16 cases the wgmma kernels do not take yet use the same kernels:
-// their products are exact in f32, so the results are those of a
-// tensor-core product with f32 sums.
+// Why SIMT f32 FMA: wgmma takes no f32 operands, and one TF32 product
+// keeps about three decimal digits where the f32 kernels must hold the
+// JAX package's 2e-5 (its f32 flash tests); the port's plain versions
+// also run with TF32 off. Tensor cores can still reach f32's accuracy by
+// splitting each operand into two TF32 parts (3xTF32), as the f32 dK/dV of
+// flash_attention_f32tc.cu does; the forward and dQ here are queued for
+// the same. Until then every product is an f32 fmaf. The wide bf16 and
+// fp16 cases use the same kernels: their products are exact in f32, so
+// the results are those of a tensor-core product with f32 sums.
 //
 // What bounds them on the card: f32 FMA, 67 TFLOP/s on an H100 SXM
 // without tensor cores. Each (64 x 64) tile product reads its two operand
@@ -385,7 +389,7 @@ __global__ void __launch_bounds__(NT) flash_dq_simt_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dK/dV. Replaces _dkv_kernel for f32 and wide D. One CTA owns
+// Backward, dK/dV. Replaces _dkv_kernel for bf16 and fp16 at wide D. One CTA owns
 // 32 keys of one KV head and walks every (GQA member, visible q tile of 64
 // rows) item in order. Per item: S^T = K Q^T and dP^T = V dO^T over the
 // chunks (K^T/V^T chunks in sK, Q^T/dO^T in sQ), P^T = exp(S^T - lse) and
@@ -537,27 +541,18 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// The instantiation for (dtype, head_dim): f32 at 128-512, bf16 and fp16
-// at 384-512, and (WIDE256) bf16 and fp16 at 256. bf16 and fp16 at 128 are
-// the wgmma kernels' cases, and so are the forward and dK/dV at 256: only
-// dQ takes WIDE256 here.
-#define SIMT_CASES(L, WIDE)                              \
-  switch (dtype * 1024 + head_dim) {                     \
-    case DT_F32 * 1024 + 128: return L<float, 128>(a);   \
-    case DT_F32 * 1024 + 256: return L<float, 256>(a);   \
-    case DT_F32 * 1024 + 384: return L<float, 384>(a);   \
-    case DT_F32 * 1024 + 512: return L<float, 512>(a);   \
-    WIDE(L)                                              \
-    case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384>(a); \
-    case DT_BF16 * 1024 + 512: return L<__nv_bfloat16, 512>(a); \
-    case DT_FP16 * 1024 + 384: return L<__half, 384>(a); \
-    case DT_FP16 * 1024 + 512: return L<__half, 512>(a); \
-  }                                                      \
-  return (int)cudaErrorInvalidValue;
-#define WIDE256(L)                                             \
-  case DT_BF16 * 1024 + 256: return L<__nv_bfloat16, 256>(a); \
-  case DT_FP16 * 1024 + 256: return L<__half, 256>(a);
-#define NO_WIDE256(L)
+// The instantiations for (dtype, head_dim): f32 at 128-512 (forward and
+// dQ) and bf16 and fp16 at 384-512 (all three).
+#define F32_CASES(L)                                    \
+  case DT_F32 * 1024 + 128: return L<float, 128>(a);   \
+  case DT_F32 * 1024 + 256: return L<float, 256>(a);   \
+  case DT_F32 * 1024 + 384: return L<float, 384>(a);   \
+  case DT_F32 * 1024 + 512: return L<float, 512>(a);
+#define WIDE_CASES(L)                                          \
+  case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384>(a); \
+  case DT_BF16 * 1024 + 512: return L<__nv_bfloat16, 512>(a); \
+  case DT_FP16 * 1024 + 384: return L<__half, 384>(a);        \
+  case DT_FP16 * 1024 + 512: return L<__half, 512>(a);
 
 }  // namespace
 
@@ -571,7 +566,11 @@ int flash_fwd_simt(const void* q, const void* k, const void* v, void* out,
   const Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, B, H, Hkv,
                Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                0, 0, 0, causal, q_offset, scale, (cudaStream_t)stream};
-  SIMT_CASES(launch_fwd, NO_WIDE256)
+  switch (dtype * 1024 + head_dim) {
+    F32_CASES(launch_fwd)
+    WIDE_CASES(launch_fwd)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int flash_dq_simt(const void* q, const void* k, const void* v,
@@ -584,7 +583,11 @@ int flash_dq_simt(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, H, Hkv, Sq, Sk,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
                do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
-  SIMT_CASES(launch_dq, WIDE256)
+  switch (dtype * 1024 + head_dim) {
+    F32_CASES(launch_dq)
+    WIDE_CASES(launch_dq)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int flash_dkv_simt(const void* q, const void* k, const void* v,
@@ -597,7 +600,10 @@ int flash_dkv_simt(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
                do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
-  SIMT_CASES(launch_dkv, NO_WIDE256)
+  switch (dtype * 1024 + head_dim) {
+    WIDE_CASES(launch_dkv)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

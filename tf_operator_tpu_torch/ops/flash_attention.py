@@ -5,19 +5,23 @@ kernels (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) become CUDA
 kernels built for ``sm_90a`` and bound by ctypes (``ops/_build.py``), over
 the TPU kernels' whole domain (``flash_supported``: sequences of any
 multiple of 8 from 8 up, head_dim 128, 256, 384 or 512, bf16, fp16 or
-f32), in two families picked per kernel by (kind, dtype, head_dim)
+f32), in three families picked per kernel by (kind, dtype, head_dim)
 (``kernel_suffix``):
 
 - bf16 and fp16 at head_dim 128, the training step's case: the wgmma/TMA
   kernels of ``csrc/flash_attention.cu`` (launch keys ``flash_fwd``,
-  ``flash_dq``, ``flash_dkv``), and the forward and dK/dV of that file at
-  head_dim 256 (``flash_fwd_d256``, ``flash_dkv_d256``);
-- everything else -- f32 at every head_dim, bf16/fp16 at 384-512, and
-  the dQ of bf16/fp16 at 256: the SIMT (f32 FMA) kernels of
+  ``flash_dq``, ``flash_dkv``), and the same kernels at head_dim 256
+  (``flash_fwd_d256``, ``flash_dq_d256``, ``flash_dkv_d256``);
+- the f32 dK/dV at every head_dim: the tensor-core kernel of
+  ``csrc/flash_attention_f32tc.cu`` (``flash_dkv_f32tc``), whose products
+  are 3xTF32 (each f32 operand split into two TF32 parts), within f32's
+  limits;
+- everything else -- the f32 forward and dQ at every head_dim, bf16/fp16
+  at 384-512: the SIMT (f32 FMA) kernels of
   ``csrc/flash_attention_simt.cu`` (``flash_fwd_simt``,
-  ``flash_dq_simt``, ``flash_dkv_simt``). f32 stays f32 there: no TF32.
+  ``flash_dq_simt``, ``flash_dkv_simt``).
 
-Both mask ragged sequence edges in the kernel. The forward is the custom op
+All three mask ragged sequence edges in the kernel. The forward is the custom op
 ``tf_operator_tpu_torch::flash_fwd`` returning ``(out, lse)``; its autograd
 formula saves ``(q, k, v, out, lse)`` and launches the dQ and dK/dV
 kernels, recomputing ``P = exp(S - lse)`` as the TPU kernels do, so no
@@ -82,12 +86,14 @@ MAX_HEAD_DIM = 512
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # The library of each kernel family (by the suffix of its C entries).
-_LIBRARY = {"": "flash_attention", "_simt": "flash_attention_simt"}
+_LIBRARY = {"": "flash_attention", "_simt": "flash_attention_simt",
+            "_f32tc": "flash_attention_f32tc"}
 # Launch-key suffix of each variant -> its family, and the kinds it has:
-# "_d256" is the wgmma family at head_dim 256 (forward and dK/dV).
-_FAMILY = {"": "", "_d256": "", "_simt": "_simt"}
-_KINDS = {"": ("fwd", "dq", "dkv"), "_d256": ("fwd", "dkv"),
-          "_simt": ("fwd", "dq", "dkv")}
+# "_d256" is the wgmma family at head_dim 256, "_f32tc" the f32 dK/dV on
+# tensor cores.
+_FAMILY = {"": "", "_d256": "", "_simt": "_simt", "_f32tc": "_f32tc"}
+_KINDS = {"": ("fwd", "dq", "dkv"), "_d256": ("fwd", "dq", "dkv"),
+          "_simt": ("fwd", "dq", "dkv"), "_f32tc": ("dkv",)}
 
 # Launches of each kernel, counted by the wrapper where it launches it.
 LAUNCHES: Dict[str, int] = {
@@ -103,12 +109,14 @@ def reset_launches() -> None:
 def kernel_suffix(kind: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that runs ``kind`` ("fwd", "dq" or "dkv") for (dtype,
     head_dim) in the domain, as the suffix of its launch key: "" for the
-    wgmma kernels at head_dim 128 (bf16 and fp16), "_d256" for the wgmma
-    forward and dK/dV at 256, "_simt" for every other case."""
+    wgmma kernels at head_dim 128 (bf16 and fp16), "_d256" for them at 256,
+    "_f32tc" for the f32 dK/dV, "_simt" for every other case."""
+    if dtype == torch.float32 and kind in _KINDS["_f32tc"]:
+        return "_f32tc"
     if dtype in (torch.bfloat16, torch.float16):
         if head_dim == 128:
             return ""
-        if head_dim == 256 and kind in _KINDS["_d256"]:
+        if head_dim == 256:
             return "_d256"
     return "_simt"
 
@@ -233,11 +241,12 @@ _ARGTYPES = {
 
 
 def _lib(family: str = "") -> ctypes.CDLL:
-    """The built library of one kernel family, its entries typed."""
+    """The built library of one kernel family, the entries of its own
+    kinds typed."""
     lib = _build.load(_LIBRARY[family])
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name + family)
-        fn.argtypes = argtypes
+    for kind in _KINDS[family]:
+        fn = getattr(lib, f"flash_{kind}{family}")
+        fn.argtypes = _ARGTYPES[f"flash_{kind}"]
         fn.restype = ctypes.c_int
     return lib
 
