@@ -160,12 +160,16 @@ def test_flash_supported_gate():
 
 # The kernel of each (kind, dtype, head_dim) of the domain, by launch-key
 # suffix: the wgmma kernels for bf16/fp16 at 128 and at 256 ("_d256"), all
-# three kinds; the 3xTF32 tensor-core kernel for the f32 dK/dV at every
-# head_dim ("_f32tc"); the SIMT kernels everywhere else.
+# three kinds, and their dK/dV at 384 and 512 ("_d384", "_d512"); the
+# 3xTF32 tensor-core kernels for the f32 dQ and dK/dV at every head_dim
+# ("_f32tc"); the SIMT kernels everywhere else.
 WGMMA = {(kind, dtype, d): "" if d == 128 else "_d256"
          for kind in ("fwd", "dq", "dkv")
          for dtype in ("bfloat16", "float16") for d in (128, 256)}
-WGMMA.update({("dkv", "float32", d): "_f32tc" for d in (128, 256, 384, 512)})
+WGMMA.update({("dkv", dtype, d): f"_d{d}"
+              for dtype in ("bfloat16", "float16") for d in (384, 512)})
+WGMMA.update({(kind, "float32", d): "_f32tc" for kind in ("dq", "dkv")
+              for d in (128, 256, 384, 512)})
 
 
 @pytest.mark.parametrize("d", [128, 256, 384, 512])
@@ -214,18 +218,43 @@ def test_launch_counters_reset():
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_fwd_d256": 0, "flash_dq_d256": 0,
-                            "flash_dkv_d256": 0, "flash_fwd_simt": 0,
-                            "flash_dq_simt": 0, "flash_dkv_simt": 0,
+                            "flash_dkv_d256": 0, "flash_dkv_d384": 0,
+                            "flash_dkv_d512": 0, "flash_fwd_simt": 0,
+                            "flash_dq_simt": 0, "flash_dq_f32tc": 0,
                             "flash_dkv_f32tc": 0}
+
+
+# (launch-key suffix, batch, k_seq, kv_heads, SMs) -> splits
+DKV_SPLITS = {
+    ("_d512", 1, 2048, 8, 132): 1,   # 256 CTAs: the card is full
+    ("_d512", 1, 2048, 4, 132): 1,   # 128 CTAs
+    ("_d512", 1, 2048, 2, 132): 2,   # d512_train's heads: 64 CTAs
+    ("_d384", 1, 2000, 2, 132): 2,   # 16 tile pairs, the last a single
+    ("_d512", 1, 200, 8, 132): 4,    # 32 CTAs, capped at MAX_DKV_SPLITS
+    ("_d384", 2, 8, 1, 132): 4,
+    ("_d512", 1, 2048, 2, 64): 1,    # a smaller card
+    ("_d256", 1, 200, 1, 132): 1,    # other kernels never split
+    ("_f32tc", 1, 200, 1, 132): 1,
+    ("", 1, 2048, 2, 132): 1,
+}
+
+
+@pytest.mark.parametrize("args", sorted(DKV_SPLITS))
+def test_dkv_splits(args):
+    """The wide wgmma dK/dV splits its GQA items over as many CTAs as keep
+    its grid (2 column halves a pair of 64-key tiles, KV head and batch)
+    within the card, up to MAX_DKV_SPLITS; no other kernel splits."""
+    assert tfa.dkv_splits(*args) == DKV_SPLITS[args]
+    assert 1 <= DKV_SPLITS[args] <= tfa.MAX_DKV_SPLITS
 
 
 @pytest.mark.parametrize("family", sorted(tfa._LIBRARY))
 def test_lib_types_only_the_family_s_own_kinds(family, monkeypatch):
     """_lib looks up and types the C entries of the family's own kinds
-    only: the "_f32tc" library has a dK/dV entry and nothing else, so
-    asking it for a forward would fail. A stub stands in for the built
-    library (no card, no nvcc): like a ctypes.CDLL it raises
-    AttributeError for an entry it lacks."""
+    only: the "_f32tc" library has a dQ and a dK/dV entry and no forward,
+    the "_simt" one no dK/dV, so asking either for one would fail. A stub
+    stands in for the built library (no card, no nvcc): like a ctypes.CDLL
+    it raises AttributeError for an entry it lacks."""
     own = [f"flash_{kind}{family}" for kind in tfa._KINDS[family]]
 
     class StubLib:

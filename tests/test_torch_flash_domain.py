@@ -175,6 +175,8 @@ PERTURBED_CASES = {
     "f32_ragged_noncausal": (200, 200, False, 0, torch.float32, 128),
     "f32_512": (200, 200, False, 0, torch.float32, 512),
     "bf16_256": (136, 136, True, 0, torch.bfloat16, 256),
+    "bf16_384_q_offset": (72, 200, True, 128, torch.bfloat16, 384),
+    "fp16_512": (136, 136, True, 0, torch.float16, 512),
 }
 
 
@@ -184,9 +186,11 @@ def test_kernel_check_rejects_domain_perturbations(case):
     the plain outputs and rejects each perturbation of the domain's edges
     that applies (the partial last k tile dropped, rows past the last full
     q tile left as zeros, scores from the first 128 of head_dim, head_dim
-    columns 128-255 left as zeros or copied from columns 0-127, TF32 in
-    place of f32, and in f32 P^T and dS^T rounded to TF32 before dV and dK)
-    through at least one output it changes."""
+    columns 128-255 left as zeros or copied from columns 0-127, at head_dim
+    384-512 the dK/dV's last 128 columns left as zeros or copied from
+    columns 0-127, TF32 in place of f32, and in f32 P^T and dS^T rounded to
+    TF32 before dV and dK and dS before dQ) through at least one output it
+    changes."""
     sq, sk, causal, q_offset, dtype, d = PERTURBED_CASES[case]
     gen = torch.Generator().manual_seed(0)
     q, k, v, do = ((torch.randn(1, s, h, d, generator=gen) * 0.5).to(dtype)
@@ -211,6 +215,8 @@ def test_kernel_check_rejects_domain_perturbations(case):
     if d > 128:
         expect |= {"scores_from_first_128_of_d", "d_cols_128_255_zero",
                    "d_cols_128_255_from_cols_0_127"}
+    if d > 256:
+        expect |= {"d_cols_last_128_zero", "d_cols_last_128_from_cols_0_127"}
     if dtype == torch.float32:
         expect |= {"tf32", "tf32_register_operands"}
     assert set(wrong) == expect

@@ -1,11 +1,13 @@
-"""The 3xTF32 arithmetic of the f32 dK/dV kernel, emulated on the CPU.
+"""The 3xTF32 arithmetic of the f32 dK/dV and dQ kernels, emulated on the
+CPU.
 
-``csrc/flash_attention_f32tc.cu`` does every product of the f32 dK/dV on
-TF32 tensor cores: each f32 operand x is split into hi = tf32(x) and
-lo = tf32(x - hi), and a product is lo.hi + hi.lo + hi.hi with f32 sums.
-The loaded operands (K, V, Q, dO) and the computed ones (P^T, dS^T) are
-split alike. Here each such product runs as f32 einsums of TF32-rounded
-parts: a product of two TF32 values is exact in f32.
+``csrc/flash_attention_f32tc.cu`` does every product of the f32 dK/dV and
+dQ on TF32 tensor cores: each f32 operand x is split into hi = tf32(x)
+and lo = tf32(x - hi), and a product is lo.hi + hi.lo + hi.hi with f32
+sums. The loaded operands (K, V, Q, dO) and the computed ones (P^T and
+dS^T in the dK/dV, dS in the dQ) are split alike. Here each such product
+runs as f32 einsums of TF32-rounded parts: a product of two TF32 values
+is exact in f32.
 
 What this covers is the operand split, not the accumulator. The sums here
 are ordinary f32 einsums, rounded to nearest. The tensor cores' f32
@@ -16,10 +18,11 @@ chip_smoke.py holds the kernel to the f32 limits of the f32 plain version
 and of a float64 version.
 
 The case is f32, D=512, S=256, GQA 4:1, causal, made from a seed with
-numpy. dK and dV are held, with chip_smoke.py's check at the f32 limits
-(1e-5), to chip_smoke.py's float64 version. The 3xTF32 scheme must pass.
-1xTF32 (hi.hi alone) must fail, and so must 3xTF32 that splits only the
-loaded operands and leaves P^T and dS^T in TF32.
+numpy. dK and dV, and dQ, are held, with chip_smoke.py's check at the f32
+limits (1e-5), to chip_smoke.py's float64 versions. The 3xTF32 scheme
+must pass. 1xTF32 (hi.hi alone) must fail, and so must 3xTF32 that splits
+only the loaded operands and leaves the computed ones (P^T and dS^T, or
+dS) in TF32.
 """
 
 import importlib.util
@@ -90,6 +93,27 @@ def dkv(q, k, v, do, lse, delta, product):
     return dk, dv
 
 
+def dq(q, k, v, do, lse, delta, product):
+    """dQ of the TPU _dq_kernel (causal, q_offset 0), every product through
+    ``product(eq, a, b, register_operand)``: S = Q K^T, dP = dO V^T, then
+    dQ = dS K with dS the register operand. Works in q's dtype."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, d)
+    dog = do.reshape(b, s, hkv, h // hkv, d)
+    lse = lse.reshape(b, hkv, h // hkv, s, 1)
+    delta = delta.reshape(b, hkv, h // hkv, s, 1)
+    scale = d ** -0.5
+    st = product("bqkgd,btkd->bkgqt", qg, k, False) * scale
+    queries = torch.arange(s)[:, None]
+    keys = torch.arange(s)[None, :]
+    st = st.masked_fill(queries < keys, NEG_INF)
+    p = torch.exp(st - lse)
+    dp = product("bqkgd,btkd->bkgqt", dog, v, False)
+    ds = p * (dp - delta) * scale
+    return product("bkgqt,btkd->bqkgd", ds, k, True).reshape(q.shape)
+
+
 # Scheme -> (the product of (eq, a, b, register operand), whether the f32
 # limits accept it).
 SCHEMES = {
@@ -137,3 +161,19 @@ def test_3xtf32_scheme_holds_f32_limits(case, scheme):
         else:
             assert result["ratio"] > 1, (name, result)
 
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_3xtf32_dq_scheme_holds_f32_limits(case, scheme):
+    """The f32 dQ kernel's 3xTF32 products give dQ within the f32 limits of
+    the float64 plain version; 1xTF32, or dS left in TF32 before dS K, do
+    not."""
+    q, k, v, do, lse, delta = case
+    want = smoke.dq_float64(q, k, v, lse, do, delta, True, 0)
+    product, accepted = SCHEMES[scheme]
+    got = dq(*(x.float() for x in (q, k, v, do, lse, delta)), product)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    result = smoke.check("dq", got, want, **smoke.limits(torch.float32))
+    if accepted:
+        assert result["ok"], result
+    else:
+        assert result["ratio"] > 1, result

@@ -13,8 +13,10 @@ to that output, relative L2 within 1e-2, and lse within 1e-3; f32 the
 same with 1e-5 for each. ``CASES`` are the wgmma kernels' bf16, head_dim
 128 cases at whole tiles; ``DOMAIN_CASES`` the rest of the TPU kernels'
 domain (ragged lengths, fp16, f32, head_dim 256-512; at 256 in bf16 and
-fp16 all three wgmma kernels, in f32 the SIMT forward and dQ beside the
-3xTF32 tensor-core dK/dV, ``flash_dkv_f32tc``).
+fp16 all three wgmma kernels, at 384-512 the SIMT forward and dQ beside
+the wgmma dK/dV, ``flash_dkv_d384``/``flash_dkv_d512``; in f32 the SIMT
+forward beside the 3xTF32 tensor-core dQ and dK/dV, ``flash_dq_f32tc``
+and ``flash_dkv_f32tc``).
 """
 
 import importlib.util
@@ -73,6 +75,11 @@ DOMAIN_CASES = {
     "fp16_256_odd_tiles": (2, 1088, 1088, 8, 2, True, 0, torch.float16, 256),
     "fp16_384": (1, 136, 256, 4, 2, True, 0, torch.float16, 384),
     "bf16_512_s8": (2, 8, 8, 4, 4, True, 0, torch.bfloat16, 512),
+    "bf16_512_causal_gqa_4_1": (1, 256, 256, 4, 1, True, 0, torch.bfloat16,
+                                512),
+    "fp16_384_q_offset": (1, 72, 200, 4, 2, True, 128, torch.float16, 384),
+    "bf16_512_unseen_k_tiles": (1, 512, 1024, 4, 1, True, 0, torch.bfloat16,
+                                512),
 }
 
 
@@ -166,10 +173,12 @@ def test_strided_inputs_read_through_strides(cuda):
         torch.testing.assert_close(g, w, atol=0, rtol=0, msg=name)
 
 
-def test_dq_is_deterministic(cuda):
-    """Two dQ launches on the same inputs give bitwise-identical results
-    (no atomics; every row is summed in a fixed k-tile order)."""
-    q, k, v, do = _inputs("odd_tiles", cuda)
+@pytest.mark.parametrize("case", ["odd_tiles", "f32_512_gqa_4_1"])
+def test_dq_is_deterministic(case, cuda):
+    """Two dQ launches on the same inputs (the wgmma kernel, the 3xTF32 f32
+    one) give bitwise-identical results (no atomics; every row is summed
+    in a fixed k-tile order)."""
+    q, k, v, do = _inputs(case, cuda)
     out, lse = tfa._fwd_reference(q, k, v, True, 0)
     delta = tfa._delta(out, do)
     first = tfa._dq_cuda(q, k, v, lse, do, delta, True, 0)
@@ -177,11 +186,13 @@ def test_dq_is_deterministic(cuda):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("case", ["f32_512_gqa_4_1", "bf16_256_causal_gqa_4_1"])
+@pytest.mark.parametrize("case", ["f32_512_gqa_4_1", "bf16_256_causal_gqa_4_1",
+                                  "bf16_512_causal_gqa_4_1"])
 def test_dkv_is_deterministic(case, cuda):
-    """Two dK/dV launches (the 3xTF32 f32 kernel, the wgmma D=256 one) give
-    bitwise-identical results: the GQA sum runs inside one CTA in a fixed
-    order."""
+    """Two dK/dV launches (the 3xTF32 f32 kernel, the wgmma D=256 and D=512
+    ones; at D=512 the GQA items are split over CTAs here, 4 splits on a
+    132-SM card) give bitwise-identical results: the GQA sum runs inside
+    one CTA, or its splits are added by one kernel, in a fixed order."""
     q, k, v, do = _inputs(case, cuda)
     out, lse = tfa._fwd_reference(q, k, v, True, 0)
     delta = tfa._delta(out, do)

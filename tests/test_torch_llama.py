@@ -6,8 +6,10 @@ vocab 512) in f32, B=2, S=128: the JAX side runs ``attention_impl="flash"``
 versions on the CPU). Logits agree within 1e-4, the loss and every
 parameter's gradient within 5e-4, bf16 logits within 2e-2. The same
 checks hold a head_dim-256 model (hidden 64, 2 heads over 1 KV head of
-256), whose attention on the card runs the wgmma forward and dK/dV at
-head_dim 256 and the SIMT dQ.
+256), whose attention on the card runs the wgmma kernels at head_dim 256,
+and the logits, loss and every gradient of a head_dim-512 one (hidden 64,
+2 heads over 1 KV head of 512: on the card the SIMT forward and dQ and
+the wgmma dK/dV at 512).
 """
 
 import dataclasses
@@ -34,6 +36,7 @@ FLASH = dict(vocab_size=512, hidden=256, n_layers=2, n_heads=2, n_kv_heads=1,
              remat=False, attention_impl="flash")
 B, S = 2, 128
 FLASH_D256 = dict(FLASH, hidden=64, head_dim=256, mlp_dim=128)
+FLASH_D512 = dict(FLASH, hidden=64, head_dim=512, mlp_dim=128)
 
 
 def configs(dtype="float32", **fields):
@@ -75,6 +78,11 @@ def flash_d256_f32():
     return build(FLASH_D256)
 
 
+@pytest.fixture(scope="module")
+def flash_d512_f32():
+    return build(FLASH_D512)
+
+
 def test_bridge_round_trips(flash_f32):
     _, params, tmodel = flash_f32
     back = llama_params_to_flax(tmodel.state_dict(), tmodel.cfg)
@@ -98,7 +106,8 @@ def test_bridge_raises_on_leftover_and_missing(flash_f32):
         llama_params_to_flax(state, tmodel.cfg)
 
 
-@pytest.mark.parametrize("which", ["flash", "flash_d256", "tiny_xla"])
+@pytest.mark.parametrize("which", ["flash", "flash_d256", "flash_d512",
+                                   "tiny_xla"])
 def test_logits_match_jax(which, request):
     jmodel, params, tmodel = (build(tiny_fields()) if which == "tiny_xla"
                               else request.getfixturevalue(which + "_f32"))
@@ -124,6 +133,10 @@ def test_loss_and_every_grad_match_jax(flash_f32):
 
 def test_head_dim_256_loss_and_every_grad_match_jax(flash_d256_f32):
     _check_loss_and_grads(flash_d256_f32)
+
+
+def test_head_dim_512_loss_and_every_grad_match_jax(flash_d512_f32):
+    _check_loss_and_grads(flash_d512_f32)
 
 
 def _check_loss_and_grads(models):

@@ -15,11 +15,11 @@
 // Tensors are read as [B, S, H, D] through their strides (no
 // transpose); head h reads KV head h / (H / Hkv) (native GQA). The kernels
 // are templates over the element type E, bf16 or fp16 (wgmma's bf16 and
-// f16 variants), and head_dim D, 128 or 256 (all three kernels at both).
-// The other cases of the domain go elsewhere: the f32 dK/dV to the 3xTF32
-// tensor-core kernel of flash_attention_f32tc.cu, the f32 forward and dQ
-// and every kernel at D of 384-512 to the SIMT kernels of
-// flash_attention_simt.cu.
+// f16 variants), and head_dim D: 128 or 256 for all three, 384 and 512 for
+// the dK/dV too. The other cases of the domain go elsewhere: the f32 dQ
+// and dK/dV to the 3xTF32 tensor-core kernels of flash_attention_f32tc.cu,
+// the f32 forward and the bf16/fp16 forward and dQ at D of 384-512 to the
+// SIMT kernels of flash_attention_simt.cu.
 //
 // Ragged sequences. Sq and Sk are any multiples of 8 (>= 8), tiled in 64
 // rows with a partial last tile. The tensor maps carry the real lengths,
@@ -45,15 +45,19 @@
 //     the CTA never calls __syncthreads after the barriers are set up.
 //   * Accumulators live in registers in wgmma's documented layout (each
 //     row on the 4 lanes of a quad), so the softmax statistics need only
-//     quad shuffles, P and dS become wgmma's register A operand (the D =
+//     quad shuffles, P and dS become wgmma's register A operand (the D >=
 //     256 dK/dV also hands P^T between its warpgroups through shared
-//     memory), and every accumulator is written once. A 64 x D output is D / 128 accumulators
-//     of 64 x 128 (64 registers a thread each), one wgmma m64n128k16 each.
+//     memory), and every accumulator is written once. A 64 x D output is
+//     D / 128 accumulators of 64 x 128 (64 registers a thread each), one
+//     wgmma m64n128k16 each; the D = 384-512 dK/dV's column slice is DC /
+//     64 accumulators of 64 x 64, one m64n64k16 each.
 //   * The tensor maps are built on the host in each C entry
 //     (cuTensorMapEncodeTiled looked up in libcuda, no -lcuda) and passed
 //     as __grid_constant__ parameters.
 //   * No atomics: every output element is summed inside one CTA in a fixed
-//     order, so the results are deterministic.
+//     order (at D = 384-512, where the GQA items of a key tile may be split
+//     over CTAs, their partial sums are added by a second kernel in split
+//     order), so the results are deterministic.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(), cudaErrorInvalidValue for a (dtype, head_dim) it was
@@ -102,20 +106,30 @@ __device__ __forceinline__ int acc_col(int i, int lane) {
   return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
 }
 
-// Write the first `rows` rows of a 64 x 128 f32 accumulator as rows of E
-// (128 columns from dst on, rows `row_stride` elements apart; rows past
-// the sequence's end are not stored).
-template <typename E>
-__device__ __forceinline__ void store_acc(E* dst, const float (&acc)[64],
+// Two neighbouring accumulator values stored as a pair of O: E (rounded)
+// or f32.
+template <typename O>
+__device__ __forceinline__ void store2(O* p, float a, float b) {
+  if constexpr (std::is_same<O, float>::value)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(p) = hopper::pack2<O>(a, b);
+}
+
+// Write the first `rows` rows of a 64 x (N / 2) f32 accumulator (N = 64:
+// 128 columns, N = 32: 64) as rows of O (the columns from dst on, rows
+// `row_stride` elements apart; rows past the sequence's end are not
+// stored).
+template <typename O, int N>
+__device__ __forceinline__ void store_acc(O* dst, const float (&acc)[N],
                                           int row_stride, int rows, int warp,
                                           int lane) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < N; i += 2) {
     const int r = acc_row(i, warp, lane);
     if (r < rows)
-      *reinterpret_cast<uint32_t*>(dst + static_cast<int64_t>(r) * row_stride +
-                                   acc_col(i, lane)) =
-          hopper::pack2<E>(acc[i], acc[i + 1]);
+      store2<O>(dst + static_cast<int64_t>(r) * row_stride + acc_col(i, lane),
+                acc[i], acc[i + 1]);
   }
 }
 
@@ -627,8 +641,9 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
 //     atomics). A k tile no query row sees gets zeros. A partial last q
 //     tile: its lse and delta are copied up to Sq only, and its query
 //     columns >= Sq get P = dS = 0.
-// The two head_dims split the work between the consumer warpgroups in two
-// ways, dkv_by_items (D = 128) and dkv_by_accumulator (D = 256).
+// The head_dims split the work between the consumer warpgroups in three
+// ways: dkv_by_items (D = 128), dkv_by_accumulator (D = 256) and
+// dkv_by_slice (D = 384, 512; each CTA one half of head_dim's columns).
 // ---------------------------------------------------------------------------
 
 // D = 128: items alternate between the two consumer warpgroups (two of
@@ -1055,8 +1070,318 @@ __device__ __forceinline__ void dkv_by_accumulator(
   }
 }
 
+// D = 384 and 512: split by output columns. dK and dV of 64 x D in f32
+// are 2 x 64 x D x 4 bytes, 256 KB at D = 512: the whole register file of
+// an SM. So a CTA owns one column slice [z DC, (z + 1) DC), DC = D / 2, of
+// both, and runs the D = 256 split by accumulator on it: warpgroup 0 owns
+// the dV slice, warpgroup 1 the dK slice (128 registers a thread at 512, 96
+// at 384), P^T goes across in shared memory as above.
+//   * The choice. Each slice's CTA still reduces S^T and dP^T over all of
+//     head_dim, so the two CTAs of a key block do 2 D + 2 DC = 3 D units
+//     of tensor work an item each, 1.5x the 4 D of one CTA that held it
+//     all; the bound (chip_smoke.py) counts no redundant work. DC = 128
+//     (four slices) costs 2.5x at D = 512, and a 2-CTA cluster summing
+//     partial S^T across its pair through distributed shared memory saves
+//     the 1.5x at the price of a cluster barrier an item.
+//   * Shared memory. K and V stay whole (2 x D / 8 KB: 128 KB at 512, 96
+//     at 384), which leaves no room for one item's Q and dO tiles (another
+//     128 KB at 512). So Q and dO stream in pairs of 64-column panels (Q
+//     panel c, dO panel c: 16 KB a slot) through a ring of SLICE_RING
+//     slots, D / 64 pairs an item: the panels outside the slice first
+//     (their slots freed as soon as S^T and dP^T have read them), then the
+//     slice's own, which stay in their slots for dV += P^T dO and dK +=
+//     dS^T Q (one wgmma m64n64k16 a panel and k-step) and are freed panel
+//     by panel after them. One wgmma group stays in flight: a slot is
+//     released once the next unit's group has been issued. Budget at 512:
+//     K, V 128 KB, 5 slots 80 KB, one P^T buffer 16 KB, lse and delta of 2
+//     items 1 KB, barriers, 1 KB of alignment: 226 KB; at 384: 96 + 6 x 16
+//     + 2 x 16 + 1 KB, 226 KB. The lse and delta of item n sit in buffer
+//     n % 2, loaded with its first panel pair: they are written again for
+//     item n + 2 only after every consumer has released a slot of item n +
+//     1 (SLICE_RING <= D / 64), so after it finished item n.
+//   * Grid fill. One CTA per (pair of key tiles, KV head, batch, slice):
+//     256 CTAs at Hkv = 8, S = 2048, but 64 at Hkv = 2. Where the grid
+//     would leave SMs idle the caller asks for `splits` > 1 (ops/
+//     flash_attention.py, dkv_splits): the CTA's GQA items t = s, s +
+//     splits, ... go to split s, each split writes its f32 partial dK and
+//     dV to a workspace, and flash_dkv_sum_kernel adds the splits in a
+//     fixed order (deterministic) and writes E. A split or a key tile with
+//     no item writes zeros, so unseen keys stay exact zeros.
 template <int D>
-constexpr int SMEM_DKV = D == 128 ? SMEM_DKV_ITEMS : SMEM_DKV_ACC;
+constexpr int DC = D / 2;                   // output columns of a slice
+template <int D>
+constexpr int SLICE_RING = D == 512 ? 5 : 6;
+template <int D>
+constexpr int SLICE_PBUF = D == 512 ? 1 : 2;   // P^T exchange buffers
+constexpr int PAIR_BYTES = 2 * hopper::PANEL_BYTES;  // Q panel, dO panel
+template <int D>
+constexpr int SMEM_DKV_SLICE = 1024 + 2 * TILE<D> +
+                               SLICE_RING<D> * PAIR_BYTES +
+                               SLICE_PBUF<D> * T * T * 4 + 2 * 2 * T * 4 +
+                               8 * (2 + 2 * SLICE_RING<D>);
+
+// The head_dim panel that reduction unit u (0 .. D / 64 - 1) of an item
+// reads in slice z: the panels outside the slice in order, then the
+// slice's own.
+template <int D>
+__device__ __forceinline__ int slice_panel(int u, int z) {
+  constexpr int NP = D / 64, NC = DC<D> / 64;
+  if (u >= NP - NC) return z * NC + u - (NP - NC);
+  return u < z * NC ? u : u + NC;
+}
+
+template <typename E, int D>
+__device__ __forceinline__ void dkv_by_slice(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* delta, E* dk, E* dv, float* ws, int splits, int H, int Hkv,
+    int Sq, int Sk, int causal, int q_offset, float scale) {
+  using namespace hopper;
+  constexpr int NP = D / 64, NC = DC<D> / 64;       // units, slice panels
+  constexpr int R = SLICE_RING<D>, NPB = SLICE_PBUF<D>;
+  static_assert(R <= NP && R >= NC, "slots: see the lse/delta buffers");
+  unsigned char* sK = align_1024(smem);
+  unsigned char* sV = sK + TILE<D>;
+  unsigned char* sRing = sV + TILE<D>;                     // R panel pairs
+  float* sP = reinterpret_cast<float*>(sRing + R * PAIR_BYTES);
+  float* sStat = sP + NPB * T * T;                         // 2 x lse, delta
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sStat + 2 * 2 * T);
+  uint64_t* kv_empty = kv_full + 1;
+  uint64_t* full = kv_empty + 1;
+  uint64_t* empty = full + R;
+
+  const int nqt = n_tiles(Sq), nkt = n_tiles(Sk), group = H / Hkv;
+  const int rest = gridDim.x / ((nkt + 1) / 2);     // Hkv * B * 2 * splits
+  const int pair = static_cast<int>(blockIdx.x) / rest;
+  const int r = static_cast<int>(blockIdx.x) % rest;
+  const int z = r % 2, split = r / 2 % splits;
+  const int hk = r / (2 * splits) % Hkv, b = r / (2 * splits * Hkv);
+  const int nb = rest / (2 * splits * Hkv);
+  const int n_jt = nkt - 1 - pair != pair ? 2 : 1;  // k tiles pair, nkt-1-pair
+  // Items of this split over both k tiles (both consumers take each).
+  int total = 0;
+  for (int u = 0; u < n_jt; ++u) {
+    const int j = u == 0 ? pair : nkt - 1 - pair;
+    const int items = group * max(nqt - first_q_tile(j, causal, q_offset), 0);
+    total += items > split ? (items - split + splits - 1) / splits : 0;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, CONSUMER_WARPS);
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: per k tile, K and V, then the split's items, each D / 64
+    // panel pairs (slice_panel order) through the ring, the first with the
+    // item's lse and delta.
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      int n = 0, unit = 0;
+      for (int u = 0; u < n_jt; ++u) {
+        const int j = u == 0 ? pair : nkt - 1 - pair;
+        if (u > 0) mbar_wait(kv_empty, (u - 1) & 1);
+        mbar_expect_tx(kv_full, 2 * TILE<D>);
+        tma_load_tile<D>(sK, kmap, kv_full, hk, j * T, b);
+        tma_load_tile<D>(sV, vmap, kv_full, hk, j * T, b);
+        const int i0 = first_q_tile(j, causal, q_offset);
+        const int nqv = max(nqt - i0, 0);
+        for (int t = split; t < group * nqv; t += splits, ++n) {
+          const int h = hk * group + t / nqv, i = i0 + t % nqv;
+          const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq + i * T;
+          // lse and delta up to Sq only (32-byte multiples, as above).
+          const uint32_t stat_bytes = min(T, Sq - i * T) * 4;
+          float* stat = sStat + (n & 1) * 2 * T;
+          for (int p = 0; p < NP; ++p, ++unit) {
+            const int s = unit % R, use = unit / R;
+            if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+            unsigned char* dst = sRing + s * PAIR_BYTES;
+            const int c0 = 64 * slice_panel<D>(p, z);
+            mbar_expect_tx(&full[s],
+                           PAIR_BYTES + (p == 0 ? 2 * stat_bytes : 0));
+            tma_load_panel(dst, qmap, &full[s], c0, h, i * T, b);
+            tma_load_panel(dst + PANEL_BYTES, domap, &full[s], c0, h, i * T,
+                           b);
+            if (p == 0) {
+              bulk_load(stat, lse + row, stat_bytes, &full[s]);
+              bulk_load(stat + T, delta + row, stat_bytes, &full[s]);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    // Warpgroup 0 reduces S^T = K Q^T and owns dV (B = dO); warpgroup 1
+    // reduces dP^T = V dO^T and owns dK (B = Q).
+    const unsigned char* sA = wg == 0 ? sK : sV;
+    const int red_off = wg == 0 ? 0 : PANEL_BYTES;         // Q or dO panel
+    const int out_off = wg == 0 ? PANEL_BYTES : 0;         // dO or Q panel
+    auto release = [&](int unit) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[unit % R]);
+    };
+    int n = 0, unit = 0;
+    for (int u = 0; u < n_jt; ++u) {
+      const int j = u == 0 ? pair : nkt - 1 - pair;
+      const int i0 = first_q_tile(j, causal, q_offset);
+      const int nqv = max(nqt - i0, 0);
+      float acc[NC][32];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[c][e] = 0.0f;
+
+      mbar_wait(kv_full, u & 1);
+      for (int t = split; t < group * nqv; t += splits, ++n, unit += NP) {
+        const int i = i0 + t % nqv;
+        const int queries = Sq - i * T;    // < T on a partial last q tile
+        const float* sLse = sStat + (n & 1) * 2 * T;
+        const float* sDelta = sLse + T;
+        float* pbuf = sP + (n % NPB) * T * T;
+        float x[32];
+        uint32_t a[4][4];
+        // S^T or dP^T over head_dim, a panel pair a unit.
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const int s = (unit + p) % R;
+          mbar_wait(&full[s], ((unit + p) / R) & 1);
+          const unsigned char* sB = sRing + s * PAIR_BYTES + red_off;
+          const int col = slice_panel<D>(p, z);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n64k16_ss<E>(x, desc_kmajor(sA, 4 * col + kk),
+                                  desc_kmajor(sB, kk), p > 0 || kk > 0);
+          wgmma_commit();
+          if (p > 0) {
+            wgmma_wait<1>();
+            if (p - 1 < NP - NC) release(unit + p - 1);
+          }
+        }
+        wgmma_wait_all();
+        reg_fence(x);
+        if (wg == 0) {
+          // P^T = exp(S^T scale - lse), masked to 0 (the causal mask on
+          // diagonal tiles, query columns past Sq).
+          const bool diag = causal && j * T + T - 1 > i * T + q_offset;
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int col = acc_col(e, lane);
+            float v = x[e] * scale;
+            if (diag &&
+                i * T + col + q_offset < j * T + acc_row(e, warp, lane))
+              v = NEG_INF;
+            x[e] = exp2f((v - sLse[col]) * LOG2E);
+          }
+          if (queries < T) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              if (acc_col(e, lane) >= queries) x[e] = 0.0f;
+          }
+          if (n >= NPB) named_sync(P_EMPTY + n % NPB, 256);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) pbuf[e * 128 + tid] = x[e];
+          named_arrive(P_FULL + n % NPB, 256);
+        } else {
+          // dS^T = P^T (dP^T - delta) scale with warpgroup 0's P^T; query
+          // columns past Sq read stale delta and get dS = 0.
+          named_sync(P_FULL + n % NPB, 256);
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            x[e] = pbuf[e * 128 + tid] * (x[e] - sDelta[acc_col(e, lane)]) *
+                   scale;
+          if (n + NPB < total) named_arrive(P_EMPTY + n % NPB, 256);
+          if (queries < T) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              if (acc_col(e, lane) >= queries) x[e] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) frag_a<E>(a[kk], x, kk);
+        // dV += P^T dO or dK += dS^T Q on the slice's panels, still in
+        // the last NC slots of the item.
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int p = NP - NC + c;
+          const unsigned char* sB =
+              sRing + (unit + p) % R * PAIR_BYTES + out_off;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n64k16_rs<E>(acc[c], a[kk], desc_nmajor(sB, kk));
+          wgmma_commit();
+          if (c > 0) {
+            wgmma_wait<1>();
+            release(unit + p - 1);
+          }
+        }
+        wgmma_wait_all();
+#pragma unroll
+        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        release(unit + NP - 1);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty);  // K, V free for the next tile
+
+      // The slice of dV (warpgroup 0) or dK: as E, or the split's f32
+      // partial sum into the workspace [2][splits][B, Sk, Hkv, D].
+      const int64_t at = (static_cast<int64_t>(b) * Sk + j * T) * Hkv * D +
+                         static_cast<int64_t>(hk) * D + z * DC<D>;
+      if (splits == 1) {
+        E* dst = (wg == 0 ? dv : dk) + at;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          store_acc<E>(dst + 64 * c, acc[c], Hkv * D, Sk - j * T, warp, lane);
+      } else {
+        const int64_t per = static_cast<int64_t>(nb) * Sk * Hkv * D;
+        float* dst = ws + (wg == 0 ? splits + split : split) * per + at;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          store_acc<float>(dst + 64 * c, acc[c], Hkv * D, Sk - j * T, warp,
+                           lane);
+      }
+    }
+  }
+}
+
+// dK and dV of a split dkv_by_slice run: element e of each is the sum of
+// its splits' partials in split order, rounded to E once.
+template <typename E>
+__global__ void __launch_bounds__(256) flash_dkv_sum_kernel(
+    const float* __restrict__ ws, E* __restrict__ dk, E* __restrict__ dv,
+    int64_t n, int splits) {
+  const int64_t pairs = n / 2;
+  for (int64_t w = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       w < 2 * pairs; w += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int o = w >= pairs;                       // 0: dK, 1: dV
+    const int64_t e = 2 * (w - o * pairs);
+    const float* src = ws + static_cast<int64_t>(o) * splits * n + e;
+    float x = 0.0f, y = 0.0f;
+    for (int s = 0; s < splits; ++s) {
+      const float2 v = *reinterpret_cast<const float2*>(src + s * n);
+      x += v.x;
+      y += v.y;
+    }
+    store2<E>((o ? dv : dk) + e, x, y);
+  }
+}
+
+template <int D>
+constexpr int SMEM_DKV = D == 128 ? SMEM_DKV_ITEMS
+                         : D == 256 ? SMEM_DKV_ACC
+                                    : SMEM_DKV_SLICE<D>;
 
 template <typename E, int D>
 __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
@@ -1065,25 +1390,30 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
     const __grid_constant__ CUtensorMap vmap,
     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
     const float* __restrict__ delta, E* __restrict__ dk,
-    E* __restrict__ dv, int H, int Hkv, int Sq, int Sk, int causal,
-    int q_offset, float scale) {
+    E* __restrict__ dv, float* __restrict__ ws, int splits, int H, int Hkv,
+    int Sq, int Sk, int causal, int q_offset, float scale) {
   extern __shared__ unsigned char smem_raw[];
   if constexpr (D == 128)
     dkv_by_items<E>(smem_raw, &qmap, &kmap, &vmap, &domap, lse, delta, dk, dv,
                     H, Hkv, Sq, Sk, causal, q_offset, scale);
-  else
+  else if constexpr (D == 256)
     dkv_by_accumulator<E, D>(smem_raw, &qmap, &kmap, &vmap, &domap, lse,
                              delta, dk, dv, H, Hkv, Sq, Sk, causal, q_offset,
                              scale);
+  else
+    dkv_by_slice<E, D>(smem_raw, &qmap, &kmap, &vmap, &domap, lse, delta, dk,
+                       dv, ws, splits, H, Hkv, Sq, Sk, causal, q_offset,
+                       scale);
 }
 
 static_assert(SMEM_FWD<128> <= 232448 && SMEM_FWD<256> <= 232448 &&
                   SMEM_DQ<128> <= 232448 && SMEM_DQ<256> <= 232448 &&
-                  SMEM_DKV<128> <= 232448 && SMEM_DKV<256> <= 232448,
+                  SMEM_DKV<128> <= 232448 && SMEM_DKV<256> <= 232448 &&
+                  SMEM_DKV<384> <= 232448 && SMEM_DKV<512> <= 232448,
               "shared memory over the 227 KB a block can use");
 
 // Element types of the C entries' `dtype` argument (the Python wrapper's
-// codes): 0 bf16, 1 fp16. head_dim: 128 or 256.
+// codes): 0 bf16, 1 fp16. head_dim: 128 or 256 (the dK/dV also 384, 512).
 enum { DT_BF16 = 0, DT_FP16 = 1 };
 
 template <typename K>
@@ -1119,17 +1449,28 @@ int launch_dq(const CUtensorMap& qm, const CUtensorMap& km,
   return (int)cudaGetLastError();
 }
 
+// D = 384, 512: two column slices a key-tile pair, times `splits` (whose
+// partial sums flash_dkv_sum_kernel then adds into dk and dv).
 template <typename E, int D>
 int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km,
                const CUtensorMap& vm, const CUtensorMap& dom, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int H, int Hkv,
-               int Sq, int Sk, int causal, int q_offset, float scale,
-               cudaStream_t stream) {
+               const void* delta, void* dk, void* dv, void* ws, int splits,
+               int B, int H, int Hkv, int Sq, int Sk, int causal,
+               int q_offset, float scale, cudaStream_t stream) {
+  if (D <= 256 ? splits != 1 : splits < 1 || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
   set_smem(flash_dkv_kernel<E, D>, SMEM_DKV<D>);
   const int npair = (n_tiles(Sk) + 1) / 2;
-  flash_dkv_kernel<E, D><<<npair * Hkv * B, NT_WS, SMEM_DKV<D>, stream>>>(
+  const int per_pair = Hkv * B * (D <= 256 ? 1 : 2 * splits);
+  flash_dkv_kernel<E, D><<<npair * per_pair, NT_WS, SMEM_DKV<D>, stream>>>(
       qm, km, vm, dom, (const float*)lse, (const float*)delta, (E*)dk, (E*)dv,
-      H, Hkv, Sq, Sk, causal, q_offset, scale);
+      (float*)ws, splits, H, Hkv, Sq, Sk, causal, q_offset, scale);
+  if (splits > 1) {
+    const int64_t n = static_cast<int64_t>(B) * Sk * Hkv * D;
+    const int blocks = n / 512 < 4096 ? static_cast<int>(n / 512) + 1 : 4096;
+    flash_dkv_sum_kernel<E><<<blocks, 256, 0, stream>>>(
+        (const float*)ws, (E*)dk, (E*)dv, n, splits);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1142,6 +1483,15 @@ int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km,
     case DT_FP16 * 1024 + 256: return L<__half, 256> ARGS;              \
   }                                                                     \
   return (int)cudaErrorInvalidValue;
+// ... and the dK/dV's wider ones.
+#define WGMMA_DKV_CASES(L, ARGS)                                        \
+  switch (dtype * 1024 + head_dim) {                                    \
+    case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384> ARGS;       \
+    case DT_FP16 * 1024 + 384: return L<__half, 384> ARGS;              \
+    case DT_BF16 * 1024 + 512: return L<__nv_bfloat16, 512> ARGS;       \
+    case DT_FP16 * 1024 + 512: return L<__half, 512> ARGS;              \
+  }                                                                     \
+  WGMMA_CASES(L, ARGS)
 
 }  // namespace
 
@@ -1196,13 +1546,16 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                           causal, q_offset, scale, (cudaStream_t)stream))
 }
 
+// workspace, splits: see dkv_by_slice (head_dim 384 and 512); 1 split and
+// no workspace below.
 int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dk, void* dv, int B,
               int H, int Hkv, int Sq, int Sk, int q_sb, int q_ss, int q_sh,
               int k_sb, int k_ss, int k_sh, int v_sb, int v_ss, int v_sh,
-              int do_sb, int do_ss, int do_sh, int causal, int q_offset,
-              float scale, int dtype, int head_dim, void* stream) {
-  if ((head_dim != 128 && head_dim != 256) ||
+              int do_sb, int do_ss, int do_sh, void* workspace, int splits,
+              int causal, int q_offset, float scale, int dtype, int head_dim,
+              void* stream) {
+  if ((head_dim % 128 != 0 || head_dim < 128 || head_dim > 512) ||
       (dtype != DT_BF16 && dtype != DT_FP16))
     return (int)cudaErrorInvalidValue;
   const bool f16 = dtype == DT_FP16;
@@ -1218,9 +1571,9 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
       (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, d, do_sb, do_ss,
                                   do_sh, f16)))
     return -static_cast<int>(rc);
-  WGMMA_CASES(launch_dkv, (qm, km, vm, dom, lse, delta, dk, dv, B, H, Hkv,
-                           Sq, Sk, causal, q_offset, scale,
-                           (cudaStream_t)stream))
+  WGMMA_DKV_CASES(launch_dkv, (qm, km, vm, dom, lse, delta, dk, dv,
+                               workspace, splits, B, H, Hkv, Sq, Sk, causal,
+                               q_offset, scale, (cudaStream_t)stream))
 }
 
 }  // extern "C"

@@ -1,22 +1,25 @@
-// Flash attention for Hopper (sm_90a): the dK/dV kernel of f32 inputs, on
-// tensor cores, at head_dim 128, 256, 384 and 512.
+// Flash attention for Hopper (sm_90a): the dK/dV and dQ kernels of f32
+// inputs, on tensor cores, at head_dim 128, 256, 384 and 512.
 //
-// Replaces, for f32 inputs, the Pallas TPU kernel _dkv_kernel of
-// tf_operator_tpu/ops/flash_attention.py (:207; launched by _bwd_impl,
-// pallas_call :289):
-//   flash_dkv_f32tc_kernel <- _dkv_kernel
+// Replace, for f32 inputs, the Pallas TPU kernels _dkv_kernel and
+// _dq_kernel of tf_operator_tpu/ops/flash_attention.py (launched by
+// _bwd_impl):
+//   flash_dkv_f32tc_kernel <- _dkv_kernel (:207, pallas_call :289)
+//   flash_dq_f32tc_kernel  <- _dq_kernel  (:183, pallas_call :261)
+// The dK/dV is described here, the dQ, which shares its machinery, at its
+// own definition below.
 //
-// It computes that kernel's function: for one KV head and a block of keys,
-// over every (GQA member, visible query tile) item, S^T = K Q^T and dP^T =
-// V dO^T (the head_dim reduced), P^T = exp(S^T scale - lse) with the causal
-// mask at the finite -1e30, dS^T = P^T (dP^T - delta) scale, then dV +=
-// P^T dO and dK += dS^T Q, summed over the GQA group inside the CTA in a
-// fixed order (no atomics: deterministic). No cast points in f32. Tensors
-// are read as [B, S, H, D] through their element strides; head h reads KV
-// head h / (H / Hkv). Ragged lengths (any multiple of 8): rows past Sq or
-// Sk load as zeros, query columns past Sq get P = dS = 0 (their lse and
-// delta are never read), key rows past Sk are never stored, and a key no
-// query row sees gets zeros.
+// The dK/dV computes _dkv_kernel's function: for one KV head and a block
+// of keys, over every (GQA member, visible query tile) item, S^T = K Q^T
+// and dP^T = V dO^T (the head_dim reduced), P^T = exp(S^T scale - lse)
+// with the causal mask at the finite -1e30, dS^T = P^T (dP^T - delta)
+// scale, then dV += P^T dO and dK += dS^T Q, summed over the GQA group
+// inside the CTA in a fixed order (no atomics: deterministic). No cast
+// points in f32. Tensors are read as [B, S, H, D] through their element
+// strides; head h reads KV head h / (H / Hkv). Ragged lengths (any
+// multiple of 8): rows past Sq or Sk load as zeros, query columns past Sq
+// get P = dS = 0 (their lse and delta are never read), key rows past Sk
+// are never stored, and a key no query row sees gets zeros.
 //
 // 3xTF32. A TF32 product keeps 10 mantissa bits of each operand, about
 // 1e-4 of a value, where the f32 kernels are held to 1e-5. So every f32
@@ -77,9 +80,9 @@
 //     (64 at D = 128 and 256, 96 at 384, 128 at 512), the tensor-core
 //     sums of a chunk or piece as many again at most, the split fragments.
 //
-// The extern "C" entry launches on the caller's stream and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a (dtype, head_dim) it
-// was not built for; the Python wrapper raises on any non-zero value.
+// The extern "C" entries launch on the caller's stream and return
+// cudaGetLastError(), or cudaErrorInvalidValue for a (dtype, head_dim) they
+// were not built for; the Python wrapper raises on any non-zero value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -450,13 +453,279 @@ __global__ void __launch_bounds__(NT, 1) flash_dkv_f32tc_kernel(
   }
 }
 
+// ---------------------------------------------------------------- dQ
+//
+// _dq_kernel's function for f32: S = Q K^T, P = exp(S scale - lse), dP =
+// dO V^T, dS = P (dP - delta) scale, dQ += dS K, every product 3xTF32 (Q,
+// K, V, dO and dS split alike) with short tensor-core sums, as above. Bound
+// by tensor-core operations: 3 x 6 D FLOPs per visible pair and head at
+// 494.7 TFLOP/s. Each dQ row is summed in one CTA in key order
+// (deterministic). One CTA per (query block, head, batch), heaviest causal
+// blocks first:
+// QB = 64 queries at D = 128, 32 at 256-512, whose Q and dO stay in shared
+// memory (2 x QB x (D + 8) floats: 133 KB at 512), with their lse and
+// delta in registers. Key blocks of KB = 64 keys in order, causal blocks
+// past the CTA's last real row skipped. Per key block:
+//   * pass 1: S = Q K^T and dP = dO V^T over D / 64 pieces, each the 64
+//     keys by 64 head_dim columns of K and of V; warp w owns query row
+//     block w % (QB / 16) and key part w / (QB / 16). A piece's products
+//     are summed in the tensor cores from zero and added to S and dP in
+//     registers. Q and dO are the A operands, read as float2 (columns 2t,
+//     2t + 1 as the mma's k = t, t + 4), the pieces the B operands, the
+//     same way (row strides 8 mod 32: conflict-free);
+//   * P = exp(S scale - lse) (keys past Sk and causal keys at -1e30), dS
+//     = P (dP - delta) scale into sS [query][key] (row stride 4 mod 32);
+//   * pass 2: dQ += dS K over KB / R2 pieces of R2 key rows by all of
+//     head_dim (64 / 32 / 16 / 16 rows at D = 128 / 256 / 384 / 512, as
+//     many as fit a pass-1 piece's room): K N-major, keys the reduced
+//     index, read as scalars at rows 8 mod 32 floats apart, conflict-free;
+//     dS the split A operand. Warp w owns the row block and head_dim part
+//     w / (QB / 16) of dQ, in registers (64 a thread at D = 512); each
+//     piece's sums start from zero in the tensor cores and are added in.
+// So K is read twice a key block (in column pieces, then in row pieces)
+// and V once, all through the two cp.async slots of the dK/dV kernel.
+// Budgets: Q and dO, 2 slots of 2 x 64 x 72 floats, sS: 215,552 bytes at
+// D = 512, 160,768 at 128. Registers: dQ 2 x QB x D / 256 (32 at 128, 64
+// at 256-512) and as many tensor-core sums in pass 2.
 template <int D>
-int launch(const float* q, const float* k, const float* v, const float* dout,
-           const float* lse, const float* delta, float* dk, float* dv, int B,
-           int H, int Hkv, int Sq, int Sk, int q_sb, int q_ss, int q_sh,
-           int k_sb, int k_ss, int k_sh, int v_sb, int v_ss, int v_sh,
-           int do_sb, int do_ss, int do_sh, int causal, int q_offset,
-           float scale, cudaStream_t stream) {
+constexpr int DQ_QB = D == 128 ? 64 : 32;   // queries of a CTA
+constexpr int DQ_KB = 64;                   // keys of a block
+template <int D>
+constexpr int DQ_R2 = D == 128 ? 64 : D == 256 ? 32 : 16;  // pass-2 rows
+constexpr int DQ_SLOT = 2 * DQ_KB * LDC;    // a K and a V piece (floats)
+constexpr int LDS = DQ_KB + 4;              // row stride of sS (4 mod 32)
+template <int D>
+constexpr int DQ_SMEM = 4 * (2 * DQ_QB<D> * LDK<D> + 2 * DQ_SLOT +
+                             DQ_QB<D> * LDS);
+
+static_assert(DQ_R2<128> * LDK<128> <= DQ_SLOT &&
+                  DQ_R2<256> * LDK<256> <= DQ_SLOT &&
+                  DQ_R2<384> * LDK<384> <= DQ_SLOT &&
+                  DQ_R2<512> * LDK<512> <= DQ_SLOT,
+              "a pass-2 piece over its slot");
+static_assert(DQ_SMEM<128> <= 232448 && DQ_SMEM<256> <= 232448 &&
+                  DQ_SMEM<384> <= 232448 && DQ_SMEM<512> <= 232448,
+              "shared memory over the 227 KB a block can use");
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1) flash_dq_f32tc_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int H, int Hkv, int Sq, int Sk, int q_sb,
+    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
+    int v_sh, int do_sb, int do_ss, int do_sh, int causal, int q_offset,
+    float scale) {
+  constexpr int QB = DQ_QB<D>, LK = LDK<D>, R2Q = DQ_R2<D>;
+  constexpr int RB = QB / 16, CP = 8 / RB;  // row blocks, column parts
+  constexpr int NT1 = DQ_KB / CP / 8;       // pass 1: key n-tiles a warp
+  constexpr int NT2 = D / CP / 8;           // pass 2: head_dim n-tiles a warp
+  constexpr int P1 = D / C, P2 = DQ_KB / R2Q;  // pieces of the two passes
+  constexpr int KS2 = R2Q / 8;              // k-steps of a pass-2 piece
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                         // [QB][LK]
+  float* sdO = sQ + QB * LK;
+  float* sSlot = sdO + QB * LK;             // 2 slots of DQ_SLOT
+  float* sS = sSlot + 2 * DQ_SLOT;          // dS [query][key]
+
+  const int nqb = cdiv(Sq, QB);
+  const int hb = gridDim.x / nqb;           // H * B
+  const int blk = static_cast<int>(blockIdx.x);
+  const int q0 = (nqb - 1 - blk / hb) * QB, h = blk % hb % H;
+  const int b = blk % hb / H, hk = h / (H / Hkv);
+  int nkb = cdiv(Sk, DQ_KB);
+  if (causal)
+    nkb = min(nkb, (min(q0 + QB, Sq) - 1 + q_offset) / DQ_KB + 1);
+  const float* qp = q + static_cast<int64_t>(b) * q_sb +
+                    static_cast<int64_t>(h) * q_sh;
+  const float* dop = dout + static_cast<int64_t>(b) * do_sb +
+                     static_cast<int64_t>(h) * do_sh;
+  const float* kp = k + static_cast<int64_t>(b) * k_sb +
+                    static_cast<int64_t>(hk) * k_sh;
+  const float* vp = v + static_cast<int64_t>(b) * v_sb +
+                    static_cast<int64_t>(hk) * v_sh;
+  const int total = nkb * (P1 + P2);
+
+  // Issue the copies of piece p into slot p % 2 (and, first, Q and dO):
+  // piece j < P1 of a key block is head_dim chunk j of its K and V, piece
+  // P1 + r its K rows R2Q r .. R2Q (r + 1) - 1.
+  auto issue = [&](int p) {
+    const int k0 = p / (P1 + P2) * DQ_KB, j = p % (P1 + P2);
+    float* slot = sSlot + (p & 1) * DQ_SLOT;
+    if (p == 0) {
+      load_rows<QB, D>(sQ, LK, qp, q_ss, q0, Sq);
+      load_rows<QB, D>(sdO, LK, dop, do_ss, q0, Sq);
+    }
+    if (j < P1) {
+      load_rows<DQ_KB, C>(slot, LDC, kp + j * C, k_ss, k0, Sk);
+      load_rows<DQ_KB, C>(slot + DQ_KB * LDC, LDC, vp + j * C, v_ss, k0, Sk);
+    } else {
+      load_rows<R2Q, D>(slot, LK, kp, k_ss, k0 + (j - P1) * R2Q, Sk);
+    }
+    cp_async_commit();
+  };
+  auto next_piece = [&](int p) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (p + 1 < total) issue(p + 1);
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp % RB * 16;            // the warp's 16 queries
+  const int cpart = warp / RB;              // its key part / head_dim part
+
+  // Rows past Sq keep lse = delta = 0: their Q and dO rows are zeros, so
+  // their P and dS stay finite, and they are never stored.
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = q0 + r0 + g + 8 * r;
+    const int64_t at = (static_cast<int64_t>(b) * H + h) * Sq + pos;
+    row_lse[r] = pos < Sq ? lse[at] : 0.0f;
+    row_delta[r] = pos < Sq ? delta[at] : 0.0f;
+  }
+
+  float acc[NT2][4];
+#pragma unroll
+  for (int n = 0; n < NT2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  if (total > 0) issue(0);
+  int p = 0;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * DQ_KB;
+    // Pass 1: S = Q K^T and dP = dO V^T over the chunks. The warp's keys
+    // are n-tiles cpart * NT1 + j; a chunk's sums stay in the tensor cores
+    // (s_c, d_c), then are added to s and dp.
+    float s[NT1][4], dp[NT1][4];
+#pragma unroll
+    for (int j = 0; j < NT1; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < P1; ++c, ++p) {
+      next_piece(p);
+      const float* cK = sSlot + (p & 1) * DQ_SLOT;
+      const float* cV = cK + DQ_KB * LDC;
+      const float* rQ = sQ + (r0 + g) * LK + c * C + 2 * t;
+      const float* rO = sdO + (r0 + g) * LK + c * C + 2 * t;
+      float s_c[NT1][4], d_c[NT1][4];
+#pragma unroll
+      for (int kk = 0; kk < C / 8; ++kk) {
+        // Rows g and g + 8 of the warp's queries.
+        const float2 qg = *reinterpret_cast<const float2*>(rQ + kk * 8);
+        const float2 qg8 =
+            *reinterpret_cast<const float2*>(rQ + 8 * LK + kk * 8);
+        const float2 og = *reinterpret_cast<const float2*>(rO + kk * 8);
+        const float2 og8 =
+            *reinterpret_cast<const float2*>(rO + 8 * LK + kk * 8);
+        const Frag<4> aq = split<4>({qg.x, qg8.x, qg.y, qg8.y});
+        const Frag<4> ao = split<4>({og.x, og8.x, og.y, og8.y});
+#pragma unroll
+        for (int j = 0; j < NT1; ++j) {
+          const int n = (cpart * NT1 + j) * 8 + g;
+          const float2 k2 = *reinterpret_cast<const float2*>(
+              cK + n * LDC + kk * 8 + 2 * t);
+          const float2 v2 = *reinterpret_cast<const float2*>(
+              cV + n * LDC + kk * 8 + 2 * t);
+          mma3(s_c[j], aq, split<2>({k2.x, k2.y}), kk == 0);
+          mma3(d_c[j], ao, split<2>({v2.x, v2.y}), kk == 0);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT1; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] += s_c[j][e];
+          dp[j][e] += d_c[j][e];
+        }
+    }
+
+    // dS of the warp's tile into sS (every warp read it last in the
+    // previous key block's pass 2, before the syncs above).
+#pragma unroll
+    for (int j = 0; j < NT1; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = r0 + g + 8 * (e / 2);
+        const int kc = (cpart * NT1 + j) * 8 + 2 * t + e % 2;
+        const int key = k0 + kc;
+        float x = s[j][e] * scale;
+        if (key >= Sk || (causal && q0 + qr + q_offset < key)) x = NEG_INF;
+        const float pv = expf(x - row_lse[e / 2]);
+        sS[qr * LDS + kc] = pv * (dp[j][e] - row_delta[e / 2]) * scale;
+      }
+
+    // Pass 2: dQ += dS K, KS2 8-key steps a piece, on the warp's head_dim
+    // columns cpart * D / CP + 8n. A piece's sums stay in the tensor cores
+    // (tq), then are added to acc.
+#pragma unroll 1
+    for (int pc = 0; pc < P2; ++pc, ++p) {
+      next_piece(p);
+      const float* cK = sSlot + (p & 1) * DQ_SLOT;
+      float tq[NT2][4];
+#pragma unroll
+      for (int ks = 0; ks < KS2; ++ks) {
+        const float* aS = sS + (r0 + g) * LDS + pc * R2Q + ks * 8 + t;
+        const Frag<4> as =
+            split<4>({aS[0], aS[8 * LDS], aS[4], aS[8 * LDS + 4]});
+#pragma unroll
+        for (int n = 0; n < NT2; ++n) {
+          const int col = cpart * (D / CP) + n * 8 + g;
+          const float* bK = cK + (ks * 8 + t) * LK + col;
+          mma3(tq[n], as, split<2>({bK[0], bK[4 * LK]}), ks == 0);
+          if (ks == KS2 - 1) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] += tq[n][e];
+          }
+        }
+      }
+    }
+  }
+
+  // Write the block's dQ rows (rows past Sq never).
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int pos = q0 + r0 + g + 8 * half;
+    if (pos >= Sq) continue;
+    const int64_t base = (static_cast<int64_t>(b) * Sq + pos) * H * D +
+                         static_cast<int64_t>(h) * D;
+#pragma unroll
+    for (int n = 0; n < NT2; ++n) {
+      const int col = cpart * (D / CP) + n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dq + base + col) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dq(const float* q, const float* k, const float* v,
+              const float* dout, const float* lse, const float* delta,
+              float* dq, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
+              int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+              int v_ss, int v_sh, int do_sb, int do_ss, int do_sh, int causal,
+              int q_offset, float scale, cudaStream_t stream) {
+  cudaFuncSetAttribute(flash_dq_f32tc_kernel<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       DQ_SMEM<D>);
+  flash_dq_f32tc_kernel<D>
+      <<<cdiv(Sq, DQ_QB<D>) * H * B, NT, DQ_SMEM<D>, stream>>>(
+          q, k, v, dout, lse, delta, dq, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh,
+          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal,
+          q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const float* q, const float* k, const float* v,
+               const float* dout, const float* lse, const float* delta,
+               float* dk, float* dv, int B, int H, int Hkv, int Sq, int Sk,
+               int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+               int v_sb, int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
+               int causal, int q_offset, float scale, cudaStream_t stream) {
   cudaFuncSetAttribute(flash_dkv_f32tc_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<D>);
   const int npair = cdiv(cdiv(Sk, BKV<D>), 2);
@@ -471,27 +740,48 @@ int launch(const float* q, const float* k, const float* v, const float* dout,
 
 extern "C" {
 
+#define F32TC_CASES(L, ARGS)                 \
+  switch (head_dim) {                        \
+    case 128: return L<128> ARGS;            \
+    case 256: return L<256> ARGS;            \
+    case 384: return L<384> ARGS;            \
+    case 512: return L<512> ARGS;            \
+  }                                          \
+  return (int)cudaErrorInvalidValue;
+
+int flash_dq_f32tc(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
+                   int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+                   int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
+                   int causal, int q_offset, float scale, int dtype,
+                   int head_dim, void* stream) {
+  if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
+  F32TC_CASES(launch_dq,
+              ((const float*)q, (const float*)k, (const float*)v,
+               (const float*)dout, (const float*)lse, (const float*)delta,
+               (float*)dq, B, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss,
+               k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal, q_offset,
+               scale, (cudaStream_t)stream))
+}
+
+// workspace and splits are the wgmma dK/dV's (flash_attention.cu); this
+// kernel takes 1 split and no workspace.
 int flash_dkv_f32tc(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
                     int q_sb, int q_ss, int q_sh, int k_sb, int k_ss,
                     int k_sh, int v_sb, int v_ss, int v_sh, int do_sb,
-                    int do_ss, int do_sh, int causal, int q_offset,
-                    float scale, int dtype, int head_dim, void* stream) {
-  if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
-#define F32TC_ARGS                                                          \
-  (const float*)q, (const float*)k, (const float*)v, (const float*)dout,    \
-      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, B, H, \
-      Hkv, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,    \
-      do_sb, do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream
-  switch (head_dim) {
-    case 128: return launch<128>(F32TC_ARGS);
-    case 256: return launch<256>(F32TC_ARGS);
-    case 384: return launch<384>(F32TC_ARGS);
-    case 512: return launch<512>(F32TC_ARGS);
-  }
-#undef F32TC_ARGS
-  return (int)cudaErrorInvalidValue;
+                    int do_ss, int do_sh, void* workspace, int splits,
+                    int causal, int q_offset, float scale, int dtype,
+                    int head_dim, void* stream) {
+  if (dtype != DT_F32 || splits != 1) return (int)cudaErrorInvalidValue;
+  F32TC_CASES(launch_dkv,
+              ((const float*)q, (const float*)k, (const float*)v,
+               (const float*)dout, (const float*)lse, (const float*)delta,
+               (float*)dk, (float*)dv, B, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh,
+               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
+               causal, q_offset, scale, (cudaStream_t)stream))
 }
 
 }  // extern "C"

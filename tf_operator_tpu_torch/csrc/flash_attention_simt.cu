@@ -1,16 +1,15 @@
-// Flash attention for Hopper (sm_90a), SIMT kernels: forward, dQ and dK/dV
+// Flash attention for Hopper (sm_90a), SIMT kernels: the forward and dQ
 // for the cases of the TPU kernels' domain that the tensor-core kernels do
-// not take yet: the forward and dQ of f32 inputs at head_dim 128, 256, 384
-// and 512, and all three kernels of bf16 or fp16 inputs at head_dim 384 and
-// 512. (bf16 and fp16 at 128 and 256 are the wgmma kernels' of
-// flash_attention.cu; the f32 dK/dV is the 3xTF32 kernel's of
-// flash_attention_f32tc.cu.)
+// not take yet: the forward of f32 inputs at head_dim 128, 256, 384 and
+// 512, and the forward and dQ of bf16 or fp16 inputs at head_dim 384 and
+// 512. (bf16 and fp16 at 128 and 256, and their dK/dV at 384-512, are the
+// wgmma kernels' of flash_attention.cu; the f32 dQ and dK/dV are the
+// 3xTF32 kernels' of flash_attention_f32tc.cu.)
 //
-// Replaces, for those cases, the three Pallas TPU kernels of
+// Replaces, for those cases, two Pallas TPU kernels of
 // tf_operator_tpu/ops/flash_attention.py:
 //   flash_fwd_simt_kernel <- _fwd_kernel (:95; _fwd, pallas_call :143)
 //   flash_dq_simt_kernel  <- _dq_kernel  (:183; _bwd_impl, pallas_call :261)
-//   flash_dkv_simt_kernel <- _dkv_kernel (:207; _bwd_impl, pallas_call :289)
 //
 // Each computes the TPU kernel's function with its cast points, as the
 // wgmma kernels do: scores, softmax statistics and every product in f32;
@@ -26,31 +25,29 @@
 // keeps about three decimal digits where the f32 kernels must hold the
 // JAX package's 2e-5 (its f32 flash tests); the port's plain versions
 // also run with TF32 off. Tensor cores can still reach f32's accuracy by
-// splitting each operand into two TF32 parts (3xTF32), as the f32 dK/dV of
-// flash_attention_f32tc.cu does; the forward and dQ here are queued for
-// the same. Until then every product is an f32 fmaf. The wide bf16 and
-// fp16 cases use the same kernels: their products are exact in f32, so
-// the results are those of a tensor-core product with f32 sums.
+// splitting each operand into two TF32 parts (3xTF32), as the f32 dQ and
+// dK/dV of flash_attention_f32tc.cu do; the forward here is queued for the
+// same. Until then every product is an f32 fmaf. The wide bf16 and fp16
+// cases use the same kernels: their products are exact in f32, so the
+// results are those of a tensor-core product with f32 sums.
 //
 // What bounds them on the card: f32 FMA, 67 TFLOP/s on an H100 SXM
 // without tensor cores. Each (64 x 64) tile product reads its two operand
 // chunks once from device memory (mostly L2) for 64 x 64 x 64 FMAs, so
 // arithmetic, not bytes, is the limit. Design, simple before fast:
 //   * 256 threads as a 16 x 16 grid (ty, tx); each thread holds a 4 x 4
-//     (dK/dV: 2 x 4) block of every tile product in registers and reads
-//     its operands from shared memory as float4/float2, with both operand
-//     tiles stored with the reduced index outermost (rows padded to 68 or
-//     36 floats, so the reads are 16-byte aligned and broadcast).
+//     block of every tile product in registers and reads its operands
+//     from shared memory as float4, with both operand tiles stored with
+//     the reduced index outermost (rows padded to 68 floats, so the reads
+//     are 16-byte aligned and broadcast).
 //   * head_dim is walked in chunks of C = 64 columns through two to four
 //     shared-memory tiles (at most 44 KB, static), so one template serves
 //     every D; the output accumulators stay in registers (O and dQ: 4 x
-//     D / 16 a thread; dK and dV: 2 x D / 16 each).
-//   * Forward and dQ: one CTA per (64 query rows, head, batch), heaviest
-//     causal q tiles first; k tiles of 64 keys in order; causal k tiles
-//     past the CTA's last real row are skipped. dK/dV: one CTA per (32
-//     keys, KV head, batch), heaviest first, summing every GQA member and
-//     visible q tile inside the CTA in a fixed order: no atomics, so the
-//     results are deterministic.
+//     D / 16 a thread).
+//   * One CTA per (64 query rows, head, batch), heaviest causal q tiles
+//     first; k tiles of 64 keys in order; causal k tiles past the CTA's
+//     last real row are skipped. Each output row is summed in one CTA in
+//     k-tile order: no atomics, so the results are deterministic.
 //   * No cp.async pipeline, no tensor cores: each chunk is loaded, the
 //     block synchronises, and multiplies. The redesign is queued.
 //
@@ -66,9 +63,8 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows of a forward/dQ CTA and a dK/dV item
-constexpr int BK = 64;    // keys of a forward/dQ k tile
-constexpr int BKV = 32;   // keys of a dK/dV CTA
+constexpr int BQ = 64;    // query rows of a CTA
+constexpr int BK = 64;    // keys of a k tile
 constexpr int C = 64;     // head_dim columns a chunk
 constexpr int NT = 256;   // threads: a 16 x 16 grid
 constexpr float NEG_INF = -1e30f;
@@ -138,37 +134,30 @@ __device__ __forceinline__ void load_tile(float* dst, const E* src, int ss,
   }
 }
 
-// acc[i][j] += sum over kk < 64 of A[kk * LDA + ty * MR + i] *
-// B[kk * LDB + tx * 4 + j]: this thread's MR x 4 block of a tile product
+// acc[i][j] += sum over kk < 64 of A[kk * LDA + ty * 4 + i] *
+// B[kk * LDB + tx * 4 + j]: this thread's 4 x 4 block of a tile product
 // whose operands are stored with the reduced index outermost.
-template <int MR, int LDA, int LDB>
-__device__ __forceinline__ void mm_acc(float (&acc)[MR][4], const float* A,
+template <int LDA, int LDB>
+__device__ __forceinline__ void mm_acc(float (&acc)[4][4], const float* A,
                                        const float* B) {
-  const float* a = A + (threadIdx.x / 16) * MR;
+  const float* a = A + (threadIdx.x / 16) * 4;
   const float* b = B + (threadIdx.x % 16) * 4;
 #pragma unroll 16
   for (int kk = 0; kk < 64; ++kk) {
-    float av[MR];
-    if constexpr (MR == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(a + kk * LDA);
-      av[0] = t.x, av[1] = t.y, av[2] = t.z, av[3] = t.w;
-    } else {
-      const float2 t = *reinterpret_cast<const float2*>(a + kk * LDA);
-      av[0] = t.x, av[1] = t.y;
-    }
+    const float4 av = *reinterpret_cast<const float4*>(a + kk * LDA);
     const float4 bv = *reinterpret_cast<const float4*>(b + kk * LDB);
+    const float ar[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-    for (int i = 0; i < MR; ++i) {
-      acc[i][0] = fmaf(av[i], bv.x, acc[i][0]);
-      acc[i][1] = fmaf(av[i], bv.y, acc[i][1]);
-      acc[i][2] = fmaf(av[i], bv.z, acc[i][2]);
-      acc[i][3] = fmaf(av[i], bv.w, acc[i][3]);
+    for (int i = 0; i < 4; ++i) {
+      acc[i][0] = fmaf(ar[i], bv.x, acc[i][0]);
+      acc[i][1] = fmaf(ar[i], bv.y, acc[i][1]);
+      acc[i][2] = fmaf(ar[i], bv.z, acc[i][2]);
+      acc[i][3] = fmaf(ar[i], bv.w, acc[i][3]);
     }
   }
 }
 
 constexpr int LQ = BQ + 4;    // row stride of a tile transposed from 64 rows
-constexpr int LKV = BKV + 4;  // ... from 32 rows
 constexpr int LC = C + 4;     // row stride of a chunk kept as rows
 
 // The (query tile, head, batch) of a forward or dQ CTA, heaviest causal q
@@ -230,7 +219,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
       load_tile<E, BQ, true>(sA, qp + c * C, q_ss, q0, Sq);
       load_tile<E, BK, true>(sB, kp + c * C, k_ss, j * BK, Sk);
       __syncthreads();
-      mm_acc<4, LQ, LQ>(s, sA, sB);
+      mm_acc<LQ, LQ>(s, sA, sB);
     }
     float mx[4], corr[4], psum[4];
 #pragma unroll
@@ -271,7 +260,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
       if (c > 0) __syncthreads();
       load_tile<E, BK, false>(sB, vp + c * C, v_ss, j * BK, Sk);
       __syncthreads();
-      mm_acc<4, LQ, LC>(o[c], sA, sB);
+      mm_acc<LQ, LC>(o[c], sA, sB);
     }
   }
 
@@ -341,14 +330,14 @@ __global__ void __launch_bounds__(NT) flash_dq_simt_kernel(
       load_tile<E, BQ, true>(sA, qp + c * C, q_ss, q0, Sq);
       load_tile<E, BK, true>(sB, kp + c * C, k_ss, j * BK, Sk);
       __syncthreads();
-      mm_acc<4, LQ, LQ>(s, sA, sB);
+      mm_acc<LQ, LQ>(s, sA, sB);
     }
     for (int c = 0; c < NC; ++c) {
       __syncthreads();
       load_tile<E, BQ, true>(sA, dop + c * C, do_ss, q0, Sq);
       load_tile<E, BK, true>(sB, vp + c * C, v_ss, j * BK, Sk);
       __syncthreads();
-      mm_acc<4, LQ, LQ>(dp, sA, sB);
+      mm_acc<LQ, LQ>(dp, sA, sB);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -371,7 +360,7 @@ __global__ void __launch_bounds__(NT) flash_dq_simt_kernel(
       if (c > 0) __syncthreads();
       load_tile<E, BK, false>(sB, kp + c * C, k_ss, j * BK, Sk);
       __syncthreads();
-      mm_acc<4, LQ, LC>(acc[c], sA, sB);
+      mm_acc<LQ, LC>(acc[c], sA, sB);
     }
   }
 
@@ -388,120 +377,10 @@ __global__ void __launch_bounds__(NT) flash_dq_simt_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------
-// Backward, dK/dV. Replaces _dkv_kernel for bf16 and fp16 at wide D. One CTA owns
-// 32 keys of one KV head and walks every (GQA member, visible q tile of 64
-// rows) item in order. Per item: S^T = K Q^T and dP^T = V dO^T over the
-// chunks (K^T/V^T chunks in sK, Q^T/dO^T in sQ), P^T = exp(S^T - lse) and
-// dS^T = P^T (dP^T - delta) scale with lse and delta per query column
-// (query columns past Sq get P = dS = 0), both rounded to E into sP and sS
-// as [query][key], then dV += P^T dO and dK += dS^T Q over the chunks of
-// dO and Q (as rows in sQ). dK and dV stay in registers; a key no query
-// row sees gets zeros.
-// ---------------------------------------------------------------------------
-template <typename E, int D>
-__global__ void __launch_bounds__(NT) flash_dkv_simt_kernel(
-    const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-    const E* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, E* __restrict__ dk, E* __restrict__ dv,
-    int H, int Hkv, int Sq, int Sk, int q_sb, int q_ss, int q_sh, int k_sb,
-    int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb, int do_ss,
-    int do_sh, int causal, int q_offset, float scale) {
-  constexpr int NC = D / C;
-  __shared__ __align__(16) float sK[C * LKV];   // K^T or V^T chunk
-  __shared__ __align__(16) float sQ[C * LQ];    // Q^T/dO^T, or Q/dO rows
-  __shared__ __align__(16) float sP[BQ * LKV];  // P as [query][key]
-  __shared__ __align__(16) float sS[BQ * LKV];  // dS as [query][key]
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int hb = gridDim.x / cdiv(Sk, BKV);  // Hkv * B
-  const int blk = static_cast<int>(blockIdx.x);
-  const int k0 = blk / hb * BKV, hk = blk % hb % Hkv, b = blk % hb / Hkv;
-  const int group = H / Hkv, nqt = cdiv(Sq, BQ);
-  const E* kp = k + static_cast<int64_t>(b) * k_sb + static_cast<int64_t>(hk) * k_sh;
-  const E* vp = v + static_cast<int64_t>(b) * v_sb + static_cast<int64_t>(hk) * v_sh;
-  // First q tile with a row that sees key k0 (causal).
-  int i0 = 0;
-  if (causal) {
-    const int need = k0 - q_offset - (BQ - 1);
-    i0 = need > 0 ? cdiv(need, BQ) : 0;
-  }
-
-  float acc_dk[NC][2][4] = {}, acc_dv[NC][2][4] = {};
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const E* qp = q + static_cast<int64_t>(b) * q_sb + static_cast<int64_t>(h) * q_sh;
-    const E* dop = dout + static_cast<int64_t>(b) * do_sb + static_cast<int64_t>(h) * do_sh;
-    for (int i = i0; i < nqt; ++i) {
-      const int q0 = i * BQ;
-      float st[2][4] = {}, dpt[2][4] = {};
-      for (int c = 0; c < NC; ++c) {
-        __syncthreads();
-        load_tile<E, BKV, true>(sK, kp + c * C, k_ss, k0, Sk);
-        load_tile<E, BQ, true>(sQ, qp + c * C, q_ss, q0, Sq);
-        __syncthreads();
-        mm_acc<2, LKV, LQ>(st, sK, sQ);
-      }
-      for (int c = 0; c < NC; ++c) {
-        __syncthreads();
-        load_tile<E, BKV, true>(sK, vp + c * C, v_ss, k0, Sk);
-        load_tile<E, BQ, true>(sQ, dop + c * C, do_ss, q0, Sq);
-        __syncthreads();
-        mm_acc<2, LKV, LQ>(dpt, sK, sQ);
-      }
-      // Rows are keys, columns queries. sP and sS were last read before
-      // the syncs above, so they are free to write.
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int qpos = q0 + tx * 4 + jj;
-        const bool real = qpos < Sq;
-        const int64_t at = (static_cast<int64_t>(b) * H + h) * Sq + qpos;
-        const float l = real ? lse[at] : 0.0f;
-        const float d = real ? delta[at] : 0.0f;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int key = k0 + ty * 2 + r;
-          float x = st[r][jj] * scale;
-          if (causal && qpos + q_offset < key) x = NEG_INF;
-          const float p = real ? expf(x - l) : 0.0f;
-          const float ds = real ? p * (dpt[r][jj] - d) * scale : 0.0f;
-          sP[(tx * 4 + jj) * LKV + ty * 2 + r] = round_to<E>(p);
-          sS[(tx * 4 + jj) * LKV + ty * 2 + r] = round_to<E>(ds);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        __syncthreads();
-        load_tile<E, BQ, false>(sQ, dop + c * C, do_ss, q0, Sq);
-        __syncthreads();
-        mm_acc<2, LKV, LC>(acc_dv[c], sP, sQ);
-        __syncthreads();
-        load_tile<E, BQ, false>(sQ, qp + c * C, q_ss, q0, Sq);
-        __syncthreads();
-        mm_acc<2, LKV, LC>(acc_dk[c], sS, sQ);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + ty * 2 + r;
-    if (key >= Sk) continue;
-    const int64_t at = (static_cast<int64_t>(b) * Sk + key) * Hkv * D +
-                       static_cast<int64_t>(hk) * D + tx * 4;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        dk[at + c * C + jj] = from_f<E>(acc_dk[c][r][jj]);
-        dv[at + c * C + jj] = from_f<E>(acc_dv[c][r][jj]);
-      }
-  }
-}
-
 // Launchers, one instantiation a (E, D) of the domain.
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
-  void *o1, *o2;  // forward: out, lse; dQ: dq; dK/dV: dk, dv
+  void *o1, *o2;  // forward: out, lse; dQ: dq
   int B, H, Hkv, Sq, Sk;
   int q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,
       do_sh;
@@ -529,20 +408,8 @@ int launch_dq(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename E, int D>
-int launch_dkv(const Args& a) {
-  flash_dkv_simt_kernel<E, D>
-      <<<cdiv(a.Sk, BKV) * a.Hkv * a.B, NT, 0, a.stream>>>(
-          (const E*)a.q, (const E*)a.k, (const E*)a.v, (const E*)a.dout,
-          (const float*)a.lse, (const float*)a.delta, (E*)a.o1, (E*)a.o2,
-          a.H, a.Hkv, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss,
-          a.k_sh, a.v_sb, a.v_ss, a.v_sh, a.do_sb, a.do_ss, a.do_sh, a.causal,
-          a.q_offset, a.scale);
-  return (int)cudaGetLastError();
-}
-
-// The instantiations for (dtype, head_dim): f32 at 128-512 (forward and
-// dQ) and bf16 and fp16 at 384-512 (all three).
+// The instantiations for (dtype, head_dim): f32 at 128-512 (the forward)
+// and bf16 and fp16 at 384-512 (the forward and dQ).
 #define F32_CASES(L)                                    \
   case DT_F32 * 1024 + 128: return L<float, 128>(a);   \
   case DT_F32 * 1024 + 256: return L<float, 256>(a);   \
@@ -584,24 +451,7 @@ int flash_dq_simt(const void* q, const void* k, const void* v,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
                do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
   switch (dtype * 1024 + head_dim) {
-    F32_CASES(launch_dq)
     WIDE_CASES(launch_dq)
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-int flash_dkv_simt(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
-                   int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
-                   int v_sb, int v_ss, int v_sh, int do_sb, int do_ss,
-                   int do_sh, int causal, int q_offset, float scale,
-                   int dtype, int head_dim, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
-               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
-               do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
-  switch (dtype * 1024 + head_dim) {
-    WIDE_CASES(launch_dkv)
   }
   return (int)cudaErrorInvalidValue;
 }

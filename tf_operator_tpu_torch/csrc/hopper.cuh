@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the two
+// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the three
 // wgmma shapes the kernels use (bf16 or fp16 operands, f32 accumulators),
 // register-count hand-off (setmaxnreg), named barriers, and the host-side
-// tensor map of a [B, S, H, D] bf16 or fp16 operand (D = 128 or 256).
+// tensor map of a [B, S, H, D] bf16 or fp16 operand (D = 128 to 512).
 //
 // Tile layout shared by TMA and wgmma. Every operand tile is 64 rows of D
 // two-byte elements (D / 64 panels), stored as D / 64 panels of 8 KB
@@ -19,7 +19,8 @@
 //   * N-major operand (rows are K, the columns are N): k-step kk (16 rows)
 //     starts at byte 2048 * kk of a panel; one wgmma reads N = 128 columns,
 //     two neighbouring panels 8 KB apart (LBO), 8-row groups 1024 bytes
-//     apart (SBO). Columns 128-255 of a D = 256 tile start at panel 2.
+//     apart (SBO). Columns 128-255 of a D = 256 tile start at panel 2. The
+//     64-column form (m64n64k16) reads one panel.
 //
 // Accumulator layout of wgmma m64nN (f32): thread t of the warpgroup,
 // warp w = t / 32, lane l; register 4n + e holds row 16w + l/4 + 8(e/2),
@@ -161,6 +162,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed groups are still in flight (groups
+// complete in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keep the compiler from moving reads or writes of accumulator registers
 // across an asynchronous wgmma (its asm statement names them as written
@@ -237,6 +244,35 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
     HOPPER_WGMMA_RS("f16");
   else
     HOPPER_WGMMA_RS("bf16");
+}
+
+// D[64 x 64] (f32, 32 registers a thread) += A[64 x 16] . B[16 x 64]: the
+// 64-column form of the above, B one N-major panel.
+#define HOPPER_WGMMA_RS64(TY)                                                 \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "         \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "         \
+      "%26, %27, %28, %29, %30, %31 "                                        \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value)
+    HOPPER_WGMMA_RS64("f16");
+  else
+    HOPPER_WGMMA_RS64("bf16");
 }
 
 // Two f32 values rounded to a pair of T (round to nearest even), low

@@ -10,16 +10,18 @@ f32), in three families picked per kernel by (kind, dtype, head_dim)
 
 - bf16 and fp16 at head_dim 128, the training step's case: the wgmma/TMA
   kernels of ``csrc/flash_attention.cu`` (launch keys ``flash_fwd``,
-  ``flash_dq``, ``flash_dkv``), and the same kernels at head_dim 256
-  (``flash_fwd_d256``, ``flash_dq_d256``, ``flash_dkv_d256``);
-- the f32 dK/dV at every head_dim: the tensor-core kernel of
-  ``csrc/flash_attention_f32tc.cu`` (``flash_dkv_f32tc``), whose products
-  are 3xTF32 (each f32 operand split into two TF32 parts), within f32's
-  limits;
-- everything else -- the f32 forward and dQ at every head_dim, bf16/fp16
-  at 384-512: the SIMT (f32 FMA) kernels of
+  ``flash_dq``, ``flash_dkv``), the same kernels at head_dim 256
+  (``flash_fwd_d256``, ``flash_dq_d256``, ``flash_dkv_d256``), and their
+  dK/dV at 384 and 512 (``flash_dkv_d384``, ``flash_dkv_d512``: each CTA
+  half of head_dim's columns, ``dkv_splits``);
+- the f32 dQ and dK/dV at every head_dim: the tensor-core kernels of
+  ``csrc/flash_attention_f32tc.cu`` (``flash_dq_f32tc``,
+  ``flash_dkv_f32tc``), whose products are 3xTF32 (each f32 operand split
+  into two TF32 parts), within f32's limits;
+- everything else -- the f32 forward at every head_dim, the bf16/fp16
+  forward and dQ at 384-512: the SIMT (f32 FMA) kernels of
   ``csrc/flash_attention_simt.cu`` (``flash_fwd_simt``,
-  ``flash_dq_simt``, ``flash_dkv_simt``).
+  ``flash_dq_simt``).
 
 All three mask ragged sequence edges in the kernel. The forward is the custom op
 ``tf_operator_tpu_torch::flash_fwd`` returning ``(out, lse)``; its autograd
@@ -89,11 +91,18 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _LIBRARY = {"": "flash_attention", "_simt": "flash_attention_simt",
             "_f32tc": "flash_attention_f32tc"}
 # Launch-key suffix of each variant -> its family, and the kinds it has:
-# "_d256" is the wgmma family at head_dim 256, "_f32tc" the f32 dK/dV on
-# tensor cores.
-_FAMILY = {"": "", "_d256": "", "_simt": "_simt", "_f32tc": "_f32tc"}
+# "_d256" is the wgmma family at head_dim 256, "_d384" and "_d512" its
+# dK/dV there, "_f32tc" the f32 dQ and dK/dV on tensor cores.
+_FAMILY = {"": "", "_d256": "", "_d384": "", "_d512": "", "_simt": "_simt",
+           "_f32tc": "_f32tc"}
 _KINDS = {"": ("fwd", "dq", "dkv"), "_d256": ("fwd", "dq", "dkv"),
-          "_simt": ("fwd", "dq", "dkv"), "_f32tc": ("dkv",)}
+          "_d384": ("dkv",), "_d512": ("dkv",), "_simt": ("fwd", "dq"),
+          "_f32tc": ("dq", "dkv")}
+# The wgmma dK/dV at head_dim 384-512 runs a CTA per (pair of 64-key
+# tiles, KV head, batch, half of head_dim); where that grid is smaller than
+# the card, each CTA's GQA items are split over up to this many CTAs,
+# whose f32 partial sums a second kernel adds in a fixed order.
+MAX_DKV_SPLITS = 4
 
 # Launches of each kernel, counted by the wrapper where it launches it.
 LAUNCHES: Dict[str, int] = {
@@ -110,15 +119,34 @@ def kernel_suffix(kind: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that runs ``kind`` ("fwd", "dq" or "dkv") for (dtype,
     head_dim) in the domain, as the suffix of its launch key: "" for the
     wgmma kernels at head_dim 128 (bf16 and fp16), "_d256" for them at 256,
-    "_f32tc" for the f32 dK/dV, "_simt" for every other case."""
+    "_d384"/"_d512" for their dK/dV there, "_f32tc" for the f32 dQ and
+    dK/dV, "_simt" for every other case."""
     if dtype == torch.float32 and kind in _KINDS["_f32tc"]:
         return "_f32tc"
     if dtype in (torch.bfloat16, torch.float16):
         if head_dim == 128:
             return ""
-        if head_dim == 256:
-            return "_d256"
+        wide = f"_d{head_dim}"
+        if wide in _KINDS and kind in _KINDS[wide]:
+            return wide
     return "_simt"
+
+
+def dkv_splits(suffix: str, batch: int, k_seq: int, kv_heads: int,
+               sms: int) -> int:
+    """How many CTAs share the GQA items of one (key-tile pair, KV head,
+    batch, column half) in the kernel of launch-key ``suffix`` on a card of
+    ``sms`` SMs: 1 but for the wgmma dK/dV at 384-512, where it is as many
+    as keep the grid within the card (at most MAX_DKV_SPLITS)."""
+    if suffix not in ("_d384", "_d512"):
+        return 1
+    ctas = -(-k_seq // (2 * BLOCK)) * 2 * kv_heads * batch
+    return max(1, min(MAX_DKV_SPLITS, sms // ctas))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _fit_block(seq: int, want: int) -> int:
@@ -231,12 +259,13 @@ def _bwd_reference(q, k, v, out, lse, do, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# Every entry ends (causal, q_offset, scale, dtype code, head_dim, stream).
+# Every entry ends (causal, q_offset, scale, dtype code, head_dim, stream);
+# the dK/dV entries take (workspace, splits) before that.
 _TAIL = [_I, _I, _F, _I, _I, _P]
 _ARGTYPES = {
     "flash_fwd": [_P] * 5 + [_I] * 5 + [_I] * 9 + _TAIL,
     "flash_dq": [_P] * 7 + [_I] * 5 + [_I] * 12 + _TAIL,
-    "flash_dkv": [_P] * 8 + [_I] * 5 + [_I] * 12 + _TAIL,
+    "flash_dkv": [_P] * 8 + [_I] * 5 + [_I] * 12 + [_P, _I] + _TAIL,
 }
 
 
@@ -377,11 +406,18 @@ def _dkv_cuda(q, k, v, lse, do, delta, causal, q_offset):
     name = "flash_dkv" + suffix
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    b, sk, hkv, _ = k.shape
+    splits = dkv_splits(suffix, b, sk, hkv, _sm_count(q.device.index))
+    # The splits' f32 partial dK and dV: [2, splits, B, Sk, Hkv, D].
+    ws = (torch.empty((2, splits, *k.shape), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
+    tail = len(_TAIL) - 1                  # the common tail, less the stream
     with torch.cuda.device(q.device):
         rc = _entry("dkv", suffix)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *args, torch.cuda.current_stream().cuda_stream)
+            *args[:-tail], None if ws is None else ws.data_ptr(), splits,
+            *args[-tail:], torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return dk, dv
