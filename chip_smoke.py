@@ -9,12 +9,11 @@ Phases, each printing one JSON line:
 2. build   nvcc builds the three kernel libraries for sm_90a, one nvcc
            each, started together: tf_operator_tpu_torch/csrc/
            flash_attention.cu (the wgmma kernels: bf16 and fp16, all three
-           at head_dim 128 and 256, the dK/dV at 384 and 512 too),
-           csrc/flash_attention_f32tc.cu (the f32 dQ and dK/dV on tensor
-           cores, 3xTF32, head_dim 128-512) and
-           csrc/flash_attention_simt.cu (the SIMT kernels: the f32 forward
-           at every head_dim, the bf16/fp16 forward and dQ at 384-512);
-           seconds,
+           at head_dim 128 and 256, the dQ and dK/dV at 384 and 512 too),
+           csrc/flash_attention_f32tc.cu (the f32 forward, dQ and dK/dV on
+           tensor cores, 3xTF32, head_dim 128-512) and
+           csrc/flash_attention_simt.cu (the SIMT kernel: the bf16/fp16
+           forward at 384-512); seconds,
            library paths, and per kernel variant ("flash_fwd[bf16,256]")
            the registers, stack and spill bytes that ptxas reports.
 3. kernels each flash-attention kernel (forward, dQ, dK/dV) against its
@@ -25,11 +24,11 @@ Phases, each printing one JSON line:
            and q_seq = k_seq / 2 with q_offset 0 (half the k tiles seen by
            no row: their dK/dV must be exact zeros); ragged lengths
            (S=2000 causal, Sq=72 / Sk=200 at q_offset 128, S=8); fp16 at
-           S=2048 and 200; f32 (the SIMT forward, the 3xTF32 dQ and
-           dK/dV) at 128-512 and bf16/fp16 at 384 and 512 (the SIMT
-           forward and dQ, the wgmma dK/dV) at S=2048 causal, and f32 128
-           and 512, fp16 384 and bf16 512 at S=200 not; the wgmma dK/dV's
-           edges at 384-512 (bf16 512 and 384 at S=2000, bf16 512 at
+           S=2048 and 200; f32 (the 3xTF32 forward, dQ and dK/dV) at
+           128-512 and bf16/fp16 at 384 and 512 (the SIMT forward, the
+           wgmma dQ and dK/dV) at S=2048 causal, and f32 128 and 512, fp16
+           384 and bf16 512 at S=200 not; the wgmma dQ's and dK/dV's edges
+           at 384-512 (bf16 512 and 384 at S=2000, bf16 512 at
            Sq=1024 / Sk=2048 with q_offset 1024, bf16 512 and 384 with
            half the k tiles unseen, fp16 512 Sq=72 / Sk=200 at q_offset
            128) and bf16 512 S=2048 causal at d512_train's heads (H=8,
@@ -47,27 +46,29 @@ Phases, each printing one JSON line:
            dropped, rows past the last full q tile left as zeros, scores
            from the first 128 of head_dim, head_dim columns 128-255 left
            as zeros or copied from columns 0-127, at head_dim 384-512 the
-           dK/dV's last 128 columns left as zeros or copied from columns
-           0-127, f32 products in TF32, and in f32 P^T and dS^T rounded to
-           TF32 before dV and dK and dS before dQ, as a 3xTF32 kernel that
-           split only the loaded operands would give). In f32 the kernels'
+           dQ's and dK/dV's last 128 columns left as zeros or copied from
+           columns 0-127, each of the three on its own, f32 products in
+           TF32, and in f32 P rounded to TF32 before O, P^T and dS^T before
+           dV and dK and dS before dQ, as a 3xTF32 kernel that split only
+           the loaded operands would give). In f32 the kernels' out, lse,
            dQ, dK and dV are also held to a float64 version at the same
            limits (f64_ratio), and that check must reject both TF32
-           perturbations: the plain version sums its long products in f32
-           too, so against it alone a right kernel's margin is partly the
-           plain version's own rounding (its f64_ratio is reported).
+           perturbations through each output on its own: the plain version
+           sums its long products in f32 too, so against it alone a right
+           kernel's margin is partly the plain version's own rounding (its
+           f64_ratio is reported).
            Kernel,
            plain and library (scaled_dot_product_attention, a yardstick
            the port never calls) device times from CUDA events around
            calls queued behind a sleep kernel (``cuda_ms``), and beside
            them the same calls launched by the host as it goes, at B=1,
            S=2048, H=32, Hkv=8, causal for every timed case above (the
-           SIMT kernels 3 calls, the 3xTF32 ones 10, the wgmma ones 20);
-           the bound takes 989 TFLOP/s for bf16/fp16, 67 for the f32 SIMT
-           kernels and three TF32 products at 494.7 for the 3xTF32 ones
-           (their f32 FMA bound beside), against 3.35 TB/s, and counts no
-           redundant work (the D=384-512 dK/dV's two column halves each
-           reduce S^T and dP^T over all of head_dim: 1.5x).
+           SIMT kernel 3 calls, the 3xTF32 ones 10, the wgmma ones 20);
+           the bound takes 989 TFLOP/s for bf16/fp16 and three TF32
+           products at 494.7 for the 3xTF32 kernels (their f32 FMA bound,
+           67 TFLOP/s, beside), against 3.35 TB/s, and counts no redundant
+           work (the D=384-512 dQ's and dK/dV's two column halves each
+           reduce S and dP over all of head_dim: 1.67x and 1.5x).
 3a. fp16_model  the model phase's logits check in fp16 at S=2048
            (phase 4's rule; forward only): launches flash_fwd 4.
 3b. ragged_train  the main path at S=2000 (no multiple of the 64-row
@@ -81,7 +82,7 @@ Phases, each printing one JSON line:
 3c. f32_train  the main path with LlamaConfig.dtype = f32 at S=2048: the
            logits within relative L2 F32_LOGITS_REL of the reference
            attention's on the same f32 weights, then 2 steps launching
-           flash_fwd_simt 8, flash_dq_f32tc 4 and flash_dkv_f32tc 4 each,
+           flash_fwd_f32tc 8, flash_dq_f32tc 4 and flash_dkv_f32tc 4 each,
            no reference attention; the step time.
 3d. d256_train  the main path with the attention at head_dim 256: the
            same model with n_heads 16, n_kv_heads 4, head_dim 256 (the
@@ -94,7 +95,7 @@ Phases, each printing one JSON line:
            attention_impl="xla".
 3e. d512_train  the same at head_dim 512: n_heads 8, n_kv_heads 2,
            head_dim 512, bf16, S=2048, 3 steps launching flash_fwd_simt 8,
-           flash_dq_simt 4 and flash_dkv_d512 4 each (the dK/dV's GQA items
+           flash_dq_d512 4 and flash_dkv_d512 4 each (the dK/dV's GQA items
            split over 2 CTAs at these heads), against attention_impl="xla".
 4. model   the 4-layer llama_3_8b-width model's logits through the kernels
            against the same weights through the reference attention.
@@ -136,8 +137,7 @@ Phases, each printing one JSON line:
            rotates the list of lanes), S=8192 in blocks of 2048, B=1,
            H=32, Hkv=8, D=128, bf16, causal and not; then causal rings of
            ragged 2000-token bf16 blocks and of 512-token f32 blocks (the
-           SIMT forward and 3xTF32 backward, at f32's limits), each ring
-           the one
+           3xTF32 kernels, at f32's limits), each ring the one
            resolve_impl("auto") picks for its block. out, dQ, dK and dV are
            held against one kernel call over the whole 8192 and against the
            plain version (by KV head), with check's scaled limits; the
@@ -312,12 +312,12 @@ no flash kernel, as the JAX decode path runs none):
 Then the whole script's seconds, a {"kernels": [...]} summary line (one
 entry a launch key: the wgmma D=128 kernels' numbers from the training
 step's case and launches from the train phase, the wgmma D=256 kernels'
-from the bf16 D=256 case and the d256_train phase, the 3xTF32 dQ's and
-dK/dV's and the SIMT forward's from the f32 D=128 case and the f32_train
-phase, the SIMT dQ's and the wgmma D=384 dK/dV's from the bf16 D=384
-case and the D=512 dK/dV's from the bf16 D=512 case, with the d512_train
-phase's launches (0 of the D=384 dK/dV); every path's launches and every
-timed variant beside them),
+from the bf16 D=256 case and the d256_train phase, the 3xTF32 kernels'
+from the f32 D=128 case and the f32_train phase, the SIMT forward's and
+the wgmma D=384 dQ's and dK/dV's from the bf16 D=384 case and the D=512
+dQ's and dK/dV's from the bf16 D=512 case, with the d512_train phase's
+launches (0 of the D=384 kernels); every path's launches and every timed
+variant beside them),
 the nvidia-smi name/power line, and last {"ok":
 true, "device": {...}}. Any
 failure exits non-zero before the last line; so does a machine without a
@@ -403,8 +403,8 @@ from tf_operator_tpu_torch.train.trainer import (
 REL = 1e-2
 ATOL = 2e-2
 LSE_ATOL = 1e-3
-# f32 kernels (the SIMT forward, the 3xTF32 dQ and dK/dV) against the
-# plain versions with TF32 off: relative L2 within 1e-5, every element
+# f32 kernels (the 3xTF32 forward, dQ and dK/dV) against the plain
+# versions with TF32 off: relative L2 within 1e-5, every element
 # within 1e-5 of the output's largest value plus 1e-5 of itself, lse
 # within 1e-5. Both sum in
 # f32, in orders that differ by about 1e-7 of a value, and 3xTF32 leaves
@@ -434,7 +434,7 @@ DTYPE_NAME = {torch.bfloat16: "bf16", torch.float16: "fp16",
 B, S, H, HKV, D = 1, 2048, 32, 8, 128
 STEPS = 5
 # Paths beyond the tile and dtype of the main one: a ragged sequence (no
-# multiple of 64) and f32 through the SIMT and 3xTF32 kernels. The f32
+# multiple of 64) and f32 through the 3xTF32 kernels. The f32
 # logits against the reference attention's on the same f32 weights: both
 # sum in f32 (TF32 off), in other orders, through 4 layers and a
 # 128,256-way lm_head.
@@ -462,7 +462,7 @@ REMAT_ATOL = 1e-6
 DIST_REL = 1e-5
 # Ring phase: RING_LANES ring positions of RING_S // RING_LANES tokens,
 # causal and not; then a causal ring of ragged 2000-token blocks, and one
-# of f32 blocks (the SIMT and 3xTF32 kernels), each block's ring chosen by
+# of f32 blocks (the 3xTF32 kernels), each block's ring chosen by
 # resolve_impl("auto"). (causal, block rows, dtype)
 RING_LANES = 4
 RING_S = 8192
@@ -749,18 +749,27 @@ def tf32(x):
     return ((i + 0xFFF + ((i >> 13) & 1)) & -8192).view(torch.float32)
 
 
-def _probs_grads_float64(q, k, v, lse, do, delta, causal, q_offset):
-    """fa._probs_grads in float64: P, dS [B, Hkv, G, Sq, Sk] and the
-    grouped q and dO."""
+def _scores_float64(q, k, causal, q_offset):
+    """fa._scores in float64: scaled, masked scores [B, Hkv, G, Sq, Sk] and
+    the grouped q."""
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     qg = q.double().reshape(b, sq, hkv, h // hkv, d)
-    dog = do.double().reshape(b, sq, hkv, h // hkv, d)
     s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.double()) * d ** -0.5
     if causal:
         q_pos = torch.arange(sq, device=q.device) + q_offset
         k_pos = torch.arange(k.shape[1], device=q.device)
         s = s.masked_fill(q_pos[:, None] < k_pos[None, :], fa.NEG_INF)
+    return s, qg
+
+
+def _probs_grads_float64(q, k, v, lse, do, delta, causal, q_offset):
+    """fa._probs_grads in float64: P, dS [B, Hkv, G, Sq, Sk] and the
+    grouped q and dO."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    s, qg = _scores_float64(q, k, causal, q_offset)
+    dog = do.double().reshape(b, sq, hkv, h // hkv, d)
     p = torch.exp(s - lse.double().reshape(b, hkv, h // hkv, sq, 1))
     dp = torch.einsum("bqkgd,btkd->bkgqt", dog, v.double())
     ds = p * (dp - delta.double().reshape(b, hkv, h // hkv, sq, 1)) \
@@ -784,6 +793,27 @@ def dq_float64(q, k, v, lse, do, delta, causal, q_offset):
                                        q_offset)
     return torch.einsum("bkgqt,btkd->bqkgd", ds, k.double()).reshape(
         q.shape)
+
+
+def fwd_float64(q, k, v, causal, q_offset):
+    """out [B, Sq, H, D] and lse [B, H, Sq] of the plain forward's formulas
+    (fa._fwd_reference: the -1e30 mask, a sum of 0 guarded as 1) computed
+    in float64."""
+    b, sq, h, d = q.shape
+    s, _ = _scores_float64(q, k, causal, q_offset)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.einsum("bkgqt,btkd->bkgqd", p, v.double()) / l
+    return (o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d),
+            (m + torch.log(l)).reshape(b, h, sq))
+
+
+# The domain perturbations of a column half at head_dim 384-512, which the
+# check must reject through each output they change on its own.
+COLUMN_HALF_PERTURBATIONS = ("d_cols_last_128_zero",
+                             "d_cols_last_128_from_cols_0_127")
 
 
 def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
@@ -833,16 +863,16 @@ def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
         wrong["d_cols_128_255_zero"] = zero
         wrong["d_cols_128_255_from_cols_0_127"] = again
     if d > 256:
-        # dK/dV whose last 128 head_dim columns are never written (left as
-        # zeros) or written from columns 0-127, as a column-slice CTA that
-        # never stores, or stores the wrong slice, would give.
+        # dQ and dK/dV whose last 128 head_dim columns are never written
+        # (left as zeros) or written from columns 0-127, as a column-half
+        # warpgroup or CTA that never stores, or stores the wrong slice,
+        # would give.
         zero, again = {}, {}
-        for n in ("dk", "dv"):
+        for n in ("dq", "dk", "dv"):
             zero[n], again[n] = ref[n].clone(), ref[n].clone()
             zero[n][..., d - 128:] = 0
             again[n][..., d - 128:] = ref[n][..., :128]
-        wrong["d_cols_last_128_zero"] = zero
-        wrong["d_cols_last_128_from_cols_0_127"] = again
+        wrong.update(zip(COLUMN_HALF_PERTURBATIONS, (zero, again)))
     if q.dtype == torch.float32:
         # A TF32 kernel: every product on TF32-rounded operands.
         qt, kt, vt, dot = (tf32(x) for x in (q, k, v, do))
@@ -851,12 +881,18 @@ def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
                                        q_offset)
         wrong["tf32"] = {"out": out, "lse": lse_t, "dq": dq, "dk": dk,
                          "dv": dv}
-        # A 3xTF32 dQ and dK/dV that split the loaded operands but not the
-        # computed ones: P^T and dS^T rounded to TF32 before dV += P^T dO
-        # and dK += dS^T Q, dS before dQ += dS K.
+        # 3xTF32 kernels that split the loaded operands but not the
+        # computed ones: P rounded to TF32 before O += P V, P^T and dS^T
+        # before dV += P^T dO and dK += dS^T Q, dS before dQ += dS K.
+        s, _ = fa._scores(q, k, causal, q_offset)
+        pf = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        out = torch.einsum("bkgqt,btkd->bkgqd", tf32(pf), v.float()) \
+            / pf.sum(dim=-1, keepdim=True)
+        del s, pf
         p, ds, qg, dog = fa._probs_grads(q, k, v, lse, do, delta, causal,
                                          q_offset)
         wrong["tf32_register_operands"] = {
+            "out": out.permute(0, 3, 1, 2, 4).reshape(q.shape),
             "dq": torch.einsum("bkgqt,btkd->bqkgd", tf32(ds),
                                k.float()).reshape(q.shape),
             "dk": torch.einsum("bkgqt,bqkgd->btkd", tf32(ds), qg),
@@ -968,10 +1004,12 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
             "domain_perturbed_ratio": domain_caught}
     if dtype == torch.float32:
         # The f32 plain version sums its long products in f32 as well, so
-        # the kernels' dQ, dK and dV are also held to a float64 version at
-        # the same limits (gated), which must reject the TF32
+        # the kernels' out, lse, dQ, dK and dV are also held to a float64
+        # version at the same limits (gated), which must reject the TF32
         # perturbations; the plain version's own ratio is reported beside.
-        exact = dict(zip(("dk", "dv"), dkv_float64(
+        exact = dict(zip(("out", "lse"), fwd_float64(q, k, v, causal,
+                                                     q_offset)))
+        exact.update(zip(("dk", "dv"), dkv_float64(
             q, k, v, ref_lse, do, delta, causal, q_offset)))
         exact["dq"] = dq_float64(q, k, v, ref_lse, do, delta, causal,
                                  q_offset)
@@ -980,8 +1018,8 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                 "plain": check(n, ref[n], e, **lim)["ratio"]}
             for n, e in exact.items()}
         case["f64_perturbed_ratio"] = {
-            p: {n: check(n, wrong[p][n], e, **lim)["ratio"]
-                for n, e in exact.items()}
+            p: {n: check(n, t, exact[n], **lim)["ratio"]
+                for n, t in wrong[p].items()}
             for p in ("tf32", "tf32_register_operands")}
         del exact
     del wrong
@@ -1006,7 +1044,7 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                       + 2 * act_kv),
     }
     peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
-    # The SIMT and 3xTF32 kernels take milliseconds a call: fewer
+    # The SIMT kernel and the 3xTF32 ones take milliseconds a call: fewer
     # repetitions.
     reps = {kn: 3 if key.endswith("_simt") else
             10 if key.endswith("_f32tc") else 20
@@ -1073,8 +1111,9 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
 # q_offset, timed) and, where given, (H, Hkv); else B, H and Hkv are the
 # module's (GQA 4:1). The first is the training step's; each kernel's
 # first timed case gives the summary's numbers (the f32 kernels' f32 at
-# 128, the SIMT dQ's and the wgmma D=384 dK/dV's bf16 at 384, the D=512
-# dK/dV's bf16 at 512, the wgmma D=256 kernels' bf16).
+# 128, the SIMT forward's and the wgmma D=384 dQ's and dK/dV's bf16 at
+# 384, the D=512 dQ's and dK/dV's bf16 at 512, the wgmma D=256 kernels'
+# bf16).
 KERNEL_CASES = (
     (torch.bfloat16, D, S, S, True, 0, True),
     (torch.bfloat16, D, S, S, False, 0, False),
@@ -1087,8 +1126,8 @@ KERNEL_CASES = (
     (torch.bfloat16, D, 8, 8, True, 0, False),
     (torch.float16, D, S, S, True, 0, True),
     (torch.float16, D, 200, 200, True, 0, False),
-    # f32 at every head_dim (the SIMT forward, the 3xTF32 dQ and dK/dV),
-    # and bf16/fp16 at 384-512 (the SIMT forward and dQ, the wgmma dK/dV).
+    # f32 at every head_dim (the 3xTF32 forward, dQ and dK/dV), and
+    # bf16/fp16 at 384-512 (the SIMT forward, the wgmma dQ and dK/dV).
     (torch.float32, 128, S, S, True, 0, True),
     (torch.float32, 128, 200, 200, False, 0, False),
     (torch.float32, 256, S, S, True, 0, True),
@@ -1101,9 +1140,10 @@ KERNEL_CASES = (
     (torch.bfloat16, 512, S, S, True, 0, True),
     (torch.bfloat16, 512, 200, 200, False, 0, False),
     (torch.float16, 512, S, S, True, 0, True),
-    # The wgmma dK/dV's edges at 384-512, as at 256 below: no multiple of
-    # the tile, q_offset, half the k tiles unseen (exact zeros), a ragged
-    # q_offset case; and d512_train's heads (H=8, Hkv=2: its splits).
+    # The wgmma dQ's and dK/dV's edges at 384-512, as at 256 below: no
+    # multiple of the tile, q_offset, half the k tiles unseen (exact
+    # zeros), a ragged q_offset case; and d512_train's heads (H=8, Hkv=2:
+    # the dK/dV's splits).
     (torch.bfloat16, 512, 2000, 2000, True, 0, False),
     (torch.bfloat16, 512, S // 2, S, True, S // 2, False),
     (torch.bfloat16, 512, S // 2, S, True, 0, False),  # half unseen
@@ -1172,8 +1212,15 @@ def phase_kernels():
     missed += [(*tag(c), p) for c in cases
                for p, ratios in c["domain_perturbed_ratio"].items()
                if max(ratios.values()) <= 1.0]
+    # A column half left unwritten or written from the wrong columns: each
+    # of dQ, dK and dV on its own (their kernels split the columns apart).
+    missed += [(*tag(c), p, n) for c in cases
+               for p, ratios in c["domain_perturbed_ratio"].items()
+               if p in COLUMN_HALF_PERTURBATIONS
+               for n, r in ratios.items() if r <= 1.0]
     # Against float64 each output of a TF32 perturbation on its own: a
-    # kernel that left any one of dQ, dK and dV in TF32 must be caught.
+    # kernel that left any one of out, dQ, dK and dV in TF32 must be
+    # caught.
     missed += [(*tag(c), p, n, "vs float64") for c in cases
                for p, ratios in c.get("f64_perturbed_ratio", {}).items()
                for n, r in ratios.items() if r <= 1.0]
@@ -1374,8 +1421,8 @@ def phase_ragged_train() -> dict:
 
 
 def phase_f32_train() -> dict:
-    """The main path in f32 through the SIMT and 3xTF32 kernels (module
-    docstring, phase 3c); returns the launches of its steps."""
+    """The main path in f32 through the 3xTF32 kernels (module docstring,
+    phase 3c); returns the launches of its steps."""
     cfg = dataclasses.replace(slice_config(), dtype=torch.float32)
     tokens = np.random.default_rng(2).integers(0, cfg.vocab_size,
                                                (B, S + 1))
@@ -1404,7 +1451,9 @@ def phase_f32_train() -> dict:
                   F32_STEPS)
     if (run["launches"] != want or run["reference_attention_calls"]
             or forward_ref_calls
-            or forward_launches != counts({"flash_fwd_simt": cfg.n_layers})):
+            or forward_launches != counts(
+                {launch_keys(torch.float32, cfg.head_dim)["flash_fwd"]:
+                 cfg.n_layers})):
         raise AssertionError(
             f"f32_train: launches {run['launches']} != {want}, forward "
             f"{forward_launches}, or reference attention calls "
@@ -3973,12 +4022,12 @@ def main() -> int:
     # One entry a kernel (launch key): the wgmma D=128 kernels' numbers
     # from the training step's case and their launches from the train
     # phase; the wgmma D=256 kernels' from the bf16 D=256 case and the
-    # d256_train phase; the f32 kernels' (SIMT forward, 3xTF32 dQ and
-    # dK/dV) from the f32 D=128 case and the f32_train phase; the SIMT
-    # dQ's and the D=384 dK/dV's from the bf16 D=384 case, the D=512
-    # dK/dV's from the bf16 D=512 case, and their launches from the
-    # d512_train phase (the D=384 dK/dV: 0 there, no path launches it);
-    # every timed variant under "variants".
+    # d256_train phase; the 3xTF32 kernels' from the f32 D=128 case and
+    # the f32_train phase; the SIMT forward's and the D=384 dQ's and
+    # dK/dV's from the bf16 D=384 case, the D=512 dQ's and dK/dV's from the
+    # bf16 D=512 case, and their launches from the d512_train phase (the
+    # D=384 ones: 0 there, no path launches them); every timed variant
+    # under "variants".
     summary = []
     by_path = {"train": launches, "fp16_model": fp16_launches,
                "ragged_train": ragged_launches, "f32_train": f32_launches,
@@ -3988,12 +4037,11 @@ def main() -> int:
                "mixtral": mixtral_launches, "bert": bert_launches}
     main_paths = {"": "train", "_d256": "d256_train",
                   "_d384": "d512_train", "_d512": "d512_train",
-                  "_simt": "f32_train", "_f32tc": "f32_train",
-                  "flash_dq_simt": "d512_train"}
+                  "_simt": "d512_train", "_f32tc": "f32_train"}
     for suffix, kinds in fa._KINDS.items():
         for kind in kinds:
             kernel, name = f"flash_{kind}", f"flash_{kind}{suffix}"
-            main_path = main_paths.get(name, main_paths[suffix])
+            main_path = main_paths[suffix]
             st = stats[name]
             summary.append({
                 "name": name, "route": "cuda", "source": SOURCE[suffix],

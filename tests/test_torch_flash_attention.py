@@ -160,15 +160,17 @@ def test_flash_supported_gate():
 
 # The kernel of each (kind, dtype, head_dim) of the domain, by launch-key
 # suffix: the wgmma kernels for bf16/fp16 at 128 and at 256 ("_d256"), all
-# three kinds, and their dK/dV at 384 and 512 ("_d384", "_d512"); the
-# 3xTF32 tensor-core kernels for the f32 dQ and dK/dV at every head_dim
-# ("_f32tc"); the SIMT kernels everywhere else.
+# three kinds, and their dQ and dK/dV at 384 and 512 ("_d384", "_d512");
+# the 3xTF32 tensor-core kernels for f32, all three kinds at every
+# head_dim ("_f32tc"); the SIMT kernel everywhere else (the bf16/fp16
+# forward at 384-512).
 WGMMA = {(kind, dtype, d): "" if d == 128 else "_d256"
          for kind in ("fwd", "dq", "dkv")
          for dtype in ("bfloat16", "float16") for d in (128, 256)}
-WGMMA.update({("dkv", dtype, d): f"_d{d}"
+WGMMA.update({(kind, dtype, d): f"_d{d}" for kind in ("dq", "dkv")
               for dtype in ("bfloat16", "float16") for d in (384, 512)})
-WGMMA.update({(kind, "float32", d): "_f32tc" for kind in ("dq", "dkv")
+WGMMA.update({(kind, "float32", d): "_f32tc"
+              for kind in ("fwd", "dq", "dkv")
               for d in (128, 256, 384, 512)})
 
 
@@ -218,9 +220,10 @@ def test_launch_counters_reset():
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_fwd_d256": 0, "flash_dq_d256": 0,
-                            "flash_dkv_d256": 0, "flash_dkv_d384": 0,
+                            "flash_dkv_d256": 0, "flash_dq_d384": 0,
+                            "flash_dkv_d384": 0, "flash_dq_d512": 0,
                             "flash_dkv_d512": 0, "flash_fwd_simt": 0,
-                            "flash_dq_simt": 0, "flash_dq_f32tc": 0,
+                            "flash_fwd_f32tc": 0, "flash_dq_f32tc": 0,
                             "flash_dkv_f32tc": 0}
 
 
@@ -251,8 +254,8 @@ def test_dkv_splits(args):
 @pytest.mark.parametrize("family", sorted(tfa._LIBRARY))
 def test_lib_types_only_the_family_s_own_kinds(family, monkeypatch):
     """_lib looks up and types the C entries of the family's own kinds
-    only: the "_f32tc" library has a dQ and a dK/dV entry and no forward,
-    the "_simt" one no dK/dV, so asking either for one would fail. A stub
+    only: the "_simt" library has a forward entry and no dQ or dK/dV, so
+    asking it for one would fail. A stub
     stands in for the built library (no card, no nvcc): like a ctypes.CDLL
     it raises AttributeError for an entry it lacks."""
     own = [f"flash_{kind}{family}" for kind in tfa._KINDS[family]]

@@ -187,10 +187,10 @@ def test_kernel_check_rejects_domain_perturbations(case):
     that applies (the partial last k tile dropped, rows past the last full
     q tile left as zeros, scores from the first 128 of head_dim, head_dim
     columns 128-255 left as zeros or copied from columns 0-127, at head_dim
-    384-512 the dK/dV's last 128 columns left as zeros or copied from
-    columns 0-127, TF32 in place of f32, and in f32 P^T and dS^T rounded to
-    TF32 before dV and dK and dS before dQ) through at least one output it
-    changes."""
+    384-512 the dQ's and dK/dV's last 128 columns left as zeros or copied
+    from columns 0-127, TF32 in place of f32, and in f32 P rounded to TF32
+    before O, P^T and dS^T before dV and dK and dS before dQ) through at
+    least one output it changes."""
     sq, sk, causal, q_offset, dtype, d = PERTURBED_CASES[case]
     gen = torch.Generator().manual_seed(0)
     q, k, v, do = ((torch.randn(1, s, h, d, generator=gen) * 0.5).to(dtype)
@@ -226,6 +226,44 @@ def test_kernel_check_rejects_domain_perturbations(case):
             assert got.shape == ref[name].shape, (kind, name)
             ratios[name] = smoke.check(name, got, ref[name], **lim)["ratio"]
         assert max(ratios.values()) > 1, (kind, ratios)
+
+
+@pytest.mark.parametrize("case", ["f32_512", "f32_ragged_noncausal",
+                                  "bf16_384_q_offset", "fp16_512"])
+def test_new_perturbations_rejected_through_their_own_output(case):
+    """The perturbations of the column-half wgmma dQ and the 3xTF32 forward
+    are rejected through the output they target, on its own: at head_dim
+    384-512, dQ's last 128 columns left as zeros or copied from columns
+    0-127 (against the plain dQ); in f32, P rounded to TF32 before O += P V
+    (against the plain out and against the float64 one)."""
+    sq, sk, causal, q_offset, dtype, d = PERTURBED_CASES[case]
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = ((torch.randn(1, s, h, d, generator=gen) * 0.5).to(dtype)
+                   for s, h in ((sq, 2), (sk, 1), (sk, 1), (sq, 2)))
+    out, lse = tfa._fwd_reference(q, k, v, causal, q_offset)
+    delta = tfa._delta(out, do)
+    ref = {"out": out, "lse": lse,
+           "dq": tfa._dq_reference(q, k, v, lse, do, delta, causal,
+                                   q_offset)}
+    ref["dk"], ref["dv"] = tfa._dkv_reference(q, k, v, lse, do, delta,
+                                              causal, q_offset)
+    lim = smoke.limits(dtype)
+    wrong = smoke.domain_perturbed(q, k, v, do, ref, delta, causal,
+                                   q_offset)
+    targets = {}
+    if d > 256:
+        targets.update({p: ("dq", ref["dq"])
+                        for p in smoke.COLUMN_HALF_PERTURBATIONS})
+    if dtype == torch.float32:
+        targets["tf32_register_operands"] = ("out", ref["out"])
+        exact_out, _ = smoke.fwd_float64(q, k, v, causal, q_offset)
+        got = wrong["tf32_register_operands"]["out"]
+        assert smoke.check("out", got, exact_out, **lim)["ratio"] > 1
+    assert targets
+    for kind, (name, want) in targets.items():
+        got = wrong[kind][name]
+        assert got.shape == want.shape, (kind, name)
+        assert smoke.check(name, got, want, **lim)["ratio"] > 1, (kind, name)
 
 
 def test_f32_limit_tells_tf32_from_f32():

@@ -1,13 +1,14 @@
-"""The 3xTF32 arithmetic of the f32 dK/dV and dQ kernels, emulated on the
-CPU.
+"""The 3xTF32 arithmetic of the f32 forward, dK/dV and dQ kernels,
+emulated on the CPU.
 
-``csrc/flash_attention_f32tc.cu`` does every product of the f32 dK/dV and
-dQ on TF32 tensor cores: each f32 operand x is split into hi = tf32(x)
-and lo = tf32(x - hi), and a product is lo.hi + hi.lo + hi.hi with f32
-sums. The loaded operands (K, V, Q, dO) and the computed ones (P^T and
-dS^T in the dK/dV, dS in the dQ) are split alike. Here each such product
-runs as f32 einsums of TF32-rounded parts: a product of two TF32 values
-is exact in f32.
+``csrc/flash_attention_f32tc.cu`` does every product of the f32 forward,
+dK/dV and dQ on TF32 tensor cores: each f32 operand x is split into hi =
+tf32(x) and lo = tf32(x - hi), and a product is lo.hi + hi.lo + hi.hi
+with f32 sums. The loaded operands (Q, K, V, dO) and the computed ones (P
+in the forward, P^T and dS^T in the dK/dV, dS in the dQ) are split alike.
+Here each such product runs as f32 einsums of TF32-rounded parts: a
+product of two TF32 values is exact in f32. The forward is emulated with
+its online softmax over 64-key blocks.
 
 What this covers is the operand split, not the accumulator. The sums here
 are ordinary f32 einsums, rounded to nearest. The tensor cores' f32
@@ -18,11 +19,11 @@ chip_smoke.py holds the kernel to the f32 limits of the f32 plain version
 and of a float64 version.
 
 The case is f32, D=512, S=256, GQA 4:1, causal, made from a seed with
-numpy. dK and dV, and dQ, are held, with chip_smoke.py's check at the f32
-limits (1e-5), to chip_smoke.py's float64 versions. The 3xTF32 scheme
-must pass. 1xTF32 (hi.hi alone) must fail, and so must 3xTF32 that splits
-only the loaded operands and leaves the computed ones (P^T and dS^T, or
-dS) in TF32.
+numpy. out and lse, dK and dV, and dQ, are held, with chip_smoke.py's
+check at the f32 limits (1e-5), to chip_smoke.py's float64 versions. The
+3xTF32 scheme must pass. 1xTF32 (hi.hi alone) must fail, and so must
+3xTF32 that splits only the loaded operands and leaves the computed ones
+(P, P^T and dS^T, or dS) in TF32.
 """
 
 import importlib.util
@@ -114,6 +115,36 @@ def dq(q, k, v, do, lse, delta, product):
     return product("bkgqt,btkd->bqkgd", ds, k, True).reshape(q.shape)
 
 
+def fwd(q, k, v, product, block=64):
+    """out and lse of the TPU _fwd_kernel (causal, q_offset 0) as the f32
+    forward kernel computes them: key blocks of ``block`` keys in order
+    and an online softmax (running max m and sum l; O rescaled by exp(m_old
+    - m) before the block's P V is added), every product through
+    ``product(eq, a, b, register_operand)``: S = Q K^T, then O += P V with
+    P the register operand. Works in q's dtype."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, d)
+    scale = d ** -0.5
+    m = torch.full((b, hkv, h // hkv, s, 1), NEG_INF, dtype=q.dtype)
+    l = torch.zeros_like(m)
+    o = torch.zeros(b, hkv, h // hkv, s, d, dtype=q.dtype)
+    queries = torch.arange(s)[:, None]
+    for k0 in range(0, k.shape[1], block):
+        kb, vb = k[:, k0:k0 + block], v[:, k0:k0 + block]
+        st = product("bqkgd,btkd->bkgqt", qg, kb, False) * scale
+        keys = torch.arange(k0, k0 + kb.shape[1])[None, :]
+        st = st.masked_fill(queries < keys, NEG_INF)
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + product("bkgqt,btkd->bkgqd", p, vb, True)
+        m = m_new
+    out = (o / l).permute(0, 3, 1, 2, 4).reshape(q.shape)
+    return out, (m + torch.log(l)).reshape(b, h, s)
+
+
 # Scheme -> (the product of (eq, a, b, register operand), whether the f32
 # limits accept it).
 SCHEMES = {
@@ -177,3 +208,23 @@ def test_3xtf32_dq_scheme_holds_f32_limits(case, scheme):
         assert result["ok"], result
     else:
         assert result["ratio"] > 1, result
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_3xtf32_fwd_scheme_holds_f32_limits(case, scheme):
+    """The f32 forward kernel's 3xTF32 products under its online softmax
+    give out and lse within the f32 limits of the float64 plain version;
+    1xTF32, or P left in TF32 before O += P V, give an out they reject."""
+    q, k, v, *_ = case
+    want = smoke.fwd_float64(q, k, v, True, 0)
+    product, accepted = SCHEMES[scheme]
+    got = fwd(*(x.float() for x in (q, k, v)), product)
+    lim = smoke.limits(torch.float32)
+    results = {}
+    for name, g, w in zip(("out", "lse"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        results[name] = smoke.check(name, g, w, **lim)
+    if accepted:
+        assert all(r["ok"] for r in results.values()), results
+    else:
+        assert results["out"]["ratio"] > 1, results

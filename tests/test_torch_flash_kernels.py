@@ -13,10 +13,11 @@ to that output, relative L2 within 1e-2, and lse within 1e-3; f32 the
 same with 1e-5 for each. ``CASES`` are the wgmma kernels' bf16, head_dim
 128 cases at whole tiles; ``DOMAIN_CASES`` the rest of the TPU kernels'
 domain (ragged lengths, fp16, f32, head_dim 256-512; at 256 in bf16 and
-fp16 all three wgmma kernels, at 384-512 the SIMT forward and dQ beside
-the wgmma dK/dV, ``flash_dkv_d384``/``flash_dkv_d512``; in f32 the SIMT
-forward beside the 3xTF32 tensor-core dQ and dK/dV, ``flash_dq_f32tc``
-and ``flash_dkv_f32tc``).
+fp16 all three wgmma kernels, at 384-512 the SIMT forward beside the
+wgmma dQ and dK/dV, ``flash_dq_d384``/``flash_dkv_d384`` and
+``flash_dq_d512``/``flash_dkv_d512``; in f32 the 3xTF32 tensor-core
+kernels, ``flash_fwd_f32tc``, ``flash_dq_f32tc`` and
+``flash_dkv_f32tc``).
 """
 
 import importlib.util
@@ -80,6 +81,7 @@ DOMAIN_CASES = {
     "fp16_384_q_offset": (1, 72, 200, 4, 2, True, 128, torch.float16, 384),
     "bf16_512_unseen_k_tiles": (1, 512, 1024, 4, 1, True, 0, torch.bfloat16,
                                 512),
+    "bf16_512_gqa_8_2": (1, 256, 256, 8, 2, True, 0, torch.bfloat16, 512),
 }
 
 
@@ -149,18 +151,20 @@ def test_domain_kernels_match_plain_versions(case, cuda):
 def _strided_view(x, cuda):
     """x as a view into a wider [B, S, H, D] buffer (a slice of the
     sequence and of the heads)."""
-    b, s, h, _ = x.shape
-    wide = torch.zeros(b, s + 128, h + 2, D, device=cuda, dtype=x.dtype)
+    b, s, h, d = x.shape
+    wide = torch.zeros(b, s + 128, h + 2, d, device=cuda, dtype=x.dtype)
     wide[:, 64:64 + s, 1:1 + h] = x
     view = wide[:, 64:64 + s, 1:1 + h]
     assert not view.is_contiguous()
     return view
 
 
-def test_strided_inputs_read_through_strides(cuda):
+@pytest.mark.parametrize("case", ["gqa_4_2", "bf16_512_gqa_8_2"])
+def test_strided_inputs_read_through_strides(case, cuda):
     """q/k/v/do as views into wider buffers give the same out, lse, dq, dk
-    and dv as contiguous copies, bit for bit."""
-    q, k, v, do = _inputs("gqa_4_2", cuda)
+    and dv as contiguous copies, bit for bit (the wgmma kernels at 128, and
+    the SIMT forward and the column-half wgmma dQ and dK/dV at 512)."""
+    q, k, v, do = _inputs(case, cuda)
     qv, kv, vv, dov = (_strided_view(x, cuda) for x in (q, k, v, do))
     out, lse = tfa._fwd_cuda(qv, kv, vv, True, 0)
     ref_out, ref_lse = tfa._fwd_cuda(q, k, v, True, 0)
@@ -173,11 +177,13 @@ def test_strided_inputs_read_through_strides(cuda):
         torch.testing.assert_close(g, w, atol=0, rtol=0, msg=name)
 
 
-@pytest.mark.parametrize("case", ["odd_tiles", "f32_512_gqa_4_1"])
+@pytest.mark.parametrize("case", ["odd_tiles", "f32_512_gqa_4_1",
+                                  "bf16_512_gqa_8_2"])
 def test_dq_is_deterministic(case, cuda):
-    """Two dQ launches on the same inputs (the wgmma kernel, the 3xTF32 f32
-    one) give bitwise-identical results (no atomics; every row is summed
-    in a fixed k-tile order)."""
+    """Two dQ launches on the same inputs (the wgmma kernel at 128 and, by
+    column halves, at 512 with H=8, Hkv=2; the 3xTF32 f32 one) give
+    bitwise-identical results (no atomics; every row is summed in a fixed
+    k-tile order)."""
     q, k, v, do = _inputs(case, cuda)
     out, lse = tfa._fwd_reference(q, k, v, True, 0)
     delta = tfa._delta(out, do)
@@ -204,12 +210,13 @@ def test_dkv_is_deterministic(case, cuda):
 
 @pytest.mark.parametrize("case", ["gqa_4_2", "bf16_256",
                                   "fp16_256_ragged_q_offset",
-                                  "f32_512_gqa_4_1", "f32"])
+                                  "bf16_512_gqa_8_2", "f32_512_gqa_4_1",
+                                  "f32"])
 def test_autograd_through_kernels_matches_reference_attention(case, cuda):
     """flash_attention on the card (kernels forward and backward) against
     the reference attention's autograd on repeated KV: bf16 at head_dim
-    128 and 256, fp16 at 256, f32 at 512 and 128 (the reference in f32,
-    TF32 off)."""
+    128, 256 and 512, fp16 at 256, f32 at 512 and 128 (the reference in
+    f32, TF32 off)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _inputs(case, cuda, seed=1)
     causal, q_offset = (CASES[case] if case in CASES
@@ -234,6 +241,18 @@ def test_autograd_through_kernels_matches_reference_attention(case, cuda):
         assert result["ok"], (f"d{name}", result)
 
 
+@pytest.mark.parametrize("case", ["f32", "f32_512_gqa_4_1"])
+def test_fwd_is_deterministic(case, cuda):
+    """Two launches of the 3xTF32 f32 forward on the same inputs give
+    bitwise-identical out and lse (each row's max, sum and O in one CTA,
+    the key parts summed in a fixed order)."""
+    q, k, v, _ = _inputs(case, cuda)
+    first = tfa._fwd_cuda(q, k, v, True, 0)
+    second = tfa._fwd_cuda(q, k, v, True, 0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_dispatch_and_refusals_on_card(cuda):
     """Auto dispatch launches a kernel for f32 as for bf16; the kernels
     refuse what they cannot take instead of computing it some other
@@ -241,7 +260,7 @@ def test_dispatch_and_refusals_on_card(cuda):
     q, k, v, _ = _inputs("gqa_4_2", cuda)
     tfa.reset_launches()
     tfa.best_attention(q.float(), k.float(), v.float())
-    assert tfa.LAUNCHES["flash_fwd_simt"] == 1
+    assert tfa.LAUNCHES["flash_fwd_f32tc"] == 1
     tfa.best_attention(q, k, v)
     assert tfa.LAUNCHES["flash_fwd"] == 1
     with pytest.raises(ValueError, match="one dtype"):

@@ -16,10 +16,10 @@
 // transpose); head h reads KV head h / (H / Hkv) (native GQA). The kernels
 // are templates over the element type E, bf16 or fp16 (wgmma's bf16 and
 // f16 variants), and head_dim D: 128 or 256 for all three, 384 and 512 for
-// the dK/dV too. The other cases of the domain go elsewhere: the f32 dQ
-// and dK/dV to the 3xTF32 tensor-core kernels of flash_attention_f32tc.cu,
-// the f32 forward and the bf16/fp16 forward and dQ at D of 384-512 to the
-// SIMT kernels of flash_attention_simt.cu.
+// the dQ and dK/dV too. The other cases of the domain go elsewhere: f32 to
+// the 3xTF32 tensor-core kernels of flash_attention_f32tc.cu, the
+// bf16/fp16 forward at D of 384-512 to the SIMT kernel of
+// flash_attention_simt.cu.
 //
 // Ragged sequences. Sq and Sk are any multiples of 8 (>= 8), tiled in 64
 // rows with a partial last tile. The tensor maps carry the real lengths,
@@ -49,8 +49,8 @@
 //     256 dK/dV also hands P^T between its warpgroups through shared
 //     memory), and every accumulator is written once. A 64 x D output is
 //     D / 128 accumulators of 64 x 128 (64 registers a thread each), one
-//     wgmma m64n128k16 each; the D = 384-512 dK/dV's column slice is DC /
-//     64 accumulators of 64 x 64, one m64n64k16 each.
+//     wgmma m64n128k16 each; the D = 384-512 dQ's and dK/dV's column
+//     slice is DC / 64 accumulators of 64 x 64, one m64n64k16 each.
 //   * The tensor maps are built on the host in each C entry
 //     (cuTensorMapEncodeTiled looked up in libcuda, no -lcuda) and passed
 //     as __grid_constant__ parameters.
@@ -387,12 +387,15 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dQ: one CTA per (128 query rows, head, batch). Replaces
-// _dq_kernel (tf_operator_tpu/ops/flash_attention.py:183). Bound by
-// tensor-core operations: 6 D FLOPs per visible (q, k) pair (S = Q K^T,
-// dP = dO V^T, dQ += dS K) against the K and V tile loads, which the
-// producer streams through a ring while the consumers compute (the
-// forward's shape, one product more per tile pair).
+// Backward, dQ. Replaces _dq_kernel (tf_operator_tpu/ops/flash_attention.py
+// :183). Bound by tensor-core operations: 6 D FLOPs per visible (q, k)
+// pair (S = Q K^T, dP = dO V^T, dQ += dS K) against the K and V tile
+// loads, which the producer streams through a ring while the consumers
+// compute (the forward's shape, one product more per tile pair). The
+// head_dims split the work in two ways: dq_by_tiles (D = 128, 256; below)
+// and dq_by_slice (D = 384, 512; after the dK/dV, whose column slices it
+// mirrors).
+// D = 128 and 256: one CTA per (128 query rows, head, batch).
 //   * Consumer warpgroup g owns q tile 2c + g; with an odd count of q
 //     tiles the last CTA's second warpgroup computes nothing and still
 //     releases every tile. Its Q and dO tiles come once, on one barrier,
@@ -428,22 +431,20 @@ constexpr int DQ_RING = D == 128 ? 2 : 3;
 template <int D>
 constexpr int DQ_RING_TILES = D == 128 ? 4 : 3;
 template <int D>
-constexpr int SMEM_DQ = 1024 + 4 * TILE<D> + DQ_RING_TILES<D> * TILE<D> +
-                        8 * (1 + 2 * DQ_RING<D>);
+constexpr int SMEM_DQ_TILES = 1024 + 4 * TILE<D> +
+                              DQ_RING_TILES<D> * TILE<D> +
+                              8 * (1 + 2 * DQ_RING<D>);
 
 template <typename E, int D>
-__global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
-    const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
-    const float* __restrict__ delta, E* __restrict__ dq, int H, int Hkv,
-    int Sq, int Sk, int causal, int q_offset, float scale) {
+__device__ __forceinline__ void dq_by_tiles(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* delta, E* dq, int H, int Hkv, int Sq, int Sk, int causal,
+    int q_offset, float scale) {
   using namespace hopper;
   constexpr int NO = D / 128;                              // dQ accumulators
   constexpr int R = DQ_RING<D>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sQ = align_1024(smem_raw);               // 2 tiles
+  unsigned char* sQ = align_1024(smem);                   // 2 tiles
   unsigned char* sdO = sQ + 2 * TILE<D>;                  // 2 tiles
   unsigned char* sRing = sdO + 2 * TILE<D>;               // the ring
   uint64_t* qdo_full =
@@ -474,19 +475,19 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
     if (threadIdx.x == 256) {
       mbar_expect_tx(qdo_full, 2 * tiles_here * TILE<D>);
       for (int g = 0; g < tiles_here; ++g) {
-        tma_load_tile<D>(sQ + g * TILE<D>, &qmap, qdo_full, h,
+        tma_load_tile<D>(sQ + g * TILE<D>, qmap, qdo_full, h,
                          (2 * c + g) * T, b);
-        tma_load_tile<D>(sdO + g * TILE<D>, &domap, qdo_full, h,
+        tma_load_tile<D>(sdO + g * TILE<D>, domap, qdo_full, h,
                          (2 * c + g) * T, b);
       }
       if (D == 128) {
-        stream_kv<D>(sRing, full, empty, R, &kmap, &vmap, nk, hk, b);
+        stream_kv<D>(sRing, full, empty, R, kmap, vmap, nk, hk, b);
       } else {
         for (int n = 0; n < 2 * nk; ++n) {
           const int s = n % R, use = n / R;
           if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
           mbar_expect_tx(&full[s], TILE<D>);
-          tma_load_tile<D>(sRing + s * TILE<D>, n % 2 ? &vmap : &kmap,
+          tma_load_tile<D>(sRing + s * TILE<D>, n % 2 ? vmap : kmap,
                            &full[s], hk, n / 2 * T, b);
         }
       }
@@ -1406,14 +1407,255 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_kernel(
                        scale);
 }
 
+// ---------------------------------------------------------------------------
+// Backward, dQ at D = 384 and 512: split by output columns, as the dK/dV
+// there. dQ of 64 x D in f32 is D / 2 registers a thread of one
+// warpgroup, 256 at D = 512, over the 240 that setmaxnreg gives; Q and dO
+// of the two q tiles of dq_by_tiles take 256 KB at 512. So one CTA per
+// (q tile, head, batch), and its two consumer warpgroups each own one
+// column half [g DC, (g + 1) DC), DC = D / 2, of the tile's dQ (NC = DC /
+// 64 accumulators of 64 x 64: 128 registers a thread at 512, 96 at 384).
+//   * The choice. Both warpgroups reduce S = Q K^T and dP = dO V^T over
+//     all of head_dim from the same shared tiles, so the two do 2 (2 D +
+//     2 D + D) = 10 D FLOPs a visible (q, k) pair where 6 D suffice
+//     (1.67x); the bound (chip_smoke.py) counts no redundant work. Two
+//     CTAs a q tile, one a half (the dK/dV's split), would do the same
+//     work but load Q, dO, K and V twice; a pair of q tiles a CTA cannot
+//     hold their Q and dO. Summing the halves' partial S and dP through
+//     shared memory instead of recomputing them needs 32 KB that do not
+//     fit beside K and a V ring.
+//   * Shared memory. Q and dO stay whole (2 x D / 8 KB: 128 KB at 512, 96
+//     at 384), loaded once on one barrier. K tile j comes as D / 64 panels,
+//     panel c always in K slot c with its own barriers, V as panels
+//     through a ring of DQ_VRING slots. Per panel c both warpgroups add
+//     its four k-steps to S and dP (one wgmma group, one in flight); a V
+//     panel is released after its dP, a K panel by the warpgroup whose
+//     half it is not after S, by the other after its dQ += dS K[:, panel],
+//     one m64n64k16 a k-step, N-major. So K panel c of tile j + 1 loads
+//     while the rest of tile j's dQ runs. Budget at 512: Q, dO 128 KB, K
+//     64 KB, 4 V slots 32 KB, 1 KB of alignment and the barriers, 225 KB;
+//     at 384: 96 + 48 + 6 x 8 + 1 KB, 193 KB.
+//   * Per k tile as in dq_by_tiles: scale and mask (diagonal and partial
+//     last tiles), P = exp(S - lse), dS = P (dP - delta) scale rounded to E
+//     register fragments (the plain version's cast point). Each dQ row is
+//     summed by one warpgroup in k-tile order (deterministic), written
+//     once as E; rows past Sq are never stored.
+//   * Registers of a consumer thread: dQ 128 at 512, S and dP 32 each, the
+//     dS fragments 16, under the 240 that setmaxnreg gives it (as the D =
+//     256 dQ of dq_by_tiles).
+template <int D>
+constexpr int DQ_VRING = D == 512 ? 4 : 6;
+template <int D>
+constexpr int SMEM_DQ_SLICE = 1024 + 3 * TILE<D> +
+                              DQ_VRING<D> * hopper::PANEL_BYTES +
+                              8 * (1 + 2 * (D / 64) + 2 * DQ_VRING<D>);
+
+template <typename E, int D>
+__device__ __forceinline__ void dq_by_slice(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* delta, E* dq, int H, int Hkv, int Sq, int Sk, int causal,
+    int q_offset, float scale) {
+  using namespace hopper;
+  constexpr int NP = D / 64, NC = DC<D> / 64;       // panels, slice panels
+  constexpr int RV = DQ_VRING<D>;
+  unsigned char* sQ = align_1024(smem);
+  unsigned char* sdO = sQ + TILE<D>;
+  unsigned char* sK = sdO + TILE<D>;                 // K panel c in slot c
+  unsigned char* sV = sK + TILE<D>;                  // RV V panel slots
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sV + RV * PANEL_BYTES);
+  uint64_t* k_full = qdo_full + 1;
+  uint64_t* k_empty = k_full + NP;
+  uint64_t* v_full = k_empty + NP;
+  uint64_t* v_empty = v_full + RV;
+
+  const int nqt = n_tiles(Sq), nkt = n_tiles(Sk);
+  const int hb = gridDim.x / nqt;                    // H * B
+  const int blk = static_cast<int>(blockIdx.x);
+  const int i = nqt - 1 - blk / hb, h = blk % hb % H, b = blk % hb / H;
+  const int hk = h / (H / Hkv);
+  const int nk = k_tiles_visible(i, nkt, causal, q_offset);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int c = 0; c < NP; ++c) {
+      mbar_init(&k_full[c], 1);
+      mbar_init(&k_empty[c], CONSUMER_WARPS);
+    }
+    for (int s = 0; s < RV; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: Q and dO once, then per k tile its K and V panels in
+    // order, K panel c into slot c, V panel n (of all) into slot n % RV.
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qdo_full, 2 * TILE<D>);
+      tma_load_tile<D>(sQ, qmap, qdo_full, h, i * T, b);
+      tma_load_tile<D>(sdO, domap, qdo_full, h, i * T, b);
+      for (int j = 0; j < nk; ++j) {
+        for (int c = 0; c < NP; ++c) {
+          if (j > 0) mbar_wait(&k_empty[c], (j - 1) & 1);
+          mbar_expect_tx(&k_full[c], PANEL_BYTES);
+          tma_load_panel(sK + c * PANEL_BYTES, kmap, &k_full[c], 64 * c, hk,
+                         j * T, b);
+          const int n = j * NP + c, s = n % RV, use = n / RV;
+          if (use > 0) mbar_wait(&v_empty[s], (use - 1) & 1);
+          mbar_expect_tx(&v_full[s], PANEL_BYTES);
+          tma_load_panel(sV + s * PANEL_BYTES, vmap, &v_full[s], 64 * c, hk,
+                         j * T, b);
+        }
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int first = wg * NC;                      // the half's first panel
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // Rows past Sq keep lse = delta = 0: their Q and dO rows are zeros,
+    // so their P and dS stay finite, and they are never stored.
+    float row_lse[2] = {0.0f, 0.0f}, row_delta[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pos = i * T + 16 * warp + lane / 4 + 8 * r;
+      const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq + pos;
+      if (pos < Sq) {
+        row_lse[r] = lse[row];
+        row_delta[r] = delta[row];
+      }
+    }
+
+    float acc[NC][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.0f;
+
+    mbar_wait(qdo_full, 0);
+    for (int j = 0; j < nk; ++j) {
+      // S = Q K^T and dP = dO V^T over head_dim, a panel pair a group.
+      float sc[32], dp[32];
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        const int n = j * NP + c;
+        mbar_wait(&k_full[c], j & 1);
+        mbar_wait(&v_full[n % RV], (n / RV) & 1);
+        const unsigned char* pK = sK + c * PANEL_BYTES;
+        const unsigned char* pV = sV + n % RV * PANEL_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_ss<E>(sc, desc_kmajor(sQ, 4 * c + kk),
+                                desc_kmajor(pK, kk), c > 0 || kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_ss<E>(dp, desc_kmajor(sdO, 4 * c + kk),
+                                desc_kmajor(pV, kk), c > 0 || kk > 0);
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          release(&v_empty[(n - 1) % RV]);
+          if (c - 1 < first || c - 1 >= first + NC) release(&k_empty[c - 1]);
+        }
+      }
+      wgmma_wait_all();
+      reg_fence(sc);
+      reg_fence(dp);
+      release(&v_empty[(j * NP + NP - 1) % RV]);
+      if (NP - 1 < first || NP - 1 >= first + NC) release(&k_empty[NP - 1]);
+
+      // Scale, mask (diagonal tiles and a partial last k tile only, a
+      // uniform branch), P and dS; dS overwrites S.
+      const bool diag = causal && j * T + T - 1 > i * T + q_offset;
+      const int keys = Sk - j * T;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] *= scale;
+      if (diag || keys < T) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if ((diag && i * T + acc_row(e, warp, lane) + q_offset <
+                           j * T + acc_col(e, lane)) ||
+              acc_col(e, lane) >= keys)
+            sc[e] = NEG_INF;
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e % 4) / 2;
+        const float p = exp2f((sc[e] - row_lse[r]) * LOG2E);
+        sc[e] = p * (dp[e] - row_delta[r]) * scale;
+      }
+
+      // dQ[:, half] += dS K[:, half], dS as register fragments of E, one
+      // K panel a group; each panel released once its group is done.
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) frag_a<E>(da[kk], sc, kk);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_rs<E>(
+              acc[c], da[kk],
+              desc_nmajor(sK + (first + c) * PANEL_BYTES, kk));
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          release(&k_empty[first + c - 1]);
+        }
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+      release(&k_empty[first + NC - 1]);
+    }
+    E* dst = dq + (static_cast<int64_t>(b) * Sq + i * T) * H * D +
+             static_cast<int64_t>(h) * D + wg * DC<D>;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      store_acc<E>(dst + 64 * c, acc[c], H * D, Sq - i * T, warp, lane);
+  }
+}
+
+template <int D>
+constexpr int SMEM_DQ = D <= 256 ? SMEM_DQ_TILES<D> : SMEM_DQ_SLICE<D>;
+
+template <typename E, int D>
+__global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+    const float* __restrict__ delta, E* __restrict__ dq, int H, int Hkv,
+    int Sq, int Sk, int causal, int q_offset, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  if constexpr (D <= 256)
+    dq_by_tiles<E, D>(smem_raw, &qmap, &kmap, &vmap, &domap, lse, delta, dq,
+                      H, Hkv, Sq, Sk, causal, q_offset, scale);
+  else
+    dq_by_slice<E, D>(smem_raw, &qmap, &kmap, &vmap, &domap, lse, delta, dq,
+                      H, Hkv, Sq, Sk, causal, q_offset, scale);
+}
+
 static_assert(SMEM_FWD<128> <= 232448 && SMEM_FWD<256> <= 232448 &&
                   SMEM_DQ<128> <= 232448 && SMEM_DQ<256> <= 232448 &&
+                  SMEM_DQ<384> <= 232448 && SMEM_DQ<512> <= 232448 &&
                   SMEM_DKV<128> <= 232448 && SMEM_DKV<256> <= 232448 &&
                   SMEM_DKV<384> <= 232448 && SMEM_DKV<512> <= 232448,
               "shared memory over the 227 KB a block can use");
 
 // Element types of the C entries' `dtype` argument (the Python wrapper's
-// codes): 0 bf16, 1 fp16. head_dim: 128 or 256 (the dK/dV also 384, 512).
+// codes): 0 bf16, 1 fp16. head_dim: 128 or 256 (the dQ and dK/dV also
+// 384, 512).
 enum { DT_BF16 = 0, DT_FP16 = 1 };
 
 template <typename K>
@@ -1442,7 +1684,8 @@ int launch_dq(const CUtensorMap& qm, const CUtensorMap& km,
               int Sk, int causal, int q_offset, float scale,
               cudaStream_t stream) {
   set_smem(flash_dq_kernel<E, D>, SMEM_DQ<D>);
-  const int ncta = (n_tiles(Sq) + 1) / 2;
+  // A CTA per pair of q tiles (D <= 256) or per q tile.
+  const int ncta = D <= 256 ? (n_tiles(Sq) + 1) / 2 : n_tiles(Sq);
   flash_dq_kernel<E, D><<<ncta * H * B, NT_WS, SMEM_DQ<D>, stream>>>(
       qm, km, vm, dom, (const float*)lse, (const float*)delta, (E*)dq, H, Hkv,
       Sq, Sk, causal, q_offset, scale);
@@ -1483,8 +1726,8 @@ int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km,
     case DT_FP16 * 1024 + 256: return L<__half, 256> ARGS;              \
   }                                                                     \
   return (int)cudaErrorInvalidValue;
-// ... and the dK/dV's wider ones.
-#define WGMMA_DKV_CASES(L, ARGS)                                        \
+// ... and the dQ's and dK/dV's wider ones.
+#define WGMMA_WIDE_CASES(L, ARGS)                                       \
   switch (dtype * 1024 + head_dim) {                                    \
     case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384> ARGS;       \
     case DT_FP16 * 1024 + 384: return L<__half, 384> ARGS;              \
@@ -1526,7 +1769,7 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb,
              int do_ss, int do_sh, int causal, int q_offset, float scale,
              int dtype, int head_dim, void* stream) {
-  if ((head_dim != 128 && head_dim != 256) ||
+  if ((head_dim % 128 != 0 || head_dim < 128 || head_dim > 512) ||
       (dtype != DT_BF16 && dtype != DT_FP16))
     return (int)cudaErrorInvalidValue;
   const bool f16 = dtype == DT_FP16;
@@ -1542,8 +1785,9 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
       (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, d, do_sb, do_ss,
                                   do_sh, f16)))
     return -static_cast<int>(rc);
-  WGMMA_CASES(launch_dq, (qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq, Sk,
-                          causal, q_offset, scale, (cudaStream_t)stream))
+  WGMMA_WIDE_CASES(launch_dq, (qm, km, vm, dom, lse, delta, dq, B, H, Hkv,
+                               Sq, Sk, causal, q_offset, scale,
+                               (cudaStream_t)stream))
 }
 
 // workspace, splits: see dkv_by_slice (head_dim 384 and 512); 1 split and
@@ -1571,9 +1815,9 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
       (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, d, do_sb, do_ss,
                                   do_sh, f16)))
     return -static_cast<int>(rc);
-  WGMMA_DKV_CASES(launch_dkv, (qm, km, vm, dom, lse, delta, dk, dv,
-                               workspace, splits, B, H, Hkv, Sq, Sk, causal,
-                               q_offset, scale, (cudaStream_t)stream))
+  WGMMA_WIDE_CASES(launch_dkv, (qm, km, vm, dom, lse, delta, dk, dv,
+                                workspace, splits, B, H, Hkv, Sq, Sk, causal,
+                                q_offset, scale, (cudaStream_t)stream))
 }
 
 }  // extern "C"

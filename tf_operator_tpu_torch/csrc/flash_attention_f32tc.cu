@@ -1,13 +1,13 @@
-// Flash attention for Hopper (sm_90a): the dK/dV and dQ kernels of f32
-// inputs, on tensor cores, at head_dim 128, 256, 384 and 512.
+// Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV kernels
+// of f32 inputs, on tensor cores, at head_dim 128, 256, 384 and 512.
 //
-// Replace, for f32 inputs, the Pallas TPU kernels _dkv_kernel and
-// _dq_kernel of tf_operator_tpu/ops/flash_attention.py (launched by
-// _bwd_impl):
-//   flash_dkv_f32tc_kernel <- _dkv_kernel (:207, pallas_call :289)
-//   flash_dq_f32tc_kernel  <- _dq_kernel  (:183, pallas_call :261)
-// The dK/dV is described here, the dQ, which shares its machinery, at its
-// own definition below.
+// Replace, for f32 inputs, the three Pallas TPU kernels of
+// tf_operator_tpu/ops/flash_attention.py:
+//   flash_fwd_f32tc_kernel <- _fwd_kernel (:95; _fwd, pallas_call :143)
+//   flash_dkv_f32tc_kernel <- _dkv_kernel (:207; _bwd_impl, pallas_call :289)
+//   flash_dq_f32tc_kernel  <- _dq_kernel  (:183; _bwd_impl, pallas_call :261)
+// The dK/dV is described here, the dQ and the forward, which share its
+// machinery, at their own definitions below.
 //
 // The dK/dV computes _dkv_kernel's function: for one KV head and a block
 // of keys, over every (GQA member, visible query tile) item, S^T = K Q^T
@@ -701,6 +701,294 @@ __global__ void __launch_bounds__(NT, 1) flash_dq_f32tc_kernel(
   }
 }
 
+// -------------------------------------------------------------- forward
+//
+// _fwd_kernel's function for f32: S = Q K^T, the online softmax over key
+// blocks, O += P V, then O / l and lse = m + log l; every product 3xTF32
+// (Q, K, V and the computed P split alike) with short tensor-core sums,
+// as above. Bound by tensor-core operations: 3 x 4 D FLOPs per visible
+// pair and head at 494.7 TFLOP/s. The dQ's design without dP: one CTA per
+// (query block, head, batch), heaviest causal blocks first, QB = 64
+// queries at D = 128 and 32 at 256-512, whose Q stays in shared memory;
+// key blocks of 64 keys in order, causal blocks past the CTA's last real
+// row skipped. Per key block:
+//   * pass 1: S = Q K^T over D / 128 pieces, each two 64-column chunks of
+//     the block's K (the room of the dQ's K and V chunk); warp w owns
+//     query row block w % (QB / 16) and key part w / (QB / 16), as in the
+//     dQ; each chunk's products are summed in the tensor cores from zero
+//     and added to S in registers;
+//   * the online softmax in registers and f32: keys past Sk and causal
+//     keys score -1e30; each warp's part of a row's max goes through sRed
+//     (one __syncthreads), so every warp of a row block takes the same new
+//     max m; O, in registers, is multiplied by exp(m_old - m) before the
+//     block's P V is added (never a tensor-core partial); each thread
+//     keeps its part of the row sum l, rescaled alike; P = exp(S - m) into
+//     sP [query][key] (row stride 4 mod 32);
+//   * pass 2: O += P V over pieces of R2 key rows by all of head_dim (the
+//     dQ's pass 2 with V for K: keys the reduced index, V N-major, P the
+//     split A operand); warp w owns the row block and head_dim part w /
+//     (QB / 16) of O, each piece's sums started from zero.
+// At the end the parts of l are summed over the quad and, through sRed,
+// over the key parts in a fixed order (a sum of 0 guarded as 1); O / l and
+// lse are written for rows below Sq only. No query row of the domain is
+// fully masked (causal keys are a prefix that holds key 0, q_offset >= 0),
+// so a real row's max is finite from the first block on and masked keys
+// get exp(-1e30 - m) = 0, as in the plain version. Budgets: Q, 2 slots of
+// 2 x 64 x 72 floats, sP and sRed: 149,504 bytes at D = 512, 126,464 at
+// 128. Registers: O QB x D / 256 (32 at 128 and 256, 48 at 384, 64 at
+// 512) and as many tensor-core sums in pass 2.
+template <int D>
+constexpr int FWD_SMEM = 4 * (DQ_QB<D> * LDK<D> + 2 * DQ_SLOT +
+                              DQ_QB<D> * LDS + 128);
+
+static_assert(FWD_SMEM<128> <= 232448 && FWD_SMEM<256> <= 232448 &&
+                  FWD_SMEM<384> <= 232448 && FWD_SMEM<512> <= 232448,
+              "shared memory over the 227 KB a block can use");
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_f32tc_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int q_sb,
+    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
+    int v_sh, int causal, int q_offset, float scale) {
+  constexpr int QB = DQ_QB<D>, LK = LDK<D>, R2Q = DQ_R2<D>;
+  constexpr int RB = QB / 16, CP = 8 / RB;  // row blocks, column parts
+  constexpr int NT1 = DQ_KB / CP / 8;       // pass 1: key n-tiles a warp
+  constexpr int NT2 = D / CP / 8;           // pass 2: head_dim n-tiles a warp
+  constexpr int P1 = D / (2 * C), P2 = DQ_KB / R2Q;  // pieces of the passes
+  constexpr int KS2 = R2Q / 8;              // k-steps of a pass-2 piece
+  static_assert(CP * QB == 128, "sRed holds CP x QB floats");
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                         // [QB][LK]
+  float* sSlot = sQ + QB * LK;              // 2 slots of DQ_SLOT
+  float* sP = sSlot + 2 * DQ_SLOT;          // P [query][key]
+  float* sRed = sP + QB * LDS;              // [CP][QB]: a part's max, sum
+
+  const int nqb = cdiv(Sq, QB);
+  const int hb = gridDim.x / nqb;           // H * B
+  const int blk = static_cast<int>(blockIdx.x);
+  const int q0 = (nqb - 1 - blk / hb) * QB, h = blk % hb % H;
+  const int b = blk % hb / H, hk = h / (H / Hkv);
+  int nkb = cdiv(Sk, DQ_KB);
+  if (causal)
+    nkb = min(nkb, (min(q0 + QB, Sq) - 1 + q_offset) / DQ_KB + 1);
+  const float* qp = q + static_cast<int64_t>(b) * q_sb +
+                    static_cast<int64_t>(h) * q_sh;
+  const float* kp = k + static_cast<int64_t>(b) * k_sb +
+                    static_cast<int64_t>(hk) * k_sh;
+  const float* vp = v + static_cast<int64_t>(b) * v_sb +
+                    static_cast<int64_t>(hk) * v_sh;
+  const int total = nkb * (P1 + P2);
+
+  // Issue the copies of piece p into slot p % 2 (and, first, Q): piece
+  // j < P1 of a key block is head_dim chunks 2j and 2j + 1 of its K, piece
+  // P1 + r its V rows R2Q r .. R2Q (r + 1) - 1.
+  auto issue = [&](int p) {
+    const int k0 = p / (P1 + P2) * DQ_KB, j = p % (P1 + P2);
+    float* slot = sSlot + (p & 1) * DQ_SLOT;
+    if (p == 0) load_rows<QB, D>(sQ, LK, qp, q_ss, q0, Sq);
+    if (j < P1) {
+      load_rows<DQ_KB, C>(slot, LDC, kp + 2 * j * C, k_ss, k0, Sk);
+      load_rows<DQ_KB, C>(slot + DQ_KB * LDC, LDC, kp + (2 * j + 1) * C,
+                          k_ss, k0, Sk);
+    } else {
+      load_rows<R2Q, D>(slot, LK, vp, v_ss, k0 + (j - P1) * R2Q, Sk);
+    }
+    cp_async_commit();
+  };
+  auto next_piece = [&](int p) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (p + 1 < total) issue(p + 1);
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp % RB * 16;            // the warp's 16 queries
+  const int cpart = warp / RB;              // its key part / head_dim part
+
+  float acc[NT2][4];
+#pragma unroll
+  for (int n = 0; n < NT2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  // Rows g and g + 8: the running max and this thread's part of the sum.
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  if (total > 0) issue(0);
+  int p = 0;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * DQ_KB;
+    // Pass 1: S = Q K^T over the chunks. The warp's keys are n-tiles
+    // cpart * NT1 + j; a chunk's sums stay in the tensor cores (s_c), then
+    // are added to s.
+    float s[NT1][4];
+#pragma unroll
+    for (int j = 0; j < NT1; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < P1; ++c, ++p) {
+      next_piece(p);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* cK = sSlot + (p & 1) * DQ_SLOT + half * DQ_KB * LDC;
+        const float* rQ = sQ + (r0 + g) * LK + (2 * c + half) * C + 2 * t;
+        float s_c[NT1][4];
+#pragma unroll
+        for (int kk = 0; kk < C / 8; ++kk) {
+          // Rows g and g + 8 of the warp's queries.
+          const float2 qg = *reinterpret_cast<const float2*>(rQ + kk * 8);
+          const float2 qg8 =
+              *reinterpret_cast<const float2*>(rQ + 8 * LK + kk * 8);
+          const Frag<4> aq = split<4>({qg.x, qg8.x, qg.y, qg8.y});
+#pragma unroll
+          for (int j = 0; j < NT1; ++j) {
+            const int n = (cpart * NT1 + j) * 8 + g;
+            const float2 k2 = *reinterpret_cast<const float2*>(
+                cK + n * LDC + kk * 8 + 2 * t);
+            mma3(s_c[j], aq, split<2>({k2.x, k2.y}), kk == 0);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT1; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += s_c[j][e];
+      }
+    }
+
+    // Scale and mask; the warp's part of each row's max, over the quad,
+    // into sRed (every warp read sRed last before the syncs of pass 1).
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NT1; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = r0 + g + 8 * (e / 2);
+        const int key = k0 + (cpart * NT1 + j) * 8 + 2 * t + e % 2;
+        float x = s[j][e] * scale;
+        if (key >= Sk || (causal && q0 + qr + q_offset < key)) x = NEG_INF;
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if (t == 0) sRed[cpart * QB + r0 + g + 8 * r] = mx[r];
+    }
+    __syncthreads();
+    // The new max of each row over every key part; O and l rescaled to
+    // it; P = exp(S - m) into sP (every warp read it last in the previous
+    // key block's pass 2, before the syncs of pass 1).
+    float corr[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mn = m[r];
+#pragma unroll
+      for (int c = 0; c < CP; ++c)
+        mn = fmaxf(mn, sRed[c * QB + r0 + g + 8 * r]);
+      corr[r] = expf(m[r] - mn);
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < NT1; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = r0 + g + 8 * (e / 2);
+        const int kc = (cpart * NT1 + j) * 8 + 2 * t + e % 2;
+        const float pv = expf(s[j][e] - m[e / 2]);
+        psum[e / 2] += pv;
+        sP[qr * LDS + kc] = pv;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+#pragma unroll
+    for (int n = 0; n < NT2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
+
+    // Pass 2: O += P V, KS2 8-key steps a piece, on the warp's head_dim
+    // columns cpart * D / CP + 8n. A piece's sums stay in the tensor cores
+    // (to), then are added to acc.
+#pragma unroll 1
+    for (int pc = 0; pc < P2; ++pc, ++p) {
+      next_piece(p);
+      const float* cV = sSlot + (p & 1) * DQ_SLOT;
+      float to[NT2][4];
+#pragma unroll
+      for (int ks = 0; ks < KS2; ++ks) {
+        const float* aP = sP + (r0 + g) * LDS + pc * R2Q + ks * 8 + t;
+        const Frag<4> ap =
+            split<4>({aP[0], aP[8 * LDS], aP[4], aP[8 * LDS + 4]});
+#pragma unroll
+        for (int n = 0; n < NT2; ++n) {
+          const int col = cpart * (D / CP) + n * 8 + g;
+          const float* bV = cV + (ks * 8 + t) * LK + col;
+          mma3(to[n], ap, split<2>({bV[0], bV[4 * LK]}), ks == 0);
+          if (ks == KS2 - 1) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] += to[n][e];
+          }
+        }
+      }
+    }
+  }
+
+  // The row sums: over the quad, then over the key parts in a fixed order
+  // through sRed (after every thread has read its maxes).
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __syncthreads();
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) sRed[cpart * QB + r0 + g + 8 * r] = l[r];
+  }
+  __syncthreads();
+
+  // O / l (l == 0 guarded as 1) and lse; rows past Sq never stored.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int pos = q0 + r0 + g + 8 * half;
+    float sum = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CP; ++c) sum += sRed[c * QB + r0 + g + 8 * half];
+    const float safe = sum == 0.0f ? 1.0f : sum;
+    const float inv = 1.0f / safe;
+    if (pos >= Sq) continue;
+    if (cpart == 0 && t == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + pos] = m[half] + logf(safe);
+    const int64_t base = (static_cast<int64_t>(b) * Sq + pos) * H * D +
+                         static_cast<int64_t>(h) * D;
+#pragma unroll
+    for (int n = 0; n < NT2; ++n) {
+      const int col = cpart * (D / CP) + n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(out + base + col) =
+          make_float2(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+int launch_fwd(const float* q, const float* k, const float* v, float* out,
+               float* lse, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
+               int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+               int v_ss, int v_sh, int causal, int q_offset, float scale,
+               cudaStream_t stream) {
+  cudaFuncSetAttribute(flash_fwd_f32tc_kernel<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       FWD_SMEM<D>);
+  flash_fwd_f32tc_kernel<D>
+      <<<cdiv(Sq, DQ_QB<D>) * H * B, NT, FWD_SMEM<D>, stream>>>(
+          q, k, v, out, lse, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss,
+          k_sh, v_sb, v_ss, v_sh, causal, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* delta,
@@ -748,6 +1036,20 @@ extern "C" {
     case 512: return L<512> ARGS;            \
   }                                          \
   return (int)cudaErrorInvalidValue;
+
+int flash_fwd_f32tc(const void* q, const void* k, const void* v, void* out,
+                    void* lse, int B, int H, int Hkv, int Sq, int Sk,
+                    int q_sb, int q_ss, int q_sh, int k_sb, int k_ss,
+                    int k_sh, int v_sb, int v_ss, int v_sh, int causal,
+                    int q_offset, float scale, int dtype, int head_dim,
+                    void* stream) {
+  if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
+  F32TC_CASES(launch_fwd,
+              ((const float*)q, (const float*)k, (const float*)v,
+               (float*)out, (float*)lse, B, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh,
+               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset, scale,
+               (cudaStream_t)stream))
+}
 
 int flash_dq_f32tc(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,

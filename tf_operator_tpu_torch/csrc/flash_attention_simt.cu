@@ -1,60 +1,48 @@
-// Flash attention for Hopper (sm_90a), SIMT kernels: the forward and dQ
-// for the cases of the TPU kernels' domain that the tensor-core kernels do
-// not take yet: the forward of f32 inputs at head_dim 128, 256, 384 and
-// 512, and the forward and dQ of bf16 or fp16 inputs at head_dim 384 and
-// 512. (bf16 and fp16 at 128 and 256, and their dK/dV at 384-512, are the
-// wgmma kernels' of flash_attention.cu; the f32 dQ and dK/dV are the
-// 3xTF32 kernels' of flash_attention_f32tc.cu.)
+// Flash attention for Hopper (sm_90a), SIMT kernel: the forward of bf16
+// or fp16 inputs at head_dim 384 and 512, the one case of the TPU
+// kernels' domain that the tensor-core kernels do not take yet. (Every
+// other forward, and every dQ and dK/dV, is a tensor-core kernel's: the
+// wgmma kernels of flash_attention.cu for bf16 and fp16, the 3xTF32 ones
+// of flash_attention_f32tc.cu for f32.)
 //
-// Replaces, for those cases, two Pallas TPU kernels of
-// tf_operator_tpu/ops/flash_attention.py:
+// Replaces, for that case, the Pallas TPU kernel
 //   flash_fwd_simt_kernel <- _fwd_kernel (:95; _fwd, pallas_call :143)
-//   flash_dq_simt_kernel  <- _dq_kernel  (:183; _bwd_impl, pallas_call :261)
+// of tf_operator_tpu/ops/flash_attention.py.
 //
-// Each computes the TPU kernel's function with its cast points, as the
-// wgmma kernels do: scores, softmax statistics and every product in f32;
-// P rounded to the input type E before P.V and P^T.dO, dS rounded to E
-// before dS.K and dS^T.Q (no-ops for f32); masked scores the finite
-// -1e30; a softmax sum of 0 guarded as 1; lse and delta [B, H, S] f32.
-// Tensors are read as [B, S, H, D] through their element strides; head h
-// reads KV head h / (H / Hkv). Sequences are any length >= 8 (the gate
-// asks for multiples of 8): rows past the end load as zeros, keys past Sk
-// score -1e30, and rows past the end are never stored.
+// It computes the TPU kernel's function with its cast points, as the
+// wgmma kernels do: scores, softmax statistics and every product in f32,
+// P rounded to the input type E before P.V, masked scores the finite
+// -1e30, a softmax sum of 0 guarded as 1, lse [B, H, S] f32. Tensors are
+// read as [B, S, H, D] through their element strides; head h reads KV
+// head h / (H / Hkv). Sequences are any length >= 8 (the gate asks for
+// multiples of 8): rows past the end load as zeros, keys past Sk score
+// -1e30, and rows past the end are never stored. Its products are exact
+// in f32 (bf16 and fp16 operands), so the results are those of a
+// tensor-core product with f32 sums.
 //
-// Why SIMT f32 FMA: wgmma takes no f32 operands, and one TF32 product
-// keeps about three decimal digits where the f32 kernels must hold the
-// JAX package's 2e-5 (its f32 flash tests); the port's plain versions
-// also run with TF32 off. Tensor cores can still reach f32's accuracy by
-// splitting each operand into two TF32 parts (3xTF32), as the f32 dQ and
-// dK/dV of flash_attention_f32tc.cu do; the forward here is queued for the
-// same. Until then every product is an f32 fmaf. The wide bf16 and fp16
-// cases use the same kernels: their products are exact in f32, so the
-// results are those of a tensor-core product with f32 sums.
-//
-// What bounds them on the card: f32 FMA, 67 TFLOP/s on an H100 SXM
-// without tensor cores. Each (64 x 64) tile product reads its two operand
-// chunks once from device memory (mostly L2) for 64 x 64 x 64 FMAs, so
-// arithmetic, not bytes, is the limit. Design, simple before fast:
+// What bounds it on the card: f32 FMA, 67 TFLOP/s on an H100 SXM without
+// tensor cores, where the wgmma kernels' bound is 989. Each (64 x 64) tile
+// product reads its two operand chunks once from device memory (mostly L2)
+// for 64 x 64 x 64 FMAs, so arithmetic, not bytes, is the limit. Design,
+// simple before fast (the move onto wgmma is queued):
 //   * 256 threads as a 16 x 16 grid (ty, tx); each thread holds a 4 x 4
 //     block of every tile product in registers and reads its operands
 //     from shared memory as float4, with both operand tiles stored with
 //     the reduced index outermost (rows padded to 68 floats, so the reads
 //     are 16-byte aligned and broadcast).
-//   * head_dim is walked in chunks of C = 64 columns through two to four
-//     shared-memory tiles (at most 44 KB, static), so one template serves
-//     every D; the output accumulators stay in registers (O and dQ: 4 x
-//     D / 16 a thread).
+//   * head_dim is walked in chunks of C = 64 columns through two
+//     shared-memory tiles (35 KB, static), so one template serves
+//     both D; O stays in registers (4 x D / 16 a thread).
 //   * One CTA per (64 query rows, head, batch), heaviest causal q tiles
 //     first; k tiles of 64 keys in order; causal k tiles past the CTA's
 //     last real row are skipped. Each output row is summed in one CTA in
 //     k-tile order: no atomics, so the results are deterministic.
 //   * No cp.async pipeline, no tensor cores: each chunk is loaded, the
-//     block synchronises, and multiplies. The redesign is queued.
+//     block synchronises, and multiplies.
 //
-// Each extern "C" entry launches on the caller's stream and returns
+// The extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a (dtype, head_dim)
-// these kernels were not built for; the Python wrapper raises on any
-// non-zero value.
+// it was not built for; the Python wrapper raises on any non-zero value.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -71,9 +59,8 @@ constexpr float NEG_INF = -1e30f;
 
 // Element types of the C entries' `dtype` argument (the Python wrapper's
 // codes).
-enum { DT_BF16 = 0, DT_FP16 = 1, DT_F32 = 2 };
+enum { DT_BF16 = 0, DT_FP16 = 1 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -81,10 +68,6 @@ __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename E>
 __device__ __forceinline__ E from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
@@ -94,7 +77,7 @@ __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
 
-// x rounded to E and back (the cast points; exact for f32).
+// x rounded to E and back (the cast point of P).
 template <typename E>
 __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<E>(x));
@@ -160,8 +143,7 @@ __device__ __forceinline__ void mm_acc(float (&acc)[4][4], const float* A,
 constexpr int LQ = BQ + 4;    // row stride of a tile transposed from 64 rows
 constexpr int LC = C + 4;     // row stride of a chunk kept as rows
 
-// The (query tile, head, batch) of a forward or dQ CTA, heaviest causal q
-// tiles first.
+// The (query tile, head, batch) of a CTA, heaviest causal q tiles first.
 struct QTile {
   int q0, h, b;
 };
@@ -184,11 +166,11 @@ __device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// Forward. Replaces _fwd_kernel for f32 and wide D. Per k tile: S = Q K^T
-// over D / C chunks (Q^T and K^T chunks in sA, sB), scale, mask, online
-// softmax on the thread's 4 x 4 block (row max and sum over 16 lanes), P
-// rounded to E into sA as P^T, then O += P V over the chunks of V (in
-// sB). O, m and the thread's partial l stay in registers.
+// Forward. Replaces _fwd_kernel for bf16 and fp16 at D = 384 and 512.
+// Per k tile: S = Q K^T over D / C chunks (Q^T and K^T chunks in sA, sB),
+// scale, mask, online softmax on the thread's 4 x 4 block (row max and sum
+// over 16 lanes), P rounded to E into sA as P^T, then O += P V over the
+// chunks of V (in sB). O, m and the thread's partial l stay in registers.
 // ---------------------------------------------------------------------------
 template <typename E, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
@@ -284,142 +266,29 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------
-// Backward, dQ. Replaces _dq_kernel for f32 and wide D. Per k tile: S =
-// Q K^T and dP = dO V^T over the chunks (through sA, sB), P = exp(S - lse)
-// and dS = P (dP - delta) scale on the thread's block, dS rounded to E
-// into sA as dS^T, then dQ += dS K over the chunks of K. Each dQ row is
-// summed by one thread block in k-tile order: deterministic.
-// ---------------------------------------------------------------------------
+// The launcher, one instantiation a (E, D) of the case.
 template <typename E, int D>
-__global__ void __launch_bounds__(NT) flash_dq_simt_kernel(
-    const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-    const E* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, E* __restrict__ dq, int H, int Hkv,
-    int Sq, int Sk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss,
-    int k_sh, int v_sb, int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
-    int causal, int q_offset, float scale) {
-  constexpr int NC = D / C;
-  __shared__ __align__(16) float sA[C * LQ];
-  __shared__ __align__(16) float sB[C * LC];
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const QTile w = q_tile(Sq, H);
-  const int q0 = w.q0, h = w.h, b = w.b, hk = h / (H / Hkv);
-  const E* qp = q + static_cast<int64_t>(b) * q_sb + static_cast<int64_t>(h) * q_sh;
-  const E* dop = dout + static_cast<int64_t>(b) * do_sb + static_cast<int64_t>(h) * do_sh;
-  const E* kp = k + static_cast<int64_t>(b) * k_sb + static_cast<int64_t>(hk) * k_sh;
-  const E* vp = v + static_cast<int64_t>(b) * v_sb + static_cast<int64_t>(hk) * v_sh;
-  const int nk = k_tiles(q0, Sq, Sk, causal, q_offset);
-
-  // Rows past Sq keep lse = delta = 0: their Q and dO rows are zeros, so
-  // their P and dS stay finite, and they are never stored.
-  float row_lse[4], row_delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    const int64_t at = (static_cast<int64_t>(b) * H + h) * Sq + row;
-    row_lse[i] = row < Sq ? lse[at] : 0.0f;
-    row_delta[i] = row < Sq ? delta[at] : 0.0f;
-  }
-
-  float acc[NC][4][4] = {};
-  for (int j = 0; j < nk; ++j) {
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int c = 0; c < NC; ++c) {
-      __syncthreads();
-      load_tile<E, BQ, true>(sA, qp + c * C, q_ss, q0, Sq);
-      load_tile<E, BK, true>(sB, kp + c * C, k_ss, j * BK, Sk);
-      __syncthreads();
-      mm_acc<LQ, LQ>(s, sA, sB);
-    }
-    for (int c = 0; c < NC; ++c) {
-      __syncthreads();
-      load_tile<E, BQ, true>(sA, dop + c * C, do_ss, q0, Sq);
-      load_tile<E, BK, true>(sB, vp + c * C, v_ss, j * BK, Sk);
-      __syncthreads();
-      mm_acc<LQ, LQ>(dp, sA, sB);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int row = q0 + ty * 4 + i, key = j * BK + tx * 4 + jj;
-        float x = s[i][jj] * scale;
-        if (key >= Sk || (causal && row + q_offset < key)) x = NEG_INF;
-        const float p = expf(x - row_lse[i]);
-        s[i][jj] = round_to<E>(p * (dp[i][jj] - row_delta[i]) * scale);
-      }
-    __syncthreads();  // every thread is done reading sA's last chunk
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        sA[(tx * 4 + jj) * LQ + ty * 4 + i] = s[i][jj];  // dS^T [key][row]
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (c > 0) __syncthreads();
-      load_tile<E, BK, false>(sB, kp + c * C, k_ss, j * BK, Sk);
-      __syncthreads();
-      mm_acc<LQ, LC>(acc[c], sA, sB);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    E* dst = dq + (static_cast<int64_t>(b) * Sq + row) * H * D +
-             static_cast<int64_t>(h) * D + tx * 4;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) dst[c * C + jj] = from_f<E>(acc[c][i][jj]);
-  }
-}
-
-// Launchers, one instantiation a (E, D) of the domain.
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *o1, *o2;  // forward: out, lse; dQ: dq
-  int B, H, Hkv, Sq, Sk;
-  int q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,
-      do_sh;
-  int causal, q_offset;
-  float scale;
-  cudaStream_t stream;
-};
-
-template <typename E, int D>
-int launch_fwd(const Args& a) {
-  flash_fwd_simt_kernel<E, D><<<cdiv(a.Sq, BQ) * a.H * a.B, NT, 0, a.stream>>>(
-      (const E*)a.q, (const E*)a.k, (const E*)a.v, (E*)a.o1, (float*)a.o2,
-      a.H, a.Hkv, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
-      a.v_sb, a.v_ss, a.v_sh, a.causal, a.q_offset, a.scale);
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
+               int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+               int v_ss, int v_sh, int causal, int q_offset, float scale,
+               cudaStream_t stream) {
+  flash_fwd_simt_kernel<E, D><<<cdiv(Sq, BQ) * H * B, NT, 0, stream>>>(
+      (const E*)q, (const E*)k, (const E*)v, (E*)out, (float*)lse, H, Hkv,
+      Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
+      q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename E, int D>
-int launch_dq(const Args& a) {
-  flash_dq_simt_kernel<E, D><<<cdiv(a.Sq, BQ) * a.H * a.B, NT, 0, a.stream>>>(
-      (const E*)a.q, (const E*)a.k, (const E*)a.v, (const E*)a.dout,
-      (const float*)a.lse, (const float*)a.delta, (E*)a.o1, a.H, a.Hkv, a.Sq,
-      a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
-      a.v_sh, a.do_sb, a.do_ss, a.do_sh, a.causal, a.q_offset, a.scale);
-  return (int)cudaGetLastError();
-}
-
-// The instantiations for (dtype, head_dim): f32 at 128-512 (the forward)
-// and bf16 and fp16 at 384-512 (the forward and dQ).
-#define F32_CASES(L)                                    \
-  case DT_F32 * 1024 + 128: return L<float, 128>(a);   \
-  case DT_F32 * 1024 + 256: return L<float, 256>(a);   \
-  case DT_F32 * 1024 + 384: return L<float, 384>(a);   \
-  case DT_F32 * 1024 + 512: return L<float, 512>(a);
-#define WIDE_CASES(L)                                          \
-  case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384>(a); \
-  case DT_BF16 * 1024 + 512: return L<__nv_bfloat16, 512>(a); \
-  case DT_FP16 * 1024 + 384: return L<__half, 384>(a);        \
-  case DT_FP16 * 1024 + 512: return L<__half, 512>(a);
+// The instantiation for (dtype, head_dim).
+#define SIMT_CASES(L, ARGS)                                        \
+  switch (dtype * 1024 + head_dim) {                               \
+    case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384> ARGS;  \
+    case DT_BF16 * 1024 + 512: return L<__nv_bfloat16, 512> ARGS;  \
+    case DT_FP16 * 1024 + 384: return L<__half, 384> ARGS;         \
+    case DT_FP16 * 1024 + 512: return L<__half, 512> ARGS;         \
+  }                                                                \
+  return (int)cudaErrorInvalidValue;
 
 }  // namespace
 
@@ -430,30 +299,10 @@ int flash_fwd_simt(const void* q, const void* k, const void* v, void* out,
                    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
                    int v_ss, int v_sh, int causal, int q_offset, float scale,
                    int dtype, int head_dim, void* stream) {
-  const Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, B, H, Hkv,
-               Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-               0, 0, 0, causal, q_offset, scale, (cudaStream_t)stream};
-  switch (dtype * 1024 + head_dim) {
-    F32_CASES(launch_fwd)
-    WIDE_CASES(launch_fwd)
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-int flash_dq_simt(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dq, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
-                  int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
-                  int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
-                  int causal, int q_offset, float scale, int dtype,
-                  int head_dim, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, H, Hkv, Sq, Sk,
-               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
-               do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream};
-  switch (dtype * 1024 + head_dim) {
-    WIDE_CASES(launch_dq)
-  }
-  return (int)cudaErrorInvalidValue;
+  SIMT_CASES(launch_fwd,
+             (q, k, v, out, lse, B, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh, k_sb,
+              k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset, scale,
+              (cudaStream_t)stream))
 }
 
 }  // extern "C"

@@ -12,16 +12,15 @@ f32), in three families picked per kernel by (kind, dtype, head_dim)
   kernels of ``csrc/flash_attention.cu`` (launch keys ``flash_fwd``,
   ``flash_dq``, ``flash_dkv``), the same kernels at head_dim 256
   (``flash_fwd_d256``, ``flash_dq_d256``, ``flash_dkv_d256``), and their
-  dK/dV at 384 and 512 (``flash_dkv_d384``, ``flash_dkv_d512``: each CTA
-  half of head_dim's columns, ``dkv_splits``);
-- the f32 dQ and dK/dV at every head_dim: the tensor-core kernels of
-  ``csrc/flash_attention_f32tc.cu`` (``flash_dq_f32tc``,
-  ``flash_dkv_f32tc``), whose products are 3xTF32 (each f32 operand split
-  into two TF32 parts), within f32's limits;
-- everything else -- the f32 forward at every head_dim, the bf16/fp16
-  forward and dQ at 384-512: the SIMT (f32 FMA) kernels of
-  ``csrc/flash_attention_simt.cu`` (``flash_fwd_simt``,
-  ``flash_dq_simt``).
+  dQ and dK/dV at 384 and 512 (``flash_dq_d384``, ``flash_dkv_d384``,
+  ``flash_dq_d512``, ``flash_dkv_d512``: each warpgroup or CTA one half of
+  head_dim's columns; the dK/dV's ``dkv_splits``);
+- f32 at every head_dim: the tensor-core kernels of
+  ``csrc/flash_attention_f32tc.cu`` (``flash_fwd_f32tc``,
+  ``flash_dq_f32tc``, ``flash_dkv_f32tc``), whose products are 3xTF32
+  (each f32 operand split into two TF32 parts), within f32's limits;
+- the bf16/fp16 forward at 384-512: the SIMT (f32 FMA) kernel of
+  ``csrc/flash_attention_simt.cu`` (``flash_fwd_simt``).
 
 All three mask ragged sequence edges in the kernel. The forward is the custom op
 ``tf_operator_tpu_torch::flash_fwd`` returning ``(out, lse)``; its autograd
@@ -91,13 +90,14 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _LIBRARY = {"": "flash_attention", "_simt": "flash_attention_simt",
             "_f32tc": "flash_attention_f32tc"}
 # Launch-key suffix of each variant -> its family, and the kinds it has:
-# "_d256" is the wgmma family at head_dim 256, "_d384" and "_d512" its
-# dK/dV there, "_f32tc" the f32 dQ and dK/dV on tensor cores.
+# "_d256" is the wgmma family at head_dim 256, "_d384" and "_d512" its dQ
+# and dK/dV there, "_f32tc" the f32 kernels on tensor cores, "_simt" the
+# bf16/fp16 forward at 384-512.
 _FAMILY = {"": "", "_d256": "", "_d384": "", "_d512": "", "_simt": "_simt",
            "_f32tc": "_f32tc"}
 _KINDS = {"": ("fwd", "dq", "dkv"), "_d256": ("fwd", "dq", "dkv"),
-          "_d384": ("dkv",), "_d512": ("dkv",), "_simt": ("fwd", "dq"),
-          "_f32tc": ("dq", "dkv")}
+          "_d384": ("dq", "dkv"), "_d512": ("dq", "dkv"), "_simt": ("fwd",),
+          "_f32tc": ("fwd", "dq", "dkv")}
 # The wgmma dK/dV at head_dim 384-512 runs a CTA per (pair of 64-key
 # tiles, KV head, batch, half of head_dim); where that grid is smaller than
 # the card, each CTA's GQA items are split over up to this many CTAs,
@@ -119,9 +119,9 @@ def kernel_suffix(kind: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that runs ``kind`` ("fwd", "dq" or "dkv") for (dtype,
     head_dim) in the domain, as the suffix of its launch key: "" for the
     wgmma kernels at head_dim 128 (bf16 and fp16), "_d256" for them at 256,
-    "_d384"/"_d512" for their dK/dV there, "_f32tc" for the f32 dQ and
-    dK/dV, "_simt" for every other case."""
-    if dtype == torch.float32 and kind in _KINDS["_f32tc"]:
+    "_d384"/"_d512" for their dQ and dK/dV there, "_f32tc" for f32, "_simt"
+    for the bf16/fp16 forward at 384-512."""
+    if dtype == torch.float32:
         return "_f32tc"
     if dtype in (torch.bfloat16, torch.float16):
         if head_dim == 128:
