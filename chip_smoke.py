@@ -6,14 +6,12 @@
 Phases, each printing one JSON line:
 
 1. env     torch, CUDA and nvcc versions; the card's name and power limit.
-2. build   nvcc builds the three kernel libraries for sm_90a, one nvcc
+2. build   nvcc builds the two kernel libraries for sm_90a, one nvcc
            each, started together: tf_operator_tpu_torch/csrc/
            flash_attention.cu (the wgmma kernels: bf16 and fp16, all three
-           at head_dim 128 and 256, the dQ and dK/dV at 384 and 512 too),
+           at head_dim 128, 256, 384 and 512) and
            csrc/flash_attention_f32tc.cu (the f32 forward, dQ and dK/dV on
-           tensor cores, 3xTF32, head_dim 128-512) and
-           csrc/flash_attention_simt.cu (the SIMT kernel: the bf16/fp16
-           forward at 384-512); seconds,
+           tensor cores, 3xTF32, head_dim 128-512); seconds,
            library paths, and per kernel variant ("flash_fwd[bf16,256]")
            the registers, stack and spill bytes that ptxas reports.
 3. kernels each flash-attention kernel (forward, dQ, dK/dV) against its
@@ -25,9 +23,9 @@ Phases, each printing one JSON line:
            no row: their dK/dV must be exact zeros); ragged lengths
            (S=2000 causal, Sq=72 / Sk=200 at q_offset 128, S=8); fp16 at
            S=2048 and 200; f32 (the 3xTF32 forward, dQ and dK/dV) at
-           128-512 and bf16/fp16 at 384 and 512 (the SIMT forward, the
-           wgmma dQ and dK/dV) at S=2048 causal, and f32 128 and 512, fp16
-           384 and bf16 512 at S=200 not; the wgmma dQ's and dK/dV's edges
+           128-512 and bf16/fp16 at 384 and 512 (the wgmma forward, dQ and
+           dK/dV by column halves) at S=2048 causal, and f32 128 and 512,
+           fp16 384 and bf16 512 at S=200 not; the wgmma kernels' edges
            at 384-512 (bf16 512 and 384 at S=2000, bf16 512 at
            Sq=1024 / Sk=2048 with q_offset 1024, bf16 512 and 384 with
            half the k tiles unseen, fp16 512 Sq=72 / Sk=200 at q_offset
@@ -46,8 +44,11 @@ Phases, each printing one JSON line:
            dropped, rows past the last full q tile left as zeros, scores
            from the first 128 of head_dim, head_dim columns 128-255 left
            as zeros or copied from columns 0-127, at head_dim 384-512 the
-           dQ's and dK/dV's last 128 columns left as zeros or copied from
-           columns 0-127, each of the three on its own, f32 products in
+           out's, dQ's and dK/dV's last 128 columns left as zeros or copied
+           from columns 0-127, each of the four on its own, and out's
+           second column half summed without each q tile's last visible k
+           tile (a column-half warpgroup that leaves its loop early),
+           through out on its own, f32 products in
            TF32, and in f32 P rounded to TF32 before O, P^T and dS^T before
            dV and dK and dS before dQ, as a 3xTF32 kernel that split only
            the loaded operands would give). In f32 the kernels' out, lse,
@@ -63,12 +64,13 @@ Phases, each printing one JSON line:
            calls queued behind a sleep kernel (``cuda_ms``), and beside
            them the same calls launched by the host as it goes, at B=1,
            S=2048, H=32, Hkv=8, causal for every timed case above (the
-           SIMT kernel 3 calls, the 3xTF32 ones 10, the wgmma ones 20);
+           3xTF32 kernels 10 calls, the wgmma ones 20);
            the bound takes 989 TFLOP/s for bf16/fp16 and three TF32
            products at 494.7 for the 3xTF32 kernels (their f32 FMA bound,
            67 TFLOP/s, beside), against 3.35 TB/s, and counts no redundant
-           work (the D=384-512 dQ's and dK/dV's two column halves each
-           reduce S and dP over all of head_dim: 1.67x and 1.5x).
+           work (the D=384-512 kernels' two column halves each reduce S,
+           and the dQ's and dK/dV's dP too, over all of head_dim: the
+           forward 1.5x, the dQ 1.67x, the dK/dV 1.5x).
 3a. fp16_model  the model phase's logits check in fp16 at S=2048
            (phase 4's rule; forward only): launches flash_fwd 4.
 3b. ragged_train  the main path at S=2000 (no multiple of the 64-row
@@ -94,9 +96,12 @@ Phases, each printing one JSON line:
            and peak memory beside the same 3 steps with
            attention_impl="xla".
 3e. d512_train  the same at head_dim 512: n_heads 8, n_kv_heads 2,
-           head_dim 512, bf16, S=2048, 3 steps launching flash_fwd_simt 8,
+           head_dim 512, bf16, S=2048, 3 steps launching flash_fwd_d512 8,
            flash_dq_d512 4 and flash_dkv_d512 4 each (the dK/dV's GQA items
            split over 2 CTAs at these heads), against attention_impl="xla".
+3f. d384_train  the same at head_dim 384 (n_heads 8, n_kv_heads 2):
+           flash_fwd_d384 8, flash_dq_d384 4 and flash_dkv_d384 4 a step.
+           Each of 3b, 3d, 3e and 3f reports its seconds.
 4. model   the 4-layer llama_3_8b-width model's logits through the kernels
            against the same weights through the reference attention.
 5. train   the main path: Trainer + Llama (llama_3_8b widths, 4 layers,
@@ -313,11 +318,10 @@ Then the whole script's seconds, a {"kernels": [...]} summary line (one
 entry a launch key: the wgmma D=128 kernels' numbers from the training
 step's case and launches from the train phase, the wgmma D=256 kernels'
 from the bf16 D=256 case and the d256_train phase, the 3xTF32 kernels'
-from the f32 D=128 case and the f32_train phase, the SIMT forward's and
-the wgmma D=384 dQ's and dK/dV's from the bf16 D=384 case and the D=512
-dQ's and dK/dV's from the bf16 D=512 case, with the d512_train phase's
-launches (0 of the D=384 kernels); every path's launches and every timed
-variant beside them),
+from the f32 D=128 case and the f32_train phase, the wgmma D=384
+kernels' from the bf16 D=384 case and the d384_train phase, the D=512
+ones' from the bf16 D=512 case and the d512_train phase; every path's
+launches and every timed variant beside them),
 the nvidia-smi name/power line, and last {"ok":
 true, "device": {...}}. Any
 failure exits non-zero before the last line; so does a machine without a
@@ -422,7 +426,6 @@ SOURCE = {"": "tf_operator_tpu_torch/csrc/flash_attention.cu",
           "_d256": "tf_operator_tpu_torch/csrc/flash_attention.cu",
           "_d384": "tf_operator_tpu_torch/csrc/flash_attention.cu",
           "_d512": "tf_operator_tpu_torch/csrc/flash_attention.cu",
-          "_simt": "tf_operator_tpu_torch/csrc/flash_attention_simt.cu",
           "_f32tc": "tf_operator_tpu_torch/csrc/flash_attention_f32tc.cu"}
 REPLACES = {
     "flash_fwd": "tf_operator_tpu/ops/flash_attention.py:95",
@@ -444,9 +447,11 @@ F32_STEPS = 2
 F32_LOGITS_REL = 1e-4
 # The main path at head_dim 256: 16 query and 4 KV heads of 256 keep
 # llama_3_8b's projection shapes and the main path's attention FLOPs; at
-# head_dim 512, 8 query and 2 KV heads of 512 do.
+# head_dim 512, 8 query and 2 KV heads of 512 do; at 384 the same heads
+# (projections 3072 wide).
 D256_HEADS, D256_KV_HEADS, D256_STEPS = 16, 4, 3
 D512_HEADS, D512_KV_HEADS, D512_STEPS = 8, 2, 3
+D384_HEADS, D384_KV_HEADS, D384_STEPS = 8, 2, 3
 PER_STEP = {"flash_fwd": 8, "flash_dq": 4, "flash_dkv": 4}
 # Under save_attn, save_qkv and mlp_only the backward reuses the forward
 # kernel's outputs: one forward launch a layer.
@@ -813,7 +818,8 @@ def fwd_float64(q, k, v, causal, q_offset):
 # The domain perturbations of a column half at head_dim 384-512, which the
 # check must reject through each output they change on its own.
 COLUMN_HALF_PERTURBATIONS = ("d_cols_last_128_zero",
-                             "d_cols_last_128_from_cols_0_127")
+                             "d_cols_last_128_from_cols_0_127",
+                             "out_second_half_without_last_k_tile")
 
 
 def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
@@ -863,16 +869,23 @@ def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
         wrong["d_cols_128_255_zero"] = zero
         wrong["d_cols_128_255_from_cols_0_127"] = again
     if d > 256:
-        # dQ and dK/dV whose last 128 head_dim columns are never written
-        # (left as zeros) or written from columns 0-127, as a column-half
-        # warpgroup or CTA that never stores, or stores the wrong slice,
-        # would give.
+        # out, dQ and dK/dV whose last 128 head_dim columns are never
+        # written (left as zeros) or written from columns 0-127, as a
+        # column-half warpgroup or CTA that never stores, or stores the
+        # wrong slice, would give; and out's second column half summed
+        # without each q tile's last visible k tile, as a column-half
+        # warpgroup that leaves its loop early would give (lse is
+        # warpgroup 0's).
         zero, again = {}, {}
-        for n in ("dq", "dk", "dv"):
+        for n in ("out", "dq", "dk", "dv"):
             zero[n], again[n] = ref[n].clone(), ref[n].clone()
             zero[n][..., d - 128:] = 0
             again[n][..., d - 128:] = ref[n][..., :128]
-        wrong.update(zip(COLUMN_HALF_PERTURBATIONS, (zero, again)))
+        early = ref["out"].clone()
+        early[..., d // 2:] = _fwd_without_last_tile(
+            q, k, v, causal, q_offset)[0][..., d // 2:]
+        wrong.update(zip(COLUMN_HALF_PERTURBATIONS,
+                         (zero, again, {"out": early})))
     if q.dtype == torch.float32:
         # A TF32 kernel: every product on TF32-rounded operands.
         qt, kt, vt, dot = (tf32(x) for x in (q, k, v, do))
@@ -1044,10 +1057,8 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                       + 2 * act_kv),
     }
     peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
-    # The SIMT kernel and the 3xTF32 ones take milliseconds a call: fewer
-    # repetitions.
-    reps = {kn: 3 if key.endswith("_simt") else
-            10 if key.endswith("_f32tc") else 20
+    # The 3xTF32 kernels take milliseconds a call: fewer repetitions.
+    reps = {kn: 10 if key.endswith("_f32tc") else 20
             for kn, key in keys.items()}
     kernel_calls = {
         "flash_fwd": lambda: fa._fwd_cuda(q, k, v, causal, q_offset),
@@ -1111,9 +1122,7 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
 # q_offset, timed) and, where given, (H, Hkv); else B, H and Hkv are the
 # module's (GQA 4:1). The first is the training step's; each kernel's
 # first timed case gives the summary's numbers (the f32 kernels' f32 at
-# 128, the SIMT forward's and the wgmma D=384 dQ's and dK/dV's bf16 at
-# 384, the D=512 dQ's and dK/dV's bf16 at 512, the wgmma D=256 kernels'
-# bf16).
+# 128, the wgmma D=256, D=384 and D=512 kernels' bf16).
 KERNEL_CASES = (
     (torch.bfloat16, D, S, S, True, 0, True),
     (torch.bfloat16, D, S, S, False, 0, False),
@@ -1127,7 +1136,7 @@ KERNEL_CASES = (
     (torch.float16, D, S, S, True, 0, True),
     (torch.float16, D, 200, 200, True, 0, False),
     # f32 at every head_dim (the 3xTF32 forward, dQ and dK/dV), and
-    # bf16/fp16 at 384-512 (the SIMT forward, the wgmma dQ and dK/dV).
+    # bf16/fp16 at 384-512 (the wgmma kernels by column halves).
     (torch.float32, 128, S, S, True, 0, True),
     (torch.float32, 128, 200, 200, False, 0, False),
     (torch.float32, 256, S, S, True, 0, True),
@@ -1140,7 +1149,7 @@ KERNEL_CASES = (
     (torch.bfloat16, 512, S, S, True, 0, True),
     (torch.bfloat16, 512, 200, 200, False, 0, False),
     (torch.float16, 512, S, S, True, 0, True),
-    # The wgmma dQ's and dK/dV's edges at 384-512, as at 256 below: no
+    # The wgmma kernels' edges at 384-512, as at 256 below: no
     # multiple of the tile, q_offset, half the k tiles unseen (exact
     # zeros), a ragged q_offset case; and d512_train's heads (H=8, Hkv=2:
     # the dK/dV's splits).
@@ -1212,8 +1221,9 @@ def phase_kernels():
     missed += [(*tag(c), p) for c in cases
                for p, ratios in c["domain_perturbed_ratio"].items()
                if max(ratios.values()) <= 1.0]
-    # A column half left unwritten or written from the wrong columns: each
-    # of dQ, dK and dV on its own (their kernels split the columns apart).
+    # A column half left unwritten, written from the wrong columns or
+    # summed over too few k tiles: each of out, dQ, dK and dV it changes on
+    # its own (their kernels split the columns apart).
     missed += [(*tag(c), p, n) for c in cases
                for p, ratios in c["domain_perturbed_ratio"].items()
                if p in COLUMN_HALF_PERTURBATIONS
@@ -1370,13 +1380,14 @@ def phase_fp16_model() -> dict:
 
 
 def train_against_xla(phase: str, cfg, tokens, steps: int, **record):
-    """A path beside the main one (phases 3b and 3d): ``cfg``'s logits
+    """A path beside the main one (phases 3b, 3d-3f): ``cfg``'s logits
     through the kernels against the reference attention (phase 4's rule,
     on ``tokens`` less the last), then ``steps`` Trainer steps through the
     kernels, which must launch full remat's kernels at (dtype, head_dim)
     and call the reference attention never, with losses finite and
     falling, beside the same steps with attention_impl="xla". Emits both
-    runs; returns the kernel run."""
+    runs and the phase's seconds; returns the kernel run."""
+    started = time.perf_counter()
     model = seeded(cfg)
     phase_model(model, torch.as_tensor(tokens[:, :-1], device=DEVICE),
                 phase.replace("_train", "_model"))
@@ -1388,6 +1399,7 @@ def train_against_xla(phase: str, cfg, tokens, steps: int, **record):
     del model
     free_cuda()
     emit({"phase": phase, "nvidia_smi": nvidia_smi(),
+          "seconds": time.perf_counter() - started,
           "layers": cfg.n_layers, "batch": B, "seq": tokens.shape[1] - 1,
           "steps": steps, **record, "runs": runs,
           "flash_over_xla_tokens_per_s":
@@ -1476,15 +1488,16 @@ def phase_d256_train() -> dict:
                              head_dim=cfg.head_dim)["launches"]
 
 
-def phase_d512_train() -> dict:
-    """The main path with the attention at head_dim 512 (module
-    docstring, phase 3e); returns the kernel run's launches."""
-    cfg = dataclasses.replace(slice_config(), n_heads=D512_HEADS,
-                              n_kv_heads=D512_KV_HEADS, head_dim=512)
-    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size,
-                                               (B, S + 1))
-    return train_against_xla("d512_train", cfg, tokens, D512_STEPS,
-                             heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+def phase_wide_train(phase: str, head_dim: int, heads: int, kv_heads: int,
+                     steps: int, seed: int) -> dict:
+    """The main path with the attention at a wide head_dim (module
+    docstring, phases 3e and 3f); returns the kernel run's launches."""
+    cfg = dataclasses.replace(slice_config(), n_heads=heads,
+                              n_kv_heads=kv_heads, head_dim=head_dim)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (B, S + 1))
+    return train_against_xla(phase, cfg, tokens, steps, heads=cfg.n_heads,
+                             kv_heads=cfg.n_kv_heads,
                              head_dim=cfg.head_dim)["launches"]
 
 
@@ -3976,7 +3989,10 @@ def main() -> int:
     ragged_launches = phase_ragged_train()
     f32_launches = phase_f32_train()
     d256_launches = phase_d256_train()
-    d512_launches = phase_d512_train()
+    d512_launches = phase_wide_train("d512_train", 512, D512_HEADS,
+                                     D512_KV_HEADS, D512_STEPS, seed=5)
+    d384_launches = phase_wide_train("d384_train", 384, D384_HEADS,
+                                     D384_KV_HEADS, D384_STEPS, seed=6)
 
     cfg = slice_config()
     model = Llama(cfg, device="cuda",
@@ -4023,23 +4039,22 @@ def main() -> int:
     # from the training step's case and their launches from the train
     # phase; the wgmma D=256 kernels' from the bf16 D=256 case and the
     # d256_train phase; the 3xTF32 kernels' from the f32 D=128 case and
-    # the f32_train phase; the SIMT forward's and the D=384 dQ's and
-    # dK/dV's from the bf16 D=384 case, the D=512 dQ's and dK/dV's from the
-    # bf16 D=512 case, and their launches from the d512_train phase (the
-    # D=384 ones: 0 there, no path launches them); every timed variant
-    # under "variants".
+    # the f32_train phase; the D=384 ones' from the bf16 D=384 case and the
+    # d384_train phase, the D=512 ones' from the bf16 D=512 case and the
+    # d512_train phase; every timed variant under "variants".
     summary = []
     by_path = {"train": launches, "fp16_model": fp16_launches,
                "ragged_train": ragged_launches, "f32_train": f32_launches,
                "d256_train": d256_launches, "d512_train": d512_launches,
+               "d384_train": d384_launches,
                "dist": dist_launches, "ring": ring_launches,
                "ring_train": ring_train_launches, "pp": pp_launches_run,
                "mixtral": mixtral_launches, "bert": bert_launches}
     main_paths = {"": "train", "_d256": "d256_train",
-                  "_d384": "d512_train", "_d512": "d512_train",
-                  "_simt": "d512_train", "_f32tc": "f32_train"}
-    for suffix, kinds in fa._KINDS.items():
-        for kind in kinds:
+                  "_d384": "d384_train", "_d512": "d512_train",
+                  "_f32tc": "f32_train"}
+    for suffix in fa._FAMILY:
+        for kind in fa.KINDS:
             kernel, name = f"flash_{kind}", f"flash_{kind}{suffix}"
             main_path = main_paths[suffix]
             st = stats[name]

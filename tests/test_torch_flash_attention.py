@@ -159,16 +159,12 @@ def test_flash_supported_gate():
 
 
 # The kernel of each (kind, dtype, head_dim) of the domain, by launch-key
-# suffix: the wgmma kernels for bf16/fp16 at 128 and at 256 ("_d256"), all
-# three kinds, and their dQ and dK/dV at 384 and 512 ("_d384", "_d512");
-# the 3xTF32 tensor-core kernels for f32, all three kinds at every
-# head_dim ("_f32tc"); the SIMT kernel everywhere else (the bf16/fp16
-# forward at 384-512).
-WGMMA = {(kind, dtype, d): "" if d == 128 else "_d256"
+# suffix: the wgmma kernels for bf16/fp16, all three kinds, at 128 and at
+# 256, 384 and 512 ("_d256", "_d384", "_d512"); the 3xTF32 tensor-core
+# kernels for f32, all three kinds at every head_dim ("_f32tc").
+WGMMA = {(kind, dtype, d): "" if d == 128 else f"_d{d}"
          for kind in ("fwd", "dq", "dkv")
-         for dtype in ("bfloat16", "float16") for d in (128, 256)}
-WGMMA.update({(kind, dtype, d): f"_d{d}" for kind in ("dq", "dkv")
-              for dtype in ("bfloat16", "float16") for d in (384, 512)})
+         for dtype in ("bfloat16", "float16") for d in (128, 256, 384, 512)}
 WGMMA.update({(kind, "float32", d): "_f32tc"
               for kind in ("fwd", "dq", "dkv")
               for d in (128, 256, 384, 512)})
@@ -181,8 +177,18 @@ def test_kernel_dispatch_table(kind, dtype, d):
     """Each kernel of each domain case goes to its own family, and its
     launch key is one of LAUNCHES'."""
     suffix = tfa.kernel_suffix(kind, getattr(torch, dtype), d)
-    assert suffix == WGMMA.get((kind, dtype, d), "_simt")
+    assert suffix == WGMMA[(kind, dtype, d)]
     assert f"flash_{kind}{suffix}" in tfa.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype, d", [(torch.int8, 128), (torch.bfloat16, 64),
+                                      (torch.float32, 640)])
+def test_kernel_suffix_refuses_outside_the_domain(dtype, d):
+    """No kernel is named for a dtype or head_dim outside the domain: the
+    dispatch raises instead of naming a fallback."""
+    for kind in ("fwd", "dq", "dkv"):
+        with pytest.raises(ValueError, match="no flash kernel"):
+            tfa.kernel_suffix(kind, dtype, d)
 
 
 def test_best_attention_dispatch_on_cpu():
@@ -220,11 +226,11 @@ def test_launch_counters_reset():
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_fwd_d256": 0, "flash_dq_d256": 0,
-                            "flash_dkv_d256": 0, "flash_dq_d384": 0,
-                            "flash_dkv_d384": 0, "flash_dq_d512": 0,
-                            "flash_dkv_d512": 0, "flash_fwd_simt": 0,
-                            "flash_fwd_f32tc": 0, "flash_dq_f32tc": 0,
-                            "flash_dkv_f32tc": 0}
+                            "flash_dkv_d256": 0, "flash_fwd_d384": 0,
+                            "flash_dq_d384": 0, "flash_dkv_d384": 0,
+                            "flash_fwd_d512": 0, "flash_dq_d512": 0,
+                            "flash_dkv_d512": 0, "flash_fwd_f32tc": 0,
+                            "flash_dq_f32tc": 0, "flash_dkv_f32tc": 0}
 
 
 # (launch-key suffix, batch, k_seq, kv_heads, SMs) -> splits
@@ -254,11 +260,10 @@ def test_dkv_splits(args):
 @pytest.mark.parametrize("family", sorted(tfa._LIBRARY))
 def test_lib_types_only_the_family_s_own_kinds(family, monkeypatch):
     """_lib looks up and types the C entries of the family's own kinds
-    only: the "_simt" library has a forward entry and no dQ or dK/dV, so
-    asking it for one would fail. A stub
-    stands in for the built library (no card, no nvcc): like a ctypes.CDLL
-    it raises AttributeError for an entry it lacks."""
-    own = [f"flash_{kind}{family}" for kind in tfa._KINDS[family]]
+    (forward, dQ and dK/dV, under the family's suffix) and no other
+    family's. A stub stands in for the built library (no card, no nvcc):
+    like a ctypes.CDLL it raises AttributeError for an entry it lacks."""
+    own = [f"flash_{kind}{family}" for kind in tfa.KINDS]
 
     class StubLib:
         def __init__(self):
@@ -277,13 +282,13 @@ def test_lib_types_only_the_family_s_own_kinds(family, monkeypatch):
                         else None)
     assert tfa._lib(family) is stub
     assert stub.asked == own
-    for kind in tfa._KINDS[family]:
+    for kind in tfa.KINDS:
         entry = stub.entries[f"flash_{kind}{family}"]
         assert entry.argtypes == tfa._ARGTYPES[f"flash_{kind}"]
         assert entry.restype is ctypes.c_int
     suffixes = [sfx for sfx, fam in tfa._FAMILY.items() if fam == family]
     for sfx in suffixes:
-        for kind in tfa._KINDS[sfx]:
+        for kind in tfa.KINDS:
             assert tfa._entry(kind, sfx) is stub.entries[
                 f"flash_{kind}{family}"]
 

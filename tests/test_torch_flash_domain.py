@@ -187,8 +187,9 @@ def test_kernel_check_rejects_domain_perturbations(case):
     that applies (the partial last k tile dropped, rows past the last full
     q tile left as zeros, scores from the first 128 of head_dim, head_dim
     columns 128-255 left as zeros or copied from columns 0-127, at head_dim
-    384-512 the dQ's and dK/dV's last 128 columns left as zeros or copied
-    from columns 0-127, TF32 in place of f32, and in f32 P rounded to TF32
+    384-512 out's, the dQ's and dK/dV's last 128 columns left as zeros or
+    copied from columns 0-127 and out's second column half summed without
+    the last visible k tile, TF32 in place of f32, and in f32 P rounded to TF32
     before O, P^T and dS^T before dV and dK and dS before dQ) through at
     least one output it changes."""
     sq, sk, causal, q_offset, dtype, d = PERTURBED_CASES[case]
@@ -216,7 +217,8 @@ def test_kernel_check_rejects_domain_perturbations(case):
         expect |= {"scores_from_first_128_of_d", "d_cols_128_255_zero",
                    "d_cols_128_255_from_cols_0_127"}
     if d > 256:
-        expect |= {"d_cols_last_128_zero", "d_cols_last_128_from_cols_0_127"}
+        expect |= {"d_cols_last_128_zero", "d_cols_last_128_from_cols_0_127",
+                   "out_second_half_without_last_k_tile"}
     if dtype == torch.float32:
         expect |= {"tf32", "tf32_register_operands"}
     assert set(wrong) == expect
@@ -231,11 +233,13 @@ def test_kernel_check_rejects_domain_perturbations(case):
 @pytest.mark.parametrize("case", ["f32_512", "f32_ragged_noncausal",
                                   "bf16_384_q_offset", "fp16_512"])
 def test_new_perturbations_rejected_through_their_own_output(case):
-    """The perturbations of the column-half wgmma dQ and the 3xTF32 forward
-    are rejected through the output they target, on its own: at head_dim
-    384-512, dQ's last 128 columns left as zeros or copied from columns
-    0-127 (against the plain dQ); in f32, P rounded to TF32 before O += P V
-    (against the plain out and against the float64 one)."""
+    """The perturbations of the column-half wgmma forward and dQ and of
+    the 3xTF32 forward are rejected through the output they target, on its
+    own: at head_dim 384-512, out's and dQ's last 128 columns left as zeros
+    or copied from columns 0-127, and out's second column half summed
+    without each q tile's last visible k tile (against the plain out and
+    dQ); in f32, P rounded to TF32 before O += P V (against the plain out
+    and against the float64 one)."""
     sq, sk, causal, q_offset, dtype, d = PERTURBED_CASES[case]
     gen = torch.Generator().manual_seed(0)
     q, k, v, do = ((torch.randn(1, s, h, d, generator=gen) * 0.5).to(dtype)
@@ -250,18 +254,20 @@ def test_new_perturbations_rejected_through_their_own_output(case):
     lim = smoke.limits(dtype)
     wrong = smoke.domain_perturbed(q, k, v, do, ref, delta, causal,
                                    q_offset)
-    targets = {}
+    targets = []
     if d > 256:
-        targets.update({p: ("dq", ref["dq"])
-                        for p in smoke.COLUMN_HALF_PERTURBATIONS})
+        targets += [(p, n) for p in ("d_cols_last_128_zero",
+                                     "d_cols_last_128_from_cols_0_127")
+                    for n in ("out", "dq")]
+        targets.append(("out_second_half_without_last_k_tile", "out"))
     if dtype == torch.float32:
-        targets["tf32_register_operands"] = ("out", ref["out"])
+        targets.append(("tf32_register_operands", "out"))
         exact_out, _ = smoke.fwd_float64(q, k, v, causal, q_offset)
         got = wrong["tf32_register_operands"]["out"]
         assert smoke.check("out", got, exact_out, **lim)["ratio"] > 1
     assert targets
-    for kind, (name, want) in targets.items():
-        got = wrong[kind][name]
+    for kind, name in targets:
+        got, want = wrong[kind][name], ref[name]
         assert got.shape == want.shape, (kind, name)
         assert smoke.check(name, got, want, **lim)["ratio"] > 1, (kind, name)
 

@@ -12,11 +12,10 @@ within atol + 2e-2 |want|, with atol = min(2e-2, 1e-2 max|want|) scaled
 to that output, relative L2 within 1e-2, and lse within 1e-3; f32 the
 same with 1e-5 for each. ``CASES`` are the wgmma kernels' bf16, head_dim
 128 cases at whole tiles; ``DOMAIN_CASES`` the rest of the TPU kernels'
-domain (ragged lengths, fp16, f32, head_dim 256-512; at 256 in bf16 and
-fp16 all three wgmma kernels, at 384-512 the SIMT forward beside the
-wgmma dQ and dK/dV, ``flash_dq_d384``/``flash_dkv_d384`` and
-``flash_dq_d512``/``flash_dkv_d512``; in f32 the 3xTF32 tensor-core
-kernels, ``flash_fwd_f32tc``, ``flash_dq_f32tc`` and
+domain (ragged lengths, fp16, f32, head_dim 256-512; in bf16 and fp16 all
+three wgmma kernels, at 384-512 by column halves, ``flash_fwd_d384``,
+``flash_dq_d384``, ``flash_dkv_d384`` and the same at 512; in f32 the
+3xTF32 tensor-core kernels, ``flash_fwd_f32tc``, ``flash_dq_f32tc`` and
 ``flash_dkv_f32tc``).
 """
 
@@ -162,8 +161,8 @@ def _strided_view(x, cuda):
 @pytest.mark.parametrize("case", ["gqa_4_2", "bf16_512_gqa_8_2"])
 def test_strided_inputs_read_through_strides(case, cuda):
     """q/k/v/do as views into wider buffers give the same out, lse, dq, dk
-    and dv as contiguous copies, bit for bit (the wgmma kernels at 128, and
-    the SIMT forward and the column-half wgmma dQ and dK/dV at 512)."""
+    and dv as contiguous copies, bit for bit (the wgmma kernels at 128 and,
+    by column halves, at 512)."""
     q, k, v, do = _inputs(case, cuda)
     qv, kv, vv, dov = (_strided_view(x, cuda) for x in (q, k, v, do))
     out, lse = tfa._fwd_cuda(qv, kv, vv, True, 0)
@@ -241,11 +240,14 @@ def test_autograd_through_kernels_matches_reference_attention(case, cuda):
         assert result["ok"], (f"d{name}", result)
 
 
-@pytest.mark.parametrize("case", ["f32", "f32_512_gqa_4_1"])
+@pytest.mark.parametrize("case", ["f32", "f32_512_gqa_4_1",
+                                  "bf16_512_causal_gqa_4_1",
+                                  "bf16_512_gqa_8_2"])
 def test_fwd_is_deterministic(case, cuda):
-    """Two launches of the 3xTF32 f32 forward on the same inputs give
-    bitwise-identical out and lse (each row's max, sum and O in one CTA,
-    the key parts summed in a fixed order)."""
+    """Two launches of the forward on the same inputs (the 3xTF32 f32 one;
+    the wgmma one at 512, by column halves, at H=4, Hkv=1 and H=8, Hkv=2)
+    give bitwise-identical out and lse (each row's max, sum and O in one
+    CTA, summed in a fixed k-tile order)."""
     q, k, v, _ = _inputs(case, cuda)
     first = tfa._fwd_cuda(q, k, v, True, 0)
     second = tfa._fwd_cuda(q, k, v, True, 0)
@@ -278,14 +280,21 @@ def test_dispatch_and_refusals_on_card(cuda):
 # Shapes (q_seq, k_seq, head_dim) across the edge of the domain.
 DISPATCH_SHAPES = [(sq, sk, d) for sq, sk in ((8, 8), (200, 2000), (4, 64),
                                               (100, 128), (64, 60))
-                   for d in (64, 128, 256, 512, 640)]
+                   for d in (64, 128, 256, 384, 512, 640)]
+# The forward each dtype launches at each head_dim of the domain.
+FWD_KERNEL = {(dtype, d): "flash_fwd_f32tc" if dtype == torch.float32
+              else "flash_fwd" + ("" if d == 128 else f"_d{d}")
+              for dtype in (torch.bfloat16, torch.float16, torch.float32)
+              for d in (128, 256, 384, 512)}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 def test_best_attention_launches_exactly_in_domain(dtype, cuda):
     """On a CUDA tensor every shape in the domain launches a kernel (the
-    forward of its family) and every shape outside it launches none."""
+    forward of its family: bf16 and fp16 the wgmma one of their head_dim,
+    flash_fwd_d384 and flash_fwd_d512 at 384-512) and every shape outside
+    it launches none."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     for sq, sk, d in DISPATCH_SHAPES:
         q = torch.randn(1, sq, 2, d, generator=gen, device=cuda).to(dtype)
@@ -295,6 +304,5 @@ def test_best_attention_launches_exactly_in_domain(dtype, cuda):
         torch.cuda.synchronize()
         assert out.shape == q.shape
         inside = tfa.flash_supported(sq, sk, d, dtype)
-        name = "flash_fwd" + tfa.kernel_suffix("fwd", dtype, d)
-        want = smoke.counts({name: 1} if inside else {})
+        want = smoke.counts({FWD_KERNEL[dtype, d]: 1} if inside else {})
         assert tfa.LAUNCHES == want, (sq, sk, d, tfa.LAUNCHES)

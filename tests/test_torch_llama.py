@@ -8,8 +8,8 @@ parameter's gradient within 5e-4, bf16 logits within 2e-2. The same
 checks hold a head_dim-256 model (hidden 64, 2 heads over 1 KV head of
 256), whose attention on the card runs the wgmma kernels at head_dim 256,
 and the logits, loss and every gradient of a head_dim-512 one (hidden 64,
-2 heads over 1 KV head of 512: on the card the SIMT forward and the
-wgmma dQ and dK/dV at 512).
+2 heads over 1 KV head of 512: on the card the wgmma forward, dQ and
+dK/dV at 512).
 """
 
 import dataclasses

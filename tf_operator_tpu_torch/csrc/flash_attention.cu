@@ -15,11 +15,9 @@
 // Tensors are read as [B, S, H, D] through their strides (no
 // transpose); head h reads KV head h / (H / Hkv) (native GQA). The kernels
 // are templates over the element type E, bf16 or fp16 (wgmma's bf16 and
-// f16 variants), and head_dim D: 128 or 256 for all three, 384 and 512 for
-// the dQ and dK/dV too. The other cases of the domain go elsewhere: f32 to
-// the 3xTF32 tensor-core kernels of flash_attention_f32tc.cu, the
-// bf16/fp16 forward at D of 384-512 to the SIMT kernel of
-// flash_attention_simt.cu.
+// f16 variants), and head_dim D: 128, 256, 384 or 512 for all three. The
+// other case of the domain, f32, goes to the 3xTF32 tensor-core kernels of
+// flash_attention_f32tc.cu.
 //
 // Ragged sequences. Sq and Sk are any multiples of 8 (>= 8), tiled in 64
 // rows with a partial last tile. The tensor maps carry the real lengths,
@@ -49,8 +47,9 @@
 //     256 dK/dV also hands P^T between its warpgroups through shared
 //     memory), and every accumulator is written once. A 64 x D output is
 //     D / 128 accumulators of 64 x 128 (64 registers a thread each), one
-//     wgmma m64n128k16 each; the D = 384-512 dQ's and dK/dV's column
-//     slice is DC / 64 accumulators of 64 x 64, one m64n64k16 each.
+//     wgmma m64n128k16 each; at D = 384-512 the column slice of O, dQ or
+//     dK/dV that a warpgroup owns is DC / 64 accumulators of 64 x 64, one
+//     m64n64k16 each.
 //   * The tensor maps are built on the host in each C entry
 //     (cuTensorMapEncodeTiled looked up in libcuda, no -lcuda) and passed
 //     as __grid_constant__ parameters.
@@ -154,6 +153,69 @@ __device__ __forceinline__ int first_q_tile(int j, int causal, int q_offset) {
   return need > 0 ? (need + T - 1) / T : 0;
 }
 
+// One k tile of the forward's online softmax on the accumulator layout:
+// the scores sc of k tile j against the q tile whose first row is q0 are
+// scaled and masked (the causal mask on diagonal tiles, keys >= Sk on a
+// partial last tile: a uniform branch, so whole interior tiles skip it)
+// and become P = exp(S - m), the rows' running max m and sum l moving on;
+// corr is the factor each row's O must be scaled by before P V is added.
+__device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&corr)[2], int q0,
+                                               int j, int Sk, int causal,
+                                               int q_offset, float scale,
+                                               int warp, int lane) {
+  const bool diag = causal && j * T + T - 1 > q0 + q_offset;
+  const int keys = Sk - j * T;                  // < T on a partial tile
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sc[e] *= scale;
+  if (diag || keys < T) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      if ((diag && q0 + acc_row(e, warp, lane) + q_offset <
+                       j * T + acc_col(e, lane)) ||
+          acc_col(e, lane) >= keys)
+        sc[e] = NEG_INF;
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e)
+    mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sc[e]);
+  float psum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    corr[r] = exp2f((m[r] - mx[r]) * LOG2E);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const float p = exp2f((sc[e] - mx[(e % 4) / 2]) * LOG2E);
+    sc[e] = p;
+    psum[(e % 4) / 2] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+}
+
+// The forward's end of a q tile (first row q0): each row's 1 / l in inv
+// (a sum of 0 guarded as 1, as the TPU kernel does) and, where `write`,
+// its lse into lse_rows[row] for rows < Sq.
+__device__ __forceinline__ void finish_rows(float (&inv)[2],
+                                            const float (&m)[2],
+                                            const float (&l)[2],
+                                            float* lse_rows, int q0, int Sq,
+                                            bool write, int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    const float safe = sum == 0.0f ? 1.0f : sum;
+    inv[r] = 1.0f / safe;
+    const int row = q0 + 16 * warp + lane / 4 + 8 * r;
+    if (write && lane % 4 == 0 && row < Sq) lse_rows[row] = m[r] + logf(safe);
+  }
+}
+
 // The work of one forward or dQ CTA: q tiles 2c and 2c + 1 (`tiles` of
 // them, 1 for the last CTA of an odd count) of head h, batch b. Blocks are
 // numbered heaviest q tiles first, so the short causal tiles fill the last
@@ -195,11 +257,13 @@ __device__ __forceinline__ void stream_kv(unsigned char* sKV, uint64_t* full,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one CTA per (128 query rows, head, batch). Replaces _fwd_kernel
-// (tf_operator_tpu/ops/flash_attention.py:95). Bound by tensor-core
-// operations: 4 D FLOPs per visible (q, k) pair against the K and V tile
-// loads, which the producer streams through a FWD_STAGES ring while the
-// consumers compute.
+// Forward. Replaces _fwd_kernel (tf_operator_tpu/ops/flash_attention.py
+// :95). Bound by tensor-core operations: 4 D FLOPs per visible (q, k) pair
+// against the K and V tile loads, which the producer streams through a
+// ring while the consumers compute. The head_dims split the work in two
+// ways: fwd_by_tiles (D = 128, 256; below) and fwd_by_slice (D = 384, 512;
+// after the dQ, whose column halves it mirrors).
+// D = 128 and 256: one CTA per (128 query rows, head, batch).
 //   * Consumer warpgroup g owns q tile 2c + g (64 rows; with an odd count
 //     of q tiles the last CTA's second warpgroup has no rows, computes
 //     nothing and still releases every stage). Its Q tile stays resident.
@@ -224,20 +288,18 @@ __device__ __forceinline__ void stream_kv(unsigned char* sKV, uint64_t* full,
 // ---------------------------------------------------------------------------
 constexpr int FWD_STAGES = 2;
 template <int D>
-constexpr int SMEM_FWD = 1024 + 2 * TILE<D> + FWD_STAGES * 2 * TILE<D> +
-                         8 * (1 + 2 * FWD_STAGES);
+constexpr int SMEM_FWD_TILES = 1024 + 2 * TILE<D> +
+                               FWD_STAGES * 2 * TILE<D> +
+                               8 * (1 + 2 * FWD_STAGES);
 
 template <typename E, int D>
-__global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
-    const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, E* __restrict__ out,
-    float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int causal,
-    int q_offset, float scale) {
+__device__ __forceinline__ void fwd_by_tiles(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, E* out, float* lse, int H, int Hkv, int Sq,
+    int Sk, int causal, int q_offset, float scale) {
   using namespace hopper;
   constexpr int NO = D / 128;                              // O accumulators
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sQ = align_1024(smem_raw);               // 2 tiles
+  unsigned char* sQ = align_1024(smem);                   // 2 tiles
   unsigned char* sKV = sQ + 2 * TILE<D>;                  // stage s: K, V
   uint64_t* q_full =
       reinterpret_cast<uint64_t*>(sKV + FWD_STAGES * 2 * TILE<D>);
@@ -268,10 +330,9 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_full, tiles_here * TILE<D>);
       for (int g = 0; g < tiles_here; ++g)
-        tma_load_tile<D>(sQ + g * TILE<D>, &qmap, q_full, h, (2 * c + g) * T,
+        tma_load_tile<D>(sQ + g * TILE<D>, qmap, q_full, h, (2 * c + g) * T,
                          b);
-      stream_kv<D>(sKV, kv_full, kv_empty, FWD_STAGES, &kmap, &vmap, nk, hk,
-                   b);
+      stream_kv<D>(sKV, kv_full, kv_empty, FWD_STAGES, kmap, vmap, nk, hk, b);
     }
   } else {
     reg_alloc<240>();
@@ -305,39 +366,9 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
         wgmma_wait_all();
         reg_fence(sc);
 
-        // Scale, mask (diagonal tiles and a partial last k tile only: a
-        // uniform branch, so whole interior tiles skip it), online softmax.
-        const bool diag = causal && j * T + T - 1 > iq * T + q_offset;
-        const int keys = Sk - j * T;              // < T on a partial tile
-        float mx[2] = {m[0], m[1]};
-#pragma unroll
-        for (int i = 0; i < 32; ++i) sc[i] *= scale;
-        if (diag || keys < T) {
-#pragma unroll
-          for (int i = 0; i < 32; ++i)
-            if ((diag && iq * T + acc_row(i, warp, lane) + q_offset <
-                             j * T + acc_col(i, lane)) ||
-                acc_col(i, lane) >= keys)
-              sc[i] = NEG_INF;
-        }
-#pragma unroll
-        for (int i = 0; i < 32; ++i)
-          mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sc[i]);
-        float corr[2], psum[2] = {0.0f, 0.0f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = quad_max(mx[r]);
-          corr[r] = exp2f((m[r] - mx[r]) * LOG2E);
-          m[r] = mx[r];
-        }
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const float p = exp2f((sc[i] - mx[(i % 4) / 2]) * LOG2E);
-          sc[i] = p;
-          psum[(i % 4) / 2] += p;
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+        float corr[2];
+        online_softmax(sc, m, l, corr, iq * T, j, Sk, causal, q_offset,
+                       scale, warp, lane);
 #pragma unroll
         for (int n = 0; n < NO; ++n)
 #pragma unroll
@@ -364,17 +395,10 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
     }
     if (wg >= tiles_here) return;
 
-    // Finalize: O / l (l == 0 guarded as 1, as the TPU kernel does), lse.
+    // Finalize: O / l, lse.
     float inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float sum = quad_sum(l[r]);
-      const float safe = sum == 0.0f ? 1.0f : sum;
-      inv[r] = 1.0f / safe;
-      const int row = iq * T + 16 * warp + lane / 4 + 8 * r;
-      if (lane % 4 == 0 && row < Sq)
-        lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[r] + logf(safe);
-    }
+    finish_rows(inv, m, l, lse + (static_cast<int64_t>(b) * H + h) * Sq,
+                iq * T, Sq, true, warp, lane);
     E* dst = out + (static_cast<int64_t>(b) * Sq + iq * T) * H * D +
              static_cast<int64_t>(h) * D;
 #pragma unroll
@@ -1646,7 +1670,231 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dq_kernel(
                       H, Hkv, Sq, Sk, causal, q_offset, scale);
 }
 
+// ---------------------------------------------------------------------------
+// Forward at D = 384 and 512: split by output columns, as the dQ there. O
+// of 64 x D in f32 is D / 2 registers a thread of one warpgroup, 256 at D
+// = 512, over the 240 that setmaxnreg gives; two q tiles' Q take 128 KB at
+// 512. So one CTA per (q tile, head, batch), heaviest causal q tiles first
+// (dq_by_slice's numbering), and its two consumer warpgroups each own one
+// column half [g DC, (g + 1) DC), DC = D / 2, of the tile's O (NC = DC / 64
+// accumulators of 64 x 64: 128 registers a thread at 512, 96 at 384).
+//   * The choice. Both warpgroups reduce S = Q K^T over all of head_dim
+//     from the same shared tiles, so the two do 2 (2 D) + 2 D = 6 D FLOPs
+//     a visible (q, k) pair where 4 D suffice (1.5x); the bound
+//     (chip_smoke.py) counts no redundant work. Both run the same wgmma
+//     sequence on the same operands, so their S, and so their running max
+//     m and sum l, are bit for bit the same: no exchange, and warpgroup 0
+//     alone writes lse. Summing the halves' partial S through shared
+//     memory instead does 4 D a pair, but with its 16 KB exchange, two
+//     named barriers a k tile and the V rings cut to fit, it ran slower
+//     on an H100 (PERF.md).
+//   * Shared memory. Q stays whole (D / 8 KB: 64 KB at 512, 48 at 384),
+//     loaded once. K tile j comes as D / 64 panels, panel c always in K
+//     slot c with its own barriers; both warpgroups release panel c once
+//     their S group that read it is done (one group in flight), so K
+//     panel c of tile j + 1 loads while the rest of tile j runs. V comes
+//     as panels through two rings of FWD_VRING slots, one a column half:
+//     warpgroup g reads only its own half's NC panels a tile, so a ring's
+//     empty barriers count only its 4 warps, and each half streams on its
+//     own. Three producer threads in three warps (K; V of half 0; V of
+//     half 1) each issue their own loads, so no wait of one stream holds
+//     up another. Budget at 512: Q 64 KB, K 64, V 2 x 6 x 8 = 96 (each
+//     half one and a half tiles ahead), 1 KB of alignment and the
+//     barriers: 225 KB of the 227 KB a block may use; at 384: 48 + 48 + 96
+//     + 1 KB, 193 KB (each half two tiles ahead).
+//   * Per k tile as in fwd_by_tiles: scale and mask (diagonal and partial
+//     last tiles, a uniform branch), the online softmax on the accumulator
+//     layout; O is rescaled in registers before the tile's P V, which
+//     adds, per panel of the half's V, 4 k-steps of wgmma m64n64k16 (A =
+//     P rounded to E from registers, V N-major). Each O row is summed by
+//     one warpgroup in k-tile order (deterministic) and written once as E;
+//     rows past Sq are never stored. Both warpgroups walk the same k
+//     tiles, so every K and V panel loaded is released by its readers.
+//   * Registers of a consumer thread: O 128 at 512, S 32, the P fragments
+//     16, under the 240 that setmaxnreg gives it (as the D = 256
+//     forward).
+constexpr int FWD_VRING = 6;                // V panel slots a column half
+template <int D>
+constexpr int SMEM_FWD_SLICE = 1024 + 2 * TILE<D> +
+                               2 * FWD_VRING * hopper::PANEL_BYTES +
+                               8 * (1 + 2 * (D / 64) + 2 * 2 * FWD_VRING);
+
+template <typename E, int D>
+__device__ __forceinline__ void fwd_by_slice(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, E* out, float* lse, int H, int Hkv, int Sq,
+    int Sk, int causal, int q_offset, float scale) {
+  using namespace hopper;
+  constexpr int NP = D / 64, NC = DC<D> / 64;       // panels, slice panels
+  constexpr int RV = FWD_VRING;
+  unsigned char* sQ = align_1024(smem);
+  unsigned char* sK = sQ + TILE<D>;                  // K panel c in slot c
+  unsigned char* sV = sK + TILE<D>;                  // half g: slots g RV..
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + 2 * RV * PANEL_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + NP;
+  uint64_t* v_full = k_empty + NP;
+  uint64_t* v_empty = v_full + 2 * RV;
+
+  const int nqt = n_tiles(Sq), nkt = n_tiles(Sk);
+  const int hb = gridDim.x / nqt;                    // H * B
+  const int blk = static_cast<int>(blockIdx.x);
+  const int i = nqt - 1 - blk / hb, h = blk % hb % H, b = blk % hb / H;
+  const int hk = h / (H / Hkv);
+  const int nk = k_tiles_visible(i, nkt, causal, q_offset);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int c = 0; c < NP; ++c) {
+      mbar_init(&k_full[c], 1);
+      mbar_init(&k_empty[c], CONSUMER_WARPS);
+    }
+    for (int s = 0; s < 2 * RV; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], CONSUMER_WARPS / 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producers: warp 0 Q once, then per k tile its K panels, panel c into
+    // slot c; warp 1 + g the V panels of half g, the n-th of the half
+    // (tile n / NC, panel g NC + n % NC) into its ring's slot n % RV.
+    reg_dealloc<24>();
+    const int pw = (threadIdx.x - 256) / 32;
+    if (threadIdx.x % 32 == 0 && pw == 0) {
+      mbar_expect_tx(q_full, TILE<D>);
+      tma_load_tile<D>(sQ, qmap, q_full, h, i * T, b);
+      for (int j = 0; j < nk; ++j)
+        for (int c = 0; c < NP; ++c) {
+          if (j > 0) mbar_wait(&k_empty[c], (j - 1) & 1);
+          mbar_expect_tx(&k_full[c], PANEL_BYTES);
+          tma_load_panel(sK + c * PANEL_BYTES, kmap, &k_full[c], 64 * c, hk,
+                         j * T, b);
+        }
+    } else if (threadIdx.x % 32 == 0 && pw <= 2) {
+      const int g = pw - 1;
+      for (int n = 0; n < nk * NC; ++n) {
+        const int s = g * RV + n % RV, use = n / RV;
+        if (use > 0) mbar_wait(&v_empty[s], (use - 1) & 1);
+        mbar_expect_tx(&v_full[s], PANEL_BYTES);
+        tma_load_panel(sV + s * PANEL_BYTES, vmap, &v_full[s],
+                       64 * (g * NC + n % NC), hk, n / NC * T, b);
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    float o[NC][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[c][e] = 0.0f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < nk; ++j) {
+      // S = Q K^T over head_dim, a K panel a group, each panel released
+      // once its group is done.
+      float sc[32];
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        mbar_wait(&k_full[c], j & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_ss<E>(sc, desc_kmajor(sQ, 4 * c + kk),
+                                desc_kmajor(sK + c * PANEL_BYTES, kk),
+                                c > 0 || kk > 0);
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          release(&k_empty[c - 1]);
+        }
+      }
+      wgmma_wait_all();
+      reg_fence(sc);
+      release(&k_empty[NP - 1]);
+
+      float corr[2];
+      online_softmax(sc, m, l, corr, i * T, j, Sk, causal, q_offset, scale,
+                     warp, lane);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[c][e] *= corr[(e % 4) / 2];
+
+      // O[:, half] += P V[:, half], P as register fragments of E, one V
+      // panel of the half a group; each slot released once its group is
+      // done.
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) frag_a<E>(pa[kk], sc, kk);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int n = j * NC + c, s = wg * RV + n % RV;
+        mbar_wait(&v_full[s], (n / RV) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_rs<E>(o[c], pa[kk],
+                                desc_nmajor(sV + s * PANEL_BYTES, kk));
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          release(&v_empty[wg * RV + (n - 1) % RV]);
+        }
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) reg_fence(o[c]);
+      release(&v_empty[wg * RV + (j * NC + NC - 1) % RV]);
+    }
+
+    // Finalize: O / l; lse from warpgroup 0 (warpgroup 1's m and l are
+    // the same).
+    float inv[2];
+    finish_rows(inv, m, l, lse + (static_cast<int64_t>(b) * H + h) * Sq,
+                i * T, Sq, wg == 0, warp, lane);
+    E* dst = out + (static_cast<int64_t>(b) * Sq + i * T) * H * D +
+             static_cast<int64_t>(h) * D + wg * DC<D>;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[c][e] *= inv[(e % 4) / 2];
+      store_acc<E>(dst + 64 * c, o[c], H * D, Sq - i * T, warp, lane);
+    }
+  }
+}
+
+
+template <int D>
+constexpr int SMEM_FWD = D <= 256 ? SMEM_FWD_TILES<D> : SMEM_FWD_SLICE<D>;
+
+template <typename E, int D>
+__global__ void __launch_bounds__(NT_WS, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, E* __restrict__ out,
+    float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int causal,
+    int q_offset, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  if constexpr (D <= 256)
+    fwd_by_tiles<E, D>(smem_raw, &qmap, &kmap, &vmap, out, lse, H, Hkv, Sq,
+                       Sk, causal, q_offset, scale);
+  else
+    fwd_by_slice<E, D>(smem_raw, &qmap, &kmap, &vmap, out, lse, H, Hkv, Sq,
+                       Sk, causal, q_offset, scale);
+}
+
 static_assert(SMEM_FWD<128> <= 232448 && SMEM_FWD<256> <= 232448 &&
+                  SMEM_FWD<384> <= 232448 && SMEM_FWD<512> <= 232448 &&
                   SMEM_DQ<128> <= 232448 && SMEM_DQ<256> <= 232448 &&
                   SMEM_DQ<384> <= 232448 && SMEM_DQ<512> <= 232448 &&
                   SMEM_DKV<128> <= 232448 && SMEM_DKV<256> <= 232448 &&
@@ -1654,8 +1902,7 @@ static_assert(SMEM_FWD<128> <= 232448 && SMEM_FWD<256> <= 232448 &&
               "shared memory over the 227 KB a block can use");
 
 // Element types of the C entries' `dtype` argument (the Python wrapper's
-// codes): 0 bf16, 1 fp16. head_dim: 128 or 256 (the dQ and dK/dV also
-// 384, 512).
+// codes): 0 bf16, 1 fp16. head_dim: 128, 256, 384 or 512.
 enum { DT_BF16 = 0, DT_FP16 = 1 };
 
 template <typename K>
@@ -1670,7 +1917,8 @@ int launch_fwd(const CUtensorMap& qm, const CUtensorMap& km,
                int Hkv, int Sq, int Sk, int causal, int q_offset, float scale,
                cudaStream_t stream) {
   set_smem(flash_fwd_kernel<E, D>, SMEM_FWD<D>);
-  const int ncta = (n_tiles(Sq) + 1) / 2;
+  // A CTA per pair of q tiles (D <= 256) or per q tile.
+  const int ncta = D <= 256 ? (n_tiles(Sq) + 1) / 2 : n_tiles(Sq);
   flash_fwd_kernel<E, D><<<ncta * H * B, NT_WS, SMEM_FWD<D>, stream>>>(
       qm, km, vm, (E*)out, (float*)lse, H, Hkv, Sq, Sk, causal, q_offset,
       scale);
@@ -1724,17 +1972,12 @@ int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km,
     case DT_FP16 * 1024 + 128: return L<__half, 128> ARGS;              \
     case DT_BF16 * 1024 + 256: return L<__nv_bfloat16, 256> ARGS;       \
     case DT_FP16 * 1024 + 256: return L<__half, 256> ARGS;              \
-  }                                                                     \
-  return (int)cudaErrorInvalidValue;
-// ... and the dQ's and dK/dV's wider ones.
-#define WGMMA_WIDE_CASES(L, ARGS)                                       \
-  switch (dtype * 1024 + head_dim) {                                    \
     case DT_BF16 * 1024 + 384: return L<__nv_bfloat16, 384> ARGS;       \
     case DT_FP16 * 1024 + 384: return L<__half, 384> ARGS;              \
     case DT_BF16 * 1024 + 512: return L<__nv_bfloat16, 512> ARGS;       \
     case DT_FP16 * 1024 + 512: return L<__half, 512> ARGS;              \
   }                                                                     \
-  WGMMA_CASES(L, ARGS)
+  return (int)cudaErrorInvalidValue;
 
 }  // namespace
 
@@ -1745,7 +1988,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out,
               int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
               int v_ss, int v_sh, int causal, int q_offset, float scale,
               int dtype, int head_dim, void* stream) {
-  if ((head_dim != 128 && head_dim != 256) ||
+  if ((head_dim % 128 != 0 || head_dim < 128 || head_dim > 512) ||
       (dtype != DT_BF16 && dtype != DT_FP16))
     return (int)cudaErrorInvalidValue;
   const bool f16 = dtype == DT_FP16;
@@ -1785,9 +2028,8 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
       (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, d, do_sb, do_ss,
                                   do_sh, f16)))
     return -static_cast<int>(rc);
-  WGMMA_WIDE_CASES(launch_dq, (qm, km, vm, dom, lse, delta, dq, B, H, Hkv,
-                               Sq, Sk, causal, q_offset, scale,
-                               (cudaStream_t)stream))
+  WGMMA_CASES(launch_dq, (qm, km, vm, dom, lse, delta, dq, B, H, Hkv, Sq,
+                          Sk, causal, q_offset, scale, (cudaStream_t)stream))
 }
 
 // workspace, splits: see dkv_by_slice (head_dim 384 and 512); 1 split and
@@ -1815,9 +2057,9 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
       (rc = hopper::make_bshd_map(&dom, dout, B, Sq, H, d, do_sb, do_ss,
                                   do_sh, f16)))
     return -static_cast<int>(rc);
-  WGMMA_WIDE_CASES(launch_dkv, (qm, km, vm, dom, lse, delta, dk, dv,
-                                workspace, splits, B, H, Hkv, Sq, Sk, causal,
-                                q_offset, scale, (cudaStream_t)stream))
+  WGMMA_CASES(launch_dkv, (qm, km, vm, dom, lse, delta, dk, dv, workspace,
+                           splits, B, H, Hkv, Sq, Sk, causal, q_offset, scale,
+                           (cudaStream_t)stream))
 }
 
 }  // extern "C"

@@ -5,24 +5,23 @@ kernels (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) become CUDA
 kernels built for ``sm_90a`` and bound by ctypes (``ops/_build.py``), over
 the TPU kernels' whole domain (``flash_supported``: sequences of any
 multiple of 8 from 8 up, head_dim 128, 256, 384 or 512, bf16, fp16 or
-f32), in three families picked per kernel by (kind, dtype, head_dim)
+f32), in two families picked per kernel by (kind, dtype, head_dim)
 (``kernel_suffix``):
 
-- bf16 and fp16 at head_dim 128, the training step's case: the wgmma/TMA
-  kernels of ``csrc/flash_attention.cu`` (launch keys ``flash_fwd``,
-  ``flash_dq``, ``flash_dkv``), the same kernels at head_dim 256
-  (``flash_fwd_d256``, ``flash_dq_d256``, ``flash_dkv_d256``), and their
-  dQ and dK/dV at 384 and 512 (``flash_dq_d384``, ``flash_dkv_d384``,
-  ``flash_dq_d512``, ``flash_dkv_d512``: each warpgroup or CTA one half of
+- bf16 and fp16: the wgmma/TMA kernels of ``csrc/flash_attention.cu``, at
+  head_dim 128 (the training step's case; launch keys ``flash_fwd``,
+  ``flash_dq``, ``flash_dkv``), at 256 (``flash_fwd_d256``,
+  ``flash_dq_d256``, ``flash_dkv_d256``) and at 384 and 512
+  (``flash_fwd_d384``, ``flash_dq_d384``, ``flash_dkv_d384``,
+  ``flash_fwd_d512``, ``flash_dq_d512``, ``flash_dkv_d512``: each
+  warpgroup of the forward and the dQ, each CTA of the dK/dV, one half of
   head_dim's columns; the dK/dV's ``dkv_splits``);
 - f32 at every head_dim: the tensor-core kernels of
   ``csrc/flash_attention_f32tc.cu`` (``flash_fwd_f32tc``,
   ``flash_dq_f32tc``, ``flash_dkv_f32tc``), whose products are 3xTF32
-  (each f32 operand split into two TF32 parts), within f32's limits;
-- the bf16/fp16 forward at 384-512: the SIMT (f32 FMA) kernel of
-  ``csrc/flash_attention_simt.cu`` (``flash_fwd_simt``).
+  (each f32 operand split into two TF32 parts), within f32's limits.
 
-All three mask ragged sequence edges in the kernel. The forward is the custom op
+Both mask ragged sequence edges in the kernel. The forward is the custom op
 ``tf_operator_tpu_torch::flash_fwd`` returning ``(out, lse)``; its autograd
 formula saves ``(q, k, v, out, lse)`` and launches the dQ and dK/dV
 kernels, recomputing ``P = exp(S - lse)`` as the TPU kernels do, so no
@@ -87,17 +86,13 @@ MAX_HEAD_DIM = 512
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # The library of each kernel family (by the suffix of its C entries).
-_LIBRARY = {"": "flash_attention", "_simt": "flash_attention_simt",
-            "_f32tc": "flash_attention_f32tc"}
-# Launch-key suffix of each variant -> its family, and the kinds it has:
-# "_d256" is the wgmma family at head_dim 256, "_d384" and "_d512" its dQ
-# and dK/dV there, "_f32tc" the f32 kernels on tensor cores, "_simt" the
-# bf16/fp16 forward at 384-512.
-_FAMILY = {"": "", "_d256": "", "_d384": "", "_d512": "", "_simt": "_simt",
-           "_f32tc": "_f32tc"}
-_KINDS = {"": ("fwd", "dq", "dkv"), "_d256": ("fwd", "dq", "dkv"),
-          "_d384": ("dq", "dkv"), "_d512": ("dq", "dkv"), "_simt": ("fwd",),
-          "_f32tc": ("fwd", "dq", "dkv")}
+_LIBRARY = {"": "flash_attention", "_f32tc": "flash_attention_f32tc"}
+# Launch-key suffix of each variant -> its family: "_d256", "_d384" and
+# "_d512" are the wgmma family at those head_dims, "_f32tc" the f32
+# kernels on tensor cores. Every variant has all three kinds.
+_FAMILY = {"": "", "_d256": "", "_d384": "", "_d512": "", "_f32tc": "_f32tc"}
+KINDS = ("fwd", "dq", "dkv")
+HEAD_DIMS = (128, 256, 384, 512)
 # The wgmma dK/dV at head_dim 384-512 runs a CTA per (pair of 64-key
 # tiles, KV head, batch, half of head_dim); where that grid is smaller than
 # the card, each CTA's GQA items are split over up to this many CTAs,
@@ -106,8 +101,7 @@ MAX_DKV_SPLITS = 4
 
 # Launches of each kernel, counted by the wrapper where it launches it.
 LAUNCHES: Dict[str, int] = {
-    f"flash_{kind}{suffix}": 0 for suffix, kinds in _KINDS.items()
-    for kind in kinds}
+    f"flash_{kind}{suffix}": 0 for suffix in _FAMILY for kind in KINDS}
 
 
 def reset_launches() -> None:
@@ -118,18 +112,15 @@ def reset_launches() -> None:
 def kernel_suffix(kind: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that runs ``kind`` ("fwd", "dq" or "dkv") for (dtype,
     head_dim) in the domain, as the suffix of its launch key: "" for the
-    wgmma kernels at head_dim 128 (bf16 and fp16), "_d256" for them at 256,
-    "_d384"/"_d512" for their dQ and dK/dV there, "_f32tc" for f32, "_simt"
-    for the bf16/fp16 forward at 384-512."""
+    wgmma kernels at head_dim 128 (bf16 and fp16), "_d256", "_d384" and
+    "_d512" for them at those head_dims, "_f32tc" for f32. Raises
+    ValueError outside the domain."""
+    if kind not in KINDS or head_dim not in HEAD_DIMS or dtype not in DTYPES:
+        raise ValueError(f"no flash kernel runs {kind!r} at {dtype}, "
+                         f"head_dim {head_dim}")
     if dtype == torch.float32:
         return "_f32tc"
-    if dtype in (torch.bfloat16, torch.float16):
-        if head_dim == 128:
-            return ""
-        wide = f"_d{head_dim}"
-        if wide in _KINDS and kind in _KINDS[wide]:
-            return wide
-    return "_simt"
+    return "" if head_dim == 128 else f"_d{head_dim}"
 
 
 def dkv_splits(suffix: str, batch: int, k_seq: int, kv_heads: int,
@@ -270,10 +261,9 @@ _ARGTYPES = {
 
 
 def _lib(family: str = "") -> ctypes.CDLL:
-    """The built library of one kernel family, the entries of its own
-    kinds typed."""
+    """The built library of one kernel family, its entries typed."""
     lib = _build.load(_LIBRARY[family])
-    for kind in _KINDS[family]:
+    for kind in KINDS:
         fn = getattr(lib, f"flash_{kind}{family}")
         fn.argtypes = _ARGTYPES[f"flash_{kind}"]
         fn.restype = ctypes.c_int
