@@ -117,18 +117,31 @@ Phases, each printing one JSON line:
            CheckpointHook.after_step force a save to disk, wait, and
            publish a record with that barrier; seconds until save()
            returned, seconds of wait(), GB on disk, GB/s, free disk before.
-           One more step is taken and its loss and parameters kept; then
-           everything is freed, a Llama from another seed and a new
-           Trainer restore the checkpoint and take the same step: loss and
-           every parameter must equal the kept ones bit for bit. The check
-           must reject two wrong restores (AdamW moments left fresh, AdamW's
-           per-parameter step dropped).
+           A host copy of the saved state is kept (every parameter and
+           its AdamW tensors), then one more step is taken and its loss
+           and parameters kept; then everything is freed, a Llama built
+           on the meta device and a new Trainer's abstract_state() (no
+           draws; a step from it must raise before the restore) restore
+           the checkpoint: parameters, moments and steps bit-equal to the
+           saved copy; then the same step: loss and every parameter must
+           equal the kept ones bit for bit. The check must reject two
+           wrong restores (AdamW moments left fresh, AdamW's per-parameter
+           step dropped). Then today's way, a Llama from another seed,
+           init() and restore, also bit-equal to the saved copy: the
+           seconds and peak memory (above what was allocated before) of
+           both ways.
 8. dist    the sharded training path at world size 1: make_mesh builds
            MeshConfig(dp=-1) over a world of one NCCL process, and the
            Trainer shards the train phase's model (same seed, batch and
            optimizer) by LLAMA_RULES (parallel/sharding.py: every Dense and
-           the embedding a DTensor on the tp axis, FSDP2 over (dp, fsdp)),
-           then takes 5 steps: each loss and grad norm within DIST_REL of
+           the embedding a DTensor on the tp axis, FSDP2 over (dp, fsdp)).
+           The model is built twice: today's way (eager on the card, then
+           sharded by init()) and on the meta device, placed with nothing
+           allocated and materialised by init() from the same draws; every
+           parameter of the second, gathered (full_tensor), must be
+           torch.equal to the first's; the seconds and peak memory above
+           what was allocated before of each. The eager one is freed and
+           the meta-built one takes 5 steps: each loss and grad norm within DIST_REL of
            the train phase's (and whether bit-equal), launches per step as
            the train phase's (8/4/4 under full: the kernels, not the
            reference, on the rank's local heads); tokens/s, peak memory and
@@ -1694,10 +1707,11 @@ def phase_ckpt(step, state, batch, root):
         record = json.load(f)
     on_disk = dir_bytes(os.path.join(directory, str(saved_step)))
     seconds = timed.seconds
+    saved_state = state_copy(state)
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     kept = {"step": saved_step, "loss": float(metrics["loss"]),
-            "params": cpu_params(state.model)}
+            "params": cpu_params(state.model), "saved": saved_state}
     emit({"phase": "ckpt", "nvidia_smi": card, "step": saved_step,
           "saved": saved, "record": record,
           "latest_step": timed.latest_step(), "state_gb": need / 1e9,
@@ -1716,6 +1730,46 @@ def phase_ckpt(step, state, batch, root):
     return kept
 
 
+def state_tensors(state) -> dict:
+    """Every parameter (a sharded one gathered whole) and each one's AdamW
+    tensors, keyed by (parameter name, "param" or the optimizer's key)."""
+    out = {}
+    for name, p in state.model.named_parameters():
+        out[name, "param"] = p.full_tensor() if isinstance(p, DTensor) else p
+        for key, t in state.opt_state.state.get(p, {}).items():
+            out[name, key] = t.full_tensor() if isinstance(t, DTensor) else t
+    return out
+
+
+def state_copy(state) -> dict:
+    """A host copy of ``state_tensors``, taken one tensor at a time."""
+    return {k: t.detach().to("cpu", copy=True)
+            for k, t in state_tensors(state).items()}
+
+
+def differing(state, saved: dict) -> list:
+    """The keys whose tensor in ``state`` is not bit for bit the host copy
+    ``saved`` (each copied back to the card on its own)."""
+    now = state_tensors(state)
+    return sorted(set(now) ^ set(saved)) + [
+        k for k, t in saved.items()
+        if k in now and not torch.equal(now[k], t.to(now[k].device))]
+
+
+def timed_init(build):
+    """``build()``'s result, with its seconds and the card's peak
+    allocation above what was allocated before it (GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize()
+    return out, {"s": time.perf_counter() - t0,
+                 "peak_gb": (torch.cuda.max_memory_allocated() - base)
+                 / 2 ** 30, "before_gb": base / 2 ** 30}
+
+
 def _fresh_moments(opt):
     for per_param in opt.state.values():
         for name in ("exp_avg", "exp_avg_sq", "step"):
@@ -1728,47 +1782,94 @@ def _adam_step_dropped(opt):
 
 
 def phase_restore(kept, batch, root):
-    """A Llama from another seed and a new Trainer restore the checkpoint
-    and take the kept step again (module docstring, phase 7)."""
-    t0 = time.perf_counter()
-    model = Llama(slice_config(), device=DEVICE,
-                  generator=torch.Generator(device=DEVICE).manual_seed(1))
-    trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE)
-    state = trainer.init()
-    step = trainer.make_train_step()
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    """The checkpoint restored into ``Trainer.abstract_state()`` of a
+    model built on the meta device (no draws), held bit for bit to the
+    saved state, and the kept step taken again; then today's way, a
+    build from another seed, ``init`` and restore, for its seconds and
+    peak (module docstring, phase 7)."""
+    card = nvidia_smi()
     ckpt = Checkpointer(os.path.join(root, "ckpt"))
 
-    def restored_step(spoil=None):
+    def abstract():
+        trainer = Trainer(model=Llama(slice_config(), device="meta"),
+                          optimizer=adamw(3e-4), device=DEVICE)
+        return trainer, trainer.abstract_state()
+
+    (trainer, state), built = timed_init(abstract)
+    model, step = state.model, trainer.make_train_step()
+    try:
+        step(state, batch)
+        unrestored_raised = False
+    except RuntimeError:
+        unrestored_raised = True
+
+    def restored_step(spoil=None, against_saved=False):
         t = time.perf_counter()
         ckpt.restore(state)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         restored_at = state.step
+        out = {"restore_s": seconds, "restored_step": restored_at}
+        if against_saved:
+            out["peak_gb"] = (torch.cuda.max_memory_allocated()
+                              / 2 ** 30)
+            out["saved_differing"] = differing(state, kept["saved"])
+            out["saved_tensors"] = len(kept["saved"])
         if spoil is not None:
             spoil(state.opt_state)
         _, metrics = step(state, batch)
         torch.cuda.synchronize()
         differ = [n for n, p in model.named_parameters()
                   if not torch.equal(p.detach().cpu(), kept["params"][n])]
-        return {"restore_s": seconds, "restored_step": restored_at,
-                "loss": float(metrics["loss"]),
+        return {**out, "loss": float(metrics["loss"]),
                 "loss_bit_equal": float(metrics["loss"]) == kept["loss"],
                 "params_differing": len(differ),
                 "params": len(kept["params"])}
 
-    torch.cuda.reset_peak_memory_stats()
-    good = restored_step()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    good = restored_step(against_saved=True)
+    good["peak_gb"] -= built["before_gb"]
     wrong = {"moments_fresh": restored_step(_fresh_moments),
              "adam_step_dropped": restored_step(_adam_step_dropped)}
-    emit({"phase": "restore", "build_s": build_s, **good,
-          "max_memory_allocated_gb": peak, "wrong_restores": wrong})
-    ckpt.close()
     del model, trainer, state, step
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
+
+    def today():
+        model = Llama(slice_config(), device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(1))
+        state = Trainer(model=model, optimizer=adamw(3e-4),
+                        device=DEVICE).init()
+        torch.cuda.synchronize()
+        built = time.perf_counter()
+        ckpt.restore(state)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - built
+
+    (state, today_restore_s), today_built = timed_init(today)
+    today_differing = differing(state, kept["saved"])
+    del state
+    free_cuda()
+    ckpt.close()
+    record = {
+        "phase": "restore", "nvidia_smi": card,
+        "abstract": {"build_s": built["s"], **good,
+                     "build_and_restore_s": built["s"] + good["restore_s"],
+                     "saved_differing": len(good["saved_differing"])},
+        "unrestored_step_raised": unrestored_raised,
+        "init_then_restore": {
+            "s": today_built["s"], "restore_s": today_restore_s,
+            "init_s": today_built["s"] - today_restore_s,
+            "peak_gb": today_built["peak_gb"],
+            "saved_differing": len(today_differing)},
+        "order": "abstract first, then init_then_restore",
+        "wrong_restores": wrong}
+    emit(record)
+    if not unrestored_raised:
+        raise AssertionError("a step from an unrestored abstract state ran")
+    if good["saved_differing"] or today_differing:
+        raise AssertionError(
+            f"the restored state differs from the saved one: abstract "
+            f"{good['saved_differing'][:3]}, init-then-restore "
+            f"{today_differing[:3]}")
     if not (good["restored_step"] == kept["step"] and good["loss_bit_equal"]
             and good["params_differing"] == 0):
         raise AssertionError(f"the restored run differs from the one that "
@@ -1787,12 +1888,32 @@ def phase_dist(batch, train, train_profile, root):
     card = nvidia_smi()
     with process_group_scope():
         mesh = make_mesh(MeshConfig(dp=-1), device=DEVICE)
-        model = Llama(slice_config(), device=DEVICE,
-                      generator=torch.Generator(device=DEVICE).manual_seed(0))
-        trainer = Trainer(model=model, optimizer=adamw(3e-4), device=DEVICE,
-                          mesh=mesh, rules=LLAMA_RULES,
-                          param_axes_fn=tllama.param_logical_axes)
-        state = trainer.init()
+
+        def sharded(device):
+            model = Llama(slice_config(), device=device)
+            trainer = Trainer(model=model, optimizer=adamw(3e-4),
+                              device=DEVICE, mesh=mesh, rules=LLAMA_RULES,
+                              param_axes_fn=tllama.param_logical_axes)
+            return trainer, trainer.init()
+
+        # Today's init (the eager build, then sharded) beside the meta
+        # build materialised by init(): the same seed, every parameter
+        # gathered bit for bit.
+        (_, eager), eager_init = timed_init(lambda: sharded(DEVICE))
+        (trainer, state), meta_init = timed_init(lambda: sharded("meta"))
+        model = state.model
+        eager_params = dict(eager.model.named_parameters())
+        meta_params = dict(model.named_parameters())
+        init_differ = sorted(set(eager_params) ^ set(meta_params)) + [
+            n for n, p in meta_params.items() if n in eager_params
+            and not torch.equal(p.full_tensor(),
+                                eager_params[n].full_tensor())]
+        init_params = len(meta_params)
+        del eager, eager_params, meta_params
+        free_cuda()
+        if init_differ:
+            raise AssertionError(f"the meta-built init differs from the "
+                                 f"eager build: {init_differ[:3]}")
         step = trainer.make_train_step()
         sharded = sum(isinstance(p, DTensor) for p in model.parameters())
         torch.cuda.synchronize()
@@ -1880,7 +2001,10 @@ def phase_dist(batch, train, train_profile, root):
         "restored_params_differing": len(restored_differ),
         "next_loss": next_loss, "next_loss_sharded": kept_loss,
         "next_loss_bit_equal": next_loss == kept_loss,
-        "next_params_differing": len(next_differ)}
+        "next_params_differing": len(next_differ),
+        "init": {"eager": eager_init, "meta": meta_init,
+                 "params": init_params,
+                 "params_differing": len(init_differ)}}
     emit(record)
     if not (record["max_rel_loss_vs_unsharded"] <= DIST_REL
             and record["max_rel_grad_norm_vs_unsharded"] <= DIST_REL):

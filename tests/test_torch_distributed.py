@@ -21,7 +21,15 @@ JAX side, which runs in the test process on ``jax.devices()[:4]``:
 - tp=2 prefill and decode logits against the unsharded JAX model within
   ``tests/test_llama_decode.py``'s ATOL (1e-5);
 - a DCP save at (fsdp=2, tp=2) restored at (dp=4) and, after the world is
-  gone, at world 1: parameters and AdamW moments bit-equal;
+  gone, at world 1: parameters and AdamW moments bit-equal; and restored
+  at (dp=4) into ``Trainer.abstract_state()`` of a meta build;
+- the sharded-from-birth init: Llama at (fsdp=2, tp=2), (dp=2, fsdp=2)
+  and (dcn=2, tp=2), Mixtral at (dp=2, ep=2) and BERT at (dp=2, tp=2),
+  built on the meta device and materialised by ``Trainer.init()``, each
+  parameter gathered bit-equal to today's eager build (the same seed,
+  then sharded); and, counted by a dispatch mode over the floating-point
+  CPU storages ops make, a rank of the meta build never holds more than its shards
+  and one whole parameter, where the eager build holds the whole model;
 - ``mixtral_tiny`` (f32), 3 steps of ``make_moe_lm_loss`` under
   ``MOE_RULES`` at ``MeshConfig(dp=2, ep=2)`` with each dispatch path and
   at ``MeshConfig(fsdp=2, tp=2)``, against the JAX ``Trainer`` on the same
@@ -49,7 +57,8 @@ JAX side, which runs in the test process on ``jax.devices()[:4]``:
 - ``LlamaPipelineTrainer`` (1F1B) at (dp=2, pp=2), 3 steps from the JAX
   pipeline trainer's converted init against the JAX trainer within 5e-4;
   its state saved, restored into a trainer of another seed bit-equal, and
-  the next step equal to the uninterrupted one's;
+  the next step equal to the uninterrupted one's; the same restored into
+  its ``abstract_state()``, from which a step before the restore raises;
 - ``bert_tiny`` (f32, biased projections, LayerNorm; biases and norm
   scales drawn at random) with ``mlm_loss`` under ``LLAMA_RULES`` at
   ``MeshConfig(dp=2, tp=2)`` and ``MeshConfig(fsdp=2, tp=2)`` on padded,
@@ -110,6 +119,12 @@ PP_LR = 3e-3
 # biased projections.
 BERT_MESHES = {"bert_dp2_tp2": dict(dp=2, tp=2),
                "bert_fsdp2_tp2": dict(fsdp=2, tp=2)}
+# Meta-built inits against today's eager build: (model, mesh fields).
+META_MESHES = {"meta_fsdp2_tp2": ("llama", dict(fsdp=2, tp=2)),
+               "meta_dp2_fsdp2": ("llama", dict(dp=2, fsdp=2)),
+               "meta_dcn2_tp2": ("llama", dict(dcn=2, tp=2)),
+               "meta_moe_dp2_ep2": ("mixtral", dict(dp=2, ep=2)),
+               "meta_bert_dp2_tp2": ("bert", dict(dp=2, tp=2))}
 TRAIN_TOL = 5e-4
 FLASH_TOL, FLASH_GRAD_TOL = 2e-5, 2e-4
 DECODE_ATOL = 1e-5
@@ -380,8 +395,9 @@ def _moe_decode_case(inputs):
             "cache_kv_heads": cache["k"].shape[3]}
 
 
-def _restore_case(inputs, ckpt_dir, seed):
-    """A state of another seed on a dp=4 mesh, restored from the save."""
+def _restore_case(inputs, ckpt_dir, seed, abstract=False):
+    """A state of another seed on a dp=4 mesh, restored from the save;
+    with ``abstract``, the abstract state of a meta build."""
     from tf_operator_tpu_torch.models import llama as tllama
     from tf_operator_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from tf_operator_tpu_torch.parallel.sharding import LLAMA_RULES
@@ -389,18 +405,155 @@ def _restore_case(inputs, ckpt_dir, seed):
     from tf_operator_tpu_torch.train.checkpoint import Checkpointer
 
     cfg = tllama.LlamaConfig(dtype=torch.float32, **tiny_fields())
-    model = tllama.Llama(cfg, device="cpu",
+    model = tllama.Llama(cfg, device="meta" if abstract else "cpu",
                          generator=torch.Generator().manual_seed(seed))
     mesh = make_mesh(MeshConfig(dp=4), device="cpu")
     trainer = ttr.Trainer(model=model, optimizer=ttr.adamw(LR), device="cpu",
                           mesh=mesh, rules=LLAMA_RULES,
                           param_axes_fn=tllama.param_logical_axes)
-    state = trainer.init()
+    state = trainer.abstract_state() if abstract else trainer.init()
     ckpt = Checkpointer(ckpt_dir)
     ckpt.restore(state)
     ckpt.close()
     return {"step": state.step, "params": _gathered(model),
             "moments": _gathered_moments(state.opt_state)}
+
+
+def _caught(case, *args):
+    """``case(*args)``, or its error (every rank fails alike: the world
+    goes on to its other cases)."""
+    import traceback
+
+    try:
+        return case(*args)
+    except Exception:
+        return {"error": traceback.format_exc()}
+
+
+def _meta_model(kind, device):
+    """(model, rules, logical axes, loss) of the tiny f32 ``kind``."""
+    from tf_operator_tpu_torch.models import bert as tbert
+    from tf_operator_tpu_torch.models import llama as tllama
+    from tf_operator_tpu_torch.models import mixtral as tmix
+    from tf_operator_tpu_torch.parallel.sharding import (
+        LLAMA_RULES,
+        MOE_RULES,
+    )
+    from tf_operator_tpu_torch.train import trainer as ttr
+
+    if kind == "llama":
+        cfg = tllama.LlamaConfig(dtype=torch.float32, **tiny_fields())
+        return (tllama.Llama(cfg, device=device), LLAMA_RULES,
+                tllama.param_logical_axes, ttr.lm_loss)
+    if kind == "mixtral":
+        cfg = tmix.MixtralConfig(dtype=torch.float32, **moe_fields())
+        return (tmix.Mixtral(cfg, device=device), MOE_RULES,
+                tmix.param_logical_axes,
+                tmix.make_moe_lm_loss(cfg.aux_loss_weight))
+    cfg = dataclasses.replace(tbert.bert_tiny(), dtype=torch.float32)
+    return (tbert.Bert(cfg, device=device), LLAMA_RULES,
+            tbert.param_logical_axes, tbert.mlm_loss)
+
+
+def _meta_init_case(name):
+    """The model of ``name`` built on meta and materialised by
+    ``Trainer.init()`` on its mesh, against today's build (eager, the same
+    seed, then sharded): every parameter gathered, and each state's
+    DTensor count."""
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from tf_operator_tpu_torch.train import trainer as ttr
+
+    kind, fields = META_MESHES[name]
+    mesh = make_mesh(MeshConfig(**fields), device="cpu")
+    params = []
+    for device in ("cpu", "meta"):
+        model, rules, axes, loss = _meta_model(kind, device)
+        state = ttr.Trainer(model=model, optimizer=ttr.adamw(LR),
+                            loss_fn=loss, device="cpu", mesh=mesh,
+                            rules=rules, param_axes_fn=axes).init()
+        params.append({n: p for n, p in state.model.named_parameters()})
+    eager, meta = params
+    return {"params": len(eager),
+            "dtensors": [sum(map(is_dtensor, p.values())) for p in params],
+            "differ": [n for n, p in eager.items()
+                       if not torch.equal(p.full_tensor(),
+                                          meta[n].full_tensor())]}
+
+
+def is_dtensor(t):
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+class LiveBytes:
+    """A dispatch mode's count of the bytes in floating-point CPU storages
+    that ops made while it is on, as they live and die (a storage's Python
+    object lives as long as the storage), and its peak. Index tensors
+    (DTensor's own bookkeeping) are not counted."""
+
+    def __init__(self):
+        import weakref
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        live = self.live = {}
+        self.peak = 0
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in tree_leaves(out):
+                    if not isinstance(t, torch.Tensor):
+                        continue
+                    local = t.to_local() if is_dtensor(t) else t
+                    if (local.device.type != "cpu"
+                            or not local.is_floating_point()):
+                        continue
+                    storage = local.untyped_storage()
+                    if id(storage) not in live:
+                        live[id(storage)] = storage.nbytes()
+                        weakref.finalize(storage, live.pop, id(storage),
+                                         None)
+                counter.peak = max(counter.peak, sum(live.values()))
+                return out
+
+        self.mode = Mode()
+
+
+def _init_memory_case():
+    """Peak bytes a rank holds while it builds and inits ``llama_tiny``
+    at (fsdp 2, tp 2), today's way (eager, then sharded) and built on
+    meta; the bytes of its shards and of its largest whole parameter."""
+    import gc
+
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from tf_operator_tpu_torch.train import trainer as ttr
+
+    mesh = make_mesh(MeshConfig(fsdp=2, tp=2), device="cpu")
+    out = {}
+    for device in ("cpu", "meta"):
+        gc.collect()
+        counter = LiveBytes()
+        with counter.mode:
+            model, rules, axes, loss = _meta_model("llama", device)
+            state = ttr.Trainer(model=model, optimizer=ttr.adamw(LR),
+                                device="cpu", mesh=mesh, rules=rules,
+                                param_axes_fn=axes).init()
+        out[device] = counter.peak
+        tensors = [p.to_local() for p in state.model.parameters()]
+        tensors += list(state.model.buffers())
+        storages = {id(t.untyped_storage()): t.untyped_storage().nbytes()
+                    for t in tensors}
+        out["held"] = sum(storages.values())
+        out["whole_model"] = sum(p.numel() * p.element_size()
+                                 for p in state.model.parameters())
+        out["largest_whole"] = max(p.numel() * p.element_size()
+                                   for p in state.model.parameters())
+        del model, state, tensors
+    return out
 
 
 def _flash_case(inputs):
@@ -542,24 +695,45 @@ def _llama_pp_case(inputs, ckpt_dir):
     second = trainer()
     restored = second.init(generator=torch.Generator().manual_seed(1))
     ckpt.restore(restored)
+    # The abstract restore target: no step before the restore.
+    third = trainer()
+    abstract = third.abstract_state()
+    third_step = third.make_train_step(abstract)
+    try:
+        third_step(abstract, tokens)
+        unrestored_raised = False
+    except RuntimeError:
+        unrestored_raised = True
+    ckpt.restore(abstract)
     ckpt.close()
     moments = lambda st: [t.clone() for per in st.opt_state.state.values()
                           for n, t in sorted(per.items())]
-    same = (restored.step == state.step and all(
-        torch.equal(a, b) for a, b in zip(moments(restored),
-                                          moments(state)))
-        and all(torch.equal(a, b) for a, b in zip(
-            restored.model.parameters(), state.model.parameters())))
+
+    def equal(st):
+        return (st.step == state.step and all(
+            torch.equal(a, b) for a, b in zip(moments(st), moments(state)))
+            and all(torch.equal(a, b) for a, b in zip(
+                st.model.parameters(), state.model.parameters())))
+
+    same, same_abstract = equal(restored), equal(abstract)
     state, kept = step(state, tokens)
     restored, again = second.make_train_step(restored)(restored, tokens)
-    same_after = all(torch.equal(a, b) for a, b in zip(
-        restored.model.parameters(), state.model.parameters()))
+    abstract, from_abstract = third_step(abstract, tokens)
+    after = lambda st: all(torch.equal(a, b) for a, b in zip(
+        st.model.parameters(), state.model.parameters()))
     every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, (same, same_after))
+    dist.all_gather_object(every, (same, after(restored), same_abstract,
+                                   after(abstract), unrestored_raised))
     out["resume"] = {"restored_equal": [e[0] for e in every],
                      "next_params_equal": [e[1] for e in every],
                      "next_loss": float(again["loss"]),
                      "kept_loss": float(kept["loss"])}
+    out["abstract_resume"] = {
+        "restored_equal": [e[2] for e in every],
+        "next_params_equal": [e[3] for e in every],
+        "unrestored_step_raised": [e[4] for e in every],
+        "next_loss": float(from_abstract["loss"]),
+        "kept_loss": float(kept["loss"])}
     return out
 
 
@@ -686,6 +860,11 @@ def _worker(work_dir: str) -> None:
             results[name] = _moe_train_case(inputs, name)
         results["moe_decode"] = _moe_decode_case(inputs)
         results["restore_dp4"] = _restore_case(inputs, ckpt_dir, seed=1)
+        results["restore_dp4_abstract"] = _caught(
+            _restore_case, inputs, ckpt_dir, 1, True)
+        for name in META_MESHES:
+            results[name] = _caught(_meta_init_case, name)
+        results["init_memory"] = _caught(_init_memory_case)
         results["flash"] = _flash_case(inputs)
         results["decode"] = _decode_case(inputs)
         results["mnist"] = _mnist_case()
@@ -1324,12 +1503,15 @@ def test_tp2_sharded_decode_matches_unsharded(world):
                                jax_side["decode_full"], atol=DECODE_ATOL)
 
 
-@pytest.mark.parametrize("where", ["restore_dp4", "restore_world1"])
+@pytest.mark.parametrize("where", ["restore_dp4", "restore_world1",
+                                   "restore_dp4_abstract"])
 def test_sharded_checkpoint_restores_bit_equal(world, where):
     """Saved at (fsdp=2, tp=2) after 3 steps; restored into a state of
-    another seed on another layout."""
+    another seed on another layout, or into the abstract state of a meta
+    build at dp=4."""
     results, _ = world
     saved, got = results["fsdp2_tp2"], results[where]
+    assert "error" not in got, got.get("error")
     assert got["step"] == STEPS
     assert set(got["params"]) == set(saved["params"])
     for name, param in saved["params"].items():
@@ -1400,3 +1582,39 @@ def test_sharded_bert_matches_jax(world, mesh_name):
         assert got["grads"][name].abs().max() > 1e-3, name
     assert_train_matches(got, want[mesh_name], bcfg, jax_side["bert_init"],
                          bert_params_from_flax)
+
+
+@pytest.mark.parametrize("name", list(META_MESHES))
+def test_meta_init_matches_eager_build(world, name):
+    """Built on the meta device, each rank materialising its own shards:
+    every parameter, gathered, bit-equal to today's eager build from the
+    same seed, sharded the same."""
+    results, _ = world
+    got = results[name]
+    assert "error" not in got, got.get("error")
+    assert got["differ"] == [], got["differ"]
+    assert got["dtensors"] == [got["params"]] * 2
+
+
+def test_llama_pipeline_trainer_abstract_state_resumes_bit_equal(world):
+    """Restored into ``abstract_state()`` (a step before that raises):
+    parameters and Adam moments bit-equal on every rank, and the next step
+    the uninterrupted one's."""
+    results, _ = world
+    resume = results["llama_pp"]["abstract_resume"]
+    assert all(resume["unrestored_step_raised"]), resume
+    assert all(resume["restored_equal"]), resume
+    assert all(resume["next_params_equal"]), resume
+    assert resume["next_loss"] == resume["kept_loss"]
+
+
+def test_meta_init_holds_one_whole_parameter_beside_the_shards(world):
+    """While it builds and inits the model at (fsdp 2, tp 2), a rank of
+    the meta build holds no more than its shards and one whole parameter;
+    today's eager build holds the whole model (the measure sees it)."""
+    results, _ = world
+    got = results["init_memory"]
+    assert "error" not in got, got.get("error")
+    bound = got["held"] + got["largest_whole"]
+    assert got["meta"] <= bound, got
+    assert got["cpu"] >= got["whole_model"] > bound, got

@@ -40,8 +40,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
-from tf_operator_tpu_torch.models.llama import Dense
-from tf_operator_tpu_torch.ops.layers import LayerNorm, attention, gelu
+from tf_operator_tpu_torch.models.llama import Dense, embedding
+from tf_operator_tpu_torch.ops.layers import (
+    Init,
+    LayerNorm,
+    attention,
+    build_scope,
+    gelu,
+    new_param,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,29 +127,27 @@ class Bert(nn.Module):
     logits [B, S, vocab] in ``cfg.dtype``.
 
     Parameters are made on ``device`` (the card unless ``device="cpu"``)
-    from ``generator`` (one on ``device``), by default one seeded with 0."""
+    from ``generator`` (one on ``device``), by default one seeded with 0;
+    on ``device="meta"`` they are drawn later, as ``Llama``'s."""
 
     def __init__(self, cfg: BertConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
-        gen = generator or torch.Generator(device=device).manual_seed(0)
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden,
-                                         device=device)
-        nn.init.normal_(self.embed_tokens.weight, std=cfg.hidden ** -0.5,
-                        generator=gen)
-        self.pos_embed = nn.Parameter(torch.empty(
-            cfg.max_seq_len, cfg.hidden, dtype=torch.float32, device=device))
-        nn.init.normal_(self.pos_embed, std=0.02, generator=gen)
-        self.embed_ln = LayerNorm(cfg.hidden, cfg.dtype, device=device)
-        self.layers = nn.ModuleList(BertBlock(cfg, device, gen)
-                                    for _ in range(cfg.n_layers))
-        dense = lambda n_out: Dense(cfg.hidden, n_out, cfg.dtype, device,
-                                    gen, bias=True)
-        self.mlm_transform = dense(cfg.hidden)
-        self.mlm_ln = LayerNorm(cfg.hidden, cfg.dtype, device=device)
-        self.mlm_head = dense(cfg.vocab_size)
+        with build_scope(self, device, generator) as gen:
+            self.embed_tokens = embedding(cfg.vocab_size, cfg.hidden,
+                                          device, gen)
+            new_param(self, "pos_embed", (cfg.max_seq_len, cfg.hidden),
+                      Init(std=0.02), device, gen)
+            self.embed_ln = LayerNorm(cfg.hidden, cfg.dtype, device=device)
+            self.layers = nn.ModuleList(BertBlock(cfg, device, gen)
+                                        for _ in range(cfg.n_layers))
+            dense = lambda n_out: Dense(cfg.hidden, n_out, cfg.dtype,
+                                        device, gen, bias=True)
+            self.mlm_transform = dense(cfg.hidden)
+            self.mlm_ln = LayerNorm(cfg.hidden, cfg.dtype, device=device)
+            self.mlm_head = dense(cfg.vocab_size)
 
     def forward(self, tokens: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

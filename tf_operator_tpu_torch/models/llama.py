@@ -66,8 +66,15 @@ from tf_operator_tpu_torch.ops.flash_attention import (
 )
 from tf_operator_tpu_torch.ops.layers import (
     NEG_INF,
+    ONES,
+    ZEROS,
+    Init,
     apply_rope,
     attention,
+    build_scope,
+    init_,
+    new_buffer,
+    new_param,
     repeat_kv,
     rms_norm,
     rope_frequencies,
@@ -152,13 +159,12 @@ class Dense(nn.Module):
         # them, tensor parallelism gathers the output whole
         # (parallel/sharding.py).
         self.heads = heads
-        self.weight = nn.Parameter(torch.empty(
-            features_out, features_in, dtype=torch.float32, device=device))
-        nn.init.normal_(self.weight, std=features_in ** -0.5,
-                        generator=generator)
-        self.register_parameter("bias", nn.Parameter(torch.zeros(
-            features_out, dtype=torch.float32, device=device))
-            if bias else None)
+        new_param(self, "weight", (features_out, features_in),
+                  Init(std=features_in ** -0.5), device, generator)
+        if bias:
+            new_param(self, "bias", (features_out,), ZEROS, device)
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
@@ -171,11 +177,28 @@ class Dense(nn.Module):
         return y + self.bias.to(self.dtype)
 
 
+def embedding(vocab_size: int, hidden: int, device,
+              generator: Optional[torch.Generator]) -> nn.Embedding:
+    """The token embedding, normal with std hidden ** -0.5 (the flax
+    models' embedding init)."""
+    embed = nn.Embedding(vocab_size, hidden, device=device)
+    init_(embed, "weight", Init(std=hidden ** -0.5), generator)
+    return embed
+
+
+def rope_angles(module: nn.Module, cfg, device) -> None:
+    """The non-persistent ``angles`` buffer ([max_seq_len, head_dim / 2],
+    ``rope_frequencies``) of a model with ``cfg``'s rotary fields."""
+    new_buffer(module, "angles", (cfg.max_seq_len, cfg.head_dim // 2),
+               Init(compute=functools.partial(
+                   rope_frequencies, cfg.head_dim, cfg.max_seq_len,
+                   cfg.rope_theta)), device, persistent=False)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, features: int, device):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32,
-                                             device=device))
+        new_param(self, "scale", (features,), ONES, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.scale)
@@ -404,6 +427,8 @@ class Llama(nn.Module):
 
     Parameters are made on ``device`` (the card unless ``device="cpu"``)
     from ``generator`` (one on ``device``), by default one seeded with 0.
+    On ``device="meta"`` nothing is drawn: ``Trainer.init`` materialises
+    the same values later, on each rank's shards (``ops/layers.py``).
     ``positions`` ([B, S] absolute token positions) default to arange; in
     decode mode they and ``cache`` (from ``init_cache``) are required."""
 
@@ -413,11 +438,6 @@ class Llama(nn.Module):
         _check_config(cfg)
         self.cfg = cfg
         device = resolve_device(device)
-        gen = generator or torch.Generator(device=device).manual_seed(0)
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden,
-                                         device=device)
-        nn.init.normal_(self.embed_tokens.weight, std=cfg.hidden ** -0.5,
-                        generator=gen)
         remat = cfg.remat and not cfg.decode
         block = (LlamaBlockMlpRemat
                  if remat and cfg.remat_policy == "mlp_only" else LlamaBlock)
@@ -427,15 +447,15 @@ class Llama(nn.Module):
             self._remat_context = functools.partial(
                 create_selective_checkpoint_contexts,
                 _SAVED_OPS[cfg.remat_policy])
-        self.layers = nn.ModuleList(
-            block(cfg, device, gen) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.hidden, device)
-        self.lm_head = Dense(cfg.hidden, cfg.vocab_size, cfg.dtype, device,
-                             gen)
-        self.register_buffer(
-            "angles", rope_frequencies(cfg.head_dim, cfg.max_seq_len,
-                                       cfg.rope_theta, device=device),
-            persistent=False)
+        with build_scope(self, device, generator) as gen:
+            self.embed_tokens = embedding(cfg.vocab_size, cfg.hidden,
+                                          device, gen)
+            self.layers = nn.ModuleList(
+                block(cfg, device, gen) for _ in range(cfg.n_layers))
+            self.final_norm = RMSNorm(cfg.hidden, device)
+            self.lm_head = Dense(cfg.hidden, cfg.vocab_size, cfg.dtype,
+                                 device, gen)
+            rope_angles(self, cfg, device)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,

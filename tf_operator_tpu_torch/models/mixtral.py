@@ -63,7 +63,7 @@ from tf_operator_tpu_torch.models.llama import (  # noqa: F401 (re-export)
     init_cache,
     insert_cache,
 )
-from tf_operator_tpu_torch.ops.layers import rope_frequencies
+from tf_operator_tpu_torch.ops.layers import Init, build_scope, new_param
 from tf_operator_tpu_torch.parallel import mesh as mesh_lib
 
 DISPATCHES = ("einsum", "gather")
@@ -253,17 +253,12 @@ class MoELayer(nn.Module):
         self.cfg = cfg
         e, h, m = cfg.n_experts, cfg.hidden, cfg.mlp_dim
         self.router = Dense(h, e, torch.float32, device, generator)
-
-        def expert(*shape):
+        for name, shape in (("w_gate", (e, h, m)), ("w_up", (e, h, m)),
+                            ("w_down", (e, m, h))):
             # flax lecun_normal's fan-in over a [E, in, out] tensor: E * in.
-            w = torch.empty(shape, dtype=torch.float32, device=device)
-            nn.init.normal_(w, std=(shape[0] * shape[1]) ** -0.5,
-                            generator=generator)
-            return nn.Parameter(w)
-
-        self.w_gate = expert(e, h, m)
-        self.w_up = expert(e, h, m)
-        self.w_down = expert(e, m, h)
+            new_param(self, name, shape,
+                      Init(std=(shape[0] * shape[1]) ** -0.5), device,
+                      generator)
         # Assignments over capacity in the last forward (0-d int tensor).
         self.dropped_assignments: Optional[torch.Tensor] = None
 
@@ -337,8 +332,8 @@ class Mixtral(nn.Module):
     layers' mean aux loss).
 
     Parameters are made on ``device`` (the card unless ``device="cpu"``)
-    from ``generator`` (one on ``device``), by default one seeded with 0.
-    Remat is the plain ``full`` checkpoint of each block (the JAX model's
+    from ``generator`` (one on ``device``), by default one seeded with 0;
+    on ``device="meta"`` they are drawn later, as ``Llama``'s. Remat is the plain ``full`` checkpoint of each block (the JAX model's
     ``nn.remat``). In decode mode ``positions`` and ``cache`` are
     required, as for ``Llama``."""
 
@@ -348,20 +343,15 @@ class Mixtral(nn.Module):
         llama._check_config(cfg.attention_config())
         self.cfg = cfg
         device = resolve_device(device)
-        gen = generator or torch.Generator(device=device).manual_seed(0)
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden,
-                                         device=device)
-        nn.init.normal_(self.embed_tokens.weight, std=cfg.hidden ** -0.5,
-                        generator=gen)
-        self.layers = nn.ModuleList(
-            MixtralBlock(cfg, device, gen) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.hidden, device)
-        self.lm_head = Dense(cfg.hidden, cfg.vocab_size, cfg.dtype, device,
-                             gen)
-        self.register_buffer(
-            "angles", rope_frequencies(cfg.head_dim, cfg.max_seq_len,
-                                       cfg.rope_theta, device=device),
-            persistent=False)
+        with build_scope(self, device, generator) as gen:
+            self.embed_tokens = llama.embedding(cfg.vocab_size, cfg.hidden,
+                                                device, gen)
+            self.layers = nn.ModuleList(
+                MixtralBlock(cfg, device, gen) for _ in range(cfg.n_layers))
+            self.final_norm = RMSNorm(cfg.hidden, device)
+            self.lm_head = Dense(cfg.hidden, cfg.vocab_size, cfg.dtype,
+                                 device, gen)
+            llama.rope_angles(self, cfg, device)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,

@@ -7,7 +7,8 @@ rows as they are (``models/convert.py`` ``mnist_params_from_flax``).
 Parameters are made on ``device`` (the card unless ``device="cpu"``) from
 ``generator``, with flax's initial scales: kernels normal with variance
 1/fan_in (flax's lecun_normal is truncated; the scale matches), biases
-zero.
+zero; on ``device="meta"`` they are drawn later, as ``models/llama.py``'s
+are.
 """
 
 from __future__ import annotations
@@ -19,19 +20,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+from tf_operator_tpu_torch.ops.layers import ZEROS, Init, build_scope, init_
 
 
-def _init(module: nn.Module, generator: torch.Generator) -> None:
+def _init(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     for layer in module.children():
         fan_in = layer.weight[0].numel()
-        nn.init.normal_(layer.weight, std=fan_in ** -0.5,
-                        generator=generator)
-        nn.init.zeros_(layer.bias)
-
-
-def _generator(device: torch.device,
-               generator: Optional[torch.Generator]) -> torch.Generator:
-    return generator or torch.Generator(device=device).manual_seed(0)
+        init_(layer, "weight", Init(std=fan_in ** -0.5), generator)
+        init_(layer, "bias", ZEROS)
 
 
 class MnistCNN(nn.Module):
@@ -39,11 +35,12 @@ class MnistCNN(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        self.conv1 = nn.Conv2d(1, 32, 5, padding="same", device=device)
-        self.conv2 = nn.Conv2d(32, 64, 5, padding="same", device=device)
-        self.fc1 = nn.Linear(7 * 7 * 64, 512, device=device)
-        self.fc2 = nn.Linear(512, num_classes, device=device)
-        _init(self, _generator(device, generator))
+        with build_scope(self, device, generator) as gen:
+            self.conv1 = nn.Conv2d(1, 32, 5, padding="same", device=device)
+            self.conv2 = nn.Conv2d(32, 64, 5, padding="same", device=device)
+            self.fc1 = nn.Linear(7 * 7 * 64, 512, device=device)
+            self.fc2 = nn.Linear(512, num_classes, device=device)
+            _init(self, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)                       # NHWC -> NCHW
@@ -59,9 +56,10 @@ class MnistMLP(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        self.fc1 = nn.Linear(28 * 28, hidden, device=device)
-        self.fc2 = nn.Linear(hidden, num_classes, device=device)
-        _init(self, _generator(device, generator))
+        with build_scope(self, device, generator) as gen:
+            self.fc1 = nn.Linear(28 * 28, hidden, device=device)
+            self.fc2 = nn.Linear(hidden, num_classes, device=device)
+            _init(self, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.relu(self.fc1(x.flatten(1))))

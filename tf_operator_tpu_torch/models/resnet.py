@@ -27,7 +27,8 @@ normalise with the buffers and leave them as they are.
 Parameters are made on ``device`` (the card unless ``device="cpu"``) from
 ``generator``: kernels normal with variance 1/fan_in (flax's lecun_normal
 is truncated; the scale matches), norm scales one (``bn3``'s zero), biases
-zero. ``models/convert.py`` carries weights and statistics from and to
+zero (on ``device="meta"`` drawn later, as ``models/llama.py``'s are).
+``models/convert.py`` carries weights and statistics from and to
 flax.
 """
 
@@ -42,7 +43,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
-from tf_operator_tpu_torch.ops.layers import TPUBatchNorm
+from tf_operator_tpu_torch.ops.layers import (
+    ZEROS,
+    Init,
+    TPUBatchNorm,
+    build_scope,
+    init_,
+    new_param,
+)
 
 NORMS = ("bn", "bn_bf16", "group", "affine")
 STEMS = ("conv7", "s2d")
@@ -102,11 +110,9 @@ class Conv(nn.Module):
         super().__init__()
         self.kernel, self.stride = kernel, stride
         self.dtype, self.padding = dtype, padding
-        self.weight = nn.Parameter(torch.empty(
-            features_out, features_in, kernel, kernel, dtype=torch.float32,
-            device=device))
-        nn.init.normal_(self.weight, std=(features_in * kernel * kernel)
-                        ** -0.5, generator=generator)
+        new_param(self, "weight", (features_out, features_in, kernel, kernel),
+                  Init(std=(features_in * kernel * kernel) ** -0.5), device,
+                  generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         padding = self.padding
@@ -136,11 +142,9 @@ class GroupNorm(nn.Module):
                  dtype: torch.dtype, scale_init: float, device):
         super().__init__()
         self.num_groups, self.epsilon, self.dtype = num_groups, epsilon, dtype
-        self.scale = nn.Parameter(torch.full(
-            (features,), float(scale_init), dtype=torch.float32,
-            device=device))
-        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32,
-                                             device=device))
+        new_param(self, "scale", (features,), Init(value=float(scale_init)),
+                  device)
+        new_param(self, "bias", (features,), ZEROS, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c = x.shape[:2]
@@ -236,7 +240,11 @@ class ResNet(nn.Module):
                              f"{' | '.join(STEMS)}")
         self.cfg = cfg
         device = resolve_device(device)
-        gen = generator or torch.Generator(device=device).manual_seed(0)
+        with build_scope(self, device, generator) as gen:
+            self._build(cfg, device, gen)
+
+    def _build(self, cfg: ResNetConfig, device,
+               gen: Optional[torch.Generator]) -> None:
         if cfg.stem == "s2d":
             self.stem_conv_s2d = Conv(12, cfg.width, 4, 1, cfg.dtype, device,
                                       gen, padding=((2, 1), (2, 1)))
@@ -256,9 +264,8 @@ class ResNet(nn.Module):
                 self.block_names.append(name)
                 features = filters * 4
         self.classifier = nn.Linear(features, cfg.num_classes, device=device)
-        nn.init.normal_(self.classifier.weight, std=features ** -0.5,
-                        generator=gen)
-        nn.init.zeros_(self.classifier.bias)
+        init_(self.classifier, "weight", Init(std=features ** -0.5), gen)
+        init_(self.classifier, "bias", ZEROS)
 
     def forward(self, x: torch.Tensor,
                 update_stats: bool = True) -> torch.Tensor:

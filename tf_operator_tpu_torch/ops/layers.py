@@ -1,20 +1,151 @@
 """Core layers: RMSNorm, flax's LayerNorm, the tanh GELU, rotary position
-embeddings, reference attention, and the TPU-formulated BatchNorm.
+embeddings, reference attention, and the TPU-formulated BatchNorm; and the
+one place that says how every parameter and buffer of the port's models
+gets its first value (``Init``, ``init_``).
 
 Port of ``tf_operator_tpu/ops/layers.py``: the same cast points (f32
 statistics and rotations, cast back to the input dtype) and the same
 finite ``-1e30`` mask, so the two packages agree on the same inputs.
+
+Initialisation. A model's constructor gives each parameter and buffer an
+``Init`` through ``init_``: a normal draw with a given std from the
+build's generator, a constant, or a value computed from the
+configuration (the rotary angles). On a real device ``init_`` runs it at
+once, so an eager build draws exactly as it always has. On the meta
+device (``device="meta"``) nothing is drawn (``nn.init.normal_`` on a
+meta tensor is a no-op that does not advance the generator): the call is
+appended to the root module's ``init_record`` (opened by
+``build_scope``), so the record's order is the eager build's draw order by
+construction, and ``parallel/sharding.py`` ``materialize`` replays it
+later on each rank's shards (the JAX package's sharded-from-birth init).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
+import itertools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Initialisers: run at once on a real device, recorded on the meta device
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Init:
+    """How a parameter or buffer gets its first value: a normal draw with
+    ``std`` from the build's generator, the constant ``value``, or
+    ``compute(device)`` (a buffer made from the configuration)."""
+
+    std: Optional[float] = None
+    value: Optional[float] = None
+    compute: Optional[Callable[[torch.device], torch.Tensor]] = None
+
+    @property
+    def draws(self) -> bool:
+        return self.std is not None
+
+    def fill_(self, tensor: torch.Tensor,
+              generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            if self.std is not None:
+                nn.init.normal_(tensor, std=self.std, generator=generator)
+            elif self.value is not None:
+                tensor.fill_(self.value)
+            else:
+                tensor.copy_(self.compute(tensor.device))
+
+
+ZEROS = Init(value=0.0)
+ONES = Init(value=1.0)
+
+
+class InitRecord:
+    """The initialisers of a model built on the meta device, in the order
+    its constructor ran them: ``entries`` of (module, attribute name,
+    ``Init``). ``generator`` is the one the build was given (None: one
+    seeded 0 on the materialising device, as an eager build's default)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        self.generator = generator
+        self.entries: List[Tuple[nn.Module, str, Init]] = []
+
+
+_RECORD: contextvars.ContextVar[Optional[InitRecord]] = (
+    contextvars.ContextVar("init_record", default=None))
+
+
+@contextlib.contextmanager
+def build_scope(root: nn.Module, device: torch.device,
+                generator: Optional[torch.Generator] = None
+                ) -> Iterator[Optional[torch.Generator]]:
+    """The generator a model's constructor draws from, for the block that
+    builds its submodules: on a real device ``generator``, by default one
+    seeded 0 on ``device``. On the meta device it yields None and opens
+    ``root.init_record`` (``InitRecord(generator)``), into which every
+    ``init_`` of the block appends; a model built inside another's block
+    shares that record."""
+    if device.type != "meta":
+        yield generator or torch.Generator(device=device).manual_seed(0)
+        return
+    outer = _RECORD.get()
+    root.init_record = outer or InitRecord(generator)
+    token = _RECORD.set(root.init_record)
+    try:
+        yield None
+    finally:
+        _RECORD.reset(token)
+
+
+def init_(module: nn.Module, name: str, init: Init,
+          generator: Optional[torch.Generator] = None) -> None:
+    """Give ``module.<name>`` (a parameter or buffer) its first value:
+    ``init`` at once on a real device; on the meta device the call is
+    recorded in the open ``build_scope``'s record (none open: nothing is,
+    and ``materialize`` will refuse the model)."""
+    tensor = getattr(module, name)
+    if not tensor.is_meta:
+        init.fill_(tensor, generator)
+        return
+    record = _RECORD.get()
+    if record is not None:
+        record.entries.append((module, name, init))
+
+
+def is_meta(model: nn.Module) -> bool:
+    """Whether ``model`` was built on the meta device and is not yet
+    materialised (its first parameter or buffer, or that one's local
+    shard, is on meta)."""
+    for t in itertools.chain(model.parameters(), model.buffers()):
+        return getattr(t, "_local_tensor", t).is_meta
+    return False
+
+
+def new_param(module: nn.Module, name: str, shape: Sequence[int],
+              init: Init, device, generator=None) -> None:
+    """Register an f32 parameter ``name`` of ``shape`` on ``device`` and
+    ``init_`` it."""
+    module.register_parameter(name, nn.Parameter(torch.empty(
+        tuple(shape), dtype=torch.float32, device=device)))
+    init_(module, name, init, generator)
+
+
+def new_buffer(module: nn.Module, name: str, shape: Sequence[int],
+               init: Init, device, persistent: bool = True) -> None:
+    """Register an f32 buffer ``name`` of ``shape`` on ``device`` and
+    ``init_`` it (no buffer draws)."""
+    module.register_buffer(name, torch.empty(
+        tuple(shape), dtype=torch.float32, device=device),
+        persistent=persistent)
+    init_(module, name, init)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -53,10 +184,8 @@ class LayerNorm(nn.Module):
                  device=None):
         super().__init__()
         self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32,
-                                             device=device))
-        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32,
-                                             device=device))
+        new_param(self, "scale", (features,), ONES, device)
+        new_param(self, "bias", (features,), ZEROS, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.scale, self.bias, dtype=self.dtype)
@@ -182,16 +311,12 @@ class TPUBatchNorm(nn.Module):
         self.dtype = dtype
         self.stats_dtype = stats_dtype
         self.track_stats = track_stats
-        self.scale = nn.Parameter(torch.full(
-            (features,), float(scale_init), dtype=torch.float32,
-            device=device))
-        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32,
-                                             device=device))
+        new_param(self, "scale", (features,), Init(value=float(scale_init)),
+                  device)
+        new_param(self, "bias", (features,), ZEROS, device)
         if track_stats:
-            self.register_buffer("mean", torch.zeros(
-                features, dtype=torch.float32, device=device))
-            self.register_buffer("var", torch.ones(
-                features, dtype=torch.float32, device=device))
+            new_buffer(self, "mean", (features,), ZEROS, device)
+            new_buffer(self, "var", (features,), ONES, device)
 
     def forward(self, x: torch.Tensor,
                 use_running_average: bool = False) -> torch.Tensor:

@@ -35,17 +35,21 @@ from tf_operator_tpu_torch.models.llama import (
     LlamaConfig,
     RMSNorm,
     _check_config,
+    embedding,
+    rope_angles,
 )
-from tf_operator_tpu_torch.ops.layers import rope_frequencies
+from tf_operator_tpu_torch.ops.layers import build_scope
 from tf_operator_tpu_torch.parallel.pipeline import (
     Pipe,
     pipeline_lm_train_gpipe,
     pipeline_lm_train_sharded,
     select_schedule,
 )
+from tf_operator_tpu_torch.parallel.sharding import materialize
 from tf_operator_tpu_torch.train.trainer import (
     Optimizer,
     TrainState,
+    check_restored,
     cross_entropy_loss,
 )
 
@@ -73,7 +77,9 @@ class LlamaStage(nn.Module):
     """One pipeline stage of the Llama (module docstring), made from
     ``generator`` in the whole model's order: the layers of other stages
     are drawn and dropped one at a time, so the stage's weights are the
-    ``Llama``'s of the same seed and no more than one other layer is held."""
+    ``Llama``'s of the same seed and no more than one other layer is held.
+    On ``device="meta"`` the other stages' draws stay in the record, and
+    ``materialize`` replays and drops them one parameter at a time."""
 
     def __init__(self, cfg: LlamaConfig, stage: int = 0, stages: int = 1,
                  device: DeviceLike = None,
@@ -85,27 +91,22 @@ class LlamaStage(nn.Module):
                              f"pp={stages}")
         self.cfg = cfg
         device = resolve_device(device)
-        gen = generator or torch.Generator(device=device).manual_seed(0)
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden,
-                                         device=device)
-        nn.init.normal_(self.embed_tokens.weight, std=cfg.hidden ** -0.5,
-                        generator=gen)
         per = cfg.n_layers // stages
         own = range(stage * per, (stage + 1) * per)
-        layers = {}
-        for i in range(cfg.n_layers):
-            block = LlamaBlock(cfg, device, gen)
-            if i in own:
-                layers[str(i)] = block
-            del block
-        self.layers = nn.ModuleDict(layers)
-        self.final_norm = RMSNorm(cfg.hidden, device)
-        self.lm_head = Dense(cfg.hidden, cfg.vocab_size, cfg.dtype, device,
-                             gen)
-        self.register_buffer(
-            "angles", rope_frequencies(cfg.head_dim, cfg.max_seq_len,
-                                       cfg.rope_theta, device=device),
-            persistent=False)
+        with build_scope(self, device, generator) as gen:
+            self.embed_tokens = embedding(cfg.vocab_size, cfg.hidden,
+                                          device, gen)
+            layers = {}
+            for i in range(cfg.n_layers):
+                block = LlamaBlock(cfg, device, gen)
+                if i in own:
+                    layers[str(i)] = block
+                del block
+            self.layers = nn.ModuleDict(layers)
+            self.final_norm = RMSNorm(cfg.hidden, device)
+            self.lm_head = Dense(cfg.hidden, cfg.vocab_size, cfg.dtype,
+                                 device, gen)
+            rope_angles(self, cfg, device)
 
     def head(self) -> nn.ModuleDict:
         """The loss head's modules (final norm and ``lm_head``)."""
@@ -181,20 +182,36 @@ class LlamaPipelineTrainer:
         # Probe of "auto": (GPipe peak bytes, budget bytes).
         self.probe: Tuple[Optional[int], Optional[int]] = (None, None)
 
+    def _stage(self, draw: bool,
+               generator: Optional[torch.Generator] = None) -> TrainState:
+        """This rank's stage built on the meta device and materialised
+        (``parallel/sharding.py``): drawn from ``generator`` (default:
+        seed 0 on the device), or only allocated."""
+        model = materialize(
+            LlamaStage(self.cfg, self.pipe.stage, self.pipe.stages, "meta",
+                       generator), self.device, draw=draw)
+        return TrainState(step=0, model=model,
+                          opt_state=self.optimizer.make(
+                              list(model.parameters())),
+                          abstract=not draw)
+
     def init(self, generator: Optional[torch.Generator] = None,
              state_dict: Optional[Dict[str, torch.Tensor]] = None
              ) -> TrainState:
         """This rank's stage from ``generator`` (default: seed 0 on the
         device), then, given the whole model's ``state_dict`` (a
         ``Llama``'s names), its own entries of it."""
-        model = LlamaStage(self.cfg, self.pipe.stage, self.pipe.stages,
-                           self.device, generator)
+        state = self._stage(True, generator)
         if state_dict is not None:
-            own = model.state_dict()
-            model.load_state_dict({n: state_dict[n] for n in own})
-        return TrainState(step=0, model=model,
-                          opt_state=self.optimizer.make(
-                              list(model.parameters())))
+            own = state.model.state_dict()
+            state.model.load_state_dict({n: state_dict[n] for n in own})
+        return state
+
+    def abstract_state(self) -> TrainState:
+        """This rank's stage allocated with nothing drawn: the target of
+        ``Checkpointer.restore`` (the JAX trainer's ``abstract_state``);
+        a step from it raises until it is restored."""
+        return self._stage(False)
 
     def _local_tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens).to(self.device)
@@ -263,6 +280,7 @@ class LlamaPipelineTrainer:
         self.resolved_schedule = chosen
 
         def step(state: TrainState, tokens):
+            check_restored(state)
             state.model.train()
             state.opt_state.zero_grad(set_to_none=True)
             loss, grads = self._loss_and_grads(

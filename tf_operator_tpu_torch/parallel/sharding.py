@@ -41,6 +41,19 @@ per mesh dimension (``AXIS_ORDER``), the counterpart of a JAX
   over the replicas and reduce-scatters them within one.
 The batch is sharded over (dcn, dp, fsdp) by the trainer.
 
+Sharded from birth (the JAX trainer's ``jit(init, out_shardings=...)``):
+a model built on the meta device (``Llama(cfg, device="meta")``, which
+records its initialisers, ``ops/layers.py``) is placed by ``shard_model``
+with nothing allocated, and ``materialize`` then gives each rank storage
+for its own shards only and fills them from today's draws: each
+initialiser, in the build's order, draws the whole parameter on the
+device, keeps this rank's piece and frees the rest before the next one.
+A rank's peak is its shards and one whole parameter, and the values are
+bit for bit those of the eager build from the same seed. With
+``draw=False`` it only allocates (and computes the non-persistent
+buffers): the restore target, the counterpart of the JAX package's
+``abstract_state_with_shardings``.
+
 Parameters are replicated over ``sp`` and ``pp``. ``sp`` is no data axis:
 its ranks see the same batch and run ring attention on their blocks of
 the sequence (``ops/ring_attention.py``), each computing whole and equal
@@ -50,6 +63,7 @@ gives each rank its own stage and places nothing here.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -63,9 +77,13 @@ from torch.distributed.tensor import (
     distribute_module,
     distribute_tensor,
 )
+from torch.distributed.tensor._utils import (
+    compute_local_shape_and_global_offset,
+)
 from torch.distributed.tensor.placement_types import Placement
 
 from tf_operator_tpu_torch.models.llama import Dense
+from tf_operator_tpu_torch.ops.layers import InitRecord, is_meta
 from tf_operator_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_shape
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -212,10 +230,11 @@ def _model_placements(name: str, param: torch.Tensor, rules: Rules,
 
 def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Rules,
                 param_axes_fn: ParamAxesFn) -> nn.Module:
-    """Place ``model`` (built the same on every rank, on this rank's
-    device) on ``mesh`` by ``rules`` (module docstring), in place; returns
-    it. ``param_axes_fn(name, param)`` gives a parameter's logical axes
-    by its ``named_parameters`` name."""
+    """Place ``model`` on ``mesh`` by ``rules`` (module docstring), in
+    place; returns it. The model is built the same on every rank, on this
+    rank's device or on the meta device (then ``materialize`` it after).
+    ``param_axes_fn(name, param)`` gives a parameter's logical axes by its
+    ``named_parameters`` name."""
     from torch.distributed.fsdp import fully_shard
 
     shape = mesh_shape(mesh)
@@ -259,4 +278,75 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Rules,
             for block in module:
                 fully_shard(block, mesh=dp_mesh)
     fully_shard(model, mesh=dp_mesh)
+    return model
+
+
+def _local_piece_(param: DTensor, whole: torch.Tensor) -> None:
+    """Copy this rank's piece of ``whole`` into ``param``'s local shard:
+    the block that DCP saves and loads for it, a view of ``whole`` (no
+    copy of it is made, where ``distribute_tensor`` would copy a strided
+    shard's chunks twice over)."""
+    shape, offset = compute_local_shape_and_global_offset(
+        param.shape, param.device_mesh, param.placements)
+    local = param.to_local()
+    if tuple(local.shape) != tuple(shape):
+        raise ValueError(f"a local shard of {tuple(local.shape)} where its "
+                         f"placements {param.placements} give {shape}")
+    local.copy_(whole[tuple(slice(o, o + n)
+                            for o, n in zip(offset, shape))])
+
+
+def materialize(model: nn.Module, device, draw: bool = True) -> nn.Module:
+    """Give a model built on the meta device (placed by ``shard_model``
+    or not) storage for this rank's shards on ``device``, in place, and
+    with ``draw`` their first values (module docstring); returns it.
+
+    The values replay the build's record (``model.init_record``) in its
+    order from the generator the build was given, else one seeded 0 on
+    ``device``: a DTensor parameter is drawn whole, this rank's piece of it
+    copied into its local shard (a local slice, no collective) and the
+    whole freed; a plain tensor is filled in place; a draw of a module
+    the model no longer holds (``LlamaStage``'s other stages) is made and
+    dropped, so that every later draw is the eager build's. Without ``draw`` only the
+    non-persistent buffers, which no checkpoint holds, get values. A
+    parameter or buffer with no recorded initialiser raises before
+    anything is allocated."""
+    record: Optional[InitRecord] = getattr(model, "init_record", None)
+    if record is None or not is_meta(model):
+        raise ValueError("materialize needs a model built on the meta "
+                         "device and not yet materialised")
+    recorded = {(id(m), name) for m, name, _ in record.entries}
+    missing = [f"{prefix}.{name}" if prefix else name
+               for prefix, module in model.named_modules()
+               for name, t in itertools.chain(module._parameters.items(),
+                                              module._buffers.items())
+               if t is not None and (id(module), name) not in recorded]
+    if missing:
+        raise ValueError(f"no recorded initialiser for {missing}: build "
+                         f"the model's tensors with ops.layers.init_")
+    device = torch.device(device)
+    model.to_empty(device=device)
+    held = {id(m) for m in model.modules()}
+    gen = record.generator or torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        for module, name, init in record.entries:
+            t = getattr(module, name)
+            if not draw:
+                if (id(module) in held
+                        and name in module._non_persistent_buffers_set):
+                    init.fill_(t, None)
+                continue
+            if id(module) not in held:
+                if init.draws:
+                    init.fill_(torch.empty(t.shape, dtype=t.dtype,
+                                           device=device), gen)
+                continue
+            if not isinstance(t, DTensor):
+                init.fill_(t, gen)
+                continue
+            whole = torch.empty(t.shape, dtype=t.dtype, device=device)
+            init.fill_(whole, gen)
+            _local_piece_(t, whole)
+            del whole
+    model.init_record = None
     return model

@@ -177,12 +177,13 @@ class Checkpointer:
 
     def restore(self, target: Any, step: Optional[int] = None) -> Any:
         """Load ``step`` (default: the latest) in place into ``target``, a
-        ``TrainState`` from ``Trainer.init()`` (its tensors keep their
-        device and layout: a sharded state reads its own shards, whatever
-        mesh saved them) or a dict of tensors, and return it.
-
-        The JAX package restores into ``abstract_state_with_shardings``;
-        the port's target is a real state, sharded or not."""
+        ``TrainState`` (its tensors keep their device and layout: a
+        sharded state reads its own shards, whatever mesh saved them) or a
+        dict of tensors, and return it. The target is best
+        ``Trainer.abstract_state()`` (or ``LlamaPipelineTrainer``'s), the
+        JAX package's ``abstract_state_with_shardings``: allocated in its
+        layout with nothing drawn, and steppable once loaded here; a state
+        from ``init()`` also works, at the cost of its draws."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -414,9 +415,3 @@ class CheckpointHook:
             return
         self._last_progress_pub = self.clock()
 
-
-# ``abstract_state_with_shardings`` (the JAX package's restore target:
-# eval_shape + sharding annotation) has no counterpart here:
-# ``Checkpointer.restore`` loads into the state that ``Trainer.init()``
-# makes, on that state's device and in its layout (sharded on a mesh, or
-# not).

@@ -19,7 +19,8 @@ slice, rank r's of step i from a generator seeded with (i + 1) * nproc +
 r (one process: i + 1), so a resumed run sees the batches an
 uninterrupted one sees and the global batch never exists on one host.
 With ``--checkpoint-dir`` every step is saved (each rank its shards) and
-a restarted run resumes from the latest checkpoint; ``--crash-at-step N``
+a restarted run resumes from the latest checkpoint, restored into the
+trainer's ``abstract_state()`` with no init drawn; ``--crash-at-step N``
 exits 137 (a retryable code under the ExitCode restart policy) once step N
 is on disk, on a fresh start only. The log lines are the JAX payload's.
 """
@@ -86,7 +87,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 
 def _train(args, rank: int) -> int:
-    import torch
     import torch.distributed as dist
 
     from tf_operator_tpu_torch._device import resolve_device
@@ -110,12 +110,12 @@ def _train(args, rank: int) -> int:
     # One process trains unsharded: a world-1 mesh would only add the
     # host cost of FSDP2's hooks to every step.
     mesh = make_mesh(MeshConfig(dp=-1), device=device) if nproc > 1 else None
-    model = MnistCNN(device=device,
-                     generator=torch.Generator(device=device).manual_seed(0))
-    trainer = Trainer(model=model, optimizer=adam(1e-3),
+    # Built on the meta device: init() draws it on this rank's device
+    # (seed 0), or a resume restores into abstract_state() and draws
+    # nothing.
+    trainer = Trainer(model=MnistCNN(device="meta"), optimizer=adam(1e-3),
                       loss_fn=classification_loss, device=device, mesh=mesh,
                       rules=CNN_RULES, param_axes_fn=param_logical_axes)
-    state = trainer.init()
 
     # Multihost feeding contract: --batch-size is the GLOBAL batch; each
     # process draws only its local slice.
@@ -129,16 +129,20 @@ def _train(args, rank: int) -> int:
 
     # Checkpoint/resume: a restarted replica (same index, fresh pod)
     # picks up from the latest saved step instead of step 0 — what makes
-    # the ExitCode restart policy resume work.
+    # the ExitCode restart policy resume work. On resume, the parameters
+    # land straight in their layout (no wasted init).
     ckpt = None
+    state = None
     fresh_start = True
     if args.checkpoint_dir:
         ckpt = Checkpointer(os.path.abspath(args.checkpoint_dir))
         latest = ckpt.latest_step()
         if latest is not None:
-            state = ckpt.restore(state)
+            state = ckpt.restore(trainer.abstract_state())
             fresh_start = False
             print(f"resumed from checkpoint at step {latest}")
+    if state is None:
+        state = trainer.init()
     step = trainer.make_train_step()
 
     first = last = None

@@ -77,9 +77,11 @@ def _train(args, cfg, device) -> int:
     else:
         mesh = None
         print("mesh:", config.resolve(1))
-    trainer = Trainer(model=Bert(cfg, device=device), optimizer=adamw(1e-4),
-                      loss_fn=mlm_loss, device=device, mesh=mesh,
-                      rules=LLAMA_RULES, param_axes_fn=param_logical_axes)
+    # On a mesh, built on the meta device (as train_llama.py).
+    model = Bert(cfg, device="meta" if mesh is not None else device)
+    trainer = Trainer(model=model, optimizer=adamw(1e-4), loss_fn=mlm_loss,
+                      device=device, mesh=mesh, rules=LLAMA_RULES,
+                      param_axes_fn=param_logical_axes)
     state = trainer.init()
     step = trainer.make_train_step()
     data_rng = np.random.default_rng(0)

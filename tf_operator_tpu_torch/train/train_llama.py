@@ -73,8 +73,11 @@ def _train(args, cfg, device) -> int:
     else:
         mesh = None
         print("mesh:", config.resolve(1))
-    trainer = Trainer(model=Llama(cfg, device=device), optimizer=adamw(3e-4),
-                      device=device, mesh=mesh, rules=LLAMA_RULES,
+    # On a mesh the model is built on the meta device: init() gives each
+    # rank its own shards of the same draws, and no rank holds it whole.
+    model = Llama(cfg, device="meta" if mesh is not None else device)
+    trainer = Trainer(model=model, optimizer=adamw(3e-4), device=device,
+                      mesh=mesh, rules=LLAMA_RULES,
                       param_axes_fn=param_logical_axes)
     state = trainer.init()
     step = trainer.make_train_step()

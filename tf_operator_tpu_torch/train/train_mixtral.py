@@ -86,7 +86,9 @@ def _train(args, cfg, device) -> int:
     else:
         mesh = None
         print("mesh:", config.resolve(1))
-    trainer = Trainer(model=Mixtral(cfg, device=device),
+    # On a mesh, built on the meta device (as train_llama.py).
+    model = Mixtral(cfg, device="meta" if mesh is not None else device)
+    trainer = Trainer(model=model,
                       optimizer=adamw(1e-4),
                       loss_fn=make_moe_lm_loss(cfg.aux_loss_weight),
                       device=device, mesh=mesh, rules=MOE_RULES,

@@ -17,6 +17,9 @@ the parameters, the model's buffers (BatchNorm statistics, the JAX state's
 ``extra_vars``) and the optimizer's state (AdamW's per-parameter ``step``
 and both moments, SGD's momentum buffers) for ``train/checkpoint.py``.
 
+A model built on the meta device is materialised by ``init``, or only
+allocated by ``abstract_state`` as a restore target (``Trainer``).
+
 With a ``mesh`` (``parallel/mesh.py``), ``init`` places the model by a
 rule table (``parallel/sharding.py`` ``shard_model``: tensor parallel
 over ``tp``, FSDP2 over ``fsdp``, replicas over ``dcn``/``dp``), each
@@ -57,6 +60,7 @@ from torch.distributed.checkpoint.state_dict import (
 )
 
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+from tf_operator_tpu_torch.ops.layers import is_meta
 from tf_operator_tpu_torch.parallel import mesh as mesh_lib
 from tf_operator_tpu_torch.train.data import local_batch, prefetch_to_device
 
@@ -278,6 +282,10 @@ class TrainState:
     step: int
     model: nn.Module
     opt_state: torch.optim.Optimizer
+    # A restore target (``Trainer.abstract_state``) that no checkpoint has
+    # been loaded into yet: its tensors hold no values, so no step may run
+    # from it.
+    abstract: bool = False
 
     def state_dict(self) -> Dict[str, Any]:
         """The step, the parameters and persistent buffers (BatchNorm
@@ -302,6 +310,15 @@ class TrainState:
         set_model_state_dict(self.model, state["model"])
         set_optimizer_state_dict(self.model, self.opt_state, state["optim"])
         self.step = int(state["step"])
+        self.abstract = False
+
+
+def check_restored(state: TrainState) -> None:
+    """Raise if ``state`` is a restore target nothing was restored into."""
+    if state.abstract:
+        raise RuntimeError(
+            "this state is an abstract restore target that no checkpoint "
+            "has been loaded into: Checkpointer.restore it before a step")
 
 
 @dataclasses.dataclass
@@ -312,9 +329,17 @@ class Trainer:
     ``device`` defaults to the card; the model is moved there if its
     parameters are elsewhere. With a ``mesh``, ``rules`` and
     ``param_axes_fn`` (the model's ``param_logical_axes``) place the model
-    at ``init`` (module docstring); every rank builds the model from the
-    same seed first, so a sharded run starts from the unsharded one's
-    weights. Without one, nothing is sharded."""
+    at ``init`` (module docstring). Without one, nothing is sharded.
+
+    A model built on the meta device (``Llama(cfg, device="meta")``) stays
+    there until ``init`` places it and materialises this rank's shards
+    from the build's draws (``parallel/sharding.py`` ``materialize``): the
+    values are the eager build's from the same seed, so a sharded run
+    starts from the unsharded one's weights, and no rank ever holds the
+    whole model. ``abstract_state`` places and allocates it with no
+    draws: the target of ``Checkpointer.restore``, the counterpart of the
+    JAX trainer's ``abstract_state``. A model that is already real is
+    placed as it is."""
 
     model: nn.Module
     optimizer: Optimizer
@@ -328,21 +353,43 @@ class Trainer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.model.to(self.device)
+        if not is_meta(self.model):
+            self.model.to(self.device)
         if self.mesh is not None and (self.rules is None
                                       or self.param_axes_fn is None):
             raise ValueError("a mesh needs rules and param_axes_fn")
 
-    def init(self) -> TrainState:
+    def _place(self, draw: bool) -> TrainState:
+        from tf_operator_tpu_torch.parallel.sharding import (
+            materialize,
+            shard_model,
+        )
+
+        meta = is_meta(self.model)
         if self.mesh is not None and not any(
                 isinstance(p, DTensor) for p in self.model.parameters()):
-            from tf_operator_tpu_torch.parallel.sharding import shard_model
-
             shard_model(self.model, self.mesh, self.rules,
                         self.param_axes_fn)
+        if meta:
+            materialize(self.model, self.device, draw=draw)
         params = [p for p in self.model.parameters() if p.requires_grad]
         return TrainState(step=0, model=self.model,
-                          opt_state=self.optimizer.make(params))
+                          opt_state=self.optimizer.make(params),
+                          abstract=not draw)
+
+    def init(self) -> TrainState:
+        """A fresh state: the model placed (on the mesh, if any) and, if it
+        was built on the meta device, materialised from its draws."""
+        return self._place(draw=True)
+
+    def abstract_state(self) -> TrainState:
+        """The restore target of a model built on the meta device: placed
+        as ``init`` places it and allocated, with nothing drawn. A step
+        from it raises until ``Checkpointer.restore`` has loaded it."""
+        if not is_meta(self.model):
+            raise ValueError("abstract_state needs a model built on the "
+                             "meta device (device='meta')")
+        return self._place(draw=False)
 
     def _to_device(self, batch: Dict[str, Any],
                    batch_dim: int = 0) -> Dict[str, torch.Tensor]:
@@ -394,6 +441,7 @@ class Trainer:
         stacked = stacked_batches and steps_per_call > 1
 
         def step(state: TrainState, batch: Dict[str, Any]):
+            check_restored(state)
             batch = self._to_device(batch, batch_dim=1 if stacked else 0)
             for k in range(steps_per_call):
                 inner = batch
