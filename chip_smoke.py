@@ -326,6 +326,20 @@ no flash kernel, as the JAX decode path runs none):
            bert_base-sized flat dict (110 M f32 parameters) timed, median
            of 3, and the pushed SGD steps read back; every shard stopped
            by SIGTERM exits 0.
+18. operator  the port's own control plane (Operator.local, the GPU
+           controller and the local pod backend) runs three TPUJobs on the
+           card, each with spec.slice.accelerator h100-1, one after the
+           other, each waited for by TPUJobClient: gpu-smoke (2 workers of
+           train.gpu_smoke sharing the card: each pod stamped
+           nvidia.com/gpu "1" and its toleration, both logs with
+           WORLD_SIZE=2, MASTER_ADDR=127.0.0.1 and one MASTER_PORT, ranks 0
+           and 1, no JAX_/TPU_/MEGASCALE_ key, the card's name), gpu-resnet
+           (the resnet_payload command as 1 worker: "resnet training OK")
+           and gpu-mnist-resume (train.dist_mnist crashing at step 3 under
+           the ExitCode restart policy: one restart, the new pod resumes
+           at step 3). One line a job: seconds from creation to
+           AllReplicasReady and to completion, restarts, the pod logs'
+           last lines, the card's name and power limit.
 
 Then the whole script's seconds, a {"kernels": [...]} summary line (one
 entry a launch key: the wgmma D=128 kernels' numbers from the training
@@ -4101,6 +4115,150 @@ def phase_ps(root: str):
                              f"{on_card}: {shard_logs}")
 
 
+# ---------------------------------------------------------------------------
+# The port's control plane
+# ---------------------------------------------------------------------------
+
+OPERATOR_TIMEOUT_S = 300
+OPERATOR_LOG_LINES = 5
+TPU_ENV_PREFIXES = ("JAX_", "TPU_", "MEGASCALE_")
+
+
+def operator_job(name: str, command, replicas: int = 1,
+                 restart_policy: str = ""):
+    """A TPUJob of ``replicas`` workers running ``command`` on one H100,
+    its pods kept after the end (clean_pod_policy None) with their logs."""
+    from tf_operator_tpu_torch.api import constants
+    from tf_operator_tpu_torch.api.types import (
+        Container,
+        ObjectMeta,
+        PodSpec,
+        PodTemplateSpec,
+        ReplicaSpec,
+        TPUJob,
+        TPUJobSpec,
+    )
+
+    spec = ReplicaSpec(
+        replicas=replicas, restart_policy=restart_policy,
+        template=PodTemplateSpec(spec=PodSpec(containers=[Container(
+            name=constants.DEFAULT_CONTAINER_NAME, command=command)])))
+    job = TPUJob(metadata=ObjectMeta(name=name),
+                 spec=TPUJobSpec(replica_specs={"worker": spec}))
+    job.spec.slice.accelerator = "h100-1"
+    job.spec.run_policy.clean_pod_policy = "None"
+    return job
+
+
+def bootstrap_env(log: str) -> dict:
+    """The env gpu_smoke printed: the JSON object after "bootstrap env:"."""
+    text = log.split("bootstrap env:", 1)[1]
+    return json.JSONDecoder().raw_decode(text.lstrip())[0]
+
+
+def run_operator_job(op, client, job, card: str):
+    """Submit ``job`` to the operator ``op``, wait for it and emit its
+    line; return its pod logs and its restarts (pods created beyond one a
+    replica). Raises unless it Succeeded."""
+    from tf_operator_tpu_torch.controller import conditions as cond
+
+    name = job.metadata.name
+    client.create(job)
+    done = client.wait_for_job(name, timeout=OPERATOR_TIMEOUT_S)
+    logs = client.get_job_logs(name)
+    status = done.status
+    created = done.metadata.creation_timestamp
+    since = lambda t: None if t is None else (t - created).total_seconds()
+    replicas = sum(s.replicas for s in done.spec.replica_specs.values())
+    restarts = sum(e.count for e in op.recorder.events_for(
+        name, reason="SuccessfulCreatePod")) - replicas
+    emit({"phase": "operator", "job": name, "nvidia_smi": card,
+          "conditions": [c.type for c in status.conditions
+                         if c.status == "True"],
+          "seconds_to_all_replicas_ready": since(
+              status.all_replicas_ready_time),
+          "seconds_to_completion": since(status.completion_time),
+          "restarts": restarts,
+          "log_tails": {pod: log.splitlines()[-OPERATOR_LOG_LINES:]
+                        for pod, log in sorted(logs.items())}})
+    if not cond.is_succeeded(status):
+        raise AssertionError(
+            f"TPUJob {name} did not succeed: "
+            f"{[(c.type, c.status, c.message) for c in status.conditions]}"
+            f" {logs}")
+    return logs, restarts
+
+
+def check_smoke_pods(client, logs, device_name: str) -> None:
+    """gpu-smoke's pods: stamped with one GPU and its toleration, the
+    torch env of a 2-process world at one loopback rendezvous, no key of
+    the TPU contract, and a matmul on the card named ``device_name``."""
+    from tf_operator_tpu_torch.api import constants
+
+    envs = {pod: bootstrap_env(log) for pod, log in logs.items()}
+    pods = client.get_pods("gpu-smoke")
+    stamped = [
+        p.spec.containers[0].resources.get(constants.RESOURCE_GPU) == "1"
+        and any(t.key == constants.RESOURCE_GPU and t.operator == "Exists"
+                for t in p.spec.tolerations) for p in pods]
+    leaked = sorted(k for p in pods for k in p.spec.containers[0].env
+                    if k.startswith(TPU_ENV_PREFIXES))
+    leaked += sorted(k for env in envs.values() for k in env
+                     if k.startswith(TPU_ENV_PREFIXES))
+    if (len(pods) != 2 or not all(stamped) or leaked
+            or sorted(e.get("RANK") for e in envs.values()) != ["0", "1"]
+            or {e.get("WORLD_SIZE") for e in envs.values()} != {"2"}
+            or {e.get("MASTER_ADDR") for e in envs.values()} != {"127.0.0.1"}
+            or len({e.get("MASTER_PORT") for e in envs.values()}) != 1
+            or not all(f"({device_name}): matmul sum" in log
+                       and "smoke OK on 1 device(s)" in log
+                       for log in logs.values())):
+        raise AssertionError(f"gpu-smoke: stamped {stamped}, leaked "
+                             f"{leaked}, env {envs}, logs {logs}")
+
+
+def phase_operator(root: str):
+    """The port's own operator runs three jobs on the card (module
+    docstring, phase 18)."""
+    from tf_operator_tpu_torch.operator import Operator
+    from tf_operator_tpu_torch.sdk import TPUJobClient
+
+    card = nvidia_smi()
+    op = Operator.local(workdir=REPO)
+    op.start(threadiness=2)
+    try:
+        client = TPUJobClient(op.store)
+        logs, _ = run_operator_job(op, client, operator_job(
+            "gpu-smoke", [sys.executable, "-m",
+                          "tf_operator_tpu_torch.train.gpu_smoke"],
+            replicas=2), card)
+        check_smoke_pods(client, logs, torch.cuda.get_device_name(0))
+
+        logs, _ = run_operator_job(op, client, operator_job(
+            "gpu-resnet", [sys.executable, "-m",
+                           "tf_operator_tpu_torch.train.train_resnet",
+                           "--size", "50", "--steps", "4", "--batch-size",
+                           "64", "--image-size", "224"]), card)
+        if "resnet training OK" not in logs["gpu-resnet-worker-0"]:
+            raise AssertionError(f"gpu-resnet: {logs}")
+
+        logs, restarts = run_operator_job(op, client, operator_job(
+            "gpu-mnist-resume", [sys.executable, "-m",
+                                 "tf_operator_tpu_torch.train.dist_mnist",
+                                 "--steps", "6", "--checkpoint-dir",
+                                 os.path.join(root, "operator-mnist"),
+                                 "--crash-at-step", "3"],
+            restart_policy="ExitCode"), card)
+        log = logs["gpu-mnist-resume-worker-0"]
+        if (restarts != 1
+                or "injected crash at step 3" in log
+                or "resumed from checkpoint at step 3" not in log):
+            raise AssertionError(f"gpu-mnist-resume: {restarts} restarts, "
+                                 f"{logs}")
+    finally:
+        op.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4156,6 +4314,7 @@ def main() -> int:
         mixtral_launches = phase_mixtral_all()
         bert_launches = phase_bert_all()
         phase_ps(root)
+        phase_operator(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -1,0 +1,123 @@
+"""End to end: the port's own operator runs the port's payloads on the CPU.
+
+``Operator.local`` of ``tf_operator_tpu_torch`` (the GPU controller and
+the local pod backend) runs, as subprocess pods with ``--device cpu``:
+the smoke payload as two workers, checked as ``chip_smoke.py``'s
+``operator`` phase checks it on the card (one ``nvidia.com/gpu`` and its
+toleration a pod, a two-process world at one loopback rendezvous, no key
+of the TPU contract); the MNIST payload as two processes joined by gloo
+through ``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE``
+alone; and the MNIST crash-and-resume arc under the ``ExitCode`` restart
+policy. The loopback resolver gives every pod of a job one rendezvous
+port and each job its own.
+"""
+
+import os
+import sys
+
+import pytest
+
+import chip_smoke
+from tf_operator_tpu_torch.api.types import (
+    Container,
+    ObjectMeta,
+    OwnerReference,
+    Pod,
+    PodSpec,
+)
+from tf_operator_tpu_torch.operator import Operator
+from tf_operator_tpu_torch.runtime.local import LoopbackEnvResolver
+from tf_operator_tpu_torch.sdk import TPUJobClient
+
+pytestmark = pytest.mark.e2e
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def operator():
+    op = Operator.local(workdir=REPO_ROOT)
+    op.start(threadiness=2)
+    yield op, TPUJobClient(op.store)
+    op.stop()
+
+
+def cpu_job(name, module, *args, replicas=1, restart_policy="", env=None):
+    job = chip_smoke.operator_job(
+        name, [sys.executable, "-m", module, *args, "--device", "cpu"],
+        replicas=replicas, restart_policy=restart_policy)
+    job.spec.replica_specs["worker"].template.spec.containers[0].env.update(
+        env or {})
+    return job
+
+
+def test_smoke_pods_get_the_gpu_contract(operator):
+    op, client = operator
+    logs, restarts = chip_smoke.run_operator_job(
+        op, client, cpu_job("gpu-smoke", "tf_operator_tpu_torch.train."
+                            "gpu_smoke", replicas=2), card="cpu")
+    assert restarts == 0
+    chip_smoke.check_smoke_pods(client, logs, "cpu")
+
+
+def test_two_processes_join_from_the_torch_env_alone(operator):
+    op, client = operator
+    logs, _ = chip_smoke.run_operator_job(op, client, cpu_job(
+        "torch-world", "tf_operator_tpu_torch.train.dist_mnist", "--steps",
+        "3", "--batch-size", "16", replicas=2,
+        env={"TPUJOB_JAX_DISTRIBUTED": "1"}), card="cpu")
+    for pod in client.get_pods("torch-world"):
+        env = pod.spec.containers[0].env
+        assert not [k for k in env if k.startswith(("JAX_", "TPU_"))]
+        assert {"MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"} <= set(
+            env)
+    assert "distributed: 2 processes" in logs["torch-world-worker-0"]
+    assert "step 2: loss=" in logs["torch-world-worker-0"]
+    assert "step 2: loss=" not in logs["torch-world-worker-1"]
+    assert all("done:" in log for log in logs.values())
+
+
+def test_crash_restarts_and_resumes(operator, tmp_path):
+    op, client = operator
+    logs, restarts = chip_smoke.run_operator_job(op, client, cpu_job(
+        "torch-resume", "tf_operator_tpu_torch.train.dist_mnist", "--steps",
+        "6", "--batch-size", "16", "--checkpoint-dir", str(tmp_path),
+        "--crash-at-step", "3", restart_policy="ExitCode"), card="cpu")
+    log = logs["torch-resume-worker-0"]
+    assert restarts == 1
+    assert "injected crash at step 3" not in log  # the new pod's log only
+    assert "resumed from checkpoint at step 3" in log
+    assert sorted(os.listdir(tmp_path)) == ["4", "5", "6"]
+
+
+def test_pods_see_the_cards_the_operator_sees(operator, monkeypatch):
+    """CUDA_VISIBLE_DEVICES reaches a pod as the device plugin would set
+    it; the rest of the host env stays out."""
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3")
+    monkeypatch.setenv("TPUJOB_TEST_HOST_ONLY", "1")
+    op, client = operator
+    job = chip_smoke.operator_job("env-probe", [
+        sys.executable, "-c", "import os; print(os.environ.get("
+        "'CUDA_VISIBLE_DEVICES'), os.environ.get('TPUJOB_TEST_HOST_ONLY'))"])
+    logs, _ = chip_smoke.run_operator_job(op, client, job, card="cpu")
+    assert logs["env-probe-worker-0"].split() == ["3", "None"]
+
+
+def _pod(job_uid: str, name: str) -> Pod:
+    pod = Pod(spec=PodSpec(containers=[Container(name="jax")]))
+    pod.metadata = ObjectMeta(name=name, owner_references=[OwnerReference(
+        kind="TPUJob", name="job", uid=job_uid, controller=True)])
+    return pod
+
+
+def test_loopback_resolver_gives_a_job_one_rendezvous_port():
+    resolver = LoopbackEnvResolver()
+    env = {"MASTER_ADDR": "job-worker-0.default.svc", "MASTER_PORT": "8476",
+           "RANK": "1", "WORLD_SIZE": "2"}
+    a0 = resolver.resolve(_pod("uid-a", "a-worker-0"), env)
+    a1 = resolver.resolve(_pod("uid-a", "a-worker-1"), env)
+    b0 = resolver.resolve(_pod("uid-b", "b-worker-0"), env)
+    assert a0["MASTER_ADDR"] == a1["MASTER_ADDR"] == "127.0.0.1"
+    assert a0["MASTER_PORT"] == a1["MASTER_PORT"] != "8476"
+    assert b0["MASTER_PORT"] != a0["MASTER_PORT"]
+    assert (a1["RANK"], a1["WORLD_SIZE"]) == ("1", "2")

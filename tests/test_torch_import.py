@@ -52,13 +52,15 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 30, proc.stdout
+    assert count >= 70, proc.stdout
     for module in ("parallel.distributed", "parallel.mesh",
                    "parallel.sharding", "models.mixtral", "serve.gateway",
                    "train.train_mixtral", "ops.ring_attention",
                    "parallel.pipeline", "parallel.llama_pp",
                    "train.train_llama_pp", "models.bert", "train.train_bert",
-                   "train.ps", "train.dist_mnist_ps"):
+                   "train.ps", "train.dist_mnist_ps", "operator",
+                   "run_local", "controller.gpu_controller", "runtime.local",
+                   "bootstrap.cluster", "sdk.client", "train.gpu_smoke"):
         assert f"tf_operator_tpu_torch.{module}" in proc.stdout.split()
 
 
@@ -82,7 +84,7 @@ def test_blocker_matches_exact_package_name():
                                    "mixtral_payload", "pipeline_trainer",
                                    "pipeline_payload", "bert",
                                    "bert_payload", "ps_server", "ps_main",
-                                   "ps_worker"])
+                                   "ps_worker", "gpu_smoke"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """With no device and no card, each entry point raises instead of
     running on the host."""
@@ -109,6 +111,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from tf_operator_tpu_torch.train.trainer import Trainer, adamw
     from tf_operator_tpu_torch.models.bert import Bert, bert_tiny
     from tf_operator_tpu_torch.train import dist_mnist_ps, ps, train_bert
+    from tf_operator_tpu_torch.train import gpu_smoke
 
     monkeypatch.setenv(ps.ENV_CLUSTER_SPEC,
                        '{"cluster": {"ps": ["127.0.0.1:0"]}, '
@@ -164,6 +167,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             ps.main([])
         elif entry == "ps_worker":
             dist_mnist_ps.main(["--steps", "1"])
+        elif entry == "gpu_smoke":
+            gpu_smoke.main([])
         else:
             worker.main(["--runner", "llama", "--spool", str(tmp_path)])
 

@@ -130,6 +130,37 @@ def test_process_env_joins_only_under_the_payload_conditions(flag, num,
         assert not dist.is_initialized()
 
 
+TORCH_ENV_CASES = [
+    # (env, (num_processes, process_id, coordinator), joins)
+    ({"MASTER_ADDR": "10.0.0.2", "MASTER_PORT": "9000", "WORLD_SIZE": "4",
+      "RANK": "3"}, (4, 3, "10.0.0.2:9000"), True),
+    ({"MASTER_ADDR": "job-chief-0.ns.svc", "WORLD_SIZE": "2", "RANK": "1"},
+     (2, 1, "job-chief-0.ns.svc"), True),
+    ({"MASTER_ADDR": "10.0.0.2", "MASTER_PORT": "9000", "WORLD_SIZE": "1",
+      "RANK": "0"}, (1, 0, "10.0.0.2:9000"), False),
+    ({"WORLD_SIZE": "2", "RANK": "1"}, (2, 1, ""), False),
+    # The torch keys win over the JAX keys, key by key.
+    ({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "5", "WORLD_SIZE": "2",
+      "RANK": "1", "JAX_COORDINATOR_ADDRESS": "10.9.9.9:7",
+      "JAX_NUM_PROCESSES": "8", "JAX_PROCESS_ID": "6", "TPU_WORKER_ID": "5"},
+     (2, 1, "127.0.0.1:5"), True),
+    ({"RANK": "0", "JAX_COORDINATOR_ADDRESS": "10.9.9.9:7",
+      "JAX_NUM_PROCESSES": "8", "JAX_PROCESS_ID": "6"},
+     (8, 0, "10.9.9.9:7"), True),
+    ({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "5",
+      "JAX_NUM_PROCESSES": "3", "TPU_WORKER_ID": "2"},
+     (3, 2, "127.0.0.1:5"), True),
+]
+
+
+@pytest.mark.parametrize("env,parsed,joins", TORCH_ENV_CASES)
+def test_process_env_reads_the_torch_keys_first(env, parsed, joins):
+    got = tdist.ProcessEnv.from_env(dict(env, TPUJOB_JAX_DISTRIBUTED="1"))
+    assert (got.num_processes, got.process_id, got.coordinator) == parsed
+    assert got.joins is joins
+    assert not tdist.ProcessEnv.from_env(env).joins   # no opt-in
+
+
 def test_process_env_defaults_and_coordinator_parsing():
     assert tdist.ProcessEnv.from_env({}) == tdist.ProcessEnv()
     assert tdist.ProcessEnv.from_env({"TPU_WORKER_ID": "3"}).process_id == 3

@@ -1,12 +1,15 @@
 """Multi-process bring-up from the operator's env (port of the payloads'
 ``maybe_init_distributed``, examples/dist_mnist/dist_mnist.py).
 
-The operator renders the same env for a port payload as for a JAX one:
-``JAX_COORDINATOR_ADDRESS`` (host:port of process 0),
-``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` (``TPU_WORKER_ID`` where the
-id is missing). A process joins a multi-process run only where the JAX
-payload joins one: ``TPUJOB_JAX_DISTRIBUTED=1``, more than one process,
-and a coordinator address. It then joins ``torch.distributed`` through a
+The port's operator renders the torch.distributed env: ``MASTER_ADDR`` /
+``MASTER_PORT`` (process 0), ``WORLD_SIZE`` and ``RANK``. Under the JAX
+package's operator the same facts come as ``JAX_COORDINATOR_ADDRESS``
+(host:port), ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``
+(``TPU_WORKER_ID`` where the id is missing); each is read only where its
+torch key is absent, so a payload runs under either operator. A process
+joins a multi-process run only where the JAX payload joins one:
+``TPUJOB_JAX_DISTRIBUTED=1``, more than one process, and a coordinator
+address. It then joins ``torch.distributed`` through a
 ``TCPStore`` at the coordinator's host:port, served by process 0: NCCL
 when the process drives the card, gloo when the caller asked for the
 CPU. That follows the port's device rule (``_device.py``): a missing card
@@ -46,11 +49,17 @@ class ProcessEnv:
     def from_env(cls, environ: Optional[Mapping[str, str]] = None
                  ) -> "ProcessEnv":
         env = os.environ if environ is None else environ
+        coordinator = env.get("JAX_COORDINATOR_ADDRESS", "")
+        if env.get("MASTER_ADDR"):
+            coordinator = env["MASTER_ADDR"]
+            if env.get("MASTER_PORT"):
+                coordinator += f":{env['MASTER_PORT']}"
         return cls(
-            num_processes=int(env.get("JAX_NUM_PROCESSES", "1") or 1),
-            process_id=int(env.get("JAX_PROCESS_ID",
-                                   env.get("TPU_WORKER_ID", "0")) or 0),
-            coordinator=env.get("JAX_COORDINATOR_ADDRESS", ""),
+            num_processes=int(env.get("WORLD_SIZE")
+                              or env.get("JAX_NUM_PROCESSES") or 1),
+            process_id=int(env.get("RANK") or env.get("JAX_PROCESS_ID")
+                           or env.get("TPU_WORKER_ID") or 0),
+            coordinator=coordinator,
             distributed=env.get("TPUJOB_JAX_DISTRIBUTED") == "1")
 
     @property

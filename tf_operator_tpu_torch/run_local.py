@@ -1,0 +1,77 @@
+"""Apply a TPUJob file against the port's hermetic local runtime (port of
+examples/run_local.py).
+
+    python -m tf_operator_tpu_torch.run_local job.json|job.yaml
+
+The `kubectl apply -f` + `kubectl logs` analog (reference SDK
+`TFJobClient.create`/`get_logs`, sdk/.../tf_job_client.py:77,380):
+starts an in-process GPU operator with the subprocess pod backend, submits
+the job, waits for Succeeded/Failed, and prints each replica's log. JSON
+always loads; YAML needs ``pyyaml``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Optional, Sequence
+
+from tf_operator_tpu_torch.api.types import JobConditionType, TPUJob
+from tf_operator_tpu_torch.operator import Operator
+from tf_operator_tpu_torch.sdk.client import TPUJobClient
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_job(path: str) -> TPUJob:
+    """A TPUJob from a ``.json`` file, or from YAML through ``pyyaml``."""
+    with open(path) as f:
+        text = f.read()
+    if path.endswith(".json"):
+        return TPUJob.from_dict(json.loads(text))
+    try:
+        import yaml
+    except ImportError:
+        raise SystemExit(f"{path}: reading YAML needs pyyaml, which is not "
+                         "installed; give the job as .json") from None
+    return TPUJob.from_dict(yaml.safe_load(text))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("spec", help="TPUJob JSON or YAML file")
+    ap.add_argument("--timeout", type=float, default=300.0)
+    args = ap.parse_args(argv)
+
+    job = load_job(args.spec)
+    op = Operator.local(workdir=REPO_ROOT)
+    op.start(threadiness=2)
+    client = TPUJobClient(op.store)
+    try:
+        client.create(job)
+        name = job.metadata.name
+        print(f"submitted TPUJob {name}; waiting (timeout {args.timeout}s)")
+        try:
+            done = client.wait_for_job(name, timeout=args.timeout)
+            state = "Succeeded" if any(
+                c.type == JobConditionType.SUCCEEDED and c.status == "True"
+                for c in done.status.conditions) else "Failed"
+        except TimeoutError:
+            # Still print the diagnostics the script exists to show.
+            done = client.get(name)
+            state = "TimedOut"
+        print(f"TPUJob {name}: {state}")
+        for cond in done.status.conditions:
+            print(f"  condition {cond.type}={cond.status} ({cond.reason})")
+        for pod_name in client.get_pod_names(name):
+            print(f"--- logs {pod_name} ---")
+            print(client.get_logs(pod_name) or "(no output)")
+        return 0 if state == "Succeeded" else 1
+    finally:
+        op.stop()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,8 @@
         [--device cpu]
 
 Each replica reads the operator-injected bootstrap env
-(``TPUJOB_CLUSTER_SPEC``, ``TPU_WORKER_ID``, ``JAX_COORDINATOR_ADDRESS``)
+(``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` from the port's
+operator, the ``JAX_*`` keys from the JAX package's)
 and trains ``MnistCNN`` on synthetic data with ``adam(1e-3)``, on the
 card unless ``--device cpu``. With ``TPUJOB_JAX_DISTRIBUTED=1``, more than
 one process and a coordinator address, the replicas join one run

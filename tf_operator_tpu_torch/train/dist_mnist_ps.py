@@ -95,7 +95,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if not addrs:
         raise SystemExit("no ps replicas in TPUJOB_CLUSTER_SPEC")
     print(f"ps addrs: {','.join(addrs)}", flush=True)
-    worker_id = int(os.environ.get("TPU_WORKER_ID", "0"))
+    # RANK under the port's operator, TPU_WORKER_ID under the JAX one.
+    worker_id = int(os.environ.get("RANK")
+                    or os.environ.get("TPU_WORKER_ID") or 0)
 
     client = PSClient(addrs)
     try:
