@@ -340,6 +340,29 @@ no flash kernel, as the JAX decode path runs none):
            at step 3). One line a job: seconds from creation to
            AllReplicasReady and to completion, restarts, the pod logs'
            last lines, the card's name and power limit.
+19. operator_planes  a second Operator.local with gang scheduling
+           (total_chips=1: the one card), slice health, checkpoint
+           coordination and serving. gang_queue: gpu-gang-a and gpu-gang-b
+           (one h100-1 worker of train.gpu_smoke each) created back to
+           back; both succeed, b is admitted after a (the gang's decision
+           journal) and gets ready no earlier than a completes, each pod
+           holds nvidia.com/gpu "1" and its toleration, each log the
+           card's matmul; b's seconds of queue wait. serving_drain: one
+           serving replica at h100-1 running serve.worker --runner llama
+           (ServingPolicy 2 slots, queue 8, 8 tokens; HealthPolicy and
+           CheckpointPolicy on, barrier timeout 60 s) over 24 spooled
+           requests; after 4 or more responses and before all 24, its pod
+           is bound to node n-maint, which then reports MaintenancePending:
+           the slice-health drain opens the save-before-evict barrier, the
+           worker re-spools its in-flight requests and acks, the gang is
+           evicted and rebinds, the new pod logs "resumed after drain"
+           and serves the rest. Checks: exactly the 24 ids answered, 8
+           tokens or fewer each, nothing left pending or claimed, the job
+           Succeeded, CheckpointBarrier False with CheckpointBarrierSaved,
+           the ack after the first response and before the last; seconds
+           from the notice to the ack and to the rebound pod's first
+           response, the drain_rebind_seconds observation, responses
+           before and after the ack, the card's name and power limit.
 
 Then the whole script's seconds, a {"kernels": [...]} summary line (one
 entry a launch key: the wgmma D=128 kernels' numbers from the training
@@ -4125,9 +4148,11 @@ TPU_ENV_PREFIXES = ("JAX_", "TPU_", "MEGASCALE_")
 
 
 def operator_job(name: str, command, replicas: int = 1,
-                 restart_policy: str = ""):
-    """A TPUJob of ``replicas`` workers running ``command`` on one H100,
-    its pods kept after the end (clean_pod_policy None) with their logs."""
+                 restart_policy: str = "", rtype: str = "worker",
+                 accelerator: str = "h100-1"):
+    """A TPUJob of ``replicas`` ``rtype`` replicas running ``command`` on
+    ``accelerator`` (one H100), its pods kept after the end
+    (clean_pod_policy None) with their logs."""
     from tf_operator_tpu_torch.api import constants
     from tf_operator_tpu_torch.api.types import (
         Container,
@@ -4144,8 +4169,8 @@ def operator_job(name: str, command, replicas: int = 1,
         template=PodTemplateSpec(spec=PodSpec(containers=[Container(
             name=constants.DEFAULT_CONTAINER_NAME, command=command)])))
     job = TPUJob(metadata=ObjectMeta(name=name),
-                 spec=TPUJobSpec(replica_specs={"worker": spec}))
-    job.spec.slice.accelerator = "h100-1"
+                 spec=TPUJobSpec(replica_specs={rtype: spec}))
+    job.spec.slice.accelerator = accelerator
     job.spec.run_policy.clean_pod_policy = "None"
     return job
 
@@ -4259,6 +4284,297 @@ def phase_operator(root: str):
         op.stop()
 
 
+PLANES_REQUESTS = 24
+PLANES_DRAIN_AFTER = 4      # responses landed before the maintenance notice
+PLANES_WAIT_S = 90          # deadline of each wait of the serving arc
+
+
+def planes_operator(**kwargs):
+    """Operator.local with every plane a GPU gang goes through: gang
+    admission, slice health, checkpoint coordination and serving."""
+    from tf_operator_tpu_torch.operator import Operator
+
+    op = Operator.local(workdir=REPO, enable_gang_scheduling=True,
+                        enable_slice_health=True,
+                        enable_ckpt_coordination=True, enable_serving=True,
+                        **kwargs)
+    op.start(threadiness=2)
+    return op
+
+
+def wait_until(predicate, what: str, timeout: float = PLANES_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if predicate():
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+def admission(name: str):
+    """(wall time, order) of the gang's admission of ``name``, from the
+    port's decision journal."""
+    from tf_operator_tpu_torch.runtime import trace
+
+    admits = [r for r in trace.JOURNAL.decisions("default", name) or []
+              if r["kind"] == "admission.admit"]
+    if not admits:
+        raise AssertionError(f"{name} was never admitted")
+    return admits[0]["time"], admits[0]["seq"]
+
+
+def run_gang_queue(op, client, command, accelerator: str, gpus: str,
+                   device_name: str, card: str) -> dict:
+    """Two one-worker jobs created back to back on an operator whose GPU
+    budget holds one of them: both succeed, the second is admitted after
+    the first and gets ready no earlier than the first completes."""
+    from tf_operator_tpu_torch.api import constants
+    from tf_operator_tpu_torch.controller import conditions as cond
+
+    names = ("gpu-gang-a", "gpu-gang-b")
+    for name in names:
+        client.create(operator_job(name, command, accelerator=accelerator))
+    done = [client.wait_for_job(n, timeout=OPERATOR_TIMEOUT_S)
+            for n in names]
+    logs = [client.get_job_logs(n) for n in names]
+    admits = [admission(n) for n in names]
+    pods = [p for n in names for p in client.get_pods(n)]
+    stamped = [p.spec.containers[0].resources.get(constants.RESOURCE_GPU)
+               == gpus and any(t.key == constants.RESOURCE_GPU
+                               and t.operator == "Exists"
+                               for t in p.spec.tolerations) for p in pods]
+    a, b = (j.status for j in done)
+    result = {
+        "phase": "operator_planes", "arc": "gang_queue", "nvidia_smi": card,
+        "succeeded": [cond.is_succeeded(s) for s in (a, b)],
+        "admission_order": [n for _, n in sorted(
+            (seq, n) for (_, seq), n in zip(admits, names))],
+        "b_queue_wait_seconds": (admits[1][0] - done[1].metadata
+                                 .creation_timestamp.timestamp()),
+        "b_ready_after_a_done_seconds": (
+            None if b.all_replicas_ready_time is None
+            or a.completion_time is None else
+            (b.all_replicas_ready_time - a.completion_time).total_seconds()),
+        "pods_stamped": stamped,
+        "log_tails": {pod: log.splitlines()[-OPERATOR_LOG_LINES:]
+                      for job_logs in logs
+                      for pod, log in sorted(job_logs.items())}}
+    emit(result)
+    if (not all(result["succeeded"]) or result["admission_order"]
+            != list(names) or result["b_ready_after_a_done_seconds"] is None
+            or result["b_ready_after_a_done_seconds"] < 0
+            or len(pods) != 2 or not all(stamped)
+            or not all(f"({device_name}): matmul sum" in log
+                       for job_logs in logs for log in job_logs.values())):
+        raise AssertionError(f"gang queue: {result} {logs}")
+    return result
+
+
+def serving_planes_job(spool: str, command, accelerator: str):
+    """One serving replica under the serving, health and checkpoint
+    policies of the serving-drain arc."""
+    from tf_operator_tpu_torch.api.types import (
+        CheckpointPolicy,
+        HealthPolicy,
+        ServingPolicy,
+    )
+
+    job = operator_job("gpu-serve", command, rtype="serving",
+                       accelerator=accelerator)
+    policy = job.spec.run_policy
+    policy.serving_policy = ServingPolicy(
+        enabled=True, spool_directory=spool, max_batch_slots=2,
+        max_queue_depth=8, max_tokens_per_request=8)
+    policy.health_policy = HealthPolicy(enabled=True)
+    # The drain barrier rides checkpoint coordination: the serving
+    # worker's save is its re-spool, acked through the record channel.
+    policy.checkpoint_policy = CheckpointPolicy(
+        enabled=True, directory=spool, interval_steps=100000,
+        barrier_timeout_seconds=60.0)
+    return job
+
+
+def spool_responses(spool: str) -> dict:
+    """id -> (wall time written, tokens) of every response in ``spool``."""
+    done = os.path.join(spool, "done")
+    out = {}
+    for name in os.listdir(done) if os.path.isdir(done) else ():
+        if name.endswith(".json"):
+            path = os.path.join(done, name)
+            with open(path) as f:
+                tokens = json.load(f)["tokens"]
+            out[name[:-len(".json")]] = (os.stat(path).st_mtime, tokens)
+    return out
+
+
+class StoreBindClient:
+    """The pods/binding endpoint over the operator's own store: the first
+    bind of a pod wins, a second is a conflict (what a Kubernetes API
+    server answers the port's binder)."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def bind_pod(self, namespace: str, name: str, node: str) -> None:
+        from tf_operator_tpu_torch.runtime import store as store_mod
+
+        pod = self.store.get(store_mod.PODS, namespace, name)
+        if pod.spec.node_name:
+            raise store_mod.ConflictError(
+                f"pod {namespace}/{name} is already on {pod.spec.node_name}")
+        pod.spec.node_name = node
+        self.store.update(store_mod.PODS, pod)
+
+
+def ready_node(name: str, **conditions):
+    from tf_operator_tpu_torch.api.types import (
+        Node,
+        NodeSpec,
+        NodeStatus,
+        ObjectMeta,
+    )
+
+    return Node(metadata=ObjectMeta(name=name, namespace=""),
+                spec=NodeSpec(chips=8),
+                status=NodeStatus(phase="Ready",
+                                  conditions=dict(Ready="True",
+                                                  **conditions)))
+
+
+def inject_maintenance(store, job_name: str) -> None:
+    """Bind the job's live pods to node n-maint, then create n-maint with
+    a maintenance notice: a placed gang under an announced maintenance."""
+    from tf_operator_tpu_torch.api import constants
+    from tf_operator_tpu_torch.runtime import store as store_mod
+
+    for pod in store.list(store_mod.PODS,
+                          selector={constants.LABEL_JOB_NAME: job_name}):
+        fresh = pod.deepcopy()
+        fresh.spec.node_name = "n-maint"
+        store.update(store_mod.PODS, fresh)
+    store.create(store_mod.NODES,
+                 ready_node("n-maint", MaintenancePending="True"))
+
+
+def run_serving_drain(op, client, spool: str, command, accelerator: str,
+                      card: str) -> dict:
+    """A serving gang drained off a maintenance node mid-traffic answers
+    every request exactly once (module docstring, phase 19). The port's
+    binder places the gang's pods on node n-spare through the store, so
+    slice health sees the rebound gang bound again and times the
+    rebind."""
+    from tf_operator_tpu_torch.controller.binder import SliceGangBinder
+    from tf_operator_tpu_torch.runtime import store as store_mod
+
+    op.store.create(store_mod.NODES, ready_node("n-spare"))
+    binder = SliceGangBinder(op.store, StoreBindClient(op.store),
+                             op.controller.engine.gang,
+                             recorder=op.recorder).start()
+    try:
+        return serving_drain_arc(op, client, spool, command, accelerator,
+                                 card)
+    finally:
+        binder.stop()
+
+
+def serving_drain_arc(op, client, spool: str, command, accelerator: str,
+                      card: str) -> dict:
+    from tf_operator_tpu_torch.api.types import JobConditionType
+    from tf_operator_tpu_torch.controller import conditions as cond
+    from tf_operator_tpu_torch.runtime import metrics
+
+    os.makedirs(os.path.join(spool, "pending"))
+    rebind_sum = metrics.drain_rebind_seconds.sum_value(
+        job_namespace="default")
+    rebind_count = metrics.drain_rebind_seconds.count_value(
+        job_namespace="default")
+    client.create(serving_planes_job(spool, command, accelerator))
+    client.wait_for_condition("gpu-serve", JobConditionType.RUNNING,
+                              timeout=PLANES_WAIT_S)
+    ids = [f"req{i:03d}" for i in range(PLANES_REQUESTS)]
+    for i, rid in enumerate(ids):
+        path = os.path.join(spool, "pending", f"{rid}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump({"id": rid, "tenant": "team-a" if i % 2 else "team-b",
+                       "prompt": [i + 1, i + 2, i + 3], "maxNewTokens": 8},
+                      f)
+        os.replace(path + ".tmp", path)
+    wait_until(lambda: len(spool_responses(spool)) >= PLANES_DRAIN_AFTER,
+               "the first responses")
+    before_notice = len(spool_responses(spool))
+    notice_at = time.time()
+    inject_maintenance(op.store, "gpu-serve")
+    wait_until(lambda: len(spool_responses(spool)) >= PLANES_REQUESTS,
+               "every response after the drain")
+    open(os.path.join(spool, worker.CLOSE_SENTINEL), "w").close()
+    job = client.wait_for_job("gpu-serve", timeout=PLANES_WAIT_S)
+    responses = spool_responses(spool)
+    logs = client.get_job_logs("gpu-serve")
+    acks = op.recorder.events_for("gpu-serve",
+                                  reason="CheckpointBarrierSaved")
+    ack_at = acks[0].timestamp.timestamp() if acks else None
+    barrier = [c for c in job.status.conditions
+               if c.type == JobConditionType.CHECKPOINT_BARRIER]
+    times = sorted(t for t, _ in responses.values())
+    after = [t for t in times if ack_at is not None and t > ack_at]
+    left = [n for sub in ("pending", "claimed")
+            for _, _, files in os.walk(os.path.join(spool, sub))
+            for n in files if n.endswith(".json")]
+    result = {
+        "phase": "operator_planes", "arc": "serving_drain",
+        "nvidia_smi": card, "succeeded": cond.is_succeeded(job.status),
+        "responses": len(responses),
+        "max_tokens": max(len(t) for _, t in responses.values()),
+        "responses_at_notice": before_notice,
+        "responses_before_ack": len(times) - len(after),
+        "responses_after_ack": len(after),
+        "left_in_spool": left,
+        "barrier": [(c.status, c.reason) for c in barrier],
+        "resumed_after_drain": any("resumed after drain" in log
+                                   for log in logs.values()),
+        "seconds_notice_to_ack": (None if ack_at is None
+                                  else ack_at - notice_at),
+        "seconds_notice_to_rebound_first_response": (
+            after[0] - notice_at if after else None),
+        "seconds_ack_to_rebound_first_response": (
+            after[0] - ack_at if after else None),
+        "drain_rebind_seconds": metrics.drain_rebind_seconds.sum_value(
+            job_namespace="default") - rebind_sum,
+        "drain_rebind_observations": metrics.drain_rebind_seconds
+        .count_value(job_namespace="default") - rebind_count,
+        "log_tails": {pod: log.splitlines()[-OPERATOR_LOG_LINES:]
+                      for pod, log in sorted(logs.items())}}
+    emit(result)
+    if (not result["succeeded"] or sorted(responses) != ids
+            or result["max_tokens"] > 8 or left
+            or result["barrier"] != [("False", "CheckpointBarrierSaved")]
+            or not result["resumed_after_drain"]
+            or ack_at is None or not times[0] < ack_at < times[-1]
+            or result["drain_rebind_observations"] != 1):
+        raise AssertionError(f"serving drain: {result} {logs}")
+    return result
+
+
+def phase_operator_planes(root: str):
+    """The port's gang, health, checkpoint and serving planes on the card
+    (module docstring, phase 19)."""
+    from tf_operator_tpu_torch.sdk import TPUJobClient
+
+    card = nvidia_smi()
+    op = planes_operator(total_chips=1)
+    try:
+        client = TPUJobClient(op.store)
+        run_gang_queue(op, client, [sys.executable, "-m",
+                                    "tf_operator_tpu_torch.train.gpu_smoke"],
+                       "h100-1", "1", torch.cuda.get_device_name(0), card)
+        run_serving_drain(op, client, os.path.join(root, "planes-spool"),
+                          [sys.executable, "-m",
+                           "tf_operator_tpu_torch.serve.worker", "--runner",
+                           "llama"], "h100-1", card)
+    finally:
+        op.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4315,6 +4631,7 @@ def main() -> int:
         bert_launches = phase_bert_all()
         phase_ps(root)
         phase_operator(root)
+        phase_operator_planes(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -1,9 +1,9 @@
 """Port parity: checkpointing, resume and the coordinated-checkpoint hook.
 
 - Every ``TestCheckpointHook`` scenario of tests/test_ckpt_coordination.py
-  runs on the port's hook and on the JAX package's, each over the JAX
-  package's ``FileCheckpointer`` and a fake clock: the return values and
-  the record files must be identical.
+  runs on the port's hook and on the JAX package's, each over the port's
+  ``FileCheckpointer`` and a fake clock: the return values and the
+  record files must be identical.
 - The port's ``Checkpointer`` and the JAX package's orbax one go through
   the same save / force / interval sequence: same return values,
   ``latest_step``, kept steps and restored values.
@@ -22,9 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from tf_operator_tpu.runtime.worker_stub import FileCheckpointer
 from tf_operator_tpu.train import checkpoint as jckpt
 from tf_operator_tpu_torch.models import llama as tllama
+from tf_operator_tpu_torch.runtime.worker_stub import FileCheckpointer
 from tf_operator_tpu_torch.train import checkpoint as tckpt
 from tf_operator_tpu_torch.train import trainer as ttr
 

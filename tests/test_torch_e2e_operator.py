@@ -10,6 +10,16 @@ through ``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE``
 alone; and the MNIST crash-and-resume arc under the ``ExitCode`` restart
 policy. The loopback resolver gives every pod of a job one rendezvous
 port and each job its own.
+
+With every plane on (gang scheduling, slice health, checkpoint
+coordination, serving), the same operator runs the three arcs of
+``chip_smoke.py``'s ``operator_planes`` phase and of the JAX package's
+e2e tests: a training gang of the port's ``worker_stub`` drained off a
+maintenance node resumes at its barrier step
+(``tests/test_ckpt_coordination.py``); a serving gang of the ``fake``
+runner drained mid-traffic answers every request exactly once
+(``tests/test_serving.py``); and of two ``h100-8`` jobs on an 8-GPU
+budget the second waits for the first.
 """
 
 import os
@@ -19,7 +29,10 @@ import pytest
 
 import chip_smoke
 from tf_operator_tpu_torch.api.types import (
+    CheckpointPolicy,
     Container,
+    HealthPolicy,
+    JobConditionType,
     ObjectMeta,
     OwnerReference,
     Pod,
@@ -121,3 +134,88 @@ def test_loopback_resolver_gives_a_job_one_rendezvous_port():
     assert a0["MASTER_PORT"] == a1["MASTER_PORT"] != "8476"
     assert b0["MASTER_PORT"] != a0["MASTER_PORT"]
     assert (a1["RANK"], a1["WORLD_SIZE"]) == ("1", "2")
+
+
+# ---------------------------------------------------------------------------
+# Every plane on: gang queue, training drain, serving drain
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def planes():
+    op = chip_smoke.planes_operator(total_chips=8)
+    yield op, TPUJobClient(op.store)
+    op.stop()
+
+
+def test_second_gang_waits_for_the_first(planes):
+    op, client = planes
+    result = chip_smoke.run_gang_queue(op, client, [
+        sys.executable, "-m", "tf_operator_tpu_torch.train.gpu_smoke",
+        "--device", "cpu"], "h100-8", "8", "cpu", "cpu")
+    assert result["admission_order"] == ["gpu-gang-a", "gpu-gang-b"]
+    assert result["b_ready_after_a_done_seconds"] >= 0
+
+
+def test_serving_gang_drains_mid_traffic_dropping_nothing(planes, tmp_path):
+    op, client = planes
+    result = chip_smoke.run_serving_drain(
+        op, client, str(tmp_path / "spool"),
+        [sys.executable, "-m", "tf_operator_tpu_torch.serve.worker"],
+        "h100-8", "cpu")
+    assert result["responses"] == chip_smoke.PLANES_REQUESTS
+    assert result["responses_before_ack"] >= chip_smoke.PLANES_DRAIN_AFTER
+    assert result["responses_after_ack"] > 0
+    assert result["drain_rebind_observations"] == 1
+
+
+def test_drained_training_gang_resumes_at_its_barrier_step(planes,
+                                                           tmp_path):
+    """Two workers of the port's worker_stub train; a maintenance notice
+    under them opens the barrier, both save and ack, the gang is evicted
+    and recreated, and the new pods restore the barrier step
+    (restoredFromStep == lastCheckpointStep > 0) and train on from it."""
+    op, client = planes
+    job = chip_smoke.operator_job("ckptjob", [
+        sys.executable, "-m", "tf_operator_tpu_torch.runtime.worker_stub",
+        "--train-steps", "300", "--step-seconds", "0.02"], replicas=2,
+        accelerator="h100-8")
+    job.spec.replica_specs["worker"].restart_policy = "Never"
+    job.spec.run_policy.health_policy = HealthPolicy(enabled=True)
+    # No periodic cadence: the only save is the barrier's, so
+    # lastCheckpointStep == restoredFromStep holds to the end.
+    job.spec.run_policy.checkpoint_policy = CheckpointPolicy(
+        enabled=True, directory=str(tmp_path / "ckpt"),
+        interval_steps=100000, barrier_timeout_seconds=20.0)
+    client.create(job)
+    client.wait_for_condition("ckptjob", JobConditionType.RUNNING,
+                              timeout=chip_smoke.PLANES_WAIT_S)
+    def logs():
+        return client.get_job_logs("ckptjob").values()
+
+    chip_smoke.wait_until(lambda: len(logs()) == 2 and all(
+        "step 3 " in text for text in logs()), "both workers training")
+    chip_smoke.inject_maintenance(op.store, "ckptjob")
+    chip_smoke.wait_until(lambda: any(
+        "resumed from checkpoint at step" in text for text in logs()),
+        "a rebound worker resumed")
+    done = client.wait_for_job("ckptjob", timeout=chip_smoke.PLANES_WAIT_S)
+    status = done.status
+    assert any(c.type == JobConditionType.SUCCEEDED and c.status == "True"
+               for c in status.conditions)
+    assert status.restored_from_step is not None
+    assert status.restored_from_step > 0
+    assert status.restored_from_step == status.last_checkpoint_step
+    barrier = [c for c in status.conditions
+               if c.type == JobConditionType.CHECKPOINT_BARRIER]
+    assert [(c.status, c.reason) for c in barrier] == [
+        ("False", "CheckpointBarrierSaved")]
+    restored = status.restored_from_step
+    resumed = [t for t in logs() if "resumed from checkpoint at step" in t]
+    assert resumed
+    for text in resumed:
+        assert "step 1 " not in text
+        assert f"step {restored + 1} " in text
+    for pod in client.get_pods("ckptjob"):
+        env = pod.spec.containers[0].env
+        assert env["TPUJOB_RESTORE_STEP"] == str(restored)
+        assert pod.spec.containers[0].resources["nvidia.com/gpu"] == "8"

@@ -52,7 +52,7 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 70, proc.stdout
+    assert count >= 82, proc.stdout
     for module in ("parallel.distributed", "parallel.mesh",
                    "parallel.sharding", "models.mixtral", "serve.gateway",
                    "train.train_mixtral", "ops.ring_attention",
@@ -60,7 +60,11 @@ def test_port_imports_without_jax():
                    "train.train_llama_pp", "models.bert", "train.train_bert",
                    "train.ps", "train.dist_mnist_ps", "operator",
                    "run_local", "controller.gpu_controller", "runtime.local",
-                   "bootstrap.cluster", "sdk.client", "train.gpu_smoke"):
+                   "bootstrap.cluster", "sdk.client", "train.gpu_smoke",
+                   "controller.gang", "controller.binder",
+                   "controller.health", "controller.ckpt",
+                   "controller.quota", "controller.serving",
+                   "controller.autoscaler", "runtime.worker_stub"):
         assert f"tf_operator_tpu_torch.{module}" in proc.stdout.split()
 
 

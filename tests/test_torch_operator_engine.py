@@ -10,11 +10,14 @@ names, labels and annotations (bootstrap hash aside), creations and
 deletions, events, condition sequence, restart counts and replica
 tallies; ``nvidia.com/gpu`` and its toleration must stand where
 ``google.com/tpu`` and its toleration stand, with the port topology's
-GPUs a host. The operator refuses every flag of a plane it has not yet.
+GPUs a host. Every operator flag builds the planes the JAX operator's
+builds, and the invalid flag combinations raise the JAX operator's
+``ValueError``.
 """
 
 import copy
 import datetime as dt
+import os
 
 import pytest
 
@@ -31,6 +34,7 @@ from tf_operator_tpu.api.types import (
 from tf_operator_tpu.controller import control as jcontrol
 from tf_operator_tpu.controller.engine import JobEngine as JEngine
 from tf_operator_tpu.controller.tpu_controller import TPUJobController
+from tf_operator_tpu.operator import Operator as JOperator
 from tf_operator_tpu.runtime import store as jstore
 from tf_operator_tpu_torch import testutil as ttestutil
 from tf_operator_tpu_torch.api import constants as tconst
@@ -44,11 +48,12 @@ from tf_operator_tpu_torch.bootstrap import parse_accelerator
 from tf_operator_tpu_torch.controller import control as tcontrol
 from tf_operator_tpu_torch.controller.engine import JobEngine as TEngine
 from tf_operator_tpu_torch.controller.gpu_controller import GPUJobController
-from tf_operator_tpu_torch.operator import UNPORTED_FLAGS, Operator
+from tf_operator_tpu_torch.operator import Operator
 from tf_operator_tpu_torch.runtime import store as tstore
 
 pytestmark = pytest.mark.control_plane
 
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAME_HOSTS = {"v5e-8": "h100-8", "v5p-32": "h100-32", "v5e-16": "h100-16"}
 
 
@@ -339,10 +344,95 @@ def test_template_gpu_request_is_kept():
     assert pod.spec.containers[0].resources == {tconst.RESOURCE_GPU: "2"}
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS))
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        Operator(backend=None, **{flag: True})
+# Each operator flag with the flags it requires.
+PLANE_FLAGS = {
+    "enable_gang_scheduling": {},
+    "enable_slice_health": {"enable_gang_scheduling": True},
+    "enable_ckpt_coordination": {},
+    "enable_tenant_queues": {"enable_gang_scheduling": True},
+    "enable_serving": {},
+    "enable_elastic": {"enable_gang_scheduling": True},
+    "enable_serving_autoscaler": {"enable_gang_scheduling": True,
+                                  "enable_serving": True,
+                                  "enable_elastic": True},
+}
+# Every plane at once: the cross-plane wiring (barrier acks poke
+# admission, health drains through the barrier, the autoscaler feeds the
+# resize signals, the data plane's drain window gates admission).
+EVERY_PLANE = "every-plane"
+PLANE_FLAGS[EVERY_PLANE] = {flag: True for flag in list(PLANE_FLAGS)}
+# The plane each flag builds (elastic resize is a pass of the gang).
+PLANE_OF = {"enable_gang_scheduling": "gang", "enable_slice_health": "health",
+            "enable_ckpt_coordination": "ckpt",
+            "enable_tenant_queues": "quota", "enable_serving": "serving",
+            "enable_elastic": "gang",
+            "enable_serving_autoscaler": "autoscaler"}
+INVALID_FLAGS = (
+    {"enable_tenant_queues": True},
+    {"enable_slice_health": True},
+    {"enable_elastic": True},
+    {"enable_serving_autoscaler": True, "enable_serving": True,
+     "enable_gang_scheduling": True},
+)
+
+
+def _planes(op):
+    """Which planes an operator built and how they are wired."""
+    gang = op.controller.engine.gang
+    return {
+        "gang": gang is not None and (gang.total_chips, gang.fairness,
+                                      gang.aging_seconds, gang.elastic,
+                                      gang.preemption),
+        "quota": op.quota is not None,
+        "ckpt": op.ckpt is not None,
+        "serving": op.serving is not None,
+        "health": op.health is not None and op.health.default_grace_seconds,
+        "autoscaler": (op.autoscaler is not None
+                       and op.autoscaler.interval_seconds),
+        "gang_ckpt": gang is not None and gang.ckpt is not None,
+        "gang_quota": gang is not None and gang.quota is not None,
+        "ckpt_acks_readmit": (op.ckpt is not None and gang is not None
+                              and op.ckpt.on_ack == gang.readmit),
+        "controller_ckpt": op.controller.ckpt is not None,
+        "controller_serving": op.controller.serving is not None,
+        "gang_config": op.controller.engine.config.enable_gang_scheduling,
+        "health_ckpt": op.health is not None and op.health.ckpt is not None,
+        "resize_signals": (gang is not None and op.autoscaler is not None
+                           and gang.resize_signals == op.autoscaler.signals
+                           and op.autoscaler.gang is gang),
+        "drain_window": (gang is not None
+                         and gang.draining_provider
+                         == op.backend.draining_gang_groups
+                         and op.backend.on_gang_drained == gang.readmit),
+    }
+
+
+@pytest.mark.parametrize("flag", sorted(PLANE_FLAGS))
+def test_flags_build_the_planes_jax_builds(flag):
+    kwargs = dict(PLANE_FLAGS[flag], total_chips=16,
+                  health_drain_grace_seconds=2.5,
+                  autoscale_interval_seconds=0.5)
+    if flag != EVERY_PLANE:
+        kwargs[flag] = True
+    built = []
+    for cls in (JOperator, Operator):
+        op = cls.local(workdir=REPO_ROOT, **kwargs)
+        try:
+            built.append(_planes(op))
+        finally:
+            op.stop()
+    assert built[1] == built[0]
+    for on in PLANE_FLAGS[flag] if flag == EVERY_PLANE else (flag,):
+        assert built[1][PLANE_OF[on]]
+    if flag == EVERY_PLANE:
+        assert all(built[1].values()), built[1]
+    for bad in INVALID_FLAGS:
+        errors = []
+        for cls in (JOperator, Operator):
+            with pytest.raises(ValueError) as err:
+                cls(backend=None, **bad)
+            errors.append(str(err.value))
+        assert errors[1] == errors[0]
 
 
 def test_operator_without_flags_builds_the_gpu_controller():

@@ -10,6 +10,14 @@ Entry points run on the card (``torch.device("cuda")``) unless the caller
 passes ``device="cpu"``.
 """
 
-from tf_operator_tpu_torch._device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # torch loads on first use, so the control plane (operator, worker
+    # stub) imports the package without it.
+    if name == "resolve_device":
+        from tf_operator_tpu_torch._device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -66,13 +66,14 @@ ANNOTATION_BOOTSTRAP_HASH = "tpu-operator.dev/bootstrap-hash"
 
 DEFAULT_GANG_SCHEDULER = "slice-gang"
 
-# Node label naming the ICI domain a TPU node belongs to: all hosts of
-# one slice must land inside one domain (chips are ICI-connected within
-# it; crossing domains means DCN). On GKE a TPU nodepool IS the ICI
-# domain, so the binder falls back to the nodepool label when the
-# first-class label is absent. No reference analog — the reference
-# delegated placement to Volcano, which is topology-blind.
-LABEL_ICI_DOMAIN = "tpu-operator.dev/ici-domain"
+# Node label naming the fabric domain a GPU node belongs to: NVLink
+# within an HGX host, the NVLink/InfiniBand island across hosts. All
+# hosts of one slice must land inside one domain (crossing it means the
+# slower data-center network). On GKE a GPU node pool is such a domain,
+# so the binder falls back to the node-pool label when the first-class
+# label is absent. No reference analog — the reference delegated
+# placement to Volcano, which is topology-blind.
+LABEL_NVLINK_DOMAIN = "tpu-operator.dev/nvlink-domain"
 LABEL_GKE_NODEPOOL = "cloud.google.com/gke-nodepool"
 
 # The extended-resource name the NVIDIA device plugin advertises on

@@ -1,12 +1,9 @@
 """Operator assembly: store + controller + data-plane backend (port of
-tf_operator_tpu/operator.py over ``GPUJobController``).
+tf_operator_tpu/operator.py over ``GPUJobController``; every plane's flag
+is wired as the JAX operator wires it, and ``total_chips`` counts GPUs).
 
 Reference parity: cmd/tf-operator.v1/app/server.go Run() — builds
 clients, informers, the controller, and runs it.
-
-The planes the port has not taken over yet refuse their flags with
-``NotImplementedError`` naming the part of the port that brings them
-(``UNPORTED_FLAGS``); none is silently ignored.
 """
 
 from __future__ import annotations
@@ -19,6 +16,7 @@ from typing import Dict, Optional
 from tf_operator_tpu_torch.api import constants
 from tf_operator_tpu_torch.api.types import EventRecord, ObjectMeta
 from tf_operator_tpu_torch.controller.engine import EngineConfig
+from tf_operator_tpu_torch.controller.gang import SliceGangScheduler
 from tf_operator_tpu_torch.controller.gpu_controller import GPUJobController
 from tf_operator_tpu_torch.runtime.events import Recorder
 from tf_operator_tpu_torch.runtime.local import LocalProcessBackend
@@ -32,19 +30,6 @@ PRUNE_BATCH = 512
 log = logging.getLogger("tpu_operator.operator")
 
 
-# Operator flags whose plane the port does not have yet -> the part of the
-# port's control plane that brings it.
-UNPORTED_FLAGS = {
-    "enable_gang_scheduling": "the gang scheduler, binder and slice health",
-    "enable_slice_health": "the gang scheduler, binder and slice health",
-    "enable_ckpt_coordination": "checkpoint coordination",
-    "enable_tenant_queues": "quota, serving and elastic resize",
-    "enable_serving": "quota, serving and elastic resize",
-    "enable_elastic": "quota, serving and elastic resize",
-    "enable_serving_autoscaler": "quota, serving and elastic resize",
-}
-
-
 # Sentinel: "no backend argument" (build the default LocalProcessBackend)
 # vs an explicit backend=None (control plane only, no data plane).
 _DEFAULT_BACKEND = object()
@@ -56,53 +41,163 @@ class Operator:
                  config: Optional[EngineConfig] = None,
                  namespace: Optional[str] = None,
                  enable_gang_scheduling: bool = False,
+                 total_chips: Optional[int] = None,
+                 gang_fairness: str = "aged",
+                 gang_aging_seconds: float = 300.0,
+                 gang_priority_classes: Optional[dict] = None,
+                 gang_queue_quotas: Optional[dict] = None,
+                 gang_preemption: bool = False,
                  enable_tenant_queues: bool = False,
+                 queue_config: Optional[str] = None,
                  enable_ckpt_coordination: bool = False,
                  enable_serving: bool = False,
                  enable_elastic: bool = False,
                  enable_serving_autoscaler: bool = False,
+                 autoscale_interval_seconds: float = 1.0,
+                 autoscale_signals=None,
+                 resize_signals=None,
                  enable_slice_health: bool = False,
+                 health_drain_grace_seconds: float = 0.0,
                  degraded_after_seconds: float = 10.0,
                  shard_index: Optional[int] = None,
                  shard_count: int = 1):
         from tf_operator_tpu_torch.runtime.retry import ControlPlaneHealth
 
-        flags = {"enable_gang_scheduling": enable_gang_scheduling,
-                 "enable_tenant_queues": enable_tenant_queues,
-                 "enable_ckpt_coordination": enable_ckpt_coordination,
-                 "enable_serving": enable_serving,
-                 "enable_elastic": enable_elastic,
-                 "enable_serving_autoscaler": enable_serving_autoscaler,
-                 "enable_slice_health": enable_slice_health}
-        for flag, on in flags.items():
-            if on:
-                raise NotImplementedError(
-                    f"{flag}: the GPU control plane has no such plane yet "
-                    f"(it comes with {UNPORTED_FLAGS[flag]})")
         self.store = store or Store()
         self.recorder = Recorder(sink=self._persist_event)
         # Degraded-mode tracker (runtime/retry.py, docs/robustness.md):
         # every subsystem's API writes report into it; past the
-        # threshold the controller keeps reconciling but stamps
-        # ControlPlaneDegraded on the jobs it syncs.
+        # threshold the controller keeps reconciling but defers NEW
+        # drains/reclaims/preemptions and stamps ControlPlaneDegraded
+        # on the jobs it syncs.
         self.cp_health = ControlPlaneHealth(
             threshold_seconds=degraded_after_seconds)
         config = config or EngineConfig()
-        # The gang, checkpoint and serving hooks stay None until their
-        # planes are ported.
+        gang = None
+        self.quota = None
+        self.ckpt = None
+        self.health = None
+        if enable_tenant_queues and not enable_gang_scheduling:
+            raise ValueError("tenant queues sit above gang admission: "
+                             "--enable-tenant-queues requires "
+                             "--enable-gang-scheduling")
+        if enable_slice_health and not enable_gang_scheduling:
+            raise ValueError("slice health drains whole gangs: "
+                             "--enable-slice-health requires "
+                             "--enable-gang-scheduling")
+        if enable_elastic and not enable_gang_scheduling:
+            raise ValueError("elastic resize is a gang-scheduler pass: "
+                             "--enable-elastic requires "
+                             "--enable-gang-scheduling")
+        if enable_serving_autoscaler and not (enable_serving
+                                              and enable_elastic):
+            raise ValueError("the serving autoscaler maps queue depth to "
+                             "elastic resizes: --enable-serving-autoscaler "
+                             "requires --enable-serving and "
+                             "--enable-elastic")
+        if enable_ckpt_coordination:
+            from tf_operator_tpu_torch.controller.ckpt import (
+                CheckpointCoordinator,
+            )
+
+            self.ckpt = CheckpointCoordinator(self.store,
+                                              recorder=self.recorder,
+                                              namespace=namespace)
+        self.serving = None
+        if enable_serving:
+            from tf_operator_tpu_torch.controller.serving import ServingManager
+
+            # Serving-plane wiring (controller/serving.py): renders
+            # ServingPolicy + tenant QoS lane weights into serving-role
+            # pods. Off = the serving role stays inert (flag-off parity).
+            self.serving = ServingManager(self.store,
+                                          recorder=self.recorder,
+                                          namespace=namespace)
+        self.autoscaler = None
+        if enable_gang_scheduling:
+            config.enable_gang_scheduling = True
+            if enable_tenant_queues:
+                from tf_operator_tpu_torch.controller.quota import (
+                    TenantQueueManager,
+                    load_queue_config,
+                    seed_queues,
+                )
+
+                self.quota = TenantQueueManager(self.store,
+                                                recorder=self.recorder)
+                if queue_config:
+                    seed_queues(self.store, *load_queue_config(queue_config))
+            if enable_serving_autoscaler:
+                from tf_operator_tpu_torch.controller.autoscaler import (
+                    ServingAutoscaler,
+                )
+
+                # Built before the gang so it can double as the resize-
+                # signal provider: resize records/events then carry the
+                # queue-depth/TTFT values the decision saw.
+                self.autoscaler = ServingAutoscaler(
+                    self.store, None, namespace=namespace,
+                    interval_seconds=autoscale_interval_seconds,
+                    signals=autoscale_signals)
+                if resize_signals is None:
+                    resize_signals = self.autoscaler.signals
+            gang = SliceGangScheduler(self.store, total_chips=total_chips,
+                                      fairness=gang_fairness,
+                                      aging_seconds=gang_aging_seconds,
+                                      priority_classes=gang_priority_classes,
+                                      queue_quotas=gang_queue_quotas,
+                                      preemption=gang_preemption,
+                                      quota=self.quota,
+                                      ckpt=self.ckpt,
+                                      cp_health=self.cp_health,
+                                      elastic=enable_elastic,
+                                      resize_signals=resize_signals,
+                                      recorder=self.recorder)
+            if self.autoscaler is not None:
+                self.autoscaler.gang = gang
         self.controller = GPUJobController(self.store, recorder=self.recorder,
-                                           config=config,
+                                           config=config, gang=gang,
                                            namespace=namespace,
+                                           ckpt=self.ckpt,
                                            cp_health=self.cp_health,
+                                           serving=self.serving,
                                            shard_index=shard_index,
                                            shard_count=shard_count)
+        if self.ckpt is not None and gang is not None:
+            # A barrier ack landing between resyncs must release the
+            # held eviction promptly: record writes poke admission.
+            self.ckpt.on_ack = gang.readmit
+        if enable_slice_health:
+            from tf_operator_tpu_torch.controller.health import (
+                SliceHealthController,
+            )
+
+            self.health = SliceHealthController(
+                self.store, gang=gang,
+                pod_control=self.controller.engine.pod_control,
+                recorder=self.recorder, namespace=namespace,
+                default_grace_seconds=health_drain_grace_seconds,
+                ckpt=self.ckpt, cp_health=self.cp_health)
         self.backend = (LocalProcessBackend(self.store)
                         if backend is _DEFAULT_BACKEND else backend)
+        if gang is not None and hasattr(self.backend,
+                                        "draining_gang_groups"):
+            # Close the preemption overlap window: chips of deleted
+            # pods stay counted until their processes exit, and drain
+            # completion re-runs admission immediately.
+            gang.draining_provider = self.backend.draining_gang_groups
+            self.backend.on_gang_drained = gang.readmit
 
     def start(self, threadiness: int = 2) -> None:
+        if self.ckpt is not None:
+            self.ckpt.start()
         if self.backend is not None:
             self.backend.start()
         self.controller.run(threadiness=threadiness)
+        if self.health is not None:
+            self.health.start()
+        if self.autoscaler is not None:
+            self.autoscaler.start()
         log.info("operator started (threadiness=%d)", threadiness)
 
     def _persist_event(self, ev) -> None:
@@ -131,9 +226,15 @@ class Operator:
             log.debug("event persist failed", exc_info=True)
 
     def stop(self, stop_store_watchers: bool = True) -> None:
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        if self.health is not None:
+            self.health.stop()
         self.controller.stop()
         if self.backend is not None:
             self.backend.stop()
+        if self.ckpt is not None:
+            self.ckpt.stop()
         # A sharded replica tears down per-shard operators on lease loss
         # without killing the shared store's other watchers.
         if stop_store_watchers:
@@ -161,9 +262,10 @@ class ShardedOperator:
     """N-leader control plane: one Lease per shard
     (``tpu-operator-shard-<i>``), jobs hashed to shards by
     ``(namespace, uid)``. Each held shard runs a FULL engine —
-    workqueue and expectations — over only its own jobs; the store's
-    CAS semantics keep them consistent, so no cross-shard lock is
-    needed.
+    workqueue, expectations, gang/quota/ckpt plugins — over only its
+    own jobs; chip-budget and quota stay globally consistent through
+    the store's CAS semantics and the admission plan ledger, so no
+    cross-shard lock is needed.
 
     One data-plane backend is shared by every shard of this replica.
     Per-shard :class:`Operator` instances (``backend=None``) are built
@@ -205,6 +307,9 @@ class ShardedOperator:
             retry_period=retry_period,
             on_shard_acquired=self._on_shard_acquired,
             on_shard_lost=self._on_shard_lost)
+        if self.backend is not None and hasattr(self.backend,
+                                                "on_gang_drained"):
+            self.backend.on_gang_drained = self._readmit_all
 
     # -- shard lifecycle -------------------------------------------------
 
@@ -216,6 +321,10 @@ class ShardedOperator:
                           namespace=self.namespace,
                           shard_index=index, shard_count=self.shards,
                           **self._operator_kwargs)
+            gang = op.controller.engine.gang
+            if gang is not None and hasattr(self.backend,
+                                            "draining_gang_groups"):
+                gang.draining_provider = self.backend.draining_gang_groups
             self._shard_ops[index] = op
             started = self._started
         if started:
@@ -228,6 +337,17 @@ class ShardedOperator:
         if op is not None:
             op.stop(stop_store_watchers=False)
         log.info("shard %d lost by %s", index, self.shard_map.identity)
+
+    def _readmit_all(self) -> None:
+        with self._lock:
+            ops = list(self._shard_ops.values())
+        for op in ops:
+            gang = op.controller.engine.gang
+            if gang is not None:
+                try:
+                    gang.readmit()
+                except Exception:
+                    log.debug("shard readmit failed", exc_info=True)
 
     # -- operator surface ------------------------------------------------
 

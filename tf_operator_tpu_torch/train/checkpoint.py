@@ -39,7 +39,9 @@ plane mirrors into this pod's ``CheckpointRecord``. All file I/O is
 env-configured (``TPUJOB_PREEMPT_FILE`` / ``TPUJOB_CKPT_FILE`` /
 ``TPUJOB_CKPT_*`` / ``TPUJOB_RESTORE_STEP``), so a training script needs
 exactly two calls: ``CheckpointHook.from_env`` at startup and
-``hook.after_step(step, state)`` in the loop.
+``hook.after_step(step, state)`` in the loop. torch loads when the first
+``Checkpointer`` is made, so a process that only runs the hook over
+another checkpointer (the control plane's worker stub) never imports it.
 """
 
 from __future__ import annotations
@@ -54,11 +56,17 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-import torch
-import torch.distributed as dist
-import torch.distributed.checkpoint as dcp
-
 log = logging.getLogger("tpu_operator.checkpoint")
+
+
+def __getattr__(name):
+    # ``dcp`` stays reachable as a module attribute (tests wrap its
+    # ``async_save``) without importing torch when the module loads.
+    if name == "dcp":
+        import torch.distributed.checkpoint as dcp
+
+        return dcp
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 _TMP_SUFFIX = ".tmp"
 
@@ -81,6 +89,8 @@ class Checkpointer:
         self.directory = directory
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        import torch.distributed as dist
+
         # Collective: every rank of a process group makes its Checkpointer.
         self._group = (dist.new_group(backend="gloo")
                        if dist.is_initialized() else None)
@@ -110,6 +120,8 @@ class Checkpointer:
 
     def _barrier(self) -> None:
         if self._group is not None:
+            import torch.distributed as dist
+
             dist.barrier(group=self._group)
 
     def _group_kwargs(self) -> Dict[str, Any]:
@@ -124,6 +136,9 @@ class Checkpointer:
         """Async save; returns whether a save was started. Returns once
         the state has been copied to host memory (the write goes on in
         the background; ``wait()`` for it)."""
+        import torch
+        import torch.distributed.checkpoint as dcp
+
         if not force and not self._due(step):
             return False
         self.wait()     # one save in flight at a time, as orbax
@@ -151,6 +166,9 @@ class Checkpointer:
         else:
             # Every rank's shards are written, or every rank raises (a
             # rank whose write failed must not leave the others waiting).
+            import torch
+            import torch.distributed as dist
+
             error = None
             try:
                 written.result()
@@ -184,6 +202,8 @@ class Checkpointer:
         JAX package's ``abstract_state_with_shardings``: allocated in its
         layout with nothing drawn, and steppable once loaded here; a state
         from ``init()`` also works, at the cost of its draws."""
+        import torch.distributed.checkpoint as dcp
+
         self.wait()
         if step is None:
             step = self.latest_step()
