@@ -363,6 +363,25 @@ no flash kernel, as the JAX decode path runs none):
            from the notice to the ack and to the rebound pod's first
            response, the drain_rebind_seconds observation, responses
            before and after the ack, the card's name and power limit.
+20. served the served plane as three processes: the port's operator
+           (python -m tf_operator_tpu_torch --backend none --api-port ...,
+           bearer tokens, and TLS from a self-signed bootstrap where the
+           cryptography package imports; one line says which), a node
+           agent (python -m tf_operator_tpu_torch.runtime.agent --chips 1)
+           and this script as the SDK user (TPUJobClient.connect with the
+           admin token). served-smoke: 2 workers of train.gpu_smoke at
+           h100-1; both pods on the agent's node with nvidia.com/gpu "1",
+           each printed env with MASTER_ADDR the agent's address and
+           MASTER_PORT rank 0's published coordinator port, both logs read
+           through the API server's log proxy naming the card.
+           served-gloo: 2 workers of train.dist_mnist --device cpu --steps
+           2 (NCCL cannot put two ranks on one card), a gloo rendezvous at
+           the resolved address: "distributed: 2 processes" and "done:".
+           Then no token gets 401 and a create with the read-only token
+           403. Lines: seconds from creation to AllReplicasReady and to
+           completion of each job, from the operator's start to /healthz
+           and from the agent's start to its Node, the card's name and
+           power limit.
 
 Then the whole script's seconds, a {"kernels": [...]} summary line (one
 entry a launch key: the wgmma D=128 kernels' numbers from the training
@@ -390,6 +409,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -4575,6 +4595,200 @@ def phase_operator_planes(root: str):
         op.stop()
 
 
+SERVED_AGENT = "served-agent"
+SERVED_ADMIN_TOKEN = "served-admin"
+SERVED_READ_TOKEN = "served-read"
+SERVED_START_S = 60         # deadline of the operator's and agent's start
+
+
+def served_job_line(client, name: str, card: str, tls: bool) -> dict:
+    """Wait for ``name`` over the served API and emit its line; return
+    its pod logs, read through the API server's log proxy."""
+    from tf_operator_tpu_torch.controller import conditions as cond
+
+    done = client.wait_for_job(name, timeout=OPERATOR_TIMEOUT_S)
+    logs = client.get_job_logs(name)
+    status, created = done.status, done.metadata.creation_timestamp
+    since = lambda t: None if t is None else (t - created).total_seconds()
+    emit({"phase": "served", "job": name, "tls": tls, "nvidia_smi": card,
+          "seconds_to_all_replicas_ready": since(
+              status.all_replicas_ready_time),
+          "seconds_to_completion": since(status.completion_time),
+          "log_tails": {pod: log.splitlines()[-OPERATOR_LOG_LINES:]
+                        for pod, log in sorted(logs.items())}})
+    if not cond.is_succeeded(status):
+        raise AssertionError(
+            f"served job {name} did not succeed: "
+            f"{[(c.type, c.status, c.message) for c in status.conditions]}"
+            f" {logs}")
+    return logs
+
+
+def check_served_smoke(client, logs, device_name: str) -> None:
+    """served-smoke's pods: on the agent's node with one GPU each, the
+    rendezvous resolved to rank 0's published placement, the card's
+    matmul in both logs."""
+    from tf_operator_tpu_torch.api import constants
+
+    pods = {p.metadata.name: p for p in client.get_pods("served-smoke")}
+    rank0 = pods.get("served-smoke-worker-0")
+    port = rank0.status.ports.get("coordinator") if rank0 else None
+    envs = {pod: bootstrap_env(log) for pod, log in logs.items()}
+    if (len(pods) != 2 or port is None or sorted(envs) != sorted(pods)
+            or any(p.spec.node_name != SERVED_AGENT
+                   or p.spec.containers[0].resources.get(
+                       constants.RESOURCE_GPU) != "1"
+                   for p in pods.values())
+            or any((e.get("MASTER_ADDR"), e.get("MASTER_PORT"))
+                   != ("127.0.0.1", str(port)) for e in envs.values())
+            or sorted(e.get("RANK") for e in envs.values()) != ["0", "1"]
+            or not all(f"({device_name}): matmul sum" in log
+                       and "smoke OK on 1 device(s)" in log
+                       for log in logs.values())):
+        raise AssertionError(
+            f"served-smoke: pods {[p.to_dict() for p in pods.values()]}, "
+            f"env {envs}, logs {logs}")
+
+
+def check_served_auth(url: str, ca_file) -> dict:
+    """No token: 401 on a list; the read-only token: a list, then 403
+    on a create."""
+    from tf_operator_tpu_torch import testutil
+    from tf_operator_tpu_torch.runtime import store as store_mod
+    from tf_operator_tpu_torch.runtime.remote import RemoteStore
+
+    codes = {}
+    for who, token, call in (
+            ("anonymous list", None,
+             lambda r: r.list(store_mod.TPUJOBS)),
+            ("read-only create", SERVED_READ_TOKEN,
+             lambda r: r.create(store_mod.TPUJOBS, testutil.new_tpujob(
+                 worker=1, name="served-ro")))):
+        remote = RemoteStore(url, token=token, ca_file=ca_file)
+        try:
+            call(remote)
+            codes[who] = 200
+        except RuntimeError as err:
+            codes[who] = int(str(err).split()[2].rstrip(":"))
+    RemoteStore(url, token=SERVED_READ_TOKEN, ca_file=ca_file).list(
+        store_mod.TPUJOBS)
+    if codes != {"anonymous list": 401, "read-only create": 403}:
+        raise AssertionError(f"served auth: {codes}")
+    return codes
+
+
+def phase_served(root: str):
+    """The port's operator, a node agent and this script as the SDK
+    user, three processes (module docstring, phase 20)."""
+    from tf_operator_tpu_torch.runtime import store as store_mod
+    from tf_operator_tpu_torch.runtime.apiserver import wait_for_server
+    from tf_operator_tpu_torch.sdk import TPUJobClient
+
+    card = nvidia_smi()
+    work = os.path.join(root, "served")
+    os.makedirs(work)
+    tokens = os.path.join(work, "tokens")
+    with open(tokens, "w") as f:
+        f.write(f"{SERVED_ADMIN_TOKEN} admin\n{SERVED_READ_TOKEN} "
+                "read-only\n")
+    try:
+        import cryptography  # noqa: F401
+        tls = True
+    except ImportError:
+        tls = False
+    emit({"phase": "served", "tls": tls,
+          "transport": "https (self-signed bootstrap)" if tls else
+          "http: the cryptography package does not import here"})
+    port = _free_ports(1)[0]
+    url = f"{'https' if tls else 'http'}://127.0.0.1:{port}"
+    ca_file = os.path.join(work, "tls", "cert.pem") if tls else None
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    procs = []
+
+    def start(name, argv):
+        log = open(os.path.join(work, f"{name}.log"), "wb")
+        procs.append((name, subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=REPO, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log))
+
+    def log_tail(name) -> str:
+        with open(os.path.join(work, f"{name}.log"), "rb") as f:
+            return f.read()[-4000:].decode(errors="replace")
+
+    try:
+        started = time.perf_counter()
+        start("operator", [
+            "tf_operator_tpu_torch", "--backend", "none", "--api-port",
+            str(port), "--api-tokens-file", tokens, "--no-leader-elect",
+            "--monitoring-port", "0", "--resync-period", "2"]
+            + (["--api-self-signed-tls-dir", os.path.join(work, "tls")]
+               if tls else []))
+        try:
+            wait_for_server(url, timeout=SERVED_START_S, ca_file=ca_file)
+        except TimeoutError as err:
+            raise AssertionError(f"served operator: {err}\n"
+                                 f"{log_tail('operator')}")
+        healthz_s = time.perf_counter() - started
+        started = time.perf_counter()
+        start("agent", [
+            "tf_operator_tpu_torch.runtime.agent", "--server", url,
+            "--name", SERVED_AGENT, "--chips", "1", "--address",
+            "127.0.0.1", "--workdir", REPO, "--token-file", tokens]
+            + (["--ca-cert", ca_file] if tls else []))
+        client = TPUJobClient.connect(url, token=SERVED_ADMIN_TOKEN,
+                                      ca_file=ca_file)
+        try:
+            wait_until(lambda: client.store.try_get(
+                store_mod.NODES, "default", SERVED_AGENT) is not None,
+                "the agent's Node", SERVED_START_S)
+        except AssertionError as err:
+            raise AssertionError(f"{err}\n{log_tail('agent')}")
+        node_s = time.perf_counter() - started
+        node = client.store.get(store_mod.NODES, "default", SERVED_AGENT)
+        emit({"phase": "served", "tls": tls,
+              "seconds_to_healthz": healthz_s,
+              "seconds_to_node": node_s, "node_chips": node.spec.chips,
+              "nvidia_smi": card})
+        if node.spec.chips != 1:
+            raise AssertionError(f"served node: {node.to_dict()}")
+
+        client.create(operator_job(
+            "served-smoke", [sys.executable, "-m",
+                             "tf_operator_tpu_torch.train.gpu_smoke"],
+            replicas=2))
+        logs = served_job_line(client, "served-smoke", card, tls)
+        check_served_smoke(client, logs, torch.cuda.get_device_name(0))
+
+        gloo = operator_job(
+            "served-gloo", [sys.executable, "-m",
+                            "tf_operator_tpu_torch.train.dist_mnist",
+                            "--device", "cpu", "--steps", "2"],
+            replicas=2, accelerator="")
+        spec = gloo.spec.replica_specs["worker"].template.spec
+        spec.containers[0].env["TPUJOB_JAX_DISTRIBUTED"] = "1"
+        client.create(gloo)
+        logs = served_job_line(client, "served-gloo", card, tls)
+        if ("distributed: 2 processes" not in logs["served-gloo-worker-0"]
+                or not all("done:" in log for log in logs.values())
+                or len(logs) != 2):
+            raise AssertionError(f"served-gloo: {logs}")
+        emit({"phase": "served", "tls": tls,
+              "auth": check_served_auth(url, ca_file)})
+    finally:
+        for name, proc, log in reversed(procs):
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.close()
+            if proc.returncode not in (0, -signal.SIGTERM):
+                print(f"served {name} exited {proc.returncode}:\n"
+                      f"{log_tail(name)}", file=sys.stderr)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4632,6 +4846,7 @@ def main() -> int:
         phase_ps(root)
         phase_operator(root)
         phase_operator_planes(root)
+        phase_served(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

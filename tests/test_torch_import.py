@@ -52,7 +52,7 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 82, proc.stdout
+    assert count >= 91, proc.stdout
     for module in ("parallel.distributed", "parallel.mesh",
                    "parallel.sharding", "models.mixtral", "serve.gateway",
                    "train.train_mixtral", "ops.ring_attention",
@@ -64,8 +64,58 @@ def test_port_imports_without_jax():
                    "controller.gang", "controller.binder",
                    "controller.health", "controller.ckpt",
                    "controller.quota", "controller.serving",
-                   "controller.autoscaler", "runtime.worker_stub"):
+                   "controller.autoscaler", "runtime.worker_stub",
+                   "version", "runtime.logconfig", "runtime.tlsutil",
+                   "runtime.apiserver", "runtime.remote", "runtime.agent",
+                   "runtime.monitoring", "cli", "__main__"):
         assert f"tf_operator_tpu_torch.{module}" in proc.stdout.split()
+
+
+_NO_TORCH = textwrap.dedent("""
+    import runpy, sys
+
+    BLOCKED = ("torch", "jax", "flax", "optax", "orbax", "tf_operator_tpu")
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    if sys.argv[1] == "version":
+        sys.argv[1:] = ["--version"]
+        runpy.run_module("tf_operator_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    import tf_operator_tpu_torch.runtime.agent as agent
+    import tf_operator_tpu_torch.cli
+    import tf_operator_tpu_torch.runtime.monitoring
+    import tf_operator_tpu_torch.sdk.client
+    try:
+        agent.main(["--help"])
+    except SystemExit as exit:
+        assert exit.code == 0
+    print("imported without torch")
+""")
+
+
+@pytest.mark.parametrize("what", ["version", "agent"])
+def test_served_processes_start_without_torch(what):
+    """``python -m tf_operator_tpu_torch --version`` and the node agent's
+    modules (API server, remote store, command line, monitoring, SDK
+    client) load with torch, JAX and the JAX package blocked: the served
+    control plane never pays for a torch import."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_TORCH, what], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=60)
+    if what == "version":
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.startswith("tpu-operator-torch v"), proc.stdout
+    else:
+        assert proc.returncode == 0, proc.stderr
+        assert "--chips" in proc.stdout
+        assert proc.stdout.endswith("imported without torch\n")
 
 
 def test_blocker_matches_exact_package_name():

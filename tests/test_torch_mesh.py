@@ -189,21 +189,35 @@ def test_make_mesh_without_a_group_makes_a_world_of_one():
 
 
 def test_flash_attention_refuses_dtensors():
+    """The outputs are compared bit for bit, so the test fixes what else
+    could move them in a process that ran other tests first: the inputs
+    come from its own generator (the global one's state depends on what
+    ran before), both calls run on one intra-op thread (how the plain
+    version's CPU reductions split depends on the thread count, which a
+    loaded host or an earlier test can change), and the world of one is
+    its own."""
     from torch.distributed.tensor import DTensor, Replicate
 
     from tf_operator_tpu_torch.ops import flash_attention as tfa
 
-    q = torch.randn(1, 64, 2, 128)
-    with tdist.process_group_scope():
-        mesh = tmesh.make_mesh(device="cpu")
-        dq = DTensor.from_local(q, mesh, [Replicate()] * mesh.ndim)
-        with pytest.raises(TypeError, match="local tensors"):
-            tfa.flash_attention(dq, dq, dq)
-        # Through the sharded entry the kernel sees local shards.
-        out = tfa.flash_attention_sharded(q, q, q, mesh)
-        torch.testing.assert_close(out.full_tensor(),
-                                   tfa.flash_attention(q, q, q),
-                                   rtol=0, atol=0)
+    assert not dist.is_initialized()
+    q = torch.randn(1, 64, 2, 128,
+                    generator=torch.Generator().manual_seed(0))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with tdist.process_group_scope():
+            mesh = tmesh.make_mesh(device="cpu")
+            dq = DTensor.from_local(q, mesh, [Replicate()] * mesh.ndim)
+            with pytest.raises(TypeError, match="local tensors"):
+                tfa.flash_attention(dq, dq, dq)
+            # Through the sharded entry the kernel sees local shards.
+            out = tfa.flash_attention_sharded(q, q, q, mesh)
+            torch.testing.assert_close(out.full_tensor(),
+                                       tfa.flash_attention(q, q, q),
+                                       rtol=0, atol=0)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_world_of_one_sharded_trainer_matches_unsharded():

@@ -1,5 +1,6 @@
 """TPUJobClient: the user-facing job API (port of
-tf_operator_tpu/sdk/client.py, the in-process transport only).
+tf_operator_tpu/sdk/client.py: in-process or over the served API; not yet
+straight against Kubernetes).
 
 Reference parity: sdk/python/kubeflow/tfjob/api/tf_job_client.py:55-446 —
 create/get/patch/delete, wait_for_job/wait_for_condition, status
@@ -35,22 +36,37 @@ class TPUJobClient:
                 token: Optional[str] = None,
                 ca_file: Optional[str] = None,
                 insecure_skip_verify: bool = False) -> "TPUJobClient":
-        """Client against a served control plane: not in the port yet
-        (it comes with the served plane, the API server and its remote
-        store)."""
-        raise NotImplementedError(
-            "TPUJobClient.connect: the GPU control plane has no served "
-            "plane yet; use TPUJobClient(operator.store) in-process")
+        """Client against a served control plane (reference: TFJobClient
+        building a kubernetes client from kubeconfig and talking HTTPS,
+        tf_job_client.py:55-100). Works from any process or host:
+
+            client = TPUJobClient.connect(
+                "https://operator-host:8080",
+                token="...", ca_file="/etc/tpu-operator/ca.pem")
+
+        ``token`` is the bearer credential the server's token file
+        grants (admin or read-only); ``ca_file`` verifies a self-signed
+        server certificate. Defaults to $TPU_OPERATOR_TOKEN when unset.
+        """
+        import os
+
+        from tf_operator_tpu_torch.runtime.remote import RemoteStore
+
+        token = token or os.environ.get("TPU_OPERATOR_TOKEN") or None
+        return cls(RemoteStore(server_url, token=token, ca_file=ca_file,
+                               insecure_skip_verify=insecure_skip_verify),
+                   namespace=namespace)
 
     @classmethod
     def connect_kube(cls, kubeconfig: Optional[str] = None,
                      namespace: Optional[str] = None) -> "TPUJobClient":
         """Client directly against a Kubernetes cluster: not in the port
-        yet (it comes with the Kubernetes backend)."""
+        yet (it comes with the Kubernetes backend, ROADMAP A.3 (f))."""
         raise NotImplementedError(
             "TPUJobClient.connect_kube: the GPU control plane has no "
-            "Kubernetes backend yet; use TPUJobClient(operator.store) "
-            "in-process")
+            "Kubernetes backend yet (ROADMAP A.3 (f)); use "
+            "TPUJobClient.connect(server_url) against a served operator, "
+            "or TPUJobClient(operator.store) in-process")
 
     # -- CRUD (reference tf_job_client.py:77-222) -----------------------
 
