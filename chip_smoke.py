@@ -329,11 +329,15 @@ no flash kernel, as the JAX decode path runs none):
 18. operator  the port's own control plane (Operator.local, the GPU
            controller and the local pod backend) runs three TPUJobs on the
            card, each with spec.slice.accelerator h100-1, one after the
-           other, each waited for by TPUJobClient: gpu-smoke (2 workers of
-           train.gpu_smoke sharing the card: each pod stamped
-           nvidia.com/gpu "1" and its toleration, both logs with
-           WORLD_SIZE=2, MASTER_ADDR=127.0.0.1 and one MASTER_PORT, ranks 0
-           and 1, no JAX_/TPU_/MEGASCALE_ key, the card's name), gpu-resnet
+           other, each waited for by TPUJobClient until all its workers
+           succeeded, the backend handing each pod its own of the
+           machine's cards (CUDA_VISIBLE_DEVICES's, else 0..count-1):
+           gpu-smoke (2 workers of train.gpu_smoke taking the one card in
+           turn: each pod stamped nvidia.com/gpu "1" and its toleration,
+           both logs with WORLD_SIZE=2, LOCAL_WORLD_SIZE=1,
+           CUDA_VISIBLE_DEVICES the card, MASTER_ADDR=127.0.0.1 and one
+           MASTER_PORT, ranks 0 and 1, no JAX_/TPU_/MEGASCALE_ key, the
+           card's name; a line of each pod's env), gpu-resnet
            (the resnet_payload command as 1 worker: "resnet training OK")
            and gpu-mnist-resume (train.dist_mnist crashing at step 3 under
            the ExitCode restart policy: one restart, the new pod resumes
@@ -370,7 +374,8 @@ no flash kernel, as the JAX decode path runs none):
            agent (python -m tf_operator_tpu_torch.runtime.agent --chips 1)
            and this script as the SDK user (TPUJobClient.connect with the
            admin token). served-smoke: 2 workers of train.gpu_smoke at
-           h100-1; both pods on the agent's node with nvidia.com/gpu "1",
+           h100-1, run in turn on the agent's one card; both pods on the
+           agent's node with nvidia.com/gpu "1",
            each printed env with MASTER_ADDR the agent's address and
            MASTER_PORT rank 0's published coordinator port, both logs read
            through the API server's log proxy naming the card.
@@ -382,6 +387,30 @@ no flash kernel, as the JAX decode path runs none):
            completion of each job, from the operator's start to /healthz
            and from the agent's start to its Node, the card's name and
            power limit.
+21. kube   the Kubernetes plane: the port's fake API server
+           (runtime/kube_fake.py, the port's ClusterRole enforced) with one
+           node of allocatable nvidia.com/gpu 1 and an NVLink-domain
+           label; the port's node agent (python -m
+           tf_operator_tpu_torch.runtime.nodeagent) and operator (python
+           -m tf_operator_tpu_torch --backend kube, gang scheduling with
+           its slice-gang binder, checkpoint coordination, the agent's
+           relay directory) as processes, both from a kubeconfig; this
+           script creates kube-smoke (2 workers of train.gpu_smoke at
+           h100-1 under a checkpoint policy) as a CR through
+           TPUJobClient.connect_kube and plays the node's kubelet
+           (FakeKubelet): each pod the binder binds runs as a subprocess
+           of its container's command and rendered env with
+           CUDA_VISIBLE_DEVICES the node's card, one pod at a time, its
+           phase and log fed back through set_pod_phase / set_pod_log. A
+           preemption notice stamped on the first running pod must reach
+           its TPUJOB_PREEMPT_FILE through the agent. Checks: the job
+           Succeeded, both pods on the node with nvidia.com/gpu "1",
+           ranks 0 and 1 with LOCAL_WORLD_SIZE 1 and the node's card,
+           both logs naming the card, the notice relayed, the node's
+           heartbeat younger than 5 periods. One line: seconds from the
+           CR's creation to AllReplicasReady and to Succeeded, from the
+           agent's start to its first heartbeat, from the stamp to the
+           notice file, the card's name and power limit.
 
 Then the whole script's seconds, a {"kernels": [...]} summary line (one
 entry a launch key: the wgmma D=128 kernels' numbers from the training
@@ -401,6 +430,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import functools
 import gc
 import itertools
@@ -4172,7 +4202,8 @@ def operator_job(name: str, command, replicas: int = 1,
                  accelerator: str = "h100-1"):
     """A TPUJob of ``replicas`` ``rtype`` replicas running ``command`` on
     ``accelerator`` (one H100), its pods kept after the end
-    (clean_pod_policy None) with their logs."""
+    (clean_pod_policy None) with their logs, succeeded once all of its
+    workers have."""
     from tf_operator_tpu_torch.api import constants
     from tf_operator_tpu_torch.api.types import (
         Container,
@@ -4192,6 +4223,9 @@ def operator_job(name: str, command, replicas: int = 1,
                  spec=TPUJobSpec(replica_specs={rtype: spec}))
     job.spec.slice.accelerator = accelerator
     job.spec.run_policy.clean_pod_policy = "None"
+    # Done when every worker is: pods holding the one card in turn run
+    # one after the other.
+    job.spec.success_policy = "AllWorkers"
     return job
 
 
@@ -4234,10 +4268,13 @@ def run_operator_job(op, client, job, card: str):
     return logs, restarts
 
 
-def check_smoke_pods(client, logs, device_name: str) -> None:
+def check_smoke_pods(client, logs, device_name: str, cards=None) -> None:
     """gpu-smoke's pods: stamped with one GPU and its toleration, the
-    torch env of a 2-process world at one loopback rendezvous, no key of
-    the TPU contract, and a matmul on the card named ``device_name``."""
+    torch env of a 2-process world at one loopback rendezvous, one
+    process a pod (``LOCAL_WORLD_SIZE`` 1), no key of the TPU contract,
+    and a matmul on the card named ``device_name``; where ``cards`` names
+    the backend's cards, each pod saw one of them alone as
+    ``CUDA_VISIBLE_DEVICES``."""
     from tf_operator_tpu_torch.api import constants
 
     envs = {pod: bootstrap_env(log) for pod, log in logs.items()}
@@ -4253,6 +4290,10 @@ def check_smoke_pods(client, logs, device_name: str) -> None:
     if (len(pods) != 2 or not all(stamped) or leaked
             or sorted(e.get("RANK") for e in envs.values()) != ["0", "1"]
             or {e.get("WORLD_SIZE") for e in envs.values()} != {"2"}
+            or {e.get("LOCAL_WORLD_SIZE") for e in envs.values()} != {"1"}
+            or (cards is not None and not all(
+                e.get("CUDA_VISIBLE_DEVICES") in cards
+                for e in envs.values()))
             or {e.get("MASTER_ADDR") for e in envs.values()} != {"127.0.0.1"}
             or len({e.get("MASTER_PORT") for e in envs.values()}) != 1
             or not all(f"({device_name}): matmul sum" in log
@@ -4269,7 +4310,10 @@ def phase_operator(root: str):
     from tf_operator_tpu_torch.sdk import TPUJobClient
 
     card = nvidia_smi()
-    op = Operator.local(workdir=REPO)
+    # The backend hands each pod its own of this machine's cards
+    # (runtime/local.py CardInventory): CUDA_VISIBLE_DEVICES's, else
+    # 0..count-1.
+    op = Operator.local(workdir=REPO, chips=torch.cuda.device_count())
     op.start(threadiness=2)
     try:
         client = TPUJobClient(op.store)
@@ -4277,7 +4321,14 @@ def phase_operator(root: str):
             "gpu-smoke", [sys.executable, "-m",
                           "tf_operator_tpu_torch.train.gpu_smoke"],
             replicas=2), card)
-        check_smoke_pods(client, logs, torch.cuda.get_device_name(0))
+        cards = op.backend.cards.cards
+        emit({"phase": "operator", "job": "gpu-smoke", "cards": cards,
+              "pod_env": {pod: {k: v for k, v in bootstrap_env(log).items()
+                                if k in ("CUDA_VISIBLE_DEVICES", "RANK",
+                                         "LOCAL_WORLD_SIZE", "WORLD_SIZE")}
+                          for pod, log in sorted(logs.items())}})
+        check_smoke_pods(client, logs, torch.cuda.get_device_name(0),
+                         cards=cards)
 
         logs, _ = run_operator_job(op, client, operator_job(
             "gpu-resnet", [sys.executable, "-m",
@@ -4789,6 +4840,263 @@ def phase_served(root: str):
                       f"{log_tail(name)}", file=sys.stderr)
 
 
+KUBE_NODE = "kube-gpu-node"
+KUBE_START_S = 60           # deadline of the operator's and agent's start
+KUBE_HEARTBEAT_S = 1.0      # the node agent's heartbeat period
+KUBE_NOTICE = json.dumps({"barrier": "chip-smoke-kube",
+                          "reason": "ScheduledMaintenance"}, sort_keys=True)
+KUBECONFIG = """\
+apiVersion: v1
+kind: Config
+current-context: chip-smoke
+contexts:
+  - name: chip-smoke
+    context: {{cluster: fake, user: operator}}
+clusters:
+  - name: fake
+    cluster: {{server: "{server}"}}
+users:
+  - name: operator
+    user: {{}}
+"""
+
+
+class FakeKubelet:
+    """This script as the kubelet of one node of the port's fake API
+    server with one card: each pod the binder bound to the node runs as
+    a subprocess of its container's command and rendered env, with
+    ``CUDA_VISIBLE_DEVICES`` the node's card, once no other pod holds the
+    card; its phase and log go back through the fake's ``set_pod_phase``
+    and ``set_pod_log``."""
+
+    def __init__(self, fake, node: str, card: str, work: str):
+        self.fake, self.node, self.card, self.work = fake, node, card, work
+        self.procs = {}      # pod name -> (Popen, log path)
+        self.done = {}       # pod name -> exit code
+        self.envs = {}       # pod name -> the env it ran with
+        self.started = {}    # pod name -> time.time() at start
+
+    def tick(self) -> None:
+        for name, (proc, log_path) in list(self.procs.items()):
+            if proc.poll() is None:
+                continue
+            del self.procs[name]
+            self.done[name] = proc.returncode
+            with open(log_path, errors="replace") as f:
+                self.fake.state.set_pod_log("default", name, f.read())
+            self.fake.state.set_pod_phase(
+                "default", name,
+                "Succeeded" if proc.returncode == 0 else "Failed",
+                exit_code=proc.returncode)
+        for raw in self.fake.state.list("pods", "default", "")["items"]:
+            name = raw["metadata"]["name"]
+            if (raw["spec"].get("nodeName") != self.node
+                    or name in self.procs or name in self.done
+                    or (raw.get("status") or {}).get("phase") not in (
+                        None, "", "Pending")
+                    or self.procs):     # the one card is held
+                continue
+            container = raw["spec"]["containers"][0]
+            env = {e["name"]: e.get("value", "")
+                   for e in container.get("env") or []}
+            env.update(PATH=os.environ.get("PATH", "/usr/bin:/bin"),
+                       PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=self.card)
+            for var in ("HOME", "LANG"):
+                if var in os.environ:
+                    env[var] = os.environ[var]
+            log_path = os.path.join(self.work, f"{name}.log")
+            with open(log_path, "wb") as log:
+                proc = subprocess.Popen(
+                    list(container.get("command") or [])
+                    + list(container.get("args") or []),
+                    cwd=container.get("workingDir") or REPO, env=env,
+                    stdout=log, stderr=subprocess.STDOUT)
+            self.procs[name], self.envs[name] = (proc, log_path), env
+            self.started[name] = time.time()
+            self.fake.state.set_pod_phase("default", name, "Running")
+
+    def stop(self) -> None:
+        for proc, _ in self.procs.values():
+            proc.kill()
+            proc.wait()
+
+
+def kube_job(name: str, work: str):
+    """gpu-smoke as 2 workers at h100-1 under a checkpoint policy (which
+    wires its pods to the node agent's relay directory)."""
+    from tf_operator_tpu_torch.api.types import CheckpointPolicy
+
+    job = operator_job(name, [sys.executable, "-m",
+                              "tf_operator_tpu_torch.train.gpu_smoke"],
+                       replicas=2)
+    job.metadata.namespace = "default"
+    job.spec.run_policy.checkpoint_policy = CheckpointPolicy(
+        enabled=True, directory=os.path.join(work, "ckpt"),
+        interval_steps=100000)
+    return job
+
+
+def phase_kube(root: str):
+    """The Kubernetes plane (module docstring, phase 21): the port's
+    operator on --backend kube and its node agent as processes against
+    the port's fake API server, a TPUJob CR from connect_kube, this
+    script as the node's kubelet."""
+    from tf_operator_tpu_torch.api import constants
+    from tf_operator_tpu_torch.controller import conditions as cond
+    from tf_operator_tpu_torch.runtime.kube_fake import FakeKubeApiServer
+    from tf_operator_tpu_torch.sdk import TPUJobClient
+
+    card = nvidia_smi()
+    device_name = torch.cuda.get_device_name(0)
+    visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES",
+                                         "").split(",") if c.strip()]
+    node_card = visible[0] if visible else "0"
+    work = os.path.join(root, "kube")
+    relay = os.path.join(work, "relay")
+    os.makedirs(relay)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    procs = []
+
+    def start(name, argv):
+        log = open(os.path.join(work, f"{name}.log"), "wb")
+        procs.append((name, subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=REPO, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log))
+
+    def log_tail(name) -> str:
+        with open(os.path.join(work, f"{name}.log"), "rb") as f:
+            return f.read()[-4000:].decode(errors="replace")
+
+    def heartbeat():
+        node = fake.state.get("nodes", "", KUBE_NODE)
+        return (node["metadata"].get("annotations") or {}).get(
+            constants.ANNOTATION_AGENT_HEARTBEAT)
+
+    fake = FakeKubeApiServer().start()
+    kubelet = FakeKubelet(fake, KUBE_NODE, node_card, work)
+    try:
+        fake.state.add_node(KUBE_NODE, chips=1, nvlink_domain="chip-smoke")
+        kubeconfig = os.path.join(work, "kubeconfig")
+        with open(kubeconfig, "w") as f:
+            f.write(KUBECONFIG.format(server=fake.url))
+        started = time.perf_counter()
+        start("agent", [
+            "tf_operator_tpu_torch.runtime.nodeagent", "--node", KUBE_NODE,
+            "--relay-dir", relay, "--kubeconfig", kubeconfig,
+            "--heartbeat-seconds", str(KUBE_HEARTBEAT_S),
+            "--ckpt-poll-seconds", "0.2"])
+        try:
+            wait_until(lambda: heartbeat() is not None,
+                       "the agent's first heartbeat", KUBE_START_S)
+        except AssertionError as err:
+            raise AssertionError(f"{err}\n{log_tail('agent')}")
+        heartbeat_s = time.perf_counter() - started
+        start("operator", [
+            "tf_operator_tpu_torch", "--backend", "kube", "--kubeconfig",
+            kubeconfig, "--enable-gang-scheduling",
+            "--enable-ckpt-coordination", "--agent-relay-dir", relay,
+            "--no-leader-elect", "--monitoring-port", "0",
+            "--resync-period", "2"])
+        client = TPUJobClient.connect_kube(kubeconfig)
+        name = "kube-smoke"
+        client.create(kube_job(name, work))
+        notice_s = notice_stamped = None
+        deadline = time.monotonic() + OPERATOR_TIMEOUT_S
+        while True:
+            kubelet.tick()
+            job = client.get(name)
+            if cond.is_succeeded(job.status) or cond.is_failed(job.status):
+                break
+            running = sorted(kubelet.procs)
+            if notice_stamped is None and running:
+                # The checkpoint coordinator's stamp, made by hand: the
+                # agent must relay it to the pod's notice file.
+                fake.state.patch("pods", "default", running[0], {
+                    "metadata": {"annotations": {
+                        constants.ANNOTATION_PREEMPT_NOTICE: KUBE_NOTICE}}})
+                notice_stamped = (running[0], time.perf_counter())
+            if notice_stamped is not None and notice_s is None:
+                path = kubelet.envs[notice_stamped[0]].get(
+                    constants.ENV_PREEMPT_FILE, "")
+                if path and os.path.exists(path):
+                    with open(path) as f:
+                        if f.read() == KUBE_NOTICE:
+                            notice_s = time.perf_counter() - notice_stamped[1]
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"kube: {name} not done after {OPERATOR_TIMEOUT_S} s: "
+                    f"{job.status.to_dict()}\n{log_tail('operator')}")
+            time.sleep(0.05)
+        while notice_s is None and time.monotonic() < deadline:
+            path = kubelet.envs[notice_stamped[0]].get(
+                constants.ENV_PREEMPT_FILE, "")
+            if path and os.path.exists(path):
+                notice_s = time.perf_counter() - notice_stamped[1]
+            time.sleep(0.05)
+        beat = heartbeat()
+        beat_age = (datetime.datetime.now(datetime.timezone.utc)
+                    - datetime.datetime.fromisoformat(beat)).total_seconds()
+        logs = client.get_job_logs(name)
+        pods = {p.metadata.name: p for p in client.get_pods(name)}
+        envs = {pod: bootstrap_env(log) for pod, log in logs.items()}
+        status, created = job.status, job.metadata.creation_timestamp
+        since = lambda t: None if t is None else (t - created).total_seconds()
+        emit({"phase": "kube", "job": name, "nvidia_smi": card,
+              "node_card": node_card,
+              "conditions": [c.type for c in status.conditions
+                             if c.status == "True"],
+              "seconds_to_all_replicas_ready": since(
+                  status.all_replicas_ready_time),
+              "seconds_to_completion": since(status.completion_time),
+              "agent_seconds_to_heartbeat": heartbeat_s,
+              "heartbeat_age_s": beat_age,
+              "notice_relay_s": notice_s,
+              "pods": {pod: {"node": p.spec.node_name,
+                             "gpus": p.spec.containers[0].resources.get(
+                                 constants.RESOURCE_GPU),
+                             "env": {k: envs.get(pod, {}).get(k) for k in (
+                                 "CUDA_VISIBLE_DEVICES", "RANK",
+                                 "LOCAL_WORLD_SIZE", "WORLD_SIZE")}}
+                       for pod, p in sorted(pods.items())},
+              "log_tails": {pod: log.splitlines()[-OPERATOR_LOG_LINES:]
+                            for pod, log in sorted(logs.items())}})
+        if (not cond.is_succeeded(status) or len(pods) != 2
+                or sorted(envs) != sorted(pods)
+                or any(p.spec.node_name != KUBE_NODE
+                       or p.spec.containers[0].resources.get(
+                           constants.RESOURCE_GPU) != "1"
+                       for p in pods.values())
+                or sorted(e.get("RANK") for e in envs.values()) != ["0", "1"]
+                or any((e.get("CUDA_VISIBLE_DEVICES"),
+                        e.get("LOCAL_WORLD_SIZE")) != (node_card, "1")
+                       for e in envs.values())
+                or not all(f"({device_name}): matmul sum" in log
+                           and "smoke OK on 1 device(s)" in log
+                           for log in logs.values())
+                or notice_s is None
+                or not 0 <= beat_age < 5 * KUBE_HEARTBEAT_S):
+            raise AssertionError(
+                f"kube: status {status.to_dict()}, pods "
+                f"{[p.to_dict() for p in pods.values()]}, env {envs}, "
+                f"notice {notice_s}, heartbeat age {beat_age}, logs {logs}"
+                f"\n{log_tail('operator')}\n{log_tail('agent')}")
+    finally:
+        kubelet.stop()
+        for pname, proc, log in reversed(procs):
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.close()
+            if proc.returncode not in (0, -signal.SIGTERM):
+                print(f"kube {pname} exited {proc.returncode}:\n"
+                      f"{log_tail(pname)}", file=sys.stderr)
+        fake.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4847,6 +5155,7 @@ def main() -> int:
         phase_operator(root)
         phase_operator_planes(root)
         phase_served(root)
+        phase_kube(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -298,7 +298,9 @@ def test_resolver_ps_cluster_spec(served):
 def test_agent_claims_and_runs_pod(served, tmp_path):
     """The kubelet loop against the served plane: the agent registers
     its node with its GPUs, claims an unbound pod, publishes its
-    placement, runs it, and its log comes through the proxy."""
+    placement, runs it on the cards of its ``nvidia.com/gpu`` request
+    (the first two of the node's eight), and its log comes through the
+    proxy."""
     store, remote = served
     agent = NodeAgent(remote.base_url, name="n1", address="127.0.0.1",
                       chips=8, workdir=str(tmp_path)).start()
@@ -311,14 +313,16 @@ def test_agent_claims_and_runs_pod(served, tmp_path):
             spec=PodSpec(containers=[Container(command=[
                 sys.executable, "-c",
                 "import os; print('hi from pod', "
-                "os.environ.get('CUDA_VISIBLE_DEVICES'))"])])))
+                "os.environ.get('CUDA_VISIBLE_DEVICES'))"],
+                resources={"nvidia.com/gpu": "2"})])))
         assert wait_for(lambda: store.get(
             store_mod.PODS, "default", "hello").status.phase
             == PodPhase.SUCCEEDED, 20)
         got = store.get(store_mod.PODS, "default", "hello")
         assert (got.spec.node_name, got.status.host) == ("n1", "127.0.0.1")
         assert got.status.ports.get("coordinator")
-        want = os.environ.get("CUDA_VISIBLE_DEVICES")
+        want = os.environ.get("CUDA_VISIBLE_DEVICES") or "0,1,2,3,4,5,6,7"
+        want = ",".join(want.split(",")[:2])
         assert f"hi from pod {want}" in remote.read_logs("default", "hello")
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(

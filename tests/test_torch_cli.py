@@ -5,9 +5,10 @@
 - ``parse_int_map`` on the cases of ``tests/test_cli.py``, results and
   errors as JAX's;
 - ``main()``: each ``parser.error`` of the JAX ``main()`` is a usage
-  error (exit 2) of the port's too, with the same message; ``--backend
-  kube`` alone is one as well, naming ROADMAP A.3 (f), where the JAX
-  operator would reach for a cluster; ``--version`` wins;
+  error (exit 2) of the port's too, with the same message; ``--version``
+  wins;
+- ``--backend kube`` builds the port's ``KubeOperator`` against the
+  port's fake API server, with the Kubernetes lease store, as JAX's does;
 - ``Server``: the same planes as the JAX ``Server`` for each flag set,
   and the served API (tokens, TLS) and monitoring it starts;
 - the JSON log line of ``runtime/logconfig.py`` as JAX's.
@@ -114,15 +115,53 @@ def test_main_rejects_as_jax(case, capsys):
                                           "tpu-operator-torch:")
 
 
-def test_kube_backend_is_a_usage_error(capsys):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(BASE + ["--backend", "kube"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "--backend kube" in err and "ROADMAP A.3 (f)" in err
-    args = tcli.build_parser().parse_args(BASE + ["--backend", "kube"])
-    with pytest.raises(NotImplementedError, match=r"A\.3 \(f\)"):
-        tcli.Server(args)
+KUBECONFIG = """\
+apiVersion: v1
+kind: Config
+current-context: t
+contexts:
+  - name: t
+    context: {{cluster: t, user: t}}
+clusters:
+  - name: t
+    cluster: {{server: "{server}"}}
+users:
+  - name: t
+    user: {{}}
+"""
+
+
+def test_kube_backend_builds_a_kube_operator(tmp_path):
+    """``--backend kube`` against the port's fake: the Server holds the
+    port's ``KubeOperator`` (its Store the informer cache, a
+    ``GPUJobController`` inside) and leads through a Kubernetes Lease;
+    flags reach the operator as in JAX."""
+    from tf_operator_tpu_torch.controller.gpu_controller import (
+        GPUJobController,
+    )
+    from tf_operator_tpu_torch.runtime.kube import (
+        KubeLeaseStore,
+        KubeOperator,
+    )
+    from tf_operator_tpu_torch.runtime.kube_fake import FakeKubeApiServer
+
+    with FakeKubeApiServer() as fake:
+        kubeconfig = tmp_path / "kubeconfig"
+        kubeconfig.write_text(KUBECONFIG.format(server=fake.url))
+        args = tcli.build_parser().parse_args(BASE + [
+            "--backend", "kube", "--kubeconfig", str(kubeconfig),
+            "--enable-gang-scheduling", "--enable-ckpt-coordination",
+            "--agent-relay-dir", str(tmp_path / "relay")])
+        server = tcli.Server(args)
+        try:
+            assert isinstance(server.operator, KubeOperator)
+            assert isinstance(server.operator.controller, GPUJobController)
+            assert server.store is server.operator.store
+            assert isinstance(server._lease_store, KubeLeaseStore)
+            assert server.operator.ckpt is not None
+            assert server.operator.binder is not None
+        finally:
+            server.shutdown()
 
 
 def test_version_wins_over_validation(capsys):

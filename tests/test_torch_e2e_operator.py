@@ -11,6 +11,14 @@ alone; and the MNIST crash-and-resume arc under the ``ExitCode`` restart
 policy. The loopback resolver gives every pod of a job one rendezvous
 port and each job its own.
 
+One process a GPU: two pods requesting ``nvidia.com/gpu: 2`` run the
+MNIST payload as four gloo ranks (each pod's local launch starting two),
+trained as one process over the global batch is; the launch gives its
+processes their ranks and the relay files and stops them all at the
+first failure; on a node of 8 cards (``Operator.local(chips=8)``) pods
+get disjoint ``CUDA_VISIBLE_DEVICES`` and a card is reused only after its
+pod exits.
+
 With every plane on (gang scheduling, slice health, checkpoint
 coordination, serving), the same operator runs the three arcs of
 ``chip_smoke.py``'s ``operator_planes`` phase and of the JAX package's
@@ -114,6 +122,147 @@ def test_pods_see_the_cards_the_operator_sees(operator, monkeypatch):
         "'CUDA_VISIBLE_DEVICES'), os.environ.get('TPUJOB_TEST_HOST_ONLY'))"])
     logs, _ = chip_smoke.run_operator_job(op, client, job, card="cpu")
     assert logs["env-probe-worker-0"].split() == ["3", "None"]
+
+
+MNIST_TOL = 1e-5      # tests/test_torch_distributed.py's MNIST parity
+MNIST_STEPS = 2
+MNIST_BATCH = 16
+
+
+def test_two_pods_of_two_gpus_train_as_four_ranks(operator, tmp_path):
+    """Two pods requesting ``nvidia.com/gpu: 2`` each run two processes
+    (the payload's local launch), one gloo world of 4 ranks: every rank
+    logs, and the trained parameters and rank 0's losses are those of
+    one process stepping over the global batch."""
+    import numpy as np
+    import torch
+
+    from tf_operator_tpu_torch.models.mnist import MnistCNN
+    from tf_operator_tpu_torch.train import trainer as ttr
+    from tf_operator_tpu_torch.train.checkpoint import Checkpointer
+    from tf_operator_tpu_torch.train.dist_mnist import local_shard
+
+    op, client = operator
+    job = cpu_job("four-ranks", "tf_operator_tpu_torch.train.dist_mnist",
+                  "--steps", str(MNIST_STEPS), "--batch-size",
+                  str(MNIST_BATCH), "--checkpoint-dir", str(tmp_path),
+                  replicas=2, env={"TPUJOB_JAX_DISTRIBUTED": "1"})
+    job.spec.slice.accelerator = ""
+    job.spec.replica_specs["worker"].template.spec.containers[
+        0].resources["nvidia.com/gpu"] = "2"
+    logs, restarts = chip_smoke.run_operator_job(op, client, job, "cpu")
+    assert restarts == 0
+    for pod in client.get_pods("four-ranks"):
+        env = pod.spec.containers[0].env
+        assert (env["WORLD_SIZE"], env["LOCAL_WORLD_SIZE"],
+                env["GROUP_WORLD_SIZE"]) == ("4", "2", "2")
+        assert "RANK" not in env and "LOCAL_RANK" not in env
+    text = "".join(logs.values())
+    assert text.count("distributed: 4 processes") == 4
+    assert text.count("done: loss") == 4
+    assert [line for line in logs["four-ranks-worker-1"].splitlines()
+            if line.startswith("step")] == []
+
+    model = MnistCNN(device="cpu")
+    trainer = ttr.Trainer(model=model, optimizer=ttr.adam(1e-3),
+                          loss_fn=ttr.classification_loss, device="cpu")
+    state, step = trainer.init(), trainer.make_train_step()
+    losses = []
+    for i in range(MNIST_STEPS):
+        shards = [local_shard(i + 1, 4, r, MNIST_BATCH) for r in range(4)]
+        state, metrics = step(state, {k: torch.cat([s[k] for s in shards])
+                                      for k in shards[0]})
+        losses.append(float(metrics["loss"]))
+    printed = [float(line.split("loss=")[1]) for line in
+               logs["four-ranks-worker-0"].splitlines()
+               if line.startswith("step")]
+    # The payload prints 4 decimals.
+    np.testing.assert_allclose(printed, losses[::5][:len(printed)] + (
+        [losses[-1]] if (MNIST_STEPS - 1) % 5 else []), atol=5e-5 + MNIST_TOL)
+    saved = MnistCNN(device="meta")
+    restored = Checkpointer(str(tmp_path)).restore(ttr.Trainer(
+        model=saved, optimizer=ttr.adam(1e-3),
+        loss_fn=ttr.classification_loss, device="cpu").abstract_state())
+    assert restored.step == MNIST_STEPS
+    for (name, got), (_, want) in zip(saved.named_parameters(),
+                                      model.named_parameters()):
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   want.detach().numpy(), atol=MNIST_TOL,
+                                   rtol=0, err_msg=name)
+
+
+LAUNCH_PROBE = """
+import os, signal, sys, time
+out = os.path.join(sys.argv[1], os.environ["LOCAL_RANK"])
+with open(out, "w") as f:
+    f.write(" ".join(os.environ.get(k, "-") for k in (
+        "RANK", "WORLD_SIZE", "TPUJOB_CKPT_FILE", "TPUJOB_PREEMPT_FILE")))
+if os.environ["LOCAL_RANK"] == "1":
+    time.sleep(0.3)
+    sys.exit(3)
+signal.signal(signal.SIGTERM, lambda *_: (open(out + ".term", "w").close(),
+                                          sys.exit(143)))
+time.sleep(30)
+"""
+
+
+def test_local_launch_ranks_relay_and_first_failure(tmp_path, monkeypatch):
+    """A pod of three local processes: RANK from the pod's place, the
+    checkpoint relay file for local rank 0 alone, the notice file for
+    all; local rank 1 exits 3, so the launch stops the others (SIGTERM)
+    and exits 3, well inside the grace period."""
+    import time
+
+    from tf_operator_tpu_torch.parallel.distributed import (
+        launch_local_processes,
+    )
+
+    (tmp_path / "launch_probe.py").write_text(LAUNCH_PROBE)
+    monkeypatch.setenv("PYTHONPATH", str(tmp_path))
+    for key, value in {"WORLD_SIZE": "7", "LOCAL_WORLD_SIZE": "3",
+                       "GROUP_RANK": "2", "GROUP_WORLD_SIZE": "3",
+                       "TPUJOB_CKPT_FILE": "ckpt.json",
+                       "TPUJOB_PREEMPT_FILE": "notice"}.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    started = time.monotonic()
+    assert launch_local_processes("launch_probe", [str(tmp_path)]) == 3
+    assert time.monotonic() - started < 10
+    seen = {i: (tmp_path / str(i)).read_text().split() for i in range(3)}
+    assert seen == {0: ["4", "7", "ckpt.json", "notice"],
+                    1: ["5", "7", "-", "notice"],
+                    2: ["6", "7", "-", "notice"]}
+    assert (tmp_path / "0.term").exists() and (tmp_path / "2.term").exists()
+    # One process a pod: nothing to launch, the caller is that process.
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    assert launch_local_processes("launch_probe", [str(tmp_path)]) is None
+
+
+def test_pods_on_one_node_get_disjoint_cards(tmp_path):
+    """On a node of 8 cards, three pods of 4 GPUs: two run at once on
+    disjoint halves; the third waits until one of them has exited and
+    takes its cards."""
+    op = Operator.local(workdir=REPO_ROOT, chips=8)
+    op.start(threadiness=2)
+    try:
+        client = TPUJobClient(op.store)
+        job = chip_smoke.operator_job("cards", [
+            sys.executable, "-c", "import os, time; t = time.time(); "
+            "time.sleep(1.0); print(os.environ['CUDA_VISIBLE_DEVICES'], t, "
+            "time.time())"], replicas=3, accelerator="")
+        job.spec.success_policy = "AllWorkers"
+        job.spec.replica_specs["worker"].template.spec.containers[
+            0].resources["nvidia.com/gpu"] = "4"
+        logs, _ = chip_smoke.run_operator_job(op, client, job, "cpu")
+    finally:
+        op.stop()
+    runs = sorted((float(t0), float(t1), cards.split(","))
+                  for cards, t0, t1 in (log.split() for log in logs.values()))
+    (a0, a1, a), (b0, b1, b), (c0, _, c) = runs
+    assert sorted(a + b) == [str(i) for i in range(8)]
+    # The cards it took were free: their pod had exited.
+    assert (c, c0 >= a1) == (a, True) or (c, c0 >= b1) == (b, True)
+    assert op.backend.cards._held == {}
 
 
 def _pod(job_uid: str, name: str) -> Pod:

@@ -183,8 +183,12 @@ def test_remote_gpu_smoke_is_stamped_and_resolved(client):
     """The chip phase's job on the host: a 2-pod ``gpu_smoke`` of an
     ``h100-1`` slice; both pods carry ``nvidia.com/gpu: 1`` and print
     rank 0's published rendezvous through the log proxy."""
-    client.create(job_of("smoke", module_cmd("train.gpu_smoke", "--device",
-                                             "cpu"), accelerator="h100-1"))
+    job = job_of("smoke", module_cmd("train.gpu_smoke", "--device", "cpu"),
+                 accelerator="h100-1")
+    # The agent's one card runs the two pods one after the other: the
+    # job is done when both are.
+    job.spec.success_policy = "AllWorkers"
+    client.create(job)
     got = client.wait_for_job("smoke", timeout=60)
     assert testutil.check_condition(got, JobConditionType.SUCCEEDED)
     pods = client.get_pods("smoke")

@@ -52,7 +52,7 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 91, proc.stdout
+    assert count >= 96, proc.stdout
     for module in ("parallel.distributed", "parallel.mesh",
                    "parallel.sharding", "models.mixtral", "serve.gateway",
                    "train.train_mixtral", "ops.ring_attention",
@@ -67,7 +67,9 @@ def test_port_imports_without_jax():
                    "controller.autoscaler", "runtime.worker_stub",
                    "version", "runtime.logconfig", "runtime.tlsutil",
                    "runtime.apiserver", "runtime.remote", "runtime.agent",
-                   "runtime.monitoring", "cli", "__main__"):
+                   "runtime.monitoring", "cli", "__main__",
+                   "api.schema", "runtime.chaos", "runtime.kube_fake",
+                   "runtime.kube", "runtime.nodeagent"):
         assert f"tf_operator_tpu_torch.{module}" in proc.stdout.split()
 
 
@@ -87,24 +89,65 @@ _NO_TORCH = textwrap.dedent("""
         sys.argv[1:] = ["--version"]
         runpy.run_module("tf_operator_tpu_torch", run_name="__main__",
                          alter_sys=True)
+    if sys.argv[1] == "kube":
+        # --backend kube and the kube node agent, started against the
+        # port's fake API server.
+        import json, os, tempfile
+        from tf_operator_tpu_torch import cli
+        from tf_operator_tpu_torch.runtime.kube import KubeClient, KubeConfig
+        from tf_operator_tpu_torch.runtime.kube_fake import FakeKubeApiServer
+        from tf_operator_tpu_torch.runtime.nodeagent import KubeNodeAgent
+        from tf_operator_tpu_torch.sdk.client import TPUJobClient
+        fake = FakeKubeApiServer().start()
+        fake.state.add_node("n1", chips=1)
+        work = tempfile.mkdtemp()
+        kubeconfig = os.path.join(work, "kubeconfig")
+        with open(kubeconfig, "w") as f:  # JSON is YAML
+            json.dump({"apiVersion": "v1", "kind": "Config",
+                       "current-context": "t",
+                       "contexts": [{"name": "t", "context": {
+                           "cluster": "t", "user": "t"}}],
+                       "clusters": [{"name": "t",
+                                     "cluster": {"server": fake.url}}],
+                       "users": [{"name": "t", "user": {}}]}, f)
+        server = cli.Server(cli.build_parser().parse_args([
+            "--backend", "kube", "--kubeconfig", kubeconfig,
+            "--monitoring-port", "0", "--no-leader-elect"]))
+        server.operator.start(threadiness=1, sync_timeout=10)
+        agent = KubeNodeAgent(KubeClient(KubeConfig(server=fake.url)), "n1",
+                              os.path.join(work, "relay"),
+                              heartbeat_seconds=0.2).start()
+        TPUJobClient.connect_kube(kubeconfig).list()
+        agent.stop()
+        server.operator.stop()
+        fake.stop()
+        import shutil
+        shutil.rmtree(work)
+        print(type(server.operator).__name__)
     import tf_operator_tpu_torch.runtime.agent as agent
+    import tf_operator_tpu_torch.runtime.nodeagent as nodeagent
     import tf_operator_tpu_torch.cli
     import tf_operator_tpu_torch.runtime.monitoring
     import tf_operator_tpu_torch.sdk.client
-    try:
-        agent.main(["--help"])
-    except SystemExit as exit:
-        assert exit.code == 0
+    for main in (agent.main, nodeagent.main):
+        try:
+            main(["--help"])
+        except SystemExit as exit:
+            assert exit.code == 0
+    assert not [m for m in sys.modules if m == "torch"
+                or m.startswith("torch.")]
     print("imported without torch")
 """)
 
 
-@pytest.mark.parametrize("what", ["version", "agent"])
+@pytest.mark.parametrize("what", ["version", "agent", "kube"])
 def test_served_processes_start_without_torch(what):
-    """``python -m tf_operator_tpu_torch --version`` and the node agent's
+    """``python -m tf_operator_tpu_torch --version``, the node agents'
     modules (API server, remote store, command line, monitoring, SDK
-    client) load with torch, JAX and the JAX package blocked: the served
-    control plane never pays for a torch import."""
+    client) and, for ``kube``, the operator on ``--backend kube``, the
+    kube node agent and ``connect_kube`` started against the port's fake
+    API server, load and run with torch, JAX and the JAX package blocked:
+    the control plane never pays for a torch import."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _NO_TORCH, what], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -114,8 +157,9 @@ def test_served_processes_start_without_torch(what):
         assert proc.stdout.startswith("tpu-operator-torch v"), proc.stdout
     else:
         assert proc.returncode == 0, proc.stderr
-        assert "--chips" in proc.stdout
+        assert "--chips" in proc.stdout and "--relay-dir" in proc.stdout
         assert proc.stdout.endswith("imported without torch\n")
+        assert ("KubeOperator" in proc.stdout.split()) == (what == "kube")
 
 
 def test_blocker_matches_exact_package_name():

@@ -150,6 +150,9 @@ class World:
             max_slices=None, queue="", health=None, ckpt=None):
         t = self.p.types
         self.names.add(name)
+        # As group(): the process-wide journal may hold another test's
+        # decisions for this name.
+        self.p.trace.JOURNAL.prune(NS, name)
         job = self.p.testutil.new_tpujob(worker=workers, name=name,
                                          namespace=NS)
         job.spec.slice = t.TPUSliceSpec(accelerator=self.p.accel(chips),

@@ -2,7 +2,8 @@
 
 Reference parity: pkg/controller.v1/tensorflow/tensorflow.go (TF_CONFIG
 rendering) replaced by the torch.distributed env (MASTER_ADDR,
-MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE).
+MASTER_PORT, WORLD_SIZE, LOCAL_WORLD_SIZE, and RANK / LOCAL_RANK or
+GROUP_RANK / GROUP_WORLD_SIZE: one process a GPU).
 """
 
 from tf_operator_tpu_torch.bootstrap.topology import SliceTopology, parse_accelerator  # noqa: F401

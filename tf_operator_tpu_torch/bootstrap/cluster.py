@@ -10,9 +10,11 @@ reference's TF_CONFIG machinery
 - instead of TF_CONFIG the default container receives:
   * ``TPUJOB_CLUSTER_SPEC`` — full cluster JSON (same shape as TF_CONFIG:
     cluster/task/environment), byte-equal to the JAX package's;
-  * ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` /
-    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` — torch.distributed bootstrap;
-    the rendezvous is the chief (or worker-0) at a dedicated port;
+  * ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` /
+    ``LOCAL_WORLD_SIZE`` and ``RANK`` / ``LOCAL_RANK`` (a one-process
+    pod) or ``GROUP_RANK`` / ``GROUP_WORLD_SIZE`` (a pod of several) —
+    torchrun's names: one process a GPU, the rendezvous the chief (or
+    worker-0) at a dedicated port;
   * ``TPUJOB_ACCELERATOR_TYPE`` / ``TPUJOB_TOPOLOGY`` — slice shape for
     mesh construction.
 - elastic mode renders a sparse cluster view (reference SparseClusterSpec,
@@ -31,6 +33,7 @@ from tf_operator_tpu_torch.api import constants
 from tf_operator_tpu_torch.api.types import (
     ReplicaType,
     TPUJob,
+    effective_role_policy,
     gen_general_name,
 )
 from tf_operator_tpu_torch.bootstrap.topology import parse_accelerator
@@ -132,10 +135,35 @@ def build_cluster_spec(job: TPUJob, rtype: str, index: int,
     return ClusterSpec(cluster=cluster, task_type=rt, task_index=index)
 
 
+def pod_gpus(job: TPUJob, rtype: str) -> int:
+    """GPUs each ``rtype`` pod holds: the template's explicit
+    ``nvidia.com/gpu`` request (summed over its containers), else the
+    slice topology's GPUs a host on a GPU-holding role (what
+    ``GPUJobController.set_cluster_spec`` stamps), else 0."""
+    spec = job.spec.replica_specs.get(rtype.lower())
+    containers = spec.template.spec.containers if spec is not None else []
+    declared = [c.resources[constants.RESOURCE_GPU] for c in containers
+                if constants.RESOURCE_GPU in c.resources]
+    if declared:
+        total = 0
+        for raw in declared:
+            try:
+                total += int(float(raw or "0"))
+            except ValueError:
+                pass
+        return total
+    sl = job.spec.slice
+    if sl.accelerator and effective_role_policy(job, rtype).chip_consuming:
+        return parse_accelerator(sl.accelerator, sl.topology,
+                                 max(1, sl.num_slices)).devices_per_host
+    return 0
+
+
 def process_ranks(job: TPUJob) -> Dict[str, List[int]]:
-    """Global torch.distributed ranks for the data-plane types
-    (chief/master first, then workers). PS/evaluator replicas are not
-    ranked processes; they keep cluster-spec entries only."""
+    """Each data-plane pod's place among the ranked pods (chief/master
+    first, then workers): its ``GROUP_RANK``, and its ``RANK`` where it
+    runs one process. PS/evaluator replicas are not ranked processes;
+    they keep cluster-spec entries only."""
     ranks: Dict[str, List[int]] = {}
     next_rank = 0
     for rtype in _RANKED_TYPES:
@@ -190,12 +218,22 @@ def render_worker_env(job: TPUJob, rtype: str, index: int,
 
     ``TPUJOB_ACCELERATOR_TYPE`` / ``TPUJOB_TOPOLOGY`` where the job declares
     a slice; for a distributed job also ``TPUJOB_CLUSTER_SPEC`` (byte-equal
-    to the JAX package's) and, on ranked processes, the torch.distributed
-    env: ``MASTER_ADDR`` / ``MASTER_PORT`` (process 0, from
-    ``coordinator_address``), ``WORLD_SIZE``, ``RANK``, and
-    ``LOCAL_RANK`` = 0 / ``LOCAL_WORLD_SIZE`` = 1 (one process a pod,
-    driving the pod's GPUs). No libtpu or DCN keys: the hosts are in the
-    cluster spec, and a job of several slices is one world."""
+    to the JAX package's) and, on ranked pods, torchrun's env with one
+    process a GPU: ``MASTER_ADDR`` / ``MASTER_PORT`` (process 0, from
+    ``coordinator_address``), ``WORLD_SIZE`` (the processes of every
+    ranked pod) and ``LOCAL_WORLD_SIZE`` (this pod's: its ``pod_gpus``,
+    at least one). A pod of one process also gets ``RANK`` and ``LOCAL_RANK`` = 0; a pod
+    of several gets ``GROUP_RANK`` (its place among the ranked pods) and
+    ``GROUP_WORLD_SIZE`` (their count), from which the payload's local
+    launch (``parallel.distributed.launch_local_processes``) gives each of
+    its processes ``RANK`` = ``WORLD_SIZE`` - (``GROUP_WORLD_SIZE`` -
+    ``GROUP_RANK``) x ``LOCAL_WORLD_SIZE`` + ``LOCAL_RANK``:
+    ``GROUP_RANK`` x ``LOCAL_WORLD_SIZE`` + ``LOCAL_RANK`` when every
+    ranked pod runs as many, and right too behind a one-process chief, as
+    the ranked pods after a pod hold as many GPUs as it does (one
+    template a replica type, the types in rank order). No libtpu or DCN
+    keys: the hosts are in the cluster spec, and a job of several slices
+    is one world."""
     if domain is None:
         domain = _cluster_domain()
     rt = rtype.lower()
@@ -213,23 +251,36 @@ def render_worker_env(job: TPUJob, rtype: str, index: int,
     env["TPUJOB_CLUSTER_SPEC"] = build_cluster_spec(job, rt, index, domain).to_json()
 
     ranks = process_ranks(job)
-    num_processes = sum(len(v) for v in ranks.values())
-    if rt in ranks and num_processes > 0:
+    num_pods = sum(len(v) for v in ranks.values())
+    if rt in ranks and num_pods > 0:
         if index < len(ranks[rt]):
-            rank = ranks[rt][index]
+            group_rank = ranks[rt][index]
         else:
             # Transient out-of-range render (elastic scale-up before the
             # spec settles): offset by the type's base rank and widen the
-            # process count so the id is unique and in range.
-            base = ranks[rt][0] if ranks[rt] else num_processes
-            rank = base + index
-            num_processes = max(num_processes, rank + 1)
+            # pod count so the id is unique and in range.
+            base = ranks[rt][0] if ranks[rt] else num_pods
+            group_rank = base + index
+        # Processes a pod, by place: one a GPU it holds, one for a pod
+        # that holds none; a place past the ranked pods (a transient
+        # render) runs as many as this pod.
+        own = max(1, pod_gpus(job, rt))
+        sizes = [0] * num_pods
+        for t, places in ranks.items():
+            for place in places:
+                sizes[place] = max(1, pod_gpus(job, t))
+        sizes += [own] * max(0, group_rank + 1 - num_pods)
+        first = sum(sizes[:group_rank])
         host, _, port = coordinator_address(job, domain).rpartition(":")
         env["MASTER_ADDR"] = host
         env["MASTER_PORT"] = port
-        env["WORLD_SIZE"] = str(num_processes)
-        env["RANK"] = str(rank)
-        env["LOCAL_RANK"] = "0"
-        env["LOCAL_WORLD_SIZE"] = "1"
+        env["WORLD_SIZE"] = str(max(sum(sizes[:num_pods]), first + own))
+        if own == 1:
+            env["RANK"] = str(first)
+            env["LOCAL_RANK"] = "0"
+        else:
+            env["GROUP_RANK"] = str(group_rank)
+            env["GROUP_WORLD_SIZE"] = str(max(num_pods, group_rank + 1))
+        env["LOCAL_WORLD_SIZE"] = str(own)
 
     return env

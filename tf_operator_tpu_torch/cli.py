@@ -1,7 +1,6 @@
 """Operator CLI: ``python -m tf_operator_tpu_torch`` — the process
-entrypoint (port of tf_operator_tpu/cli.py with the ``local`` and
-``none`` backends; ``--backend kube`` is parsed and refused until the
-port's Kubernetes backend exists, ROADMAP A.3 (f)).
+entrypoint (port of tf_operator_tpu/cli.py; ``--backend kube`` runs
+``runtime/kube.py``'s ``KubeOperator`` over ``GPUJobController``).
 
 Reference parity: cmd/tf-operator.v1/main.go (flag parse, JSON logging,
 monitoring endpoint, version print) + app/options/options.go:53-83 (the
@@ -45,11 +44,6 @@ log = logging.getLogger("tpu_operator.cli")
 LEASE_DURATION = 15.0
 RENEW_DEADLINE = 5.0
 RETRY_PERIOD = 3.0
-
-KUBE_BACKEND_MISSING = (
-    "--backend kube: the GPU port has no Kubernetes backend yet (ROADMAP "
-    "A.3 (f)); use --backend local, or --backend none with --api-port and "
-    "node agents (python -m tf_operator_tpu_torch.runtime.agent)")
 
 
 def parse_int_map(value) -> dict:
@@ -304,8 +298,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data plane: 'local' runs pods as subprocesses "
                         "in this process; 'none' leaves pods to external "
                         "node agents (requires --api-port); 'kube' "
-                        "is not in the GPU port yet (ROADMAP A.3 (f)) "
-                        "and is refused with a usage error")
+                        "reconciles TPUJob CRs / pods / services against "
+                        "a Kubernetes API server (CRD from "
+                        "manifests/gpu/crd.yaml must be installed)")
     p.add_argument("--kubeconfig", default=None,
                    help="kubeconfig path for --backend kube (default: "
                         "in-cluster config when available, else "
@@ -355,6 +350,7 @@ class Server:
         # wires this to its stop event so shutdown runs on the main
         # thread, never on the elector's own thread.
         self.on_fatal = on_fatal
+        self._lease_store = None
         # Flight recorder (runtime/trace.py): spans are process-global
         # like the metrics registry, so wiring happens at assembly, not
         # per subsystem. Off (the default) the span API is a shared
@@ -387,42 +383,84 @@ class Server:
             autoscale_interval_seconds=getattr(
                 args, "autoscale_interval_seconds", 1.0))
         if getattr(args, "backend", "local") == "kube":
-            raise NotImplementedError(KUBE_BACKEND_MISSING)
-        self.store = store or store_mod.Store()
-        op_kwargs = {}
-        if getattr(args, "backend", "local") == "none":
-            op_kwargs["backend"] = None
-        shared_kwargs = dict(
-            store=self.store,
-            namespace=args.namespace or None,
-            # Slice health needs gang displace/readmit to repair, so
-            # the default-on flag only takes effect alongside gang
-            # scheduling on the process-native backends (the kube
-            # backend gates it on the binder the same way).
-            enable_slice_health=(
-                getattr(args, "slice_health", True)
-                and args.enable_gang_scheduling),
-            health_drain_grace_seconds=getattr(
-                args, "health_drain_grace_seconds", 0.0),
-            degraded_after_seconds=getattr(
-                args, "degraded_after_seconds", 10.0),
-            **gang_kwargs, **tenant_kwargs, **op_kwargs)
-        shards = getattr(args, "shards", 1)
-        if shards > 1:
-            # N-leader mode: the per-shard leases ARE the leader
-            # election, so the singleton elector below is skipped.
-            from tf_operator_tpu_torch.operator import ShardedOperator
+            # Cluster mode: the Store is the informer cache inside
+            # KubeOperator; reads/writes/leases go to the K8s API.
+            from tf_operator_tpu_torch.runtime.kube import (
+                KubeClient,
+                KubeConfig,
+                KubeLeaseStore,
+                KubeOperator,
+                check_crd_exists,
+            )
 
-            self.operator = ShardedOperator(
-                shards,
-                identity=args.leader_elect_identity,
-                shard_index=getattr(args, "shard_index", None),
-                lease_duration=LEASE_DURATION,
-                renew_deadline=RENEW_DEADLINE,
-                retry_period=RETRY_PERIOD,
-                **shared_kwargs)
+            qps = getattr(args, "kube_api_qps", 5.0)
+            client = KubeClient(
+                KubeConfig.resolve(getattr(args, "kubeconfig", None)),
+                qps=qps if qps and qps > 0 else None,
+                burst=getattr(args, "kube_api_burst", 10))
+            if not check_crd_exists(client):
+                # Fail fast like the reference (server.go:124, 232-251).
+                raise RuntimeError(
+                    f"CRD not installed on {client.config.server}; apply "
+                    "manifests/gpu/crd.yaml first")
+            # Everything in tenant_kwargs except the elastic family is
+            # lifted onto kube by the node-agent relay
+            # (docs/node-agent.md); elastic — and the serving
+            # autoscaler riding its resize pass — stays gated in
+            # main().
+            kube_tenant_kwargs = {k: v for k, v in tenant_kwargs.items()
+                                  if k not in ("enable_elastic",
+                                               "enable_serving_autoscaler",
+                                               "autoscale_interval_seconds")}
+            self.operator = KubeOperator(
+                client,
+                namespace=args.namespace or None,
+                gang_binder=args.gang_binder,
+                slice_health=getattr(args, "slice_health", True),
+                health_drain_grace_seconds=getattr(
+                    args, "health_drain_grace_seconds", 0.0),
+                degraded_after_seconds=getattr(
+                    args, "degraded_after_seconds", 10.0),
+                relay_dir=getattr(args, "agent_relay_dir", ""),
+                **gang_kwargs, **kube_tenant_kwargs)
+            self.store = self.operator.store
+            self._lease_store = KubeLeaseStore(client)
         else:
-            self.operator = Operator(**shared_kwargs)
+            self.store = store or store_mod.Store()
+            op_kwargs = {}
+            if getattr(args, "backend", "local") == "none":
+                op_kwargs["backend"] = None
+            shared_kwargs = dict(
+                store=self.store,
+                namespace=args.namespace or None,
+                # Slice health needs gang displace/readmit to repair, so
+                # the default-on flag only takes effect alongside gang
+                # scheduling on the process-native backends (the kube
+                # backend gates it on the binder the same way).
+                enable_slice_health=(
+                    getattr(args, "slice_health", True)
+                    and args.enable_gang_scheduling),
+                health_drain_grace_seconds=getattr(
+                    args, "health_drain_grace_seconds", 0.0),
+                degraded_after_seconds=getattr(
+                    args, "degraded_after_seconds", 10.0),
+                **gang_kwargs, **tenant_kwargs, **op_kwargs)
+            shards = getattr(args, "shards", 1)
+            if shards > 1:
+                # N-leader mode: the per-shard leases ARE the leader
+                # election, so the singleton elector below is skipped.
+                from tf_operator_tpu_torch.operator import ShardedOperator
+
+                self.operator = ShardedOperator(
+                    shards,
+                    identity=args.leader_elect_identity,
+                    shard_index=getattr(args, "shard_index", None),
+                    lease_duration=LEASE_DURATION,
+                    renew_deadline=RENEW_DEADLINE,
+                    retry_period=RETRY_PERIOD,
+                    **shared_kwargs)
+            else:
+                self.operator = Operator(**shared_kwargs)
         self.api_server = None
         if getattr(args, "api_port", 0) != 0:
             from tf_operator_tpu_torch.runtime.apiserver import APIServer
@@ -487,7 +525,7 @@ class Server:
         self.elector: Optional[LeaderElector] = None
         if args.leader_elect and getattr(args, "shards", 1) <= 1:
             self.elector = LeaderElector(
-                self.store,
+                self._lease_store or self.store,
                 identity=args.leader_elect_identity,
                 namespace=args.namespace or "default",
                 lease_duration=LEASE_DURATION,
@@ -654,8 +692,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                      "submitted through the served API would be dropped "
                      "on the next relist; submit TPUJob CRs to the "
                      "Kubernetes API server instead")
-    if args.backend == "kube":
-        parser.error(KUBE_BACKEND_MISSING)
     setup_logging(json_format=args.json_log)
     log.info("%s starting", version_string())
 

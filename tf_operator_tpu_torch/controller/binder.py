@@ -28,11 +28,11 @@ GPU placement model:
 - Coordinator-only pods (chief/master/ps/evaluator — zero GPU demand)
   may land on any schedulable node.
 
-The binder reads each node's GPUs from ``Node.spec.chips``. Turning a
-Kubernetes node's allocatable ``nvidia.com/gpu`` into that field is the
-Kubernetes backend's ``node_from_k8s``, which the port does not have
-yet; until it does, the binder runs over the in-process ``Store`` with
-an injected bind endpoint, as its tests drive it.
+The binder reads each node's GPUs from ``Node.spec.chips``: a Kubernetes
+node's allocatable ``nvidia.com/gpu`` turned into that field by the
+Kubernetes backend's ``node_from_k8s`` (runtime/kube.py), a served
+node agent's ``--chips``, or an in-process ``Store`` node with an
+injected bind endpoint, as its tests drive it.
 
 Placement is level-triggered and stateless: every pass re-derives node
 free-chip inventory and unbound gang pods from the informer cache, so a

@@ -34,6 +34,7 @@ from tf_operator_tpu_torch.api.validation import (
     validation_warnings,
 )
 from tf_operator_tpu_torch.bootstrap import learner_endpoints, render_worker_env
+from tf_operator_tpu_torch.bootstrap.cluster import pod_gpus
 from tf_operator_tpu_torch.controller import conditions as cond
 from tf_operator_tpu_torch.controller import status as status_mod
 from tf_operator_tpu_torch.controller.control import (
@@ -727,13 +728,10 @@ class GPUJobController(JobPlugin):
         if (job.spec.slice.accelerator and chip_holder
                 and not any(constants.RESOURCE_GPU in c.resources
                             for c in pod.spec.containers)):
-            from tf_operator_tpu_torch.bootstrap.topology import parse_accelerator
-
-            topo = parse_accelerator(job.spec.slice.accelerator,
-                                     job.spec.slice.topology,
-                                     max(1, job.spec.slice.num_slices))
+            # The number render_worker_env counts the pod's processes
+            # by (bootstrap/cluster.py pod_gpus).
             container.resources[constants.RESOURCE_GPU] = str(
-                topo.devices_per_host)
+                pod_gpus(job, rtype))
         if (job.spec.slice.accelerator and chip_holder
                 and not any(t.key == constants.RESOURCE_GPU
                             for t in pod.spec.tolerations)):
@@ -852,6 +850,7 @@ class GPUJobController(JobPlugin):
         rt = rtype.lower()
         env = render_worker_env(job, rtype, 0)
         env.pop("RANK", None)
+        env.pop("GROUP_RANK", None)
         sparse = (job.spec.enable_elastic_worker
                   and rt == ReplicaType.WORKER)
         raw = env.get("TPUJOB_CLUSTER_SPEC")
@@ -889,6 +888,7 @@ class GPUJobController(JobPlugin):
             env["TPUJOB_CLUSTER_SPEC"] = _json.dumps(d, sort_keys=True)
         if sparse:
             env.pop("WORLD_SIZE", None)
+            env.pop("GROUP_WORLD_SIZE", None)
         if ("MASTER_ADDR" in env and job.spec.slice.accelerator
                 and job.spec.slice.num_slices > 1):
             env["numSlices"] = str(job.spec.slice.num_slices)

@@ -242,17 +242,20 @@ class Operator:
 
     @classmethod
     def local(cls, workdir: str, extra_env: Optional[dict] = None,
-              **kwargs) -> "Operator":
+              chips: Optional[int] = None, **kwargs) -> "Operator":
         """Operator wired to a subprocess pod backend rooted at
-        ``workdir``, with ``workdir`` importable inside pods. The common
-        bootstrap for hermetic e2e, examples, and benchmarks."""
+        ``workdir``, with ``workdir`` importable inside pods, each pod
+        given its own of the host's cards: those of this process's
+        ``CUDA_VISIBLE_DEVICES``, else ``chips`` of them
+        (``CardInventory``). The common bootstrap for hermetic e2e,
+        examples, and benchmarks."""
         import os
 
         env = {"PYTHONPATH": workdir + os.pathsep
                + os.environ.get("PYTHONPATH", "")}
         env.update(extra_env or {})
         backend = LocalProcessBackend(store=None, workdir=workdir,
-                                      extra_env=env)
+                                      extra_env=env, chips=chips)
         op = cls(backend=backend, **kwargs)
         backend.store = op.store
         return op

@@ -22,18 +22,26 @@ import contextlib
 import dataclasses
 import datetime
 import os
-from typing import Mapping, Optional, Tuple
+import signal
+import subprocess
+import sys
+import time
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+from tf_operator_tpu_torch.api.constants import ENV_CKPT_FILE
 
 # Copy of tf_operator_tpu/api/constants.py DEFAULT_COORDINATOR_PORT: the
 # port a coordinator address without one means.
 DEFAULT_COORDINATOR_PORT = 8476
 # How long a process waits for the others to reach the store.
 JOIN_TIMEOUT_S = 300.0
+# How long a pod's local processes get between SIGTERM and SIGKILL when
+# one of them failed (the local backend's own grace, runtime/local.py).
+LOCAL_GRACE_S = 3.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +122,87 @@ def maybe_init_distributed(device: DeviceLike = None,
                             world_size=env.num_processes, timeout=timeout,
                             **kwargs)
     return env.process_id
+
+
+def local_ranks(environ: Optional[Mapping[str, str]] = None
+                ) -> Optional[range]:
+    """The global ranks of this pod's processes, where the env asks for
+    several (``LOCAL_WORLD_SIZE`` > 1, torchrun's names, as
+    ``bootstrap/cluster.py`` renders them) and this process is none of
+    them yet (no ``LOCAL_RANK``); else None. The pod's first rank is
+    ``WORLD_SIZE`` - (``GROUP_WORLD_SIZE`` - ``GROUP_RANK``) x
+    ``LOCAL_WORLD_SIZE`` (``GROUP_RANK`` x ``LOCAL_WORLD_SIZE`` where
+    ``GROUP_WORLD_SIZE`` is missing, as under torchrun)."""
+    env = os.environ if environ is None else environ
+    size = int(env.get("LOCAL_WORLD_SIZE") or 1)
+    if size <= 1 or env.get("LOCAL_RANK") is not None:
+        return None
+    group = int(env.get("GROUP_RANK") or 0)
+    if env.get("GROUP_WORLD_SIZE"):
+        first = (int(env["WORLD_SIZE"])
+                 - (int(env["GROUP_WORLD_SIZE"]) - group) * size)
+    else:
+        first = group * size
+    return range(first, first + size)
+
+
+def launch_local_processes(module: str,
+                           argv: Optional[Sequence[str]] = None
+                           ) -> Optional[int]:
+    """Run a pod's local processes, one a GPU it holds, as torchrun does:
+    where ``local_ranks`` names several, start ``python -m module argv``
+    once for each, with ``LOCAL_RANK`` = i and ``RANK`` = the pod's first
+    rank + i (only local rank 0 keeps ``TPUJOB_CKPT_FILE``; every one
+    reads ``TPUJOB_PREEMPT_FILE``), wait for them and return the exit
+    code: the first non-zero one, after stopping the others (SIGTERM,
+    SIGKILL after ``LOCAL_GRACE_S``), else 0. A SIGTERM to this process
+    reaches every one. Returns None, starting nothing, where the env asks
+    for one process: the caller is that process. Every payload that
+    joins a world calls this first in its ``main``."""
+    ranks = local_ranks()
+    if ranks is None:
+        return None
+    argv = list(sys.argv[1:] if argv is None else argv)
+    procs = []
+    for i, rank in enumerate(ranks):
+        env = dict(os.environ, LOCAL_RANK=str(i), RANK=str(rank))
+        if i:
+            env.pop(ENV_CKPT_FILE, None)
+        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],
+                                      env=env))
+
+    def forward(signum, _frame):
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signum)
+
+    previous = None
+    try:
+        previous = signal.signal(signal.SIGTERM, forward)
+    except ValueError:
+        pass  # not the main thread: the pod's process group gets it
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            code = next((c for c in codes if c not in (None, 0)), 0)
+            if code or None not in codes:
+                break
+            time.sleep(0.05)
+        if code:
+            forward(signal.SIGTERM, None)
+            deadline = time.monotonic() + LOCAL_GRACE_S
+            for proc in procs:
+                try:
+                    proc.wait(timeout=max(0.05,
+                                          deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        # A process a signal ended exits as a shell reports it: 128 + n.
+        return code if code >= 0 else 128 - code
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
 
 
 @contextlib.contextmanager

@@ -257,7 +257,8 @@ class NodeAgent:
             self.store, workdir=workdir, extra_env=extra_env,
             resolver=ControlPlaneEnvResolver(self.store,
                                              timeout=resolve_timeout),
-            pod_filter=lambda pod: pod.spec.node_name == self.name)
+            pod_filter=lambda pod: pod.spec.node_name == self.name,
+            chips=chips)
         # Random capability prefix for the log server: only readers of
         # node.status.log_url (behind the authed control plane) can
         # construct valid log URLs — a bare network peer hitting the
@@ -462,7 +463,10 @@ def main(argv=None) -> int:
     parser.add_argument("--chips", type=int, default=0,
                         help="GPUs this node offers: Node.spec.chips, "
                              "the nvidia.com/gpu inventory the gang "
-                             "binder counts")
+                             "binder counts; each pod is given its own "
+                             "of them as CUDA_VISIBLE_DEVICES (those of "
+                             "this process's CUDA_VISIBLE_DEVICES where "
+                             "it is set, else 0..chips-1)")
     parser.add_argument("--workdir", default=None)
     parser.add_argument("--log-port", type=int, default=0)
     parser.add_argument("--extra-env", default="",

@@ -1,6 +1,6 @@
 """Local process backend — the kubelet/data-plane analog (port of
 tf_operator_tpu/runtime/local.py; the resolver rewrites the GPU
-bootstrap env, and spawned pods see the host's CUDA devices).
+bootstrap env, and each pod sees its own cards, ``CardInventory``).
 
 The reference hands pods to kubelet and watches status flow back through
 the API server (SURVEY §3.3). This backend does the same hermetically:
@@ -49,9 +49,10 @@ _GRACE_SECONDS = 3.0
 
 # The host env a pod's process sees beside PATH, PYTHONPATH, HOME and
 # LANG: the device plugin's part on a real node. CUDA_VISIBLE_DEVICES
-# keeps a pod to the cards the operator itself was given. Nothing else
-# is needed: on an H100 host a pod with those four alone sees the card
-# and finds nvcc (ops/_build.py: on PATH, else under CUDA_HOME's default
+# keeps a pod to the cards the operator itself was given, and where the
+# backend keeps a card inventory, to the pod's own. Nothing else is
+# needed: on an H100 host a pod with those four alone sees the card and
+# finds nvcc (ops/_build.py: on PATH, else under CUDA_HOME's default
 # /usr/local/cuda), so CUDA_HOME and LD_LIBRARY_PATH stay the host's own.
 DEVICE_ENV = ("CUDA_VISIBLE_DEVICES",)
 
@@ -60,6 +61,56 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+class CardInventory:
+    """The cards of one node, each held by one pod at a time: the device
+    plugin's part. A pod is given as many as its ``nvidia.com/gpu``
+    request, as ``CUDA_VISIBLE_DEVICES`` (none for a pod that requests
+    none), and they come back when its processes have all exited."""
+
+    def __init__(self, cards):
+        self.cards = list(cards)
+        self._lock = threading.Lock()
+        self._held: Dict[str, list] = {}   # pod key -> its cards
+
+    @classmethod
+    def of_node(cls, chips: Optional[int] = None,
+                environ=None) -> Optional["CardInventory"]:
+        """The cards named by ``CUDA_VISIBLE_DEVICES`` where it names
+        some (the ones this process was given), else ``0..chips-1``;
+        None, no inventory, where neither says: pods then see what this
+        process sees."""
+        env = os.environ if environ is None else environ
+        visible = [c.strip() for c in
+                   env.get("CUDA_VISIBLE_DEVICES", "").split(",")
+                   if c.strip()]
+        if visible:
+            return cls(visible)
+        if chips:
+            return cls(str(i) for i in range(chips))
+        return None
+
+    def acquire(self, key: str, count: int) -> Optional[list]:
+        """``count`` free cards for pod ``key`` (the ones it holds where it
+        holds some already), or None while too few are free. Raises where
+        the node has fewer than ``count`` at all."""
+        if count > len(self.cards):
+            raise ValueError(f"pod {key} requests {count} GPU(s); this "
+                             f"node has {len(self.cards)}")
+        with self._lock:
+            if key in self._held:
+                return list(self._held[key])
+            busy = {c for cards in self._held.values() for c in cards}
+            free = [c for c in self.cards if c not in busy]
+            if len(free) < count:
+                return None
+            self._held[key] = free[:count]
+            return list(self._held[key])
+
+    def release(self, key: str) -> None:
+        with self._lock:
+            self._held.pop(key, None)
 
 
 @dataclass
@@ -78,6 +129,9 @@ class _RunningPod:
     # mtime (ns) of the worker's checkpoint file at the last mirror into
     # the store's CheckpointRecord.
     ckpt_mtime: int = 0
+    # The cards this pod's processes see (CUDA_VISIBLE_DEVICES), where
+    # the backend keeps an inventory.
+    cards: Optional[list] = None
 
 
 class LoopbackEnvResolver:
@@ -154,7 +208,8 @@ class LocalProcessBackend:
                  extra_env: Optional[Dict[str, str]] = None,
                  log_dir: Optional[str] = None,
                  resolver=None,
-                 pod_filter=None):
+                 pod_filter=None,
+                 chips: Optional[int] = None):
         self.store = store
         self.workdir = workdir or os.getcwd()
         self.extra_env = dict(extra_env or {})
@@ -164,6 +219,10 @@ class LocalProcessBackend:
         # Which pods this backend runs (a node agent passes "pods bound
         # to me"); None = every pod in the store.
         self.pod_filter = pod_filter
+        # The node's cards, handed to pods disjointly
+        # (CardInventory.of_node: this process's CUDA_VISIBLE_DEVICES,
+        # else ``chips`` of them).
+        self.cards = CardInventory.of_node(chips)
         # Pod stdout/stderr capture (kubelet container-log analog);
         # surfaced to clients via pod.status.log_path.
         self.log_dir = log_dir or os.path.join(
@@ -252,12 +311,16 @@ class LocalProcessBackend:
         pod = rp.pod
         if not self._await_gang_admission(rp):
             return  # pod deleted while gated
-        if rp.stop_requested:
-            return  # deleted between admission and spawn
         try:
+            if not self._await_cards(rp):
+                return  # deleted while waiting for its cards
+            if rp.stop_requested:
+                self._release_cards(rp)
+                return  # deleted between admission and spawn
             self._spawn_all(rp)
         except Exception as e:  # bad command etc. -> Failed
             log.warning("pod %s failed to start: %s", key, e)
+            self._release_cards(rp)
             self._write_status(pod, PodPhase.FAILED, message=str(e))
             return
         # Chips are held from the first spawned process until the last
@@ -307,6 +370,32 @@ class LocalProcessBackend:
             time.sleep(0.05)
         return False
 
+    def _await_cards(self, rp: _RunningPod) -> bool:
+        """Hold the pod Pending until the inventory has its
+        ``nvidia.com/gpu`` cards free (a card is reused only once the pod
+        holding it has exited); False if it was deleted meanwhile."""
+        if self.cards is None:
+            return True
+        count = self._pod_chips(rp.pod)
+        while not (rp.stop_requested or self._stopped):
+            cards = self.cards.acquire(self._card_key(rp.pod), count)
+            if cards is not None:
+                rp.cards = cards
+                return True
+            time.sleep(0.05)
+        return False
+
+    def _release_cards(self, rp: _RunningPod) -> None:
+        if self.cards is not None:
+            self.cards.release(self._card_key(rp.pod))
+
+    @staticmethod
+    def _card_key(pod: Pod) -> str:
+        """An incarnation's key: a pod recreated under its name must not
+        take the cards its dying predecessor still holds."""
+        return (f"{pod.metadata.namespace}/{pod.metadata.name}/"
+                f"{pod.metadata.uid}")
+
     def _mark_released(self, pod: Pod, released: bool) -> None:
         """Persist gang_released BEFORE spawning, so the gang scheduler
         counts this pod as occupying chips through the whole spawn
@@ -339,6 +428,8 @@ class LocalProcessBackend:
             if var in os.environ:
                 env.setdefault(var, os.environ[var])
         env.update(self.resolver.resolve(pod, container.env))
+        if rp.cards is not None:
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(rp.cards)
         env["TPUJOB_POD_NAME"] = pod.metadata.name
         env["TPUJOB_POD_NAMESPACE"] = pod.metadata.namespace
         # Checkpoint-coordination handoff (controller/ckpt.py): where a
@@ -452,6 +543,7 @@ class LocalProcessBackend:
                         # All processes are dead: the chips must not
                         # stay booked behind a failed respawn.
                         self._gang_release(rp)
+                        self._release_cards(rp)
                         self._write_status(pod, PodPhase.FAILED, message=str(e))
                         return
                     self._write_running(rp)
@@ -464,6 +556,7 @@ class LocalProcessBackend:
                 # instants (barrier ack, then exit) must not be lost.
                 self._mirror_ckpt_record(rp)
                 self._gang_release(rp)  # natural death frees the chips
+                self._release_cards(rp)
                 self._write_status(pod, phase, exit_codes=exited, rp=rp)
                 return
             time.sleep(0.02)
@@ -550,6 +643,7 @@ class LocalProcessBackend:
                     proc.wait(timeout=5)
         finally:
             self._gang_release(rp)
+            self._release_cards(rp)
 
     # ------------------------------------------------------------------
 

@@ -1,5 +1,5 @@
 """TPUJobClient: the user-facing job API (port of
-tf_operator_tpu/sdk/client.py: in-process or over the served API; not yet
+tf_operator_tpu/sdk/client.py: in-process, over the served API, or
 straight against Kubernetes).
 
 Reference parity: sdk/python/kubeflow/tfjob/api/tf_job_client.py:55-446 —
@@ -60,13 +60,23 @@ class TPUJobClient:
     @classmethod
     def connect_kube(cls, kubeconfig: Optional[str] = None,
                      namespace: Optional[str] = None) -> "TPUJobClient":
-        """Client directly against a Kubernetes cluster: not in the port
-        yet (it comes with the Kubernetes backend, ROADMAP A.3 (f))."""
-        raise NotImplementedError(
-            "TPUJobClient.connect_kube: the GPU control plane has no "
-            "Kubernetes backend yet (ROADMAP A.3 (f)); use "
-            "TPUJobClient.connect(server_url) against a served operator, "
-            "or TPUJobClient(operator.store) in-process")
+        """Client directly against a Kubernetes cluster running the
+        operator with ``--backend=kube`` — the reference SDK's shape
+        (kubernetes-client from kubeconfig, tf_job_client.py:55-100):
+
+            client = TPUJobClient.connect_kube()          # ~/.kube/config
+            client = TPUJobClient.connect_kube("/path/to/kubeconfig")
+        """
+        from tf_operator_tpu_torch.runtime.kube import (
+            KubeClient,
+            KubeConfig,
+            KubeSdkStore,
+        )
+
+        config = KubeConfig.resolve(kubeconfig)
+        ns = namespace or config.namespace or "default"
+        return cls(KubeSdkStore(KubeClient(config), namespace=ns),
+                   namespace=ns)
 
     # -- CRUD (reference tf_job_client.py:77-222) -----------------------
 

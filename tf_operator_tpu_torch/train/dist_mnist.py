@@ -63,6 +63,16 @@ def local_shard(step_idx: int, nproc: int, index: int, batch_size: int):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    from tf_operator_tpu_torch.parallel.distributed import (
+        launch_local_processes,
+    )
+
+    # A pod of several GPUs runs one process a GPU: this one starts them.
+    code = launch_local_processes(
+        "tf_operator_tpu_torch.train.dist_mnist", argv)
+    if code is not None:
+        return code
+
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch-size", type=int, default=64)

@@ -2,7 +2,8 @@
 examples/smoke/tpu_smoke.py).
 
 Reference analog: examples/tf_sample/tf_smoke.py (all-device matmul).
-Prints the bootstrap env the operator injected, runs one bf16 256x256
+Prints the bootstrap env the operator injected (and the cards the pod
+was given, ``CUDA_VISIBLE_DEVICES``), runs one bf16 256x256
 matmul on each visible card (or on the host with ``--device cpu``), and
 exits 0 on success. Like the JAX smoke it joins no process group.
 
@@ -21,7 +22,8 @@ import torch
 
 from tf_operator_tpu_torch._device import resolve_device
 
-BOOTSTRAP_PREFIXES = ("MASTER_", "RANK", "WORLD_SIZE", "LOCAL_", "TPUJOB_")
+BOOTSTRAP_PREFIXES = ("MASTER_", "RANK", "WORLD_SIZE", "LOCAL_", "GROUP_",
+                      "TPUJOB_", "CUDA_VISIBLE_DEVICES")
 
 
 def devices(device: Optional[str]) -> List[torch.device]:

@@ -21,6 +21,16 @@ from typing import Optional, Sequence
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    from tf_operator_tpu_torch.parallel.distributed import (
+        launch_local_processes,
+    )
+
+    # A pod of several GPUs runs one process a GPU: this one starts them.
+    code = launch_local_processes(
+        "tf_operator_tpu_torch.train.train_mixtral", argv)
+    if code is not None:
+        return code
+
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--size", choices=["tiny", "8x7b"], default="tiny")
     ap.add_argument("--steps", type=int, default=4)
