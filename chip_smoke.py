@@ -411,8 +411,37 @@ no flash kernel, as the JAX decode path runs none):
            CR's creation to AllReplicasReady and to Succeeded, from the
            agent's start to its first heartbeat, from the stamp to the
            notice file, the card's name and power limit.
+22. installed  the port from its wheel: a copy of the image's build
+           context (pyproject.toml, README.md, tf_operator_tpu_torch) is
+           built offline into a wheel (pip wheel --no-deps
+           --no-build-isolation --no-index) and installed with --target
+           into a temporary directory made read-only (and shown unchanged
+           after the phase: the superuser writes through the mode). Then
+           processes whose working directory lies outside the checkout,
+           with the install as the only PYTHONPATH and a fresh HOME and
+           XDG_CACHE_HOME: a copy of this script (--installed-check)
+           imports the port from the install, builds both kernel
+           libraries with nvcc from the installed csrc/ into the fresh
+           cache, runs fwd, dQ and dK/dV once each at the main path's
+           shape (bf16, B=1, S=2048, H=32, Hkv=8, D=128, causal) against
+           their plain versions (check_case: the kernels phase's limits
+           and perturbations; launches 1/1/1), and builds the native
+           generator and loader with g++ from the installed native/ into
+           the cache, whose first batches must equal the checkout's
+           build's; python -m tf_operator_tpu_torch.train.train_resnet
+           (resnet_payload's command) prints "resnet training OK"; the
+           installed console script tpu-operator-torch on --backend local
+           with an HTTP API and a token serves this script as the SDK
+           user, and gpu-smoke (2 workers, as the operator phase submits
+           it) succeeds, each pod importing the port from the install.
+           One line: the wheel's file count, the seconds of wheel,
+           install, nvcc, kernels, native, payload and job, library paths,
+           the card's name and power limit.
 
-Then the whole script's seconds, a {"kernels": [...]} summary line (one
+Then the whole script's seconds, a {"phases": [...]} line (each step of
+main: ok, seconds and up to two headline numbers; a step that fails
+prints it too, before the script exits non-zero), a {"kernels": [...]}
+summary line (one
 entry a launch key: the wgmma D=128 kernels' numbers from the training
 step's case and launches from the train phase, the wgmma D=256 kernels'
 from the bf16 D=256 case and the d256_train phase, the 3xTF32 kernels'
@@ -433,6 +462,7 @@ import dataclasses
 import datetime
 import functools
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -444,6 +474,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from unittest import mock
 
 import numpy as np
@@ -451,6 +482,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from tf_operator_tpu_torch import _paths, native
 from tf_operator_tpu_torch.models import bert as tbert
 from tf_operator_tpu_torch.models import llama as tllama
 from tf_operator_tpu_torch.models.llama import Llama, llama_3_8b
@@ -481,6 +513,7 @@ from tf_operator_tpu_torch.parallel.mesh import (
 from tf_operator_tpu_torch.parallel.sharding import LLAMA_RULES
 from tf_operator_tpu_torch.train.data import (
     DeviceFeeder,
+    SyntheticImages,
     images_pipeline,
     prefetch_to_device,
 )
@@ -633,8 +666,55 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"     # the restartable-training and Mixtral phases' device
 
 
+# Every record this process emitted, and one entry a step of main: pass
+# or fail, its seconds and up to two headline numbers, the first of
+# HEADLINE_KEYS found at the top of the records it emitted.
+EMITTED = []
+PHASES = []
+HEADLINE_KEYS = (
+    "tokens_per_s", "images_per_s", "ms_per_step", "step_ms", "ttft_s",
+    "flash_over_xla_tokens_per_s", "idle_share", "rel_l2_kernel_vs_plain",
+    "ring_fwd_bwd_ms", "save_s", "restore_s", "pull_s", "push_s",
+    "flash_fwd_ms", "cases_checked", "wheel_files", "nvcc_s",
+    "b_queue_wait_seconds", "seconds_notice_to_ack", "seconds_to_healthz",
+    "agent_seconds_to_heartbeat", "seconds_to_completion")
+
+
 def emit(record) -> None:
+    EMITTED.append(record)
     print(json.dumps(record), flush=True)
+
+
+def headline(records) -> dict:
+    found = {}
+    for key in HEADLINE_KEYS:
+        value = next((r[key] for r in records
+                      if isinstance(r.get(key), (int, float))
+                      and not isinstance(r.get(key), bool)), None)
+        if value is not None:
+            found[key] = value
+        if len(found) == 2:
+            break
+    return found
+
+
+def run_phase(name: str, fn, *args):
+    """``fn(*args)`` as the step ``name`` of the phases line; a step that
+    raises is entered as failed, the phases line printed, and the error
+    raised on."""
+    first, t0 = len(EMITTED), time.perf_counter()
+    try:
+        result = fn(*args)
+    except BaseException as err:
+        PHASES.append({"phase": name, "ok": False,
+                       "seconds": time.perf_counter() - t0,
+                       "error": f"{type(err).__name__}: {err}"[:300]})
+        emit({"phases": PHASES})
+        raise
+    PHASES.append({"phase": name, "ok": True,
+                   "seconds": time.perf_counter() - t0,
+                   **headline(EMITTED[first:])})
+    return result
 
 
 def nvidia_smi() -> str:
@@ -1290,7 +1370,8 @@ def phase_kernels():
             stats.setdefault(name, row)
             variants.append({"kernel": name, **row})
         free_cuda()
-    emit({"phase": "kernels",
+    emit({"phase": "kernels", "cases_checked": len(cases),
+          "flash_fwd_ms": stats["flash_fwd"]["ms"],
           "tolerance": {"atol": f"min({ATOL}, {REL} * max|ref|)",
                         "rtol": ATOL, "rel_l2": REL, "lse_atol": LSE_ATOL,
                         "f32": {"atol": f"min({F32_TOL}, {F32_REL} * "
@@ -5097,65 +5178,356 @@ def phase_kube(root: str):
         fake.stop()
 
 
+# ---------------------------------------------------------------------------
+# The installed port: its wheel, installed read-only, run from outside the
+# checkout
+# ---------------------------------------------------------------------------
+
+# The image's build context (build/images/tpu_operator_torch/Dockerfile):
+# what the port's wheel is built from.
+WHEEL_CONTEXT = ("pyproject.toml", "README.md", "tf_operator_tpu_torch")
+# pip offline: no index, no build isolation (setuptools comes with torch),
+# no version check.
+PIP = (sys.executable, "-m", "pip", "--disable-pip-version-check")
+INSTALLED_STEP_S = 600      # deadline of each step of the installed phase
+INSTALLED_TOKEN = "chip-smoke-installed"
+INSTALLED_BATCH = 64        # the ResNet payload's batch
+
+
+def under(path: str, root: str) -> bool:
+    path, root = os.path.realpath(path), os.path.realpath(root)
+    return os.path.commonpath([path, root]) == root
+
+
+def build_wheel(work: str) -> dict:
+    """The port's wheel, built in a copy of the image's build context (so
+    setuptools' build/ and *.egg-info stay out of the checkout) and
+    installed with --target into ``<work>/site``, made read-only."""
+    src, wheels = os.path.join(work, "src"), os.path.join(work, "wheel")
+    site = os.path.join(work, "site")
+    os.makedirs(src)
+    for name in WHEEL_CONTEXT:
+        path = os.path.join(REPO, name)
+        if os.path.isdir(path):
+            shutil.copytree(path, os.path.join(src, name),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+        else:
+            shutil.copy2(path, src)
+    seconds = {}
+
+    def pip(step, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([*PIP, *args], cwd=work, capture_output=True,
+                              text=True, timeout=INSTALLED_STEP_S)
+        seconds[step] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"pip {step} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+
+    pip("wheel", "wheel", "--no-deps", "--no-build-isolation", "--no-index",
+        "--wheel-dir", wheels, src)
+    found = [os.path.join(wheels, n) for n in os.listdir(wheels)
+             if n.endswith(".whl")]
+    if len(found) != 1:
+        raise AssertionError(f"pip wheel made {found}")
+    with zipfile.ZipFile(found[0]) as whl:
+        files = whl.namelist()
+    pip("install", "install", "--no-deps", "--no-index", "--target", site,
+        found[0])
+    subprocess.run(["chmod", "-R", "a-w", site], check=True, timeout=60)
+    return {"wheel": os.path.basename(found[0]), "wheel_files": len(files),
+            "site": site, "seconds": seconds}
+
+
+def installed_env(work: str, site: str) -> dict:
+    """This process's env with the install as the only PYTHONPATH and a
+    fresh HOME and XDG_CACHE_HOME."""
+    home = os.path.join(work, "home")
+    os.makedirs(home, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "PYTHONHOME", "PYTHONUSERBASE")}
+    env.update(PYTHONPATH=site, HOME=home,
+               XDG_CACHE_HOME=os.path.join(home, ".cache"))
+    return env
+
+
+def tree_state(root: str) -> list:
+    """Every path under ``root`` with its mode and a file's mtime,
+    bytecode caches left out (Python writes them where it may and skips
+    them where it may not). The superuser writes through a read-only
+    mode, so an install is shown untouched by comparing this before and
+    after."""
+    state = []
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for name in dirs + files:
+            path = os.path.join(dirpath, name)
+            st = os.lstat(path)
+            # A directory's mtime moves when a cache appears in it.
+            state.append((os.path.relpath(path, root), st.st_mode,
+                          None if name in dirs else st.st_mtime_ns))
+    return sorted(state, key=str)
+
+
+def native_digest() -> str:
+    """sha256 of the first batch of images_pipeline (the native loader,
+    loader.cc) and of SyntheticImages (batchgen.cc) at the ResNet
+    payload's batch and size, seed 0."""
+    digest = hashlib.sha256()
+    with images_pipeline(INSTALLED_BATCH, RESNET_IMAGE) as loader:
+        batches = [next(loader)]
+    batches.append(next(iter(SyntheticImages(INSTALLED_BATCH,
+                                             RESNET_IMAGE))))
+    for batch in batches:
+        for key in sorted(batch):
+            digest.update(np.ascontiguousarray(batch[key]).tobytes())
+    return digest.hexdigest()
+
+
+def installed_check() -> int:
+    """Run by phase_installed as ``chip_smoke.py --installed-check`` in a
+    copy of this script outside the checkout, the port on PYTHONPATH from
+    the read-only install alone: every kernel library built by nvcc from
+    the installed csrc/ into the fresh cache, then fwd, dQ and dK/dV
+    once each at the main path's shape, held to their plain versions by
+    check_case (which must also reject its perturbed outputs); then the
+    native data path built by g++ from the installed native/ into the
+    cache (native_digest). One JSON line."""
+    import tf_operator_tpu_torch
+
+    site, cache = os.environ["PYTHONPATH"], str(_paths.cache_root())
+    modules = {m.__name__: m.__file__
+               for m in (tf_operator_tpu_torch, _paths, _build, fa, native)}
+    t0 = time.perf_counter()
+    phase_build()
+    nvcc_s = time.perf_counter() - t0
+    libraries = {name: {"nvcc_seconds": seconds, "library": path}
+                 for name, (seconds, path, _) in _build.build_info.items()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    case, _ = check_case(torch.Generator(device="cuda").manual_seed(0),
+                         S, S, True, 0, False)
+    kernels_s = time.perf_counter() - t0
+    launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+    missed = [(p, n) for p, ratios in case["perturbed_ratio"].items()
+              for n, r in ratios.items() if r <= 1.0]
+    missed += [p for p, ratios in case["domain_perturbed_ratio"].items()
+               if max(ratios.values()) <= 1.0]
+    t0 = time.perf_counter()
+    digest = native_digest()
+    native_s = time.perf_counter() - t0
+    native_libraries = sorted(
+        str(native.library_path(n)) for n in ("batchgen", "loader"))
+    record = {"site": site, "cache": cache, "modules": modules,
+              "libraries": libraries, "nvcc_s": nvcc_s,
+              "kernels_s": kernels_s, "launches": launches,
+              "ok": case["ok"], "max_abs_err": case["max_abs_err"],
+              "checks": {n: c["ratio"] for n, c in case["checks"].items()},
+              "perturbations_rejected": len(case["perturbed_ratio"])
+              + len(case["domain_perturbed_ratio"]) - len(missed),
+              "missed": missed, "native_s": native_s,
+              "native_libraries": native_libraries, "native_digest": digest}
+    emit(record)
+    if (not all(under(f, site) for f in modules.values())
+            or sorted(libraries) != sorted(fa._LIBRARY.values())
+            or not all(under(lib["library"], cache) and lib["nvcc_seconds"]
+                       > 0 for lib in libraries.values())
+            or not all(under(p, cache) and os.path.exists(p)
+                       for p in native_libraries)
+            or not all(case["ok"].values()) or missed
+            or launches != {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}):
+        raise AssertionError(f"installed check: {record}")
+    return 0
+
+
+def phase_installed():
+    """The port from its wheel (module docstring, phase 22)."""
+    from tf_operator_tpu_torch.runtime.apiserver import wait_for_server
+    from tf_operator_tpu_torch.sdk import TPUJobClient
+
+    card = nvidia_smi()
+    device_name = torch.cuda.get_device_name(0)
+    work = tempfile.mkdtemp(prefix="chip-smoke-installed-")
+    if under(work, REPO):
+        raise AssertionError(f"{work} lies in the checkout")
+    proc = None
+    try:
+        wheel = build_wheel(work)
+        site, seconds = wheel["site"], wheel["seconds"]
+        before = tree_state(site)
+        writable = [p for p, mode, _ in before if mode & 0o222]
+        if writable:
+            raise AssertionError(f"installed: writable {writable[:5]}")
+        env = installed_env(work, site)
+        run = os.path.join(work, "run")
+        os.makedirs(run)
+        shutil.copy2(os.path.abspath(__file__), run)
+
+        def child(step, argv):
+            t0 = time.perf_counter()
+            done = subprocess.run(argv, cwd=run, env=env, capture_output=True,
+                                  text=True, timeout=INSTALLED_STEP_S)
+            seconds[step] = time.perf_counter() - t0
+            if done.returncode != 0:
+                raise AssertionError(
+                    f"installed {step} exited {done.returncode}:\n"
+                    f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+            return done.stdout.splitlines()
+
+        checked = json.loads(child("check_process", [
+            sys.executable, os.path.join(run, "chip_smoke.py"),
+            "--installed-check"])[-1])
+        for step in ("nvcc", "kernels", "native"):
+            seconds[step] = checked[f"{step}_s"]
+        # The same batches from the checkout's build of the same sources.
+        if checked["native_digest"] != native_digest():
+            raise AssertionError(f"installed native batches differ from "
+                                 f"the checkout's: {checked}")
+        payload = child("payload", [
+            sys.executable, "-m", "tf_operator_tpu_torch.train.train_resnet",
+            "--size", "50", "--steps", "4", "--batch-size", "64",
+            "--image-size", "224"])
+        if "resnet training OK" not in payload:
+            raise AssertionError(f"installed train_resnet: {payload}")
+
+        # The installed console script as the operator on the local
+        # backend, its API served to this script as the SDK user.
+        visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES",
+                                             "").split(",") if c.strip()]
+        cards = visible or ["0"]
+        tokens = os.path.join(work, "tokens")
+        with open(tokens, "w") as f:
+            f.write(f"{INSTALLED_TOKEN} admin\n")
+        port = _free_ports(1)[0]
+        url = f"http://127.0.0.1:{port}"
+        log_path = os.path.join(work, "operator.log")
+        t0 = time.perf_counter()
+        with open(log_path, "wb") as log:
+            proc = subprocess.Popen(
+                [os.path.join(site, "bin", "tpu-operator-torch"),
+                 "--backend", "local", "--api-port", str(port),
+                 "--api-tokens-file", tokens, "--no-leader-elect",
+                 "--monitoring-port", "0", "--resync-period", "2"],
+                cwd=run, env=dict(env, CUDA_VISIBLE_DEVICES=",".join(cards)),
+                stdout=log, stderr=subprocess.STDOUT)
+        try:
+            wait_for_server(url, timeout=SERVED_START_S)
+            client = TPUJobClient.connect(url, token=INSTALLED_TOKEN)
+            client.create(operator_job(
+                "gpu-smoke", [sys.executable, "-m",
+                              "tf_operator_tpu_torch.train.gpu_smoke"],
+                replicas=2))
+            done = client.wait_for_job("gpu-smoke",
+                                       timeout=OPERATOR_TIMEOUT_S)
+            logs = client.get_job_logs("gpu-smoke")
+            check_smoke_pods(client, logs, device_name, cards=cards)
+        except BaseException:
+            with open(log_path, "rb") as f:
+                print(f.read()[-4000:].decode(errors="replace"),
+                      file=sys.stderr)
+            raise
+        seconds["job"] = time.perf_counter() - t0
+        imported = "port imported from " + os.path.join(
+            site, "tf_operator_tpu_torch")
+        changed = sorted(set(tree_state(site)) ^ set(before), key=str)
+        status, created = done.status, done.metadata.creation_timestamp
+        emit({"phase": "installed", "nvidia_smi": card,
+              "wheel": wheel["wheel"], "wheel_files": wheel["wheel_files"],
+              "nvcc_s": seconds["nvcc"], "seconds": seconds, "site": site,
+              "site_changed": changed,
+              "modules": checked["modules"],
+              "libraries": checked["libraries"],
+              "launches": checked["launches"],
+              "kernel_checks": checked["checks"],
+              "perturbations_rejected": checked["perturbations_rejected"],
+              "native_libraries": checked["native_libraries"],
+              "payload": payload[-2:],
+              "job_seconds_to_completion": (
+                  status.completion_time - created).total_seconds(),
+              "pods_import_the_install": all(imported in log
+                                             for log in logs.values())})
+        if changed or not all(imported in log for log in logs.values()):
+            raise AssertionError(f"installed: the install changed "
+                                 f"{changed[:10]}, logs {logs}")
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        subprocess.run(["chmod", "-R", "u+w", work], timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--installed-check"]:
+        return installed_check()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     started = time.perf_counter()
-    phase_env()
-    phase_build()
-    stats, variants, errs = phase_kernels()
-    fp16_launches = phase_fp16_model()
-    ragged_launches = phase_ragged_train()
-    f32_launches = phase_f32_train()
-    d256_launches = phase_d256_train()
-    d512_launches = phase_wide_train("d512_train", 512, D512_HEADS,
-                                     D512_KV_HEADS, D512_STEPS, seed=5)
-    d384_launches = phase_wide_train("d384_train", 384, D384_HEADS,
-                                     D384_KV_HEADS, D384_STEPS, seed=6)
+    run_phase("env", phase_env)
+    run_phase("build", phase_build)
+    stats, variants, errs = run_phase("kernels", phase_kernels)
+    fp16_launches = run_phase("fp16_model", phase_fp16_model)
+    ragged_launches = run_phase("ragged_train", phase_ragged_train)
+    f32_launches = run_phase("f32_train", phase_f32_train)
+    d256_launches = run_phase("d256_train", phase_d256_train)
+    d512_launches = run_phase("d512_train", phase_wide_train, "d512_train",
+                              512, D512_HEADS, D512_KV_HEADS, D512_STEPS, 5)
+    d384_launches = run_phase("d384_train", phase_wide_train, "d384_train",
+                              384, D384_HEADS, D384_KV_HEADS, D384_STEPS, 6)
 
     cfg = slice_config()
     model = Llama(cfg, device="cuda",
                   generator=torch.Generator(device="cuda").manual_seed(0))
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                (B, S + 1))
-    phase_model(model, torch.as_tensor(tokens[:, :512], device="cuda"))
+    run_phase("model", phase_model, model,
+              torch.as_tensor(tokens[:, :512], device="cuda"))
     batch = {"inputs": tokens}
-    launches, step, state, full = phase_train(model, batch)
-    train_profile = phase_profile(step, state, batch)
+    launches, step, state, full = run_phase("train", phase_train, model,
+                                            batch)
+    train_profile = run_phase("profile", phase_profile, step, state, batch)
     build = os.path.join(REPO, "build")
     os.makedirs(build, exist_ok=True)
     root = tempfile.mkdtemp(prefix="ckpt-", dir=build)
     try:
-        kept = phase_ckpt(step, state, batch, root)
+        kept = run_phase("ckpt", phase_ckpt, step, state, batch, root)
         # Free the training model, optimizer and state (35.9 GiB at peak)
         # before another model is built.
         del model, step, state
         gc.collect()
         torch.cuda.empty_cache()
-        phase_restore(kept, batch, root)
+        run_phase("restore", phase_restore, kept, batch, root)
         del kept
         shutil.rmtree(os.path.join(root, "ckpt"), ignore_errors=True)
-        dist_launches = phase_dist(batch, full["record"], train_profile,
-                                   root)
-        ring_launches = phase_ring()
-        ring_train_launches = phase_ring_train(batch, full["record"])
-        pp_launches_run = phase_pp()
-        phase_tp_kv()
-        phase_remat(batch, full)
+        dist_launches = run_phase("dist", phase_dist, batch, full["record"],
+                                  train_profile, root)
+        ring_launches = run_phase("ring", phase_ring)
+        ring_train_launches = run_phase("ring_train", phase_ring_train,
+                                        batch, full["record"])
+        pp_launches_run = run_phase("pp", phase_pp)
+        run_phase("tp_kv", phase_tp_kv)
+        run_phase("remat", phase_remat, batch, full)
         del full
-        phase_decode()
-        phase_serve()
-        phase_worker()
-        phase_resume(root)
-        phase_resnet_all()
-        mixtral_launches = phase_mixtral_all()
-        bert_launches = phase_bert_all()
-        phase_ps(root)
-        phase_operator(root)
-        phase_operator_planes(root)
-        phase_served(root)
-        phase_kube(root)
+        run_phase("decode", phase_decode)
+        run_phase("serve", phase_serve)
+        run_phase("worker", phase_worker)
+        run_phase("resume", phase_resume, root)
+        run_phase("resnet", phase_resnet_all)
+        mixtral_launches = run_phase("mixtral", phase_mixtral_all)
+        bert_launches = run_phase("bert", phase_bert_all)
+        run_phase("ps", phase_ps, root)
+        run_phase("operator", phase_operator, root)
+        run_phase("operator_planes", phase_operator_planes, root)
+        run_phase("served", phase_served, root)
+        run_phase("kube", phase_kube, root)
+        run_phase("installed", phase_installed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5197,6 +5569,7 @@ def main() -> int:
                     "bound_by", "library_ms")}
                     for row in variants if row["kernel"] == name]})
     emit({"phase": "total", "seconds": time.perf_counter() - started})
+    emit({"phases": PHASES})
     emit({"kernels": summary})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,11 +3,12 @@ ctypes bindings; ``prefetch.py`` binds the prefetching loader
 (``loader.cc``).
 
 Each library is built on first use with g++ into ``build/torch_native/``
-at the root of the checkout, named by a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one reused. A failed build
-raises: there is no numpy fallback, whose numbers for the same seed would
-differ from the JAX package's native ones (the C++ here is the same, so
-the same seed gives the same bytes).
+at the root of the checkout, or from an install into ``torch_native/`` of
+the per-user cache (``_paths.py``), named by a hash of its source and
+flags, so an edited source is rebuilt and an unchanged one reused. A
+failed build raises: there is no numpy fallback, whose numbers for the
+same seed would differ from the JAX package's native ones (the C++ here
+is the same, so the same seed gives the same bytes).
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from typing import Dict
 
 import numpy as np
 
+from tf_operator_tpu_torch import _paths
+
 SRC = Path(__file__).resolve().parent
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
+BUILD_DIR = _paths.build_dir("torch_native")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-Wall", "-shared")
 
 _lock = threading.Lock()
@@ -44,7 +47,7 @@ def load_library(name: str) -> ctypes.CDLL:
             return _loaded[name]
         lib = library_path(name)
         if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _paths.make_dir(BUILD_DIR)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
                    str(SRC / f"{name}.cc")]

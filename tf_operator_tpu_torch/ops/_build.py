@@ -1,9 +1,10 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and bind them by ctypes.
 
 Each library (one ``csrc/<name>.cu`` and every ``.cuh``) is built on
-first use into ``build/torch_kernels/`` at the root of the checkout, named
-by a hash of its sources and flags, so an edit to a source rebuilds it and
-an unchanged tree reuses the last build. The sources have a plain C
+first use into ``build/torch_kernels/`` at the root of the checkout, or
+from an install into ``torch_kernels/`` of the per-user cache
+(``_paths.py``), named by a hash of its sources and flags, so an edit to
+a source rebuilds it and an unchanged tree reuses the last build. The sources have a plain C
 interface (no PyTorch headers), which keeps one build to seconds or tens
 of seconds. Two libraries build in parallel (one nvcc each, ``load_all``);
 one library is built once however many threads ask for it. Nothing here
@@ -23,8 +24,10 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+from tf_operator_tpu_torch import _paths
+
+CSRC = _paths.PACKAGE / "csrc"
+BUILD_DIR = _paths.build_dir("torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,7 +76,7 @@ def load(name: str) -> ctypes.CDLL:
         main, _ = _sources(name)
         lib = library_path(name)
         if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _paths.make_dir(BUILD_DIR)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(main)]
             t0 = time.perf_counter()

@@ -7,7 +7,9 @@ The `kubectl apply -f` + `kubectl logs` analog (reference SDK
 `TFJobClient.create`/`get_logs`, sdk/.../tf_job_client.py:77,380):
 starts an in-process GPU operator with the subprocess pod backend, submits
 the job, waits for Succeeded/Failed, and prints each replica's log. JSON
-always loads; YAML needs ``pyyaml``.
+always loads; YAML needs ``pyyaml``. Pods run in a fresh directory under
+the checkout's ``build/``, or from an install under the per-user cache
+(``_paths.py``), never in the package's own directory.
 """
 
 from __future__ import annotations
@@ -18,11 +20,10 @@ import os
 import sys
 from typing import Optional, Sequence
 
+from tf_operator_tpu_torch import _paths
 from tf_operator_tpu_torch.api.types import JobConditionType, TPUJob
 from tf_operator_tpu_torch.operator import Operator
 from tf_operator_tpu_torch.sdk.client import TPUJobClient
-
-REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def load_job(path: str) -> TPUJob:
@@ -46,7 +47,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     job = load_job(args.spec)
-    op = Operator.local(workdir=REPO_ROOT)
+    workdir = _paths.fresh_dir("run-local-")
+    # Pods import the port this process imported, from the checkout or
+    # the install, whatever their working directory.
+    pythonpath = os.pathsep.join(p for p in (
+        workdir, str(_paths.PACKAGE.parent), os.environ.get("PYTHONPATH"))
+        if p)
+    op = Operator.local(workdir=workdir,
+                        extra_env={"PYTHONPATH": pythonpath})
+    print(f"pods run in {workdir}")
     op.start(threadiness=2)
     client = TPUJobClient(op.store)
     try:

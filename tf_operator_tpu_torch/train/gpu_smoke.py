@@ -3,7 +3,8 @@ examples/smoke/tpu_smoke.py).
 
 Reference analog: examples/tf_sample/tf_smoke.py (all-device matmul).
 Prints the bootstrap env the operator injected (and the cards the pod
-was given, ``CUDA_VISIBLE_DEVICES``), runs one bf16 256x256
+was given, ``CUDA_VISIBLE_DEVICES``) and where the port was imported
+from (a checkout or an install), runs one bf16 256x256
 matmul on each visible card (or on the host with ``--device cpu``), and
 exits 0 on success. Like the JAX smoke it joins no process group.
 
@@ -20,6 +21,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+import tf_operator_tpu_torch
 from tf_operator_tpu_torch._device import resolve_device
 
 BOOTSTRAP_PREFIXES = ("MASTER_", "RANK", "WORLD_SIZE", "LOCAL_", "GROUP_",
@@ -49,6 +51,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     bootstrap = {k: v for k, v in sorted(os.environ.items())
                  if k.startswith(BOOTSTRAP_PREFIXES)}
     print("bootstrap env:", json.dumps(bootstrap, indent=1), flush=True)
+    print("port imported from",
+          os.path.dirname(tf_operator_tpu_torch.__file__), flush=True)
 
     found = devices(args.device)
     for device in found:
