@@ -411,7 +411,30 @@ no flash kernel, as the JAX decode path runs none):
            CR's creation to AllReplicasReady and to Succeeded, from the
            agent's start to its first heartbeat, from the stamp to the
            notice file, the card's name and power limit.
-22. installed  the port from its wheel: a copy of the image's build
+22. failover   the deployed configuration of
+           manifests/gpu/operator-deployment.yaml: the kube phase's fake
+           API server with one one-GPU node, its node agent, and two
+           operator processes (python -m tf_operator_tpu_torch --backend
+           kube --leader-elect, distinct --leader-elect-identity, the kube
+           phase's other flags) contending for the one Lease. A CR runs
+           one h100-1 worker of train_resnet --size 50 --batch-size 64
+           --image-size 224 (FAILOVER_STEPS steps, its output unbuffered);
+           this script is the node's kubelet. Once the worker is Running
+           and has logged its first step, the Lease's holder is killed
+           with SIGKILL (no release). Checks: the standby holds the Lease
+           within LEASE_DURATION + 2 RETRY_PERIOD + 5 s (cli.py: 26 s) of
+           the kill, with the worker Running at the takeover and still
+           Running 10 s after it; the CR Succeeded; the worker is the one
+           from before the kill (the same uid, the same process, on the
+           same card, restart count 0) and its log runs steps 0 to
+           FAILOVER_STEPS - 1 once each after one start; the fake's record
+           of creates holds one pod create for the replica index; at no
+           sampled instant did pods bound to the node ask for more GPUs
+           than it has, or did two pods' processes run. One line: seconds
+           from the kill to the takeover and to Succeeded, the steps and
+           seconds a step, the identities, the card's name and power
+           limit.
+23. installed  the port from its wheel: a copy of the image's build
            context (pyproject.toml, README.md, tf_operator_tpu_torch) is
            built offline into a wheel (pip wheel --no-deps
            --no-build-isolation --no-index) and installed with --target
@@ -685,15 +708,21 @@ def emit(record) -> None:
     print(json.dumps(record), flush=True)
 
 
-def headline(records) -> dict:
+# Phases whose line on the phases line carries these numbers instead.
+PHASE_HEADLINES = {
+    "failover": ("lease_takeover_seconds", "kill_to_succeeded_seconds",
+                 "steps")}
+
+
+def headline(records, keys=HEADLINE_KEYS, most: int = 2) -> dict:
     found = {}
-    for key in HEADLINE_KEYS:
+    for key in keys:
         value = next((r[key] for r in records
                       if isinstance(r.get(key), (int, float))
                       and not isinstance(r.get(key), bool)), None)
         if value is not None:
             found[key] = value
-        if len(found) == 2:
+        if len(found) == most:
             break
     return found
 
@@ -711,9 +740,11 @@ def run_phase(name: str, fn, *args):
                        "error": f"{type(err).__name__}: {err}"[:300]})
         emit({"phases": PHASES})
         raise
+    keys = PHASE_HEADLINES.get(name)
     PHASES.append({"phase": name, "ok": True,
                    "seconds": time.perf_counter() - t0,
-                   **headline(EMITTED[first:])})
+                   **(headline(EMITTED[first:], keys, len(keys)) if keys
+                      else headline(EMITTED[first:]))})
     return result
 
 
@@ -4956,6 +4987,7 @@ class FakeKubelet:
         self.done = {}       # pod name -> exit code
         self.envs = {}       # pod name -> the env it ran with
         self.started = {}    # pod name -> time.time() at start
+        self.uids = {}       # pod name -> the uid of the pod it ran
 
     def tick(self) -> None:
         for name, (proc, log_path) in list(self.procs.items()):
@@ -4994,6 +5026,7 @@ class FakeKubelet:
                     stdout=log, stderr=subprocess.STDOUT)
             self.procs[name], self.envs[name] = (proc, log_path), env
             self.started[name] = time.time()
+            self.uids[name] = raw["metadata"]["uid"]
             self.fake.state.set_pod_phase("default", name, "Running")
 
     def stop(self) -> None:
@@ -5178,6 +5211,289 @@ def phase_kube(root: str):
         fake.stop()
 
 
+FAILOVER_NODE = "failover-gpu-node"
+FAILOVER_IDENTITIES = ("operator-a", "operator-b")
+FAILOVER_JOB = "failover-resnet"
+# ResNet-50 at B=64 takes 0.0736-0.1059 s a step on an H100 80GB HBM3 at
+# 700 W (this phase): 500 steps train at least 36.7 s after the kill,
+# past the takeover's limit (26 s after it) plus
+# FAILOVER_AFTER_TAKEOVER_S.
+FAILOVER_STEPS = 500
+FAILOVER_AFTER_TAKEOVER_S = 10.0
+FAILOVER_SLACK_S = 5.0      # beyond LEASE_DURATION + 2 RETRY_PERIOD
+STEP_LINE = re.compile(r"^step (\d+): loss=", re.M)
+
+
+def failover_command(steps: int) -> list:
+    """The worker's command: the operator phase's ResNet-50 payload,
+    unbuffered so each step reaches the log as it is taken."""
+    return [sys.executable, "-u", "-m",
+            "tf_operator_tpu_torch.train.train_resnet", "--size", "50",
+            "--steps", str(steps), "--batch-size", "64", "--image-size",
+            "224"]
+
+
+def lease_holder(fake, name: str):
+    """(holder identity, transitions) of the Lease ``name``; ("", 0)
+    while it does not exist."""
+    raw = fake.state.objects["leases"].get(("default", name))
+    spec = (raw or {}).get("spec") or {}
+    return spec.get("holderIdentity") or "", spec.get("leaseTransitions") or 0
+
+
+def phase_failover(root: str):
+    """The two-replica deployment of manifests/gpu losing its leader
+    mid-job (module docstring, phase 22)."""
+    from tf_operator_tpu_torch import cli
+    from tf_operator_tpu_torch.api import constants
+    from tf_operator_tpu_torch.controller import conditions as cond
+    from tf_operator_tpu_torch.runtime.kube_fake import FakeKubeApiServer
+    from tf_operator_tpu_torch.runtime.leaderelection import (
+        DEFAULT_LOCK_NAME,
+    )
+    from tf_operator_tpu_torch.sdk import TPUJobClient
+
+    card = nvidia_smi()
+    visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES",
+                                         "").split(",") if c.strip()]
+    node_card = visible[0] if visible else "0"
+    work = os.path.join(root, "failover")
+    relay = os.path.join(work, "relay")
+    os.makedirs(relay)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    procs = {}       # name -> (Popen, log file)
+    takeover_limit = (cli.LEASE_DURATION + 2 * cli.RETRY_PERIOD
+                      + FAILOVER_SLACK_S)
+
+    def start(name, argv):
+        log = open(os.path.join(work, f"{name}.log"), "wb")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=REPO, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log)
+
+    def log_tail(name) -> str:
+        with open(os.path.join(work, f"{name}.log"), "rb") as f:
+            return f.read()[-4000:].decode(errors="replace")
+
+    fake = FakeKubeApiServer().start()
+    # The fake's record of creates: (pod, uid, replica index).
+    creates = []
+    state_create = fake.state.create
+
+    def record_create(resource, ns, obj):
+        out = state_create(resource, ns, obj)
+        if resource == "pods":
+            meta = out["metadata"]
+            creates.append((meta["name"], meta["uid"], (meta.get(
+                "labels") or {}).get(constants.LABEL_REPLICA_INDEX)))
+        return out
+
+    fake.state.create = record_create
+    kubelet = FakeKubelet(fake, FAILOVER_NODE, node_card, work)
+    pod = f"{FAILOVER_JOB}-worker-0"
+    pod_log = os.path.join(work, f"{pod}.log")
+    peak = {"gpus_bound": 0, "processes": 0}
+    step_seen = {}   # step -> time.perf_counter() it was first seen
+
+    def pod_phase():
+        raw = fake.state.objects["pods"].get(("default", pod))
+        return ((raw or {}).get("status") or {}).get("phase")
+
+    def tick():
+        kubelet.tick()
+        bound = 0
+        for raw in list(fake.state.objects["pods"].values()):
+            if (raw["spec"].get("nodeName") == FAILOVER_NODE
+                    and (raw.get("status") or {}).get("phase")
+                    not in ("Succeeded", "Failed")):
+                limits = ((raw["spec"]["containers"][0].get("resources")
+                           or {}).get("limits") or {})
+                bound += int(limits.get(constants.RESOURCE_GPU, 0))
+        peak["gpus_bound"] = max(peak["gpus_bound"], bound)
+        peak["processes"] = max(peak["processes"], len(kubelet.procs))
+        if os.path.exists(pod_log):
+            with open(pod_log, errors="replace") as f:
+                for m in STEP_LINE.finditer(f.read()):
+                    step_seen.setdefault(int(m.group(1)),
+                                         time.perf_counter())
+
+    try:
+        t_start = time.perf_counter()
+        fake.state.add_node(FAILOVER_NODE, chips=1,
+                            nvlink_domain="chip-smoke")
+        kubeconfig = os.path.join(work, "kubeconfig")
+        with open(kubeconfig, "w") as f:
+            f.write(KUBECONFIG.format(server=fake.url))
+        start("agent", [
+            "tf_operator_tpu_torch.runtime.nodeagent", "--node",
+            FAILOVER_NODE, "--relay-dir", relay, "--kubeconfig", kubeconfig,
+            "--heartbeat-seconds", str(KUBE_HEARTBEAT_S)])
+        for identity in FAILOVER_IDENTITIES:
+            start(identity, [
+                "tf_operator_tpu_torch", "--backend", "kube",
+                "--kubeconfig", kubeconfig, "--enable-gang-scheduling",
+                "--enable-ckpt-coordination", "--agent-relay-dir", relay,
+                "--leader-elect", "--leader-elect-identity", identity,
+                "--monitoring-port", "0", "--resync-period", "2"])
+        try:
+            wait_until(lambda: lease_holder(fake, DEFAULT_LOCK_NAME)[0]
+                       in FAILOVER_IDENTITIES, "a leader", KUBE_START_S)
+        except AssertionError as err:
+            raise AssertionError(f"{err}\n{log_tail(FAILOVER_IDENTITIES[0])}")
+        leader_s = time.perf_counter() - t_start
+        client = TPUJobClient.connect_kube(kubeconfig)
+        job = operator_job(FAILOVER_JOB, failover_command(FAILOVER_STEPS))
+        job.metadata.namespace = "default"
+        client.create(job)
+
+        # Running and training: the first step is in the worker's log.
+        deadline = time.monotonic() + OPERATOR_TIMEOUT_S
+        while not (pod in kubelet.procs and step_seen):
+            tick()
+            if pod in kubelet.done or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"failover: {pod} never trained: "
+                    f"{client.get(FAILOVER_JOB).status.to_dict()}\n"
+                    f"{log_tail(FAILOVER_IDENTITIES[0])}")
+            time.sleep(0.05)
+        leader, _ = lease_holder(fake, DEFAULT_LOCK_NAME)
+        standby = next(i for i in FAILOVER_IDENTITIES if i != leader)
+        raw = fake.state.objects["pods"][("default", pod)]
+        before = {"uid": raw["metadata"]["uid"],
+                  "pid": kubelet.procs[pod][0].pid,
+                  "card": kubelet.envs[pod].get("CUDA_VISIBLE_DEVICES"),
+                  "node": raw["spec"].get("nodeName")}
+        steps_at_kill = len(step_seen)
+        killed = procs[leader][0]
+        killed.send_signal(signal.SIGKILL)   # releases nothing
+        t_kill = time.perf_counter()
+        first_step_s = min(step_seen.values()) - t_start
+        killed.wait(timeout=30)
+
+        takeover_s = running_at_takeover = running_after = None
+        steps_at_takeover = None
+        while True:
+            tick()
+            now = time.perf_counter()
+            if takeover_s is None:
+                if lease_holder(fake, DEFAULT_LOCK_NAME)[0] == standby:
+                    takeover_s = now - t_kill
+                    steps_at_takeover = len(step_seen)
+                    running_at_takeover = (pod in kubelet.procs
+                                           and pod_phase() == "Running")
+                elif now - t_kill > takeover_limit:
+                    raise AssertionError(
+                        f"failover: {standby} did not take the lease within "
+                        f"{takeover_limit} s of the kill\n{log_tail(standby)}")
+            elif (running_after is None
+                    and now - t_kill >= takeover_s + FAILOVER_AFTER_TAKEOVER_S):
+                running_after = (pod in kubelet.procs
+                                 and pod_phase() == "Running")
+            status = client.get(FAILOVER_JOB).status
+            if cond.is_succeeded(status) or cond.is_failed(status):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"failover: {FAILOVER_JOB} not done after "
+                    f"{OPERATOR_TIMEOUT_S} s: {status.to_dict()}\n"
+                    f"{log_tail(standby)}")
+            time.sleep(0.05)
+        succeeded_s = time.perf_counter() - t_kill
+        tick()
+        raw = fake.state.objects["pods"].get(("default", pod)) or {}
+        restarts = [c.get("restartCount") for c in
+                    (raw.get("status") or {}).get("containerStatuses") or []]
+        with open(pod_log, errors="replace") as f:
+            log = f.read()
+        steps = [int(m.group(1)) for m in STEP_LINE.finditer(log)]
+        seen = sorted(step_seen.items())
+        step_s = ((seen[-1][1] - seen[0][1]) / (len(seen) - 1)
+                  if len(seen) > 1 else None)
+        holder, transitions = lease_holder(fake, DEFAULT_LOCK_NAME)
+        emit({"phase": "failover", "job": FAILOVER_JOB, "nvidia_smi": card,
+              "node_card": node_card, "leader": leader, "standby": standby,
+              "leader_exit": killed.returncode,
+              "seconds_to_leader": leader_s,
+              "seconds_to_first_step": first_step_s,
+              "lease_takeover_seconds": takeover_s,
+              "takeover_limit_s": takeover_limit,
+              "kill_to_succeeded_seconds": succeeded_s,
+              "steps": FAILOVER_STEPS, "step_s": step_s,
+              "steps_before_kill": steps_at_kill,
+              "steps_at_takeover": steps_at_takeover,
+              "training_after_takeover_s": (
+                  None if takeover_s is None
+                  else seen[-1][1] - t_kill - takeover_s),
+              "running_at_takeover": running_at_takeover,
+              "running_10s_after_takeover": running_after,
+              "lease": {"holder": holder, "transitions": transitions},
+              "pod": {"uid_unchanged": raw.get("metadata", {}).get("uid")
+                      == before["uid"] == kubelet.uids.get(pod),
+                      "pid": before["pid"], "card": before["card"],
+                      "node": before["node"], "restart_counts": restarts,
+                      "exit": kubelet.done.get(pod)},
+              "pod_creates": creates,
+              "peak_gpus_bound": peak["gpus_bound"],
+              "peak_processes": peak["processes"],
+              "log_tail": log.splitlines()[-OPERATOR_LOG_LINES:]})
+        problems = []
+        if not cond.is_succeeded(status):
+            problems.append(f"the CR ended {status.to_dict()}")
+        if killed.returncode != -signal.SIGKILL:
+            problems.append(f"the leader exited {killed.returncode}")
+        if takeover_s is None or takeover_s > takeover_limit:
+            problems.append(f"lease taken over after {takeover_s} s")
+        if holder != standby or transitions < 1:
+            problems.append(f"lease held by {holder!r}, {transitions} "
+                            "transitions")
+        if not running_at_takeover or not running_after:
+            problems.append(
+                f"the worker was not Running at the takeover "
+                f"({running_at_takeover}) and {FAILOVER_AFTER_TAKEOVER_S} s "
+                f"after it ({running_after}): size FAILOVER_STEPS up")
+        if (raw.get("metadata", {}).get("uid") != before["uid"]
+                or kubelet.uids.get(pod) != before["uid"]
+                or sorted(kubelet.started) != [pod]
+                or kubelet.done.get(pod) != 0 or restarts != [0]
+                or before["card"] != node_card
+                or before["node"] != FAILOVER_NODE):
+            problems.append(
+                f"the worker was not adopted: before {before}, after "
+                f"{raw.get('metadata', {}).get('uid')} restarts {restarts} "
+                f"runs {sorted(kubelet.started)} exit {kubelet.done}")
+        if (steps != list(range(FAILOVER_STEPS))
+                or log.count("device:") != 1
+                or "resnet training OK" not in log):
+            problems.append(f"the step log did not run on from 0 once: "
+                            f"{len(steps)} step lines, "
+                            f"{log.count('device:')} starts")
+        if [(i) for _, _, i in creates] != ["0"]:
+            problems.append(f"pod creates {creates}")
+        if peak["gpus_bound"] > 1 or peak["processes"] > 1:
+            problems.append(f"the card was given to two pods: {peak}")
+        if problems:
+            raise AssertionError(
+                "failover: " + "; ".join(problems) + f"\n{log_tail(standby)}")
+    finally:
+        kubelet.stop()
+        # Every process is told to stop first, so their shutdowns overlap.
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for pname, (proc, log) in reversed(list(procs.items())):
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.close()
+            if proc.returncode not in (0, -signal.SIGTERM, -signal.SIGKILL):
+                print(f"failover {pname} exited {proc.returncode}:\n"
+                      f"{log_tail(pname)}", file=sys.stderr)
+        fake.stop()
+
+
 # ---------------------------------------------------------------------------
 # The installed port: its wheel, installed read-only, run from outside the
 # checkout
@@ -5343,7 +5659,7 @@ def installed_check() -> int:
 
 
 def phase_installed():
-    """The port from its wheel (module docstring, phase 22)."""
+    """The port from its wheel (module docstring, phase 23)."""
     from tf_operator_tpu_torch.runtime.apiserver import wait_for_server
     from tf_operator_tpu_torch.sdk import TPUJobClient
 
@@ -5527,6 +5843,7 @@ def main() -> int:
         run_phase("operator_planes", phase_operator_planes, root)
         run_phase("served", phase_served, root)
         run_phase("kube", phase_kube, root)
+        run_phase("failover", phase_failover, root)
         run_phase("installed", phase_installed)
     finally:
         shutil.rmtree(root, ignore_errors=True)

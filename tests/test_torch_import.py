@@ -52,7 +52,7 @@ def test_port_imports_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 96, proc.stdout
+    assert count >= 97, proc.stdout
     for module in ("parallel.distributed", "parallel.mesh",
                    "parallel.sharding", "models.mixtral", "serve.gateway",
                    "train.train_mixtral", "ops.ring_attention",
@@ -69,7 +69,8 @@ def test_port_imports_without_jax():
                    "runtime.apiserver", "runtime.remote", "runtime.agent",
                    "runtime.monitoring", "cli", "__main__",
                    "api.schema", "runtime.chaos", "runtime.kube_fake",
-                   "runtime.kube", "runtime.nodeagent"):
+                   "runtime.kube", "runtime.nodeagent",
+                   "runtime.chaos_campaign"):
         assert f"tf_operator_tpu_torch.{module}" in proc.stdout.split()
 
 
@@ -124,6 +125,11 @@ _NO_TORCH = textwrap.dedent("""
         import shutil
         shutil.rmtree(work)
         print(type(server.operator).__name__)
+    if sys.argv[1] == "campaign":
+        # One sharded chaos round: two replicas, shard leases, a kill.
+        from tf_operator_tpu_torch.runtime import chaos_campaign
+        assert chaos_campaign.main(["--sharded", "--rounds", "1",
+                                    "--seed", "3000"]) == 0
     import tf_operator_tpu_torch.runtime.agent as agent
     import tf_operator_tpu_torch.runtime.nodeagent as nodeagent
     import tf_operator_tpu_torch.cli
@@ -140,13 +146,14 @@ _NO_TORCH = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("what", ["version", "agent", "kube"])
+@pytest.mark.parametrize("what", ["version", "agent", "kube", "campaign"])
 def test_served_processes_start_without_torch(what):
     """``python -m tf_operator_tpu_torch --version``, the node agents'
     modules (API server, remote store, command line, monitoring, SDK
     client) and, for ``kube``, the operator on ``--backend kube``, the
     kube node agent and ``connect_kube`` started against the port's fake
-    API server, load and run with torch, JAX and the JAX package blocked:
+    API server, and for ``campaign`` one sharded round of the chaos
+    campaign, load and run with torch, JAX and the JAX package blocked:
     the control plane never pays for a torch import."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _NO_TORCH, what], cwd=REPO,

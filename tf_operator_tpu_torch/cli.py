@@ -534,16 +534,27 @@ class Server:
                 on_started_leading=self._start_reconciling,
                 on_stopped_leading=self._lost_lease)
         self._stop = threading.Event()
+        # Held across the check of _stop and operator.start, and by
+        # every path that stops the operator: a lease won while this
+        # replica shuts down starts nothing, and a start still syncing
+        # informers finishes before the operator is stopped.
+        self._reconcile_lock = threading.Lock()
         self._resync_thread: Optional[threading.Thread] = None
 
     def _start_reconciling(self) -> None:
-        try:
-            self.operator.start(threadiness=self.args.threadiness)
-        except Exception:
+        with self._reconcile_lock:
+            if self._stop.is_set():
+                return
+            try:
+                self.operator.start(threadiness=self.args.threadiness)
+                failed = False
+            except Exception:
+                log.exception("operator failed to start; shutting down")
+                failed = True
+        if failed:
             # Runs on the elector's daemon thread: swallowing the failure
             # would leave a zombie leader renewing the lease while never
             # reconciling, blocking standby failover. Fatal instead.
-            log.exception("operator failed to start; shutting down")
             self._stop.set()
             if self.on_fatal is not None:
                 self.on_fatal()
@@ -564,7 +575,8 @@ class Server:
         # thread, which must not join itself).
         log.error("leader lease lost; shutting down")
         self._stop.set()
-        self.operator.stop()
+        with self._reconcile_lock:
+            self.operator.stop()
         if self.on_fatal is not None:
             self.on_fatal()
         else:
@@ -607,9 +619,13 @@ class Server:
 
     def shutdown(self) -> None:
         self._stop.set()
+        # The operator stops before the elector releases the lease, so a
+        # standby that takes the released lease never reconciles beside
+        # this replica's still-running controller.
+        with self._reconcile_lock:
+            self.operator.stop()
         if self.elector is not None:
             self.elector.stop()
-        self.operator.stop()
         if self.api_server is not None:
             self.api_server.stop()
         if self.gateway is not None:

@@ -491,6 +491,15 @@ class JobEngine:
         want_hash: Optional[str] = None
 
         for index, pod_slice in enumerate(self.get_pod_slices(pods, num_replicas)):
+            if index >= num_replicas:
+                # Scale-down: every pod at an out-of-range index goes,
+                # however many share it, and none is created there (the
+                # reference, pod.go:121-127, deletes only a lone pod, so
+                # a gap below an adopted pod's index got a new pod and
+                # two pods at one such index stayed for good).
+                for pod in pod_slice:
+                    self._delete_pod(job, pod, rt)
+                continue
             if len(pod_slice) > 1:
                 log.warning("too many pods for %s %s index %d", job.key(), rt,
                             index)
@@ -499,10 +508,6 @@ class JobEngine:
                 self._create_new_pod(job, rt, index, spec, master_role)
             else:
                 pod = pod_slice[0]
-                if index >= num_replicas:
-                    # Scale-down: out-of-range index (reference pod.go:121-127).
-                    self._delete_pod(job, pod, rt)
-                    continue
 
                 # Elastic world restart: a live pod whose stamped
                 # bootstrap digest no longer matches the job's current
@@ -667,14 +672,10 @@ class JobEngine:
         num_replicas = spec.replicas or 0
         slices = self._endpoint_slices(endpoints, num_replicas)
         for index, ep_slice in enumerate(slices):
-            if len(ep_slice) > 1:
-                log.warning("too many endpoints for %s %s index %d",
-                            job.key(), rt, index)
-            elif not ep_slice:
-                self._create_new_endpoint(job, rt, index, spec)
-            else:
-                ep = ep_slice[0]
-                if index >= num_replicas:
+            if index >= num_replicas:
+                # As for pods: every endpoint at an out-of-range index
+                # goes, and none is created there.
+                for ep in ep_slice:
                     exp_key = expectation_key(job.key(), "endpoints", rt)
                     self._expect(exp_key, dels=1)
                     try:
@@ -687,6 +688,11 @@ class JobEngine:
                     except Exception:
                         self.expectations.deletion_observed(exp_key)
                         raise
+            elif len(ep_slice) > 1:
+                log.warning("too many endpoints for %s %s index %d",
+                            job.key(), rt, index)
+            elif not ep_slice:
+                self._create_new_endpoint(job, rt, index, spec)
 
     def _endpoint_slices(self, endpoints: List[Endpoint],
                          replicas: int) -> List[List[Endpoint]]:

@@ -248,16 +248,18 @@ class SliceGangScheduler(GangScheduler):
         # (ns, name) -> monotonic time the shrink first consulted the
         # save-before-evict barrier (resize_barrier_seconds metric).
         self._resize_barrier_t0: Dict[tuple, float] = {}
-        # (ns, name) -> (target slice count, extra chips) of grows
-        # planned but whose JOB-spec write has not been observed yet.
-        # A grow executes outside the scheduler lock, so without a
-        # charge two passes (or a pass and a pending admission) could
-        # spend the same free chips and over-admit once the groups
-        # sync. The ledger covers only the plan→write window; once the
-        # job spec carries the target, the persisted job-vs-group spec
-        # delta carries the charge (_elastic_inflight_extras) — which
-        # also survives an operator crash-restart, where the in-memory
-        # ledger does not (pinned by elastic chaos seed 100).
+        # (ns, name) -> (target slice count, resourceVersion of the
+        # newest job read carrying the target, or None before one) of
+        # grows planned but whose GROUP spec has not caught up yet. A
+        # grow executes outside the scheduler lock, so without a charge
+        # two passes (or a pass and a pending admission) could spend the
+        # same free chips and over-admit once the groups sync. The
+        # ledger charges until the group follows, not only until the
+        # job write is seen: a later read of the job may be stale (a
+        # lagging cache) and show it before the grow. The persisted
+        # job-vs-group spec delta (_elastic_inflight_extras) carries
+        # the charge across an operator crash-restart, where the
+        # in-memory ledger is lost (pinned by elastic chaos seed 100).
         self._grow_inflight: Dict[tuple, tuple] = {}
         self._lock = threading.Lock()
         # Groups already flagged infeasible / unknown-priority (log once).
@@ -304,9 +306,27 @@ class SliceGangScheduler(GangScheduler):
                                       job.metadata.namespace,
                                       job.metadata.name)
         if existing is None:
+            # Pods run only while their group is admitted, so a gang
+            # whose pods already hold devices had its group admitted by
+            # an operator whose state is gone: on the kube backend
+            # SliceGroups live in the leader's memory, and a standby
+            # that took over the lease rebuilds them. Such a group is
+            # adopted as admitted; created Pending, the next pass would
+            # read it as mid-eviction and kill the running gang. Only
+            # pods this job owns and that are not terminating count: a
+            # job deleted and re-created under its name finds the old
+            # job's pods still running out their grace, and its group
+            # must go through admission.
+            adopted = any(
+                p.metadata.deletion_timestamp is None
+                and (ref := p.metadata.controller_ref()) is not None
+                and ref.uid == job.metadata.uid
+                for p in self._pods_occupying(job.metadata.namespace,
+                                              job.metadata.name))
             group = SliceGroup(spec=desired_spec,
                                status=SliceGroupStatus(
-                                   phase=PHASE_PENDING,
+                                   phase=(PHASE_INQUEUE if adopted
+                                          else PHASE_PENDING),
                                    pending_since=_now()))
             group.metadata.name = job.metadata.name
             group.metadata.namespace = job.metadata.namespace
@@ -686,31 +706,30 @@ class SliceGangScheduler(GangScheduler):
                 continue
             if free is not None:
                 free -= unit * step
-            self._grow_inflight[key] = (sl.num_slices + step, unit * step)
+            self._grow_inflight[key] = (sl.num_slices + step, None)
             out.append((key[0], key[1], sl.num_slices + step))
         return out
 
     def _elastic_inflight_extras(self, groups: List[SliceGroup]
                                  ) -> Dict[tuple, int]:
         """(ns, name) -> extra chips an in-flight grow of that gang
-        already owns beyond its group spec. Two sources, never added
-        together:
+        already owns beyond its group spec, admitted or not (a gang
+        displaced mid-grow is re-admitted at its job's size). Two
+        sources, never added together:
 
         - the PERSISTED job-vs-group slice delta (job spec grew, group
           spec hasn't synced) — survives an operator crash-restart;
-        - the in-memory plan ledger, for the window between planning a
-          grow and observing its job-spec write.
+        - the in-memory plan ledger, from planning a grow until the
+          group spec carries it, so a stale job read cannot hide it.
 
-        Caller holds the scheduler lock. Entries whose job write has
-        been observed (or whose gang vanished) are pruned from the
-        ledger here."""
+        Caller holds the scheduler lock. Entries whose group caught up,
+        whose grow a newer job version undid, or whose gang vanished
+        are pruned from the ledger here."""
         extras: Dict[tuple, int] = {}
         live = set()
         for g in groups:
             key = (g.metadata.namespace, g.metadata.name)
             live.add(key)
-            if g.status.phase not in (PHASE_INQUEUE, PHASE_RUNNING):
-                continue
             sl = g.spec.slice
             ledger = self._grow_inflight.get(key)
             if (ledger is None and sl.max_slices is None
@@ -721,16 +740,27 @@ class SliceGangScheduler(GangScheduler):
                 self._grow_inflight.pop(key, None)
                 continue
             unit = _chips_per_slice(g)
-            delta = max(0, job.spec.slice.num_slices
-                        - sl.num_slices) * unit
+            job_slices = job.spec.slice.num_slices
+            delta = max(0, job_slices - sl.num_slices) * unit
             if ledger is not None:
-                target, chips = ledger
-                if job.spec.slice.num_slices >= target:
-                    # The job write landed: the persisted delta carries
-                    # the charge from here on.
+                target, landed_rv = ledger
+                rv = store_mod.rv_number(job.metadata.resource_version)
+                if sl.num_slices >= target:
+                    del self._grow_inflight[key]  # the group caught up
+                    ledger = None
+                elif job_slices >= target:
+                    # The job write landed; the group has yet to follow.
+                    if rv is not None and (landed_rv is None
+                                           or rv > landed_rv):
+                        self._grow_inflight[key] = (target, rv)
+                elif (landed_rv is not None and rv is not None
+                        and rv > landed_rv):
+                    # A job version newer than the grow's, below its
+                    # target: a later resize undid it.
                     del self._grow_inflight[key]
-                else:
-                    delta = max(delta, chips)
+                    ledger = None
+                if ledger is not None:
+                    delta = max(delta, (target - sl.num_slices) * unit)
             if delta:
                 extras[key] = delta
         for key in list(self._grow_inflight):
@@ -1037,7 +1067,11 @@ class SliceGangScheduler(GangScheduler):
                     to_evict.append(gk)
                     occupied = True
                 if occupied:
-                    c = _chips_for(g) + grow_extras.get(gk, 0)
+                    # A mid-eviction group holds its pods at the group's
+                    # size; only an admitted one owns its in-flight grow.
+                    c = _chips_for(g) + (grow_extras.get(gk, 0)
+                                         if g.status.phase != PHASE_PENDING
+                                         else 0)
                     used += c
                     q = g.spec.queue or ""
                     queue_used[q] = queue_used.get(q, 0) + c
@@ -1078,7 +1112,9 @@ class SliceGangScheduler(GangScheduler):
                 if key in evicting:
                     continue  # mid-eviction: not admissible until done
                 q = group.spec.queue or ""
-                need = _chips_for(group)
+                # A gang displaced mid-grow comes back at the size its
+                # job now asks for, not its group's stale one.
+                need = _chips_for(group) + grow_extras.get(key, 0)
                 pri = self._priority_of(group)
                 quota = self.queue_quotas.get(q)
                 # Infeasible at ANY occupancy (cluster-, quota-, or

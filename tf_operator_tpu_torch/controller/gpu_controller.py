@@ -68,6 +68,15 @@ FAILED_CREATE_POD_REASON = "FailedCreatePod"
 SUCCESSFUL_DELETE_POD_REASON = "SuccessfulDeletePod"
 FAILED_DELETE_POD_REASON = "FailedDeletePod"
 
+# A job read older than one a sync already saw is read again this much
+# later, at most this many times in a row (_fetch_job): about 2 s.
+# Kubernetes calls resourceVersions opaque, and a restore of the API
+# server's storage can move them back for good; past the bound the read
+# is acted on.
+STALE_READ_RETRY_SECONDS = 0.05
+STALE_READ_RETRIES = 40
+_STALE = object()
+
 
 class StorePodControl(PodControl):
     """RealPodControl analog (control/pod_control.go:66+): creates stamp
@@ -215,6 +224,14 @@ class GPUJobController(JobPlugin):
         # writes the RV check can be blinded to. Same single-writer-
         # per-key safety argument as _hash_cache.
         self._job_cache: Dict[tuple, tuple] = {}
+        # (namespace, name) -> (uid, the newest resourceVersion a sync
+        # has read). A read older than that is stale (a lagging cache or
+        # follower read) and is not acted on: a stale spec would bring
+        # back a world the job has left, e.g. a gang's slices after an
+        # elastic shrink.
+        self._job_rv: Dict[tuple, tuple] = {}
+        # (namespace, name) -> stale reads in a row (STALE_READ_RETRIES).
+        self._stale_reads: Dict[tuple, int] = {}
 
     # ------------------------------------------------------------------
     # Informer handlers (reference controller.go:140-180, pod.go:73-214)
@@ -471,12 +488,31 @@ class GPUJobController(JobPlugin):
         the RV can lie about: a status write that landed on top of an
         interleaved spec write stamps the stale copy current. A miss
         (first sync, external write, failed write) deepcopies the
-        snapshot once."""
+        snapshot once. A snapshot older than one already read (same uid,
+        a lower resourceVersion) returns ``_STALE``, up to
+        ``STALE_READ_RETRIES`` times in a row."""
+        key = (namespace, name)
         snap = self.store.get_snapshot(store_mod.TPUJOBS, namespace, name)
         if snap is None:
-            self._job_cache.pop((namespace, name), None)
+            self._job_cache.pop(key, None)
+            self._job_rv.pop(key, None)
+            self._stale_reads.pop(key, None)
             return None
-        entry = self._job_cache.get((namespace, name))
+        rv = store_mod.rv_number(snap.metadata.resource_version)
+        seen = self._job_rv.get(key)
+        if rv is not None:
+            if (seen is not None and seen[0] == snap.metadata.uid
+                    and rv < seen[1]):
+                stale = self._stale_reads.get(key, 0) + 1
+                if stale <= STALE_READ_RETRIES:
+                    self._stale_reads[key] = stale
+                    return _STALE
+                log.warning("job %s/%s: resourceVersion %s still below %s "
+                            "after %d reads; acting on it", namespace, name,
+                            rv, seen[1], STALE_READ_RETRIES)
+            self._stale_reads.pop(key, None)
+            self._job_rv[key] = (snap.metadata.uid, rv)
+        entry = self._job_cache.get(key)
         if entry is not None:
             cached, spec_ref = entry
             if (cached.metadata.uid == snap.metadata.uid
@@ -485,7 +521,7 @@ class GPUJobController(JobPlugin):
                     and spec_ref is snap.spec):
                 return cached
         job = snap.deepcopy()
-        self._job_cache[(namespace, name)] = (job, snap.spec)
+        self._job_cache[key] = (job, snap.spec)
         return job
 
     def _sync_tpujob(self, key: str) -> None:
@@ -499,6 +535,10 @@ class GPUJobController(JobPlugin):
                 # a foreign shard's job is never synced here.
                 return
             job = self._fetch_job(namespace, name)
+        if job is _STALE:
+            # Read again shortly; the store has a newer version.
+            self.workqueue.add_after(key, STALE_READ_RETRY_SECONDS)
+            return
         if job is None:
             log.info("job %s vanished; clearing expectations", key)
             self.expectations.delete_for_job(key)

@@ -275,7 +275,8 @@ class ShardedOperator:
     on lease acquisition and torn down on loss WITHOUT stopping the
     shared store's watchers, so a lost shard never takes down the
     survivors' event flow. A second replica contends for the same
-    leases: kill one holder and its shards fail over.
+    leases: kill one holder and its shards fail over. The leases live
+    in ``lease_store`` (default: ``store``).
     """
 
     def __init__(self, shards: int, store: Optional[Store] = None,
@@ -286,6 +287,7 @@ class ShardedOperator:
                  lease_duration: float = 15.0,
                  renew_deadline: float = 5.0,
                  retry_period: float = 3.0,
+                 lease_store: Optional[Store] = None,
                  **operator_kwargs):
         from tf_operator_tpu_torch.runtime.leaderelection import ShardMap
 
@@ -301,8 +303,9 @@ class ShardedOperator:
         self._lock = threading.Lock()
         self._shard_ops: Dict[int, Operator] = {}
         self._started = False
+        self._stopping = False
         self.shard_map = ShardMap(
-            self.store, shards, identity=identity,
+            lease_store or self.store, shards, identity=identity,
             namespace=namespace or "default",
             shard_index=shard_index,
             lease_duration=lease_duration,
@@ -316,22 +319,27 @@ class ShardedOperator:
 
     # -- shard lifecycle -------------------------------------------------
 
+    def _build_shard_operator(self, index: int) -> Operator:
+        op = Operator(store=self.store, backend=None,
+                      namespace=self.namespace,
+                      shard_index=index, shard_count=self.shards,
+                      **self._operator_kwargs)
+        gang = op.controller.engine.gang
+        if gang is not None and hasattr(self.backend,
+                                        "draining_gang_groups"):
+            gang.draining_provider = self.backend.draining_gang_groups
+        return op
+
     def _on_shard_acquired(self, index: int) -> None:
         with self._lock:
-            if index in self._shard_ops:
+            if self._stopping or index in self._shard_ops:
                 return
-            op = Operator(store=self.store, backend=None,
-                          namespace=self.namespace,
-                          shard_index=index, shard_count=self.shards,
-                          **self._operator_kwargs)
-            gang = op.controller.engine.gang
-            if gang is not None and hasattr(self.backend,
-                                            "draining_gang_groups"):
-                gang.draining_provider = self.backend.draining_gang_groups
+            op = self._build_shard_operator(index)
             self._shard_ops[index] = op
-            started = self._started
-        if started:
-            op.start(threadiness=self._threadiness)
+            # Started under the lock, so stop() never misses an operator
+            # that is still starting.
+            if self._started:
+                op.start(threadiness=self._threadiness)
         log.info("shard %d acquired by %s", index, self.shard_map.identity)
 
     def _on_shard_lost(self, index: int) -> None:
@@ -393,12 +401,16 @@ class ShardedOperator:
                 op.controller.enqueue(f"{ns}/{name}")
 
     def stop(self) -> None:
-        self.shard_map.stop()
+        # Every shard's operator stops before its lease is released: a
+        # standby that takes a released lease must find no engine of this
+        # replica still reconciling that shard's jobs.
         with self._lock:
+            self._stopping = True
             ops = list(self._shard_ops.values())
             self._shard_ops.clear()
         for op in ops:
             op.stop(stop_store_watchers=False)
+        self.shard_map.stop()
         if self.backend is not None:
             self.backend.stop()
         self.store.stop_watchers()

@@ -21,10 +21,8 @@ any profile, reproducibly:
   (also exported as ``tpu_operator_chaos_faults_injected_total``).
 - ``ChaosStore``: wraps the in-process ``Store`` with the profile on
   the OPERATOR's read/write path — the process-native twin of
-  ``kube_fake.FakeKubeState``'s HTTP-level injection (the JAX
-  package's ``bench_controlplane.py --chaos`` and
-  ``hack/verify-chaos-invariants.py`` drive its twin; the port's
-  harness is still to come).
+  ``kube_fake.FakeKubeState``'s HTTP-level injection, driven by the
+  port's chaos campaign (``runtime/chaos_campaign.py``).
 - ``crash_controller``: the operator crash-restart hook — hard-stop a
   controller assembly, abandoning ALL in-memory state (workqueue
   backlog, expectations, bootstrap-hash caches, barrier deadlines,

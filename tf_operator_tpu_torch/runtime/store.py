@@ -74,6 +74,16 @@ def matches_selector(labels: Dict[str, str],
     return all(labels.get(k) == v for k, v in selector.items())
 
 
+def rv_number(rv) -> Optional[int]:
+    """A resourceVersion as a number, to tell an older read from a newer
+    one (this store's are ints, the API server's decimal strings); None
+    where it is not one."""
+    try:
+        return int(rv)
+    except (TypeError, ValueError):
+        return None
+
+
 class Watcher:
     def __init__(self, kind: str, handler: Callable[[str, object], None]):
         self.kind = kind
