@@ -126,8 +126,10 @@ Phases, each printing one JSON line:
            saved copy; then the same step: loss and every parameter must
            equal the kept ones bit for bit. The check must reject two
            wrong restores (AdamW moments left fresh, AdamW's per-parameter
-           step dropped). Then today's way, a Llama from another seed,
-           init() and restore, also bit-equal to the saved copy: the
+           step dropped), each the saved state put back from the host
+           copy (not read from disk again) and spoiled. Then today's way,
+           a Llama from another seed, init() and restore, also bit-equal
+           to the saved copy: the
            seconds and peak memory (above what was allocated before) of
            both ways.
 8. dist    the sharded training path at world size 1: make_mesh builds
@@ -181,8 +183,8 @@ Phases, each printing one JSON line:
            Trainer's 3 steps on that batch,
            launches a step by pp_launches (GPipe L·m each; 1F1B the same at
            the last stage, fwd 2·L/pp·m elsewhere), tokens/s, peak memory;
-           then python -m tf_operator_tpu_torch.train.train_llama_pp --pp 1
-           --dp 1 --steps 3 exits 0.
+           the payload (python -m tf_operator_tpu_torch.train.train_llama_pp
+           --pp 1 --dp 1 --steps 3) runs in phase 16a.
 8d. tp_kv  each rank's attention where tp divides the query heads but
            not the KV heads: tp=16 over llama_3_8b's 32 query and 8 KV
            heads (2 query heads a rank, S=2048, bf16), the rank's own KV
@@ -231,7 +233,8 @@ no flash kernel, as the JAX decode path runs none):
 13. resume the MNIST payload (train.dist_mnist) on the card as
            subprocesses: --steps 6 --crash-at-step 3 exits 137, the same
            command again exits 0 resuming at step 3, and an uninterrupted
-           --steps 6 in another directory reaches the same step-6
+           --steps 6 in another directory (run beside those two) reaches
+           the same step-6
            parameters within RESUME_ATOL (cuDNN's convolution backward need
            not be deterministic), while its step-5 parameters do not.
 14. resnet ResNet-50 training (no flash kernel: cuDNN convolutions and
@@ -261,9 +264,8 @@ no flash kernel, as the JAX decode path runs none):
            as bench.py's data-pipeline mode, then through DeviceFeeder (the
            host copies on a thread); images/s of each.
            resnet_frozen: classification_loss_frozen_stats steps: buffers
-           bit-equal, parameters moved; ms a step.
-           resnet_payload: python -m tf_operator_tpu_torch.train.train_resnet
-           --size 50 --steps 4 --batch-size 64 --image-size 224 exits 0.
+           bit-equal, parameters moved; ms a step. The payload runs in
+           phase 16a.
 
 15. mixtral Mixtral (models/mixtral.py), after every earlier phase.
            mixtral_check: mixtral_tiny in f32 (TF32 off), card against CPU
@@ -293,9 +295,8 @@ no flash kernel, as the JAX decode path runs none):
            compute, max_seq_len 8192, 4 slots) serves the serve phase's 8
            requests (TTFT, prefill ms per bucket, decode ms a step,
            tokens/s, peak memory); mixtral_serve_profile: one decode step
-           under torch.profiler with the MoE layers annotated.
-           mixtral_payload: python -m tf_operator_tpu_torch.train.
-           train_mixtral --size tiny --steps 4 exits 0.
+           under torch.profiler with the MoE layers annotated. The
+           payload runs in phase 16a.
 
 16. bert  BERT (models/bert.py; no flash kernel: the reference attention
            at head_dim 64, as in JAX), after Mixtral.
@@ -316,8 +317,15 @@ no flash kernel, as the JAX decode path runs none):
            counted); one profiled step by class (matmul, attention einsums
            and softmax, LayerNorm, gelu, casts, AdamW) and the idle share.
            Flash launches 0/0/0 over both phases (launches_by_path.bert).
-           bert_payload: python -m tf_operator_tpu_torch.train.train_bert
-           --size base --steps 2 exits 0.
+16a. payloads  the payloads of phases 8c, 14, 15 and 16 as subprocesses
+           on the card, all started at once (none needs another's
+           output): pp_payload (python -m tf_operator_tpu_torch.train.
+           train_llama_pp --pp 1 --dp 1 --steps 3), resnet_payload
+           (train_resnet --size 50 --steps 4 --batch-size 64 --image-size
+           224), mixtral_payload (train_mixtral --size tiny --steps 4) and
+           bert_payload (train_bert --size base --steps 2): each exits 0
+           and prints its "... training OK" line; one line each, as its
+           phase printed it before, its seconds from the common start.
 17. ps     two port shards (python -m tf_operator_tpu_torch.train.ps) as
            subprocesses on loopback from a TPUJOB_CLUSTER_SPEC, each on
            the card, and the port's MNIST worker (train.dist_mnist_ps) on
@@ -456,10 +464,33 @@ no flash kernel, as the JAX decode path runs none):
            installed console script tpu-operator-torch on --backend local
            with an HTTP API and a token serves this script as the SDK
            user, and gpu-smoke (2 workers, as the operator phase submits
-           it) succeeds, each pod importing the port from the install.
-           One line: the wheel's file count, the seconds of wheel,
-           install, nvcc, kernels, native, payload and job, library paths,
-           the card's name and power limit.
+           it) succeeds, each pod importing the port from the install;
+           and the catalogue's smoke file as the install carries it
+           (tf_operator_tpu_torch/examples/smoke/tpujob_smoke.yaml),
+           with phase 24's two edits, through python -m
+           tf_operator_tpu_torch.run_local from the install: Succeeded,
+           its pod on the card and importing the install. The payload
+           and the catalogue's smoke run beside the console script's
+           job, after the nvcc build. One line: the wheel's file count,
+           the seconds of wheel, install, nvcc, kernels, native, payload,
+           job and catalogue_smoke, library paths, the card's name and
+           power limit.
+24. examples  the port's job catalogue (tf_operator_tpu_torch/examples/)
+           as a user on a GPU node runs it: python -m
+           tf_operator_tpu_torch.run_local on EXAMPLES_ON_CARD (smoke,
+           llama_spmd, mixtral_moe), all at once,
+           each on a copy with the two edits its comments ask for on a
+           node of one card (--device cpu dropped; spec.slice.accelerator
+           h100-1), the copy printed; each run_local sees the card as
+           CUDA_VISIBLE_DEVICES, so its pods take it in turn. Checks: each
+           job Succeeded, each pod's log ends in its payload's line, the
+           smoke pod's env names the card and its matmul the card's name,
+           every training payload's "device:" line reads cuda with the
+           card's name and CUDA_VISIBLE_DEVICES, the llama losses fall
+           (the last below the first). The catalogue must be exactly
+           those files and EXAMPLES_OFF_CARD, the files one card does not
+           run, each with the reason, printed in the phase's line. None
+           launches a flash kernel: --size tiny has head_dim 16.
 
 Then the whole script's seconds, a {"phases": [...]} line (each step of
 main: ok, seconds and up to two headline numbers; a step that fails
@@ -485,6 +516,7 @@ import dataclasses
 import datetime
 import functools
 import gc
+import glob
 import hashlib
 import itertools
 import json
@@ -711,7 +743,8 @@ def emit(record) -> None:
 # Phases whose line on the phases line carries these numbers instead.
 PHASE_HEADLINES = {
     "failover": ("lease_takeover_seconds", "kill_to_succeeded_seconds",
-                 "steps")}
+                 "steps"),
+    "examples": ("files_run", "slowest_file_seconds")}
 
 
 def headline(records, keys=HEADLINE_KEYS, most: int = 2) -> dict:
@@ -1946,6 +1979,19 @@ def state_copy(state) -> dict:
             for k, t in state_tensors(state).items()}
 
 
+def load_state_copy(state, saved: dict, step: int) -> None:
+    """Put a ``state_copy`` back into ``state`` (an unsharded one), in
+    place, one tensor at a time, at ``step``."""
+    now = state_tensors(state)
+    if set(now) != set(saved):
+        raise AssertionError(f"state keys differ: "
+                             f"{sorted(set(now) ^ set(saved), key=str)[:3]}")
+    with torch.no_grad():
+        for k, t in saved.items():
+            now[k].copy_(t)
+    state.step = step
+
+
 def differing(state, saved: dict) -> list:
     """The keys whose tensor in ``state`` is not bit for bit the host copy
     ``saved`` (each copied back to the card on its own)."""
@@ -2002,13 +2048,17 @@ def phase_restore(kept, batch, root):
     except RuntimeError:
         unrestored_raised = True
 
-    def restored_step(spoil=None, against_saved=False):
+    def restored_step(spoil=None, against_saved=False, from_disk=True):
         t = time.perf_counter()
-        ckpt.restore(state)
+        if from_disk:
+            ckpt.restore(state)
+        else:
+            load_state_copy(state, kept["saved"], kept["step"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         restored_at = state.step
-        out = {"restore_s": seconds, "restored_step": restored_at}
+        out = {"restore_s": seconds, "restored_step": restored_at,
+               "source": "disk" if from_disk else "host copy"}
         if against_saved:
             out["peak_gb"] = (torch.cuda.max_memory_allocated()
                               / 2 ** 30)
@@ -2027,8 +2077,11 @@ def phase_restore(kept, batch, root):
 
     good = restored_step(against_saved=True)
     good["peak_gb"] -= built["before_gb"]
-    wrong = {"moments_fresh": restored_step(_fresh_moments),
-             "adam_step_dropped": restored_step(_adam_step_dropped)}
+    # The wrong restores start from the host copy of the saved state (the
+    # disk restore above was held bit for bit to it), not from disk again.
+    wrong = {"moments_fresh": restored_step(_fresh_moments, from_disk=False),
+             "adam_step_dropped": restored_step(_adam_step_dropped,
+                                                from_disk=False)}
     del model, trainer, state, step
     free_cuda()
 
@@ -2618,25 +2671,8 @@ def phase_pp():
                 f"{reference_norms}")
     if choice["resolved"] not in ("gpipe", "1f1b") or peak is None:
         raise AssertionError(f"auto made no probed choice: {choice}")
-    phase_pp_payload()
     return {n: sum(r["launches"][n] for r in runs.values())
             for n in fa.LAUNCHES}
-
-
-def phase_pp_payload():
-    command = [sys.executable, "-m",
-               "tf_operator_tpu_torch.train.train_llama_pp", "--pp", "1",
-               "--dp", "1", "--steps", "3"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True,
-                          timeout=300)
-    lines = proc.stdout.splitlines()
-    emit({"phase": "pp_payload", "args": command[3:], "rc": proc.returncode,
-          "seconds": time.perf_counter() - t0, "stdout": lines})
-    if proc.returncode != 0 or not any("pipeline training OK" in line
-                                       for line in lines):
-        raise AssertionError(f"train_llama_pp exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
 
 
 def prefetch_stage_s(vocab: int) -> list:
@@ -3157,19 +3193,36 @@ def phase_resume(root):
                "--steps", "6"]
     resumed_dir = os.path.join(root, "resumed")
     straight_dir = os.path.join(root, "straight")
-    runs = []
-    for args in (["--checkpoint-dir", resumed_dir, "--crash-at-step", "3"],
-                 ["--checkpoint-dir", resumed_dir, "--crash-at-step", "3"],
-                 ["--checkpoint-dir", straight_dir]):
-        t0 = time.perf_counter()
-        proc = subprocess.run(command + args + ["--device", DEVICE], cwd=REPO, capture_output=True,
-                              text=True, timeout=300)
-        runs.append({"args": args, "rc": proc.returncode,
-                     "seconds": time.perf_counter() - t0,
-                     "stdout": proc.stdout.splitlines()})
+    crash = ["--checkpoint-dir", resumed_dir, "--crash-at-step", "3"]
+
+    def start(args):
+        return args, time.perf_counter(), subprocess.Popen(
+            command + args + ["--device", DEVICE], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(started):
+        args, t0, proc = started
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if proc.returncode not in (0, 137):
             raise AssertionError(f"dist_mnist {args} exited "
-                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+                                 f"{proc.returncode}: {err[-2000:]}")
+        return {"args": args, "rc": proc.returncode,
+                "seconds": time.perf_counter() - t0,
+                "stdout": out.splitlines()}
+
+    # The uninterrupted run needs nothing of the other two: it runs
+    # beside the crash and the resume.
+    uninterrupted = start(["--checkpoint-dir", straight_dir])
+    runs = []
+    try:
+        runs += [finish(start(crash)), finish(start(crash))]
+    finally:
+        runs.append(finish(uninterrupted))
     resumed = mnist_params(resumed_dir, 6)
     straight = mnist_params(straight_dir, 6)
     one_short = mnist_params(straight_dir, 5)
@@ -3531,22 +3584,6 @@ def phase_resnet_pipeline(trainer, state):
     return state
 
 
-def phase_resnet_payload():
-    command = [sys.executable, "-m",
-               "tf_operator_tpu_torch.train.train_resnet", "--size", "50",
-               "--steps", "4", "--batch-size", "64", "--image-size", "224"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True,
-                          timeout=300)
-    lines = proc.stdout.splitlines()
-    emit({"phase": "resnet_payload", "args": command[3:],
-          "rc": proc.returncode, "seconds": time.perf_counter() - t0,
-          "stdout": lines})
-    if proc.returncode != 0 or "resnet training OK" not in lines:
-        raise AssertionError(f"train_resnet exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-
-
 def phase_resnet_all():
     # What earlier phases left unreachable (34.9 GiB in one run) would
     # otherwise sit under the ResNet's peak.
@@ -3560,7 +3597,6 @@ def phase_resnet_all():
     del model, trainer, state, batch
     gc.collect()
     torch.cuda.empty_cache()
-    phase_resnet_payload()
 
 
 # ---------------------------------------------------------------------------
@@ -3878,29 +3914,12 @@ def phase_mixtral_serve():
     torch.cuda.empty_cache()
 
 
-def phase_mixtral_payload():
-    command = [sys.executable, "-m",
-               "tf_operator_tpu_torch.train.train_mixtral", "--size", "tiny",
-               "--steps", "4"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True,
-                          timeout=300)
-    lines = proc.stdout.splitlines()
-    emit({"phase": "mixtral_payload", "args": command[3:],
-          "rc": proc.returncode, "seconds": time.perf_counter() - t0,
-          "stdout": lines})
-    if proc.returncode != 0 or "mixtral training OK" not in lines:
-        raise AssertionError(f"train_mixtral exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-
-
 def phase_mixtral_all() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     phase_mixtral_check()
     launches = phase_mixtral_train()
     phase_mixtral_serve()
-    phase_mixtral_payload()
     return launches
 
 
@@ -4144,19 +4163,67 @@ def phase_bert() -> dict:
     return launches
 
 
-def phase_bert_payload():
-    command = [sys.executable, "-m", "tf_operator_tpu_torch.train.train_bert",
-               "--size", "base", "--steps", "2"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True,
-                          timeout=300)
-    lines = proc.stdout.splitlines()
-    emit({"phase": "bert_payload", "args": command[3:],
-          "rc": proc.returncode, "seconds": time.perf_counter() - t0,
-          "stdout": lines})
-    if proc.returncode != 0 or "bert training OK" not in lines:
-        raise AssertionError(f"train_bert exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
+# The payloads' own commands as subprocesses on the card, started together
+# (none waits on another): (record name, arguments after python -m, a
+# line each must print, as a regular expression).
+PAYLOAD_RUNS = (
+    ("pp_payload", ["tf_operator_tpu_torch.train.train_llama_pp", "--pp",
+                    "1", "--dp", "1", "--steps", "3"],
+     r".*pipeline training OK"),
+    ("resnet_payload", ["tf_operator_tpu_torch.train.train_resnet",
+                        "--size", "50", "--steps", "4", "--batch-size", "64",
+                        "--image-size", "224"], "resnet training OK"),
+    ("mixtral_payload", ["tf_operator_tpu_torch.train.train_mixtral",
+                         "--size", "tiny", "--steps", "4"],
+     "mixtral training OK"),
+    ("bert_payload", ["tf_operator_tpu_torch.train.train_bert", "--size",
+                      "base", "--steps", "2"], "bert training OK"),
+)
+
+
+def phase_payloads():
+    """Each of PAYLOAD_RUNS exits 0 and prints its line (module
+    docstring, phase 16a); one line each, as its own phase printed it,
+    with its seconds from the common start."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-payloads-") as out:
+        t0 = time.perf_counter()
+        procs = {}
+        for name, args, line in PAYLOAD_RUNS:
+            with open(os.path.join(out, name + ".out"), "w") as o, \
+                    open(os.path.join(out, name + ".err"), "w") as e:
+                procs[name] = subprocess.Popen([sys.executable, "-m", *args],
+                                               cwd=REPO, stdout=o, stderr=e)
+        ended = {}
+        try:
+            while len(ended) < len(procs):
+                for name, proc in procs.items():
+                    if name not in ended and proc.poll() is not None:
+                        ended[name] = time.perf_counter() - t0
+                if time.perf_counter() - t0 > 300:
+                    left = sorted(set(procs) - set(ended))
+                    raise AssertionError(f"payloads still running after "
+                                         f"300 s: {left}")
+                time.sleep(0.1)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        failed = []
+        for name, args, line in PAYLOAD_RUNS:
+            with open(os.path.join(out, name + ".out")) as f:
+                lines = f.read().splitlines()
+            rc = procs[name].returncode
+            emit({"phase": name, "args": args[1:], "rc": rc,
+                  "seconds": ended[name], "stdout": lines})
+            if rc != 0 or not any(re.fullmatch(line, printed)
+                                  for printed in lines):
+                with open(os.path.join(out, name + ".err")) as f:
+                    failed.append(f"{args[0]} exited {rc}: {f.read()[-2000:]}")
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def phase_bert_all() -> dict:
@@ -4164,7 +4231,6 @@ def phase_bert_all() -> dict:
     torch.cuda.empty_cache()
     launches = phase_bert_check()
     train = phase_bert()
-    phase_bert_payload()
     return {n: launches[n] + train[n] for n in launches}
 
 
@@ -5669,6 +5735,7 @@ def phase_installed():
     if under(work, REPO):
         raise AssertionError(f"{work} lies in the checkout")
     proc = None
+    started = []    # the subprocesses still to stop on the way out
     try:
         wheel = build_wheel(work)
         site, seconds = wheel["site"], wheel["seconds"]
@@ -5680,39 +5747,56 @@ def phase_installed():
         run = os.path.join(work, "run")
         os.makedirs(run)
         shutil.copy2(os.path.abspath(__file__), run)
+        visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES",
+                                             "").split(",") if c.strip()]
+        cards = visible or ["0"]
 
-        def child(step, argv):
-            t0 = time.perf_counter()
-            done = subprocess.run(argv, cwd=run, env=env, capture_output=True,
-                                  text=True, timeout=INSTALLED_STEP_S)
-            seconds[step] = time.perf_counter() - t0
-            if done.returncode != 0:
-                raise AssertionError(
-                    f"installed {step} exited {done.returncode}:\n"
-                    f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
-            return done.stdout.splitlines()
+        def start(step, argv, **extra):
+            out = open(os.path.join(work, step + ".out"), "w+")
+            started.append(subprocess.Popen(
+                argv, cwd=run, env=dict(env, **extra), stdout=out,
+                stderr=subprocess.STDOUT))
+            return step, time.perf_counter(), out, started[-1]
 
-        checked = json.loads(child("check_process", [
+        def finish(child):
+            step, t0, out, proc = child
+            try:
+                proc.wait(timeout=INSTALLED_STEP_S)
+            finally:
+                seconds[step] = time.perf_counter() - t0
+                out.seek(0)
+                text = out.read()
+                out.close()
+            if proc.returncode != 0:
+                raise AssertionError(f"installed {step} exited "
+                                     f"{proc.returncode}:\n{text[-6000:]}")
+            return text.splitlines()
+
+        checked = json.loads(finish(start("check_process", [
             sys.executable, os.path.join(run, "chip_smoke.py"),
-            "--installed-check"])[-1])
+            "--installed-check"]))[-1])
         for step in ("nvcc", "kernels", "native"):
             seconds[step] = checked[f"{step}_s"]
         # The same batches from the checkout's build of the same sources.
         if checked["native_digest"] != native_digest():
             raise AssertionError(f"installed native batches differ from "
                                  f"the checkout's: {checked}")
-        payload = child("payload", [
+        # The ResNet payload and the catalogue's smoke file run beside the
+        # console script's job below.
+        payload = start("payload", [
             sys.executable, "-m", "tf_operator_tpu_torch.train.train_resnet",
             "--size", "50", "--steps", "4", "--batch-size", "64",
             "--image-size", "224"])
-        if "resnet training OK" not in payload:
-            raise AssertionError(f"installed train_resnet: {payload}")
+        smoke_file = os.path.join(site, "tf_operator_tpu_torch", "examples",
+                                  "smoke", "tpujob_smoke.yaml")
+        smoke_copy, smoke_edits = card_copy(smoke_file, work)
+        catalogue = start("catalogue_smoke", [
+            sys.executable, "-m", "tf_operator_tpu_torch.run_local",
+            smoke_copy, "--timeout", str(EXAMPLES_TIMEOUT_S)],
+            CUDA_VISIBLE_DEVICES=cards[0])
 
         # The installed console script as the operator on the local
         # backend, its API served to this script as the SDK user.
-        visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES",
-                                             "").split(",") if c.strip()]
-        cards = visible or ["0"]
         tokens = os.path.join(work, "tokens")
         with open(tokens, "w") as f:
             f.write(f"{INSTALLED_TOKEN} admin\n")
@@ -5745,8 +5829,17 @@ def phase_installed():
                       file=sys.stderr)
             raise
         seconds["job"] = time.perf_counter() - t0
+        payload = finish(payload)
+        if "resnet training OK" not in payload:
+            raise AssertionError(f"installed train_resnet: {payload}")
+        catalogue = "\n".join(finish(catalogue))
+        smoke_run = check_card_run("smoke/tpujob_smoke.yaml", 0, catalogue,
+                                   cards[0], device_name)
         imported = "port imported from " + os.path.join(
             site, "tf_operator_tpu_torch")
+        smoke_logs = run_local_logs(catalogue)
+        if not all(imported in lines for lines in smoke_logs.values()):
+            raise AssertionError(f"installed catalogue smoke: {catalogue}")
         changed = sorted(set(tree_state(site)) ^ set(before), key=str)
         status, created = done.status, done.metadata.creation_timestamp
         emit({"phase": "installed", "nvidia_smi": card,
@@ -5760,6 +5853,8 @@ def phase_installed():
               "perturbations_rejected": checked["perturbations_rejected"],
               "native_libraries": checked["native_libraries"],
               "payload": payload[-2:],
+              "catalogue_smoke": {"file": smoke_file, "edits": smoke_edits,
+                                  "pods": smoke_run["pods"]},
               "job_seconds_to_completion": (
                   status.completion_time - created).total_seconds(),
               "pods_import_the_install": all(imported in log
@@ -5768,6 +5863,10 @@ def phase_installed():
             raise AssertionError(f"installed: the install changed "
                                  f"{changed[:10]}, logs {logs}")
     finally:
+        for child in started:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
         if proc is not None:
             proc.terminate()
             try:
@@ -5776,6 +5875,204 @@ def phase_installed():
                 proc.kill()
                 proc.wait()
         subprocess.run(["chmod", "-R", "u+w", work], timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The job catalogue (tf_operator_tpu_torch/examples/) through run_local
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(REPO, "tf_operator_tpu_torch", "examples")
+# The catalogue files the examples phase runs on the card, with the line
+# each pod's log must end in (a regular expression).
+EXAMPLES_ON_CARD = {
+    "smoke/tpujob_smoke.yaml": r"smoke OK on 1 device\(s\)",
+    "llama_spmd/tpujob_llama.yaml": "llama training OK",
+    "mixtral_moe/tpujob_mixtral.yaml": "mixtral training OK",
+}
+# The rest of the catalogue, and why one card does not run it.
+_FLAGGED = ("needs an operator started with its header's flags, which "
+            "run_local does not take; its pods are the worker stub, which "
+            "touches no device (tests/test_torch_examples.py runs it under "
+            "those flags against the JAX file on the CPU)")
+_NO_CARD_ROLE = ("its {role} pod holds no GPU ({role} is no GPU-holding "
+                 "role, as in JAX) and {pins}, so {payload} asks for a "
+                 "card it is not given (an open fault of the port)")
+EXAMPLES_OFF_CARD = {
+    "bert_gang/tpujob_bert.yaml": "a gang of 8 pods "
+        "(schedulingPolicy.minAvailable 8) needs 8 cards at once",
+    "dist_mnist/tpujob_dist_mnist.yaml": _NO_CARD_ROLE.format(
+        role="chief", pins="a GPU node drops its --device cpu",
+        payload="train.dist_mnist"),
+    "resnet_dp/tpujob_resnet.yaml": _NO_CARD_ROLE.format(
+        role="chief", pins="a GPU node drops its --device cpu",
+        payload="train.train_resnet"),
+    "dist_mnist/tpujob_dist_mnist_ps.yaml": _NO_CARD_ROLE.format(
+        role="ps", pins="the file pins no device",
+        payload="train.ps"),
+    "checkpoint/tpujob_checkpoint.yaml": _FLAGGED,
+    "elastic/tpujob_elastic.yaml": _FLAGGED,
+    "quota/tpujob_quota.yaml": _FLAGGED,
+    "rl/tpujob_rl.yaml": _FLAGGED,
+    "serving/tpujob_serving.yaml": "needs --enable-serving and its 2 "
+        "serving replicas up at once (they serve until the spool closes): "
+        "2 cards",
+    "dist_mnist/ps_networkpolicy.yaml": "a NetworkPolicy, no job",
+    "quota/queues.yaml": "a queue config, no job",
+}
+EXAMPLES_TIMEOUT_S = 300
+LLAMA_STEP = re.compile(r"^step (\d+): loss=(\S+)$")
+
+
+def card_copy(path: str, out_dir: str):
+    """The catalogue file ``path`` as a node of one card runs it, in a
+    JSON copy under ``out_dir``: the two edits its comments ask for there
+    (``--device cpu`` dropped from each command; spec.slice.accelerator
+    h100-1, so each pod is given the card). Returns (the copy's path, the
+    edits)."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    edits = []
+    for rtype, spec in raw["spec"]["replicaSpecs"].items():
+        for c in spec["template"]["spec"]["containers"]:
+            if c["command"][-2:] == ["--device", "cpu"]:
+                c["command"] = c["command"][:-2]
+                edits.append(f"{rtype}: --device cpu dropped")
+    sl = raw["spec"].setdefault("slice", {})
+    edits.append(f"spec.slice.accelerator: {sl.get('accelerator') or '-'}"
+                 f" -> h100-1")
+    sl["accelerator"] = "h100-1"
+    copy = os.path.join(out_dir, os.path.basename(path)[:-len(".yaml")]
+                        + ".json")
+    with open(copy, "w") as f:
+        json.dump(raw, f, indent=1)
+    return copy, edits
+
+
+def run_local_logs(stdout: str) -> dict:
+    """Pod name -> the non-empty lines of its log, from run_local's
+    output."""
+    logs, name = {}, None
+    for line in stdout.splitlines():
+        m = re.fullmatch(r"--- logs (\S+) ---", line)
+        if m:
+            name = m[1]
+            logs[name] = []
+        elif name is not None and line.strip():
+            logs[name].append(line)
+    return logs
+
+
+def check_card_run(rel: str, rc: int, stdout: str, card: str,
+                   device_name: str) -> dict:
+    """A catalogue file's run_local on the card: Succeeded, each pod's
+    log ending in its payload's line, each payload on the card it was
+    given (gpu_smoke's env and matmul; the training payloads' device
+    line), the llama losses falling. Returns what it read."""
+    name = re.search(r"^TPUJob (\S+): (\S+)$", stdout, re.M)
+    logs = run_local_logs(stdout)
+    found = {"rc": rc, "state": name and name[2],
+             "pods": {p: lines[-3:] for p, lines in logs.items()}}
+    bad = []
+    if rc != 0 or not name or name[2] != "Succeeded" or not logs:
+        bad.append("the job did not succeed")
+    on_card = re.compile(rf"device: cuda(:\d+)? \({re.escape(device_name)}, "
+                         rf"CUDA_VISIBLE_DEVICES={re.escape(card)}\)")
+    for pod, lines in logs.items():
+        if not lines or not re.fullmatch(EXAMPLES_ON_CARD[rel], lines[-1]):
+            bad.append(f"{pod} ends {lines[-1:]}")
+        devices = [line for line in lines if line.startswith("device:")]
+        if not all(on_card.fullmatch(line) for line in devices):
+            bad.append(f"{pod}: {devices}")
+        if rel.startswith("smoke/"):
+            env = bootstrap_env("\n".join(lines))
+            if (env.get("CUDA_VISIBLE_DEVICES") != card or not any(
+                    f"({device_name}): matmul sum" in line
+                    for line in lines)):
+                bad.append(f"{pod}: env {env}")
+        elif not devices:
+            bad.append(f"{pod}: no device line")
+    if rel.startswith("llama_spmd/"):
+        losses = [float(m[2]) for line in logs.get("llama-spmd-worker-0", [])
+                  if (m := LLAMA_STEP.match(line))]
+        found["losses"] = losses
+        if len(losses) < 2 or not losses[-1] < losses[0]:
+            bad.append(f"llama losses {losses}")
+    if bad:
+        raise AssertionError(f"{rel} on the card: {bad}\n{stdout[-3000:]}")
+    return found
+
+
+def phase_examples():
+    """The catalogue on the card through python -m
+    tf_operator_tpu_torch.run_local, the user's command (module
+    docstring, phase 24)."""
+    card = nvidia_smi()
+    device_name = torch.cuda.get_device_name(0)
+    visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES",
+                                         "").split(",") if c.strip()]
+    gpu = (visible or ["0"])[0]
+    listed = sorted([*EXAMPLES_ON_CARD, *EXAMPLES_OFF_CARD])
+    catalogue = sorted(os.path.relpath(p, EXAMPLES) for p in glob.glob(
+        os.path.join(EXAMPLES, "*", "*.yaml")))
+    if listed != catalogue:
+        raise AssertionError(f"the catalogue {catalogue} is not the "
+                             f"files run and listed {listed}")
+    work = tempfile.mkdtemp(prefix="chip-smoke-examples-")
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for rel in EXAMPLES_ON_CARD:
+            out = os.path.join(work, os.path.dirname(rel))
+            os.makedirs(out)
+            copy, edits = card_copy(os.path.join(EXAMPLES, rel), out)
+            with open(copy) as f:
+                print(f"{rel} as run on the card ({'; '.join(edits)}): "
+                      f"{json.dumps(json.load(f))}", flush=True)
+            log = open(os.path.join(out, "run_local.out"), "w")
+            procs[rel] = (edits, log, subprocess.Popen(
+                [sys.executable, "-m", "tf_operator_tpu_torch.run_local",
+                 copy, "--timeout", str(EXAMPLES_TIMEOUT_S),
+                 "--workdir", os.path.join(out, "pods")],
+                cwd=REPO, env=dict(os.environ, CUDA_VISIBLE_DEVICES=gpu),
+                stdout=log, stderr=subprocess.STDOUT))
+        seconds = {}
+        while len(seconds) < len(procs):
+            for rel, (_, _, proc) in procs.items():
+                if rel not in seconds and proc.poll() is not None:
+                    seconds[rel] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > EXAMPLES_TIMEOUT_S + 60:
+                raise AssertionError(
+                    f"run_local still running: "
+                    f"{sorted(set(procs) - set(seconds))}")
+            time.sleep(0.1)
+        runs, failed = {}, []
+        for rel, (edits, log, proc) in procs.items():
+            log.close()
+            with open(log.name) as f:
+                stdout = f.read()
+            try:
+                runs[rel] = check_card_run(rel, proc.returncode, stdout,
+                                           gpu, device_name)
+            except AssertionError as err:
+                failed.append(str(err))
+                runs[rel] = {"rc": proc.returncode, "failed": True}
+            emit({"phase": "examples", "file": rel, "edits": edits,
+                  "seconds": seconds[rel], **runs[rel]})
+        emit({"phase": "examples", "nvidia_smi": card, "card": gpu,
+              "files_run": len(procs),
+              "slowest_file_seconds": max(seconds.values()),
+              "seconds": seconds, "not_on_card": EXAMPLES_OFF_CARD})
+        if failed:
+            raise AssertionError("; ".join(failed))
+    finally:
+        for _, log, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -5838,6 +6135,7 @@ def main() -> int:
         run_phase("resnet", phase_resnet_all)
         mixtral_launches = run_phase("mixtral", phase_mixtral_all)
         bert_launches = run_phase("bert", phase_bert_all)
+        run_phase("payloads", phase_payloads)
         run_phase("ps", phase_ps, root)
         run_phase("operator", phase_operator, root)
         run_phase("operator_planes", phase_operator_planes, root)
@@ -5845,6 +6143,7 @@ def main() -> int:
         run_phase("kube", phase_kube, root)
         run_phase("failover", phase_failover, root)
         run_phase("installed", phase_installed)
+        run_phase("examples", phase_examples)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

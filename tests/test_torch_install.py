@@ -121,6 +121,38 @@ def test_wheel_holds_every_source_the_port_builds(wheel):
     assert not missing, f"the wheel lacks {missing}"
 
 
+def test_wheel_holds_the_job_catalogue(wheel):
+    """Every catalogue file, examples/<dir>/<file>.yaml, and its README
+    are in the wheel, byte for byte."""
+    whl, _ = wheel
+    root = REPO / PACKAGE / "examples"
+    wanted = sorted([root / "README.md", *root.glob("*/*.yaml")])
+    assert len(wanted) == 15
+    with zipfile.ZipFile(whl) as z:
+        names = set(z.namelist())
+        for path in wanted:
+            name = str(path.relative_to(REPO))
+            assert name in names, f"the wheel lacks {name}"
+            assert z.read(name) == path.read_bytes(), name
+
+
+def test_run_local_runs_the_installed_catalogue(wheel, tmp_path):
+    """The smoke file the install carries, as it stands (it pins the
+    CPU), through run_local from the read-only install."""
+    _, site = wheel
+    smoke = site / PACKAGE / "examples" / "smoke" / "tpujob_smoke.yaml"
+    proc, _ = installed(site, tmp_path, """
+import runpy
+sys.argv[1:] = [sys.argv[1], "--timeout", "60"]
+runpy.run_module("tf_operator_tpu_torch.run_local", run_name="__main__",
+                 alter_sys=True)
+""", str(smoke))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "TPUJob tpu-smoke: Succeeded" in proc.stdout
+    assert f"port imported from {site / PACKAGE}" in proc.stdout
+    assert proc.stdout.rstrip().endswith("smoke OK on 1 device(s)")
+
+
 def test_native_helpers_build_into_the_cache(wheel, tmp_path):
     """From the read-only install the native generator builds with g++
     into the per-user cache (0700) and gives the JAX package's bytes."""

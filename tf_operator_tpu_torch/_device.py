@@ -30,3 +30,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.cuda.set_device(dev)
     return dev
 
+
+def describe(device: torch.device) -> str:
+    """``device`` as a payload logs it: a card with its name and the
+    cards this process was given (``CUDA_VISIBLE_DEVICES``, as the
+    operator's backend or the device plugin set it)."""
+    if device.type != "cuda":
+        return str(device)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return (f"{device} ({torch.cuda.get_device_name(device)}, "
+            f"CUDA_VISIBLE_DEVICES={'unset' if visible is None else visible})")

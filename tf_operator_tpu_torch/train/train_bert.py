@@ -43,7 +43,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    from tf_operator_tpu_torch._device import resolve_device
+    from tf_operator_tpu_torch._device import describe, resolve_device
     from tf_operator_tpu_torch.models.bert import bert_base, bert_tiny
     from tf_operator_tpu_torch.parallel.distributed import (
         maybe_init_distributed,
@@ -56,7 +56,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cfg = bert_tiny(max_seq_len=args.seq_len)
 
     device = resolve_device(args.device)
-    print("device:", device)
+    print("device:", describe(device))
     with process_group_scope():
         maybe_init_distributed(device)
         return _train(args, cfg, device)

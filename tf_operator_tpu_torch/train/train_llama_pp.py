@@ -47,14 +47,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    from tf_operator_tpu_torch._device import resolve_device
+    from tf_operator_tpu_torch._device import describe, resolve_device
     from tf_operator_tpu_torch.parallel.distributed import (
         maybe_init_distributed,
         process_group_scope,
     )
 
     device = resolve_device(args.device)
-    print("device:", device)
+    print("device:", describe(device))
     with process_group_scope():
         maybe_init_distributed(device)
         return _train(args, device)

@@ -48,7 +48,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     import dataclasses
 
-    from tf_operator_tpu_torch._device import resolve_device
+    from tf_operator_tpu_torch._device import describe, resolve_device
     from tf_operator_tpu_torch.models.mixtral import (
         mixtral_8x7b,
         mixtral_tiny,
@@ -65,7 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = dataclasses.replace(cfg, dispatch=args.dispatch)
 
     device = resolve_device(args.device)
-    print("device:", device)
+    print("device:", describe(device))
     with process_group_scope():
         maybe_init_distributed(device)
         return _train(args, cfg, device)

@@ -29,7 +29,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     import torch
 
-    from tf_operator_tpu_torch._device import resolve_device
+    from tf_operator_tpu_torch._device import describe, resolve_device
     from tf_operator_tpu_torch.models import resnet as rn
     from tf_operator_tpu_torch.train.trainer import (
         Trainer,
@@ -39,7 +39,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     cfg = rn.resnet50() if args.size == "50" else rn.resnet_tiny()
     device = resolve_device(args.device)
-    print("device:", device)
+    print("device:", describe(device))
     gen = torch.Generator(device=device).manual_seed(0)
     trainer = Trainer(model=rn.ResNet(cfg, device=device, generator=gen),
                       optimizer=sgd(0.1, momentum=0.9),
