@@ -478,19 +478,31 @@ no flash kernel, as the JAX decode path runs none):
 24. examples  the port's job catalogue (tf_operator_tpu_torch/examples/)
            as a user on a GPU node runs it: python -m
            tf_operator_tpu_torch.run_local on EXAMPLES_ON_CARD (smoke,
-           llama_spmd, mixtral_moe), all at once,
+           llama_spmd, mixtral_moe, dist_mnist, resnet_dp,
+           dist_mnist_ps), all at once, started before phase 23 and run
+           beside it (its seconds are counted from their start),
            each on a copy with the two edits its comments ask for on a
            node of one card (--device cpu dropped; spec.slice.accelerator
-           h100-1), the copy printed; each run_local sees the card as
-           CUDA_VISIBLE_DEVICES, so its pods take it in turn. Checks: each
-           job Succeeded, each pod's log ends in its payload's line, the
-           smoke pod's env names the card and its matmul the card's name,
-           every training payload's "device:" line reads cuda with the
-           card's name and CUDA_VISIBLE_DEVICES, the llama losses fall
+           h100-1) and, where several workers take the card in turn, the
+           job made to wait for all of them (successPolicy AllWorkers, or
+           cleanPodPolicy None under a chief), the copy printed; each
+           run_local sees the card as CUDA_VISIBLE_DEVICES, so its
+           GPU-holding pods take it in turn, and its chief and ps pods,
+           which hold no GPU, run on the host (the operator renders
+           TPUJOB_DEVICE=cpu into them). Checks,
+           pod by pod, every replica of the copy: each job Succeeded;
+           each pod's log ends in its payload's line (a ps pod, reaped
+           at the job's end, serves to the last: its log is read while it
+           runs); the smoke pod's env names the card and its matmul the
+           card's name; every worker's "device:" line reads cuda with
+           the card's name and CUDA_VISIBLE_DEVICES, every chief's and
+           ps pod's "device: cpu (TPUJOB_DEVICE=cpu)", so a chief on the
+           card or a worker on the host fails; the llama losses fall
            (the last below the first). The catalogue must be exactly
            those files and EXAMPLES_OFF_CARD, the files one card does not
-           run, each with the reason, printed in the phase's line. None
-           launches a flash kernel: --size tiny has head_dim 16.
+           run, each with the reason, printed in the phase's line
+           (bert_gang's on the phases line). None launches a flash
+           kernel: --size tiny has head_dim 16.
 
 Then the whole script's seconds, a {"phases": [...]} line (each step of
 main: ok, seconds and up to two headline numbers; a step that fails
@@ -528,6 +540,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zipfile
 from unittest import mock
@@ -744,14 +757,18 @@ def emit(record) -> None:
 PHASE_HEADLINES = {
     "failover": ("lease_takeover_seconds", "kill_to_succeeded_seconds",
                  "steps"),
-    "examples": ("files_run", "slowest_file_seconds")}
+    "examples": ("files_run", "slowest_file_seconds", "bert_gang")}
 
 
-def headline(records, keys=HEADLINE_KEYS, most: int = 2) -> dict:
+def headline(records, keys=HEADLINE_KEYS, most: int = 2,
+             numbers: bool = True) -> dict:
+    """Up to ``most`` of ``keys`` from ``records``: numbers only, unless
+    ``numbers`` is false (a phase's own PHASE_HEADLINES)."""
     found = {}
     for key in keys:
         value = next((r[key] for r in records
-                      if isinstance(r.get(key), (int, float))
+                      if not numbers and r.get(key) is not None
+                      or isinstance(r.get(key), (int, float))
                       and not isinstance(r.get(key), bool)), None)
         if value is not None:
             found[key] = value
@@ -776,8 +793,8 @@ def run_phase(name: str, fn, *args):
     keys = PHASE_HEADLINES.get(name)
     PHASES.append({"phase": name, "ok": True,
                    "seconds": time.perf_counter() - t0,
-                   **(headline(EMITTED[first:], keys, len(keys)) if keys
-                      else headline(EMITTED[first:]))})
+                   **(headline(EMITTED[first:], keys, len(keys), False)
+                      if keys else headline(EMITTED[first:]))})
     return result
 
 
@@ -5889,27 +5906,25 @@ EXAMPLES_ON_CARD = {
     "smoke/tpujob_smoke.yaml": r"smoke OK on 1 device\(s\)",
     "llama_spmd/tpujob_llama.yaml": "llama training OK",
     "mixtral_moe/tpujob_mixtral.yaml": "mixtral training OK",
+    "dist_mnist/tpujob_dist_mnist.yaml": r"done: loss \S+ -> \S+",
+    "resnet_dp/tpujob_resnet.yaml": "resnet training OK",
+    "dist_mnist/tpujob_dist_mnist_ps.yaml": r"done: first=\S+ last=\S+",
 }
+# The roles that hold no GPU, in JAX as in the port: their pods run on
+# the host, by the device the operator names for them.
+NO_GPU_ROLES = ("chief", "ps")
+ON_HOST = "device: cpu (TPUJOB_DEVICE=cpu)"
 # The rest of the catalogue, and why one card does not run it.
 _FLAGGED = ("needs an operator started with its header's flags, which "
             "run_local does not take; its pods are the worker stub, which "
             "touches no device (tests/test_torch_examples.py runs it under "
             "those flags against the JAX file on the CPU)")
-_NO_CARD_ROLE = ("its {role} pod holds no GPU ({role} is no GPU-holding "
-                 "role, as in JAX) and {pins}, so {payload} asks for a "
-                 "card it is not given (an open fault of the port)")
 EXAMPLES_OFF_CARD = {
     "bert_gang/tpujob_bert.yaml": "a gang of 8 pods "
-        "(schedulingPolicy.minAvailable 8) needs 8 cards at once",
-    "dist_mnist/tpujob_dist_mnist.yaml": _NO_CARD_ROLE.format(
-        role="chief", pins="a GPU node drops its --device cpu",
-        payload="train.dist_mnist"),
-    "resnet_dp/tpujob_resnet.yaml": _NO_CARD_ROLE.format(
-        role="chief", pins="a GPU node drops its --device cpu",
-        payload="train.train_resnet"),
-    "dist_mnist/tpujob_dist_mnist_ps.yaml": _NO_CARD_ROLE.format(
-        role="ps", pins="the file pins no device",
-        payload="train.ps"),
+        "(schedulingPolicy.minAvailable 8) needs 8 cards at once as "
+        "h100-1, and 64 as the file stands (h100-32: each pod one world "
+        "of 8 processes, one a GPU, since a pod of several GPUs trains as "
+        "one local world)",
     "checkpoint/tpujob_checkpoint.yaml": _FLAGGED,
     "elastic/tpujob_elastic.yaml": _FLAGGED,
     "quota/tpujob_quota.yaml": _FLAGGED,
@@ -5928,14 +5943,19 @@ def card_copy(path: str, out_dir: str):
     """The catalogue file ``path`` as a node of one card runs it, in a
     JSON copy under ``out_dir``: the two edits its comments ask for there
     (``--device cpu`` dropped from each command; spec.slice.accelerator
-    h100-1, so each pod is given the card). Returns (the copy's path, the
-    edits)."""
+    h100-1, so each GPU-holding pod is given the card), and, where its
+    workers take that card in turn, that the job waits for every one of
+    them: spec.successPolicy AllWorkers where worker 0 would decide, and
+    runPolicy.cleanPodPolicy None where a chief decides (its workers are
+    then not reaped when it finishes first). Returns (the copy's path,
+    the edits)."""
     import yaml
 
     with open(path) as f:
         raw = yaml.safe_load(f)
     edits = []
-    for rtype, spec in raw["spec"]["replicaSpecs"].items():
+    specs = raw["spec"]["replicaSpecs"]
+    for rtype, spec in specs.items():
         for c in spec["template"]["spec"]["containers"]:
             if c["command"][-2:] == ["--device", "cpu"]:
                 c["command"] = c["command"][:-2]
@@ -5944,6 +5964,19 @@ def card_copy(path: str, out_dir: str):
     edits.append(f"spec.slice.accelerator: {sl.get('accelerator') or '-'}"
                  f" -> h100-1")
     sl["accelerator"] = "h100-1"
+    workers = specs.get("worker", {}).get("replicas", 1) \
+        if "worker" in specs else 0
+    policy = raw["spec"].setdefault("runPolicy", {})
+    if "chief" in specs and workers:
+        if policy.get("cleanPodPolicy") != "None":
+            edits.append(f"runPolicy.cleanPodPolicy: "
+                         f"{policy.get('cleanPodPolicy') or '-'} -> None")
+            policy["cleanPodPolicy"] = "None"
+    elif workers > 1 and raw["spec"].get("successPolicy") != "AllWorkers":
+        edits.append(f"spec.successPolicy: "
+                     f"{raw['spec'].get('successPolicy') or '-'} -> "
+                     f"AllWorkers")
+        raw["spec"]["successPolicy"] = "AllWorkers"
     copy = os.path.join(out_dir, os.path.basename(path)[:-len(".yaml")]
                         + ".json")
     with open(copy, "w") as f:
@@ -5965,14 +5998,49 @@ def run_local_logs(stdout: str) -> dict:
     return logs
 
 
+def replica_pods(copy: str) -> dict:
+    """Pod name -> role of every replica the job file ``copy`` makes."""
+    with open(copy) as f:
+        raw = json.load(f)
+    job = raw["metadata"]["name"]
+    return {f"{job}-{rtype}-{i}": rtype
+            for rtype, spec in raw["spec"]["replicaSpecs"].items()
+            for i in range(spec.get("replicas", 1))}
+
+
+def snapshot_pod_logs(tmp: str, into: dict) -> None:
+    """Read the pod logs a run_local whose TMPDIR is ``tmp`` is writing
+    into ``into`` (pod name -> its non-empty lines): a pod its job's
+    cleanPodPolicy reaps at the end (a ps server) takes its log with it
+    before run_local prints the logs."""
+    for path in glob.glob(os.path.join(tmp, "tpujob-logs-*", "*.log")):
+        pod = os.path.basename(path).split(".")[1]
+        try:
+            with open(path, errors="replace") as f:
+                lines = [line.rstrip("\n") for line in f if line.strip()]
+        except OSError:
+            continue
+        if lines:
+            into[pod] = lines
+
+
 def check_card_run(rel: str, rc: int, stdout: str, card: str,
-                   device_name: str) -> dict:
-    """A catalogue file's run_local on the card: Succeeded, each pod's
-    log ending in its payload's line, each payload on the card it was
-    given (gpu_smoke's env and matmul; the training payloads' device
-    line), the llama losses falling. Returns what it read."""
+                   device_name: str, pods: dict = None,
+                   read_live: dict = None) -> dict:
+    """A catalogue file's run_local on the card: Succeeded, and pod by
+    pod (``pods``: name -> role) each log ending in its payload's line,
+    each payload where its pod's role puts it: a worker on the card it
+    was given (gpu_smoke's env and matmul; the training payloads' device
+    line), a chief or ps pod on the host by the operator's device key;
+    the llama losses falling. A ps pod reaped at the job's end is read
+    from ``read_live`` (its log as it ran), and serves to the last, so
+    only its device is checked. ``pods`` defaults to the pods whose logs
+    run_local printed. Returns what it read."""
     name = re.search(r"^TPUJob (\S+): (\S+)$", stdout, re.M)
     logs = run_local_logs(stdout)
+    if pods is None:
+        pods = {pod: pod.split("-")[-2] for pod in logs}
+    read_live = read_live or {}
     found = {"rc": rc, "state": name and name[2],
              "pods": {p: lines[-3:] for p, lines in logs.items()}}
     bad = []
@@ -5980,10 +6048,20 @@ def check_card_run(rel: str, rc: int, stdout: str, card: str,
         bad.append("the job did not succeed")
     on_card = re.compile(rf"device: cuda(:\d+)? \({re.escape(device_name)}, "
                          rf"CUDA_VISIBLE_DEVICES={re.escape(card)}\)")
-    for pod, lines in logs.items():
-        if not lines or not re.fullmatch(EXAMPLES_ON_CARD[rel], lines[-1]):
-            bad.append(f"{pod} ends {lines[-1:]}")
+    for pod, role in pods.items():
+        lines = logs.get(pod)
+        if lines is None and role == "ps" and pod in read_live:
+            lines = read_live[pod]
+            found["pods"][pod] = ["(read while it ran)", *lines[:2]]
+        elif not lines or not re.fullmatch(EXAMPLES_ON_CARD[rel],
+                                           lines[-1]):
+            bad.append(f"{pod} ends {(lines or [])[-1:]}")
+            lines = lines or []
         devices = [line for line in lines if line.startswith("device:")]
+        if role in NO_GPU_ROLES:
+            if not devices or any(d != ON_HOST for d in devices):
+                bad.append(f"{pod} ({role}, no GPU): {devices}")
+            continue
         if not all(on_card.fullmatch(line) for line in devices):
             bad.append(f"{pod}: {devices}")
         if rel.startswith("smoke/"):
@@ -6005,75 +6083,109 @@ def check_card_run(rel: str, rc: int, stdout: str, card: str,
     return found
 
 
-def phase_examples():
-    """The catalogue on the card through python -m
-    tf_operator_tpu_torch.run_local, the user's command (module
-    docstring, phase 24)."""
-    card = nvidia_smi()
-    device_name = torch.cuda.get_device_name(0)
-    visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES",
-                                         "").split(",") if c.strip()]
-    gpu = (visible or ["0"])[0]
-    listed = sorted([*EXAMPLES_ON_CARD, *EXAMPLES_OFF_CARD])
-    catalogue = sorted(os.path.relpath(p, EXAMPLES) for p in glob.glob(
-        os.path.join(EXAMPLES, "*", "*.yaml")))
-    if listed != catalogue:
-        raise AssertionError(f"the catalogue {catalogue} is not the "
-                             f"files run and listed {listed}")
-    work = tempfile.mkdtemp(prefix="chip-smoke-examples-")
-    procs = {}
-    try:
-        t0 = time.perf_counter()
+class CatalogueRuns:
+    """The catalogue's run_locals on the card (phase examples), started
+    at once before ``installed`` and run beside it: a thread reads the
+    pods' logs as they run (``snapshot_pod_logs``) and notes when each
+    run_local exits. ``finish`` waits for them and checks each run;
+    ``stop`` kills what still runs."""
+
+    def __init__(self):
+        visible = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES",
+                                             "").split(",") if c.strip()]
+        self.gpu = (visible or ["0"])[0]
+        self.work = tempfile.mkdtemp(prefix="chip-smoke-examples-")
+        self.procs, self.pods, self.read_live, self.seconds = {}, {}, {}, {}
+        self._done = threading.Event()
+        self._watcher = threading.Thread(target=self._watch, daemon=True)
+
+    def start(self) -> "CatalogueRuns":
+        listed = sorted([*EXAMPLES_ON_CARD, *EXAMPLES_OFF_CARD])
+        catalogue = sorted(os.path.relpath(p, EXAMPLES) for p in glob.glob(
+            os.path.join(EXAMPLES, "*", "*.yaml")))
+        if listed != catalogue:
+            raise AssertionError(f"the catalogue {catalogue} is not the "
+                                 f"files run and listed {listed}")
+        self.t0 = time.perf_counter()
         for rel in EXAMPLES_ON_CARD:
-            out = os.path.join(work, os.path.dirname(rel))
+            out = os.path.join(self.work, rel[:-len(".yaml")])
             os.makedirs(out)
             copy, edits = card_copy(os.path.join(EXAMPLES, rel), out)
             with open(copy) as f:
                 print(f"{rel} as run on the card ({'; '.join(edits)}): "
                       f"{json.dumps(json.load(f))}", flush=True)
             log = open(os.path.join(out, "run_local.out"), "w")
-            procs[rel] = (edits, log, subprocess.Popen(
+            # The backend's pod logs land under run_local's TMPDIR.
+            tmp = os.path.join(out, "tmp")
+            os.makedirs(tmp)
+            self.pods[rel], self.read_live[rel] = replica_pods(copy), {}
+            self.procs[rel] = (edits, log, tmp, subprocess.Popen(
                 [sys.executable, "-m", "tf_operator_tpu_torch.run_local",
                  copy, "--timeout", str(EXAMPLES_TIMEOUT_S),
                  "--workdir", os.path.join(out, "pods")],
-                cwd=REPO, env=dict(os.environ, CUDA_VISIBLE_DEVICES=gpu),
+                cwd=REPO, env=dict(os.environ,
+                                   CUDA_VISIBLE_DEVICES=self.gpu,
+                                   TMPDIR=tmp),
                 stdout=log, stderr=subprocess.STDOUT))
-        seconds = {}
-        while len(seconds) < len(procs):
-            for rel, (_, _, proc) in procs.items():
-                if rel not in seconds and proc.poll() is not None:
-                    seconds[rel] = time.perf_counter() - t0
-            if time.perf_counter() - t0 > EXAMPLES_TIMEOUT_S + 60:
+        self._watcher.start()
+        return self
+
+    def _watch(self) -> None:
+        while not self._done.is_set() and len(self.seconds) < len(
+                self.procs):
+            for rel, (_, _, tmp, proc) in self.procs.items():
+                if rel in self.seconds:
+                    continue
+                snapshot_pod_logs(tmp, self.read_live[rel])
+                if proc.poll() is not None:
+                    self.seconds[rel] = time.perf_counter() - self.t0
+            self._done.wait(0.1)
+
+    def finish(self) -> None:
+        """Wait for every run_local, check each run and emit the phase's
+        lines: the step ``examples`` (module docstring, phase 24)."""
+        try:
+            self._watcher.join(max(0.0, EXAMPLES_TIMEOUT_S + 60
+                                   - (time.perf_counter() - self.t0)))
+            if len(self.seconds) < len(self.procs):
                 raise AssertionError(
                     f"run_local still running: "
-                    f"{sorted(set(procs) - set(seconds))}")
-            time.sleep(0.1)
-        runs, failed = {}, []
-        for rel, (edits, log, proc) in procs.items():
-            log.close()
-            with open(log.name) as f:
-                stdout = f.read()
-            try:
-                runs[rel] = check_card_run(rel, proc.returncode, stdout,
-                                           gpu, device_name)
-            except AssertionError as err:
-                failed.append(str(err))
-                runs[rel] = {"rc": proc.returncode, "failed": True}
-            emit({"phase": "examples", "file": rel, "edits": edits,
-                  "seconds": seconds[rel], **runs[rel]})
-        emit({"phase": "examples", "nvidia_smi": card, "card": gpu,
-              "files_run": len(procs),
-              "slowest_file_seconds": max(seconds.values()),
-              "seconds": seconds, "not_on_card": EXAMPLES_OFF_CARD})
-        if failed:
-            raise AssertionError("; ".join(failed))
-    finally:
-        for _, log, proc in procs.values():
+                    f"{sorted(set(self.procs) - set(self.seconds))}")
+            card = nvidia_smi()
+            device_name = torch.cuda.get_device_name(0)
+            runs, failed = {}, []
+            for rel, (edits, log, _, proc) in self.procs.items():
+                log.close()
+                with open(log.name) as f:
+                    stdout = f.read()
+                try:
+                    runs[rel] = check_card_run(
+                        rel, proc.returncode, stdout, self.gpu, device_name,
+                        self.pods[rel], self.read_live[rel])
+                except AssertionError as err:
+                    failed.append(str(err))
+                    runs[rel] = {"rc": proc.returncode, "failed": True}
+                emit({"phase": "examples", "file": rel, "edits": edits,
+                      "seconds": self.seconds[rel], **runs[rel]})
+            emit({"phase": "examples", "nvidia_smi": card, "card": self.gpu,
+                  "files_run": len(self.procs),
+                  "slowest_file_seconds": max(self.seconds.values()),
+                  "seconds": self.seconds, "not_on_card": EXAMPLES_OFF_CARD,
+                  "bert_gang": EXAMPLES_OFF_CARD[
+                      "bert_gang/tpujob_bert.yaml"]})
+            if failed:
+                raise AssertionError("; ".join(failed))
+        finally:
+            self.stop()
+
+    def stop(self) -> None:
+        self._done.set()
+        for _, log, _, proc in self.procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
-        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(self.work, ignore_errors=True)
 
 
 def main() -> int:
@@ -6142,8 +6254,16 @@ def main() -> int:
         run_phase("served", phase_served, root)
         run_phase("kube", phase_kube, root)
         run_phase("failover", phase_failover, root)
-        run_phase("installed", phase_installed)
-        run_phase("examples", phase_examples)
+        # The catalogue's runs go beside the install's: both are
+        # subprocesses, the catalogue's tiny on the card.
+        catalogue = CatalogueRuns()
+        try:
+            catalogue.start()
+            run_phase("installed", phase_installed)
+        except BaseException:
+            catalogue.stop()
+            raise
+        run_phase("examples", catalogue.finish)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -207,7 +207,8 @@ time.sleep(30)
 
 
 def test_local_launch_ranks_relay_and_first_failure(tmp_path, monkeypatch):
-    """A pod of three local processes: RANK from the pod's place, the
+    """A pod of three local processes in the job-wide world
+    (``TPUJOB_JAX_DISTRIBUTED=1``): RANK from the pod's place, the
     checkpoint relay file for local rank 0 alone, the notice file for
     all; local rank 1 exits 3, so the launch stops the others (SIGTERM)
     and exits 3, well inside the grace period."""
@@ -222,7 +223,8 @@ def test_local_launch_ranks_relay_and_first_failure(tmp_path, monkeypatch):
     for key, value in {"WORLD_SIZE": "7", "LOCAL_WORLD_SIZE": "3",
                        "GROUP_RANK": "2", "GROUP_WORLD_SIZE": "3",
                        "TPUJOB_CKPT_FILE": "ckpt.json",
-                       "TPUJOB_PREEMPT_FILE": "notice"}.items():
+                       "TPUJOB_PREEMPT_FILE": "notice",
+                       "TPUJOB_JAX_DISTRIBUTED": "1"}.items():
         monkeypatch.setenv(key, value)
     monkeypatch.delenv("LOCAL_RANK", raising=False)
     started = time.monotonic()

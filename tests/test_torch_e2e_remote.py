@@ -243,6 +243,28 @@ def test_remote_ps_job_trains_through_agent(client):
         f"{ps_pod.status.host}:{ps_pod.status.ports['coordinator']}"]
 
 
+def test_remote_pods_without_gpus_run_on_their_host(client):
+    """The ps topology with no slice and no ``--device``: the agent's
+    pods hold no GPU, so each carries the operator's device key and its
+    payload runs on the host."""
+    job = job_of("pshost", module_cmd("train.ps", "--lr", "0.2"),
+                 replicas=1, rtype="ps")
+    job.spec.replica_specs["worker"] = job_of(
+        "w", module_cmd("train.dist_mnist_ps", "--steps", "3"),
+        replicas=1).spec.replica_specs["worker"]
+    client.create(job)
+    got = client.wait_for_job("pshost", timeout=120)
+    logs = client.get_job_logs("pshost")
+    assert testutil.check_condition(got, JobConditionType.SUCCEEDED), logs
+    pods = client.get_pods("pshost")
+    assert sorted(p.metadata.name for p in pods) == [
+        "pshost-ps-0", "pshost-worker-0"]
+    for pod in pods:
+        assert pod.spec.containers[0].env[constants.ENV_DEVICE] == "cpu"
+        assert "device: cpu (TPUJOB_DEVICE=cpu)" in \
+            logs[pod.metadata.name].splitlines()
+
+
 def test_remote_follow_job_logs(client, tmp_path):
     """A live follow of both pods through the API server's proxy."""
     client.create(job_of("tailme", module_cmd(

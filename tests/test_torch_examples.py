@@ -9,12 +9,14 @@ NetworkPolicy selects the pods the port's engine makes.
 
 Runs (``e2e``), on the CPU as the files stand (the files that pin the
 CPU carry ``--device cpu``, as their JAX files carry ``JAX_PLATFORMS:
-cpu``). The payload files go through ``python -m
+cpu``; a pod that holds no GPU runs on the host by the operator's device
+key, as the ps file's pods do). The payload files go through ``python -m
 tf_operator_tpu_torch.run_local`` as subprocesses and must reach
-Succeeded with each pod's log ending in its payload's success line; the
-test host stands for one host of 8 GPUs (``CUDA_VISIBLE_DEVICES`` names 8
-cards for run_local's card inventory), so the pods of an ``h100-32`` job,
-8 GPUs and 8 processes each, take the host in turn. The files whose
+Succeeded with each pod's log ending in its payload's success line, and
+the pods of roles that hold no GPU logging the host; the test host
+stands for one host of 8 GPUs (``CUDA_VISIBLE_DEVICES`` names 8 cards for
+run_local's card inventory), so the pods of an ``h100-32`` job, 8 GPUs
+and 8 processes each, one world a pod, take the host in turn. The files whose
 header names operator flags run under an operator of each package built
 from exactly those flags, as ``cli.py`` builds it, and must give the
 same conditions, replica set and observed state. Every ``/tmp`` path a
@@ -218,21 +220,20 @@ def test_ps_network_policy_selects_the_port_engines_pods():
 # ---------------------------------------------------------------------------
 
 # Payload files: the success line each pod's log ends in, and which of
-# the runs' CPUs (RUN_CPUS) its run keeps to: the two runs of 8
-# processes a pod get one each.
+# the runs' CPUs (RUN_CPUS) its run keeps to: the three runs of 8
+# processes a pod (one world a pod, about a minute each on one CPU) get
+# one each, the light runs shared out beside them.
 PAYLOADS = {
-    "smoke/tpujob_smoke.yaml": (r"smoke OK on \d+ device\(s\)", 2),
-    "dist_mnist/tpujob_dist_mnist.yaml": (r"done: loss \S+ -> \S+", 2),
+    "smoke/tpujob_smoke.yaml": (r"smoke OK on \d+ device\(s\)", 0),
+    "dist_mnist/tpujob_dist_mnist.yaml": (r"done: loss \S+ -> \S+", 0),
     "dist_mnist/tpujob_dist_mnist_ps.yaml": (r"done: first=\S+ last=\S+", 2),
     "llama_spmd/tpujob_llama.yaml": (r"llama training OK", 2),
-    "resnet_dp/tpujob_resnet.yaml": (r"resnet training OK", 2),
+    "resnet_dp/tpujob_resnet.yaml": (r"resnet training OK", 1),
     "bert_gang/tpujob_bert.yaml": (r"bert training OK", 0),
     "mixtral_moe/tpujob_mixtral.yaml": (r"mixtral training OK", 1),
 }
-# A payload file whose JAX counterpart does not pin the CPU: the test's
-# copy appends the port's pin to each of its commands. (The worker-stub
-# files need none: the stub touches no device and takes no --device.)
-UNPINNED = ("dist_mnist/tpujob_dist_mnist_ps.yaml",)
+# The roles that hold no GPU (as in JAX): their pods run on the host.
+NO_GPU_ROLES = ("chief", "ps")
 # The files that name operator flags in their header.
 FLAGGED = ("checkpoint/tpujob_checkpoint.yaml", "elastic/tpujob_elastic.yaml",
            "quota/tpujob_quota.yaml", "rl/tpujob_rl.yaml",
@@ -405,27 +406,13 @@ def serve_and_close(client, name, raw):
     return sorted(n for n in os.listdir(done) if n.endswith(".json"))
 
 
-def payload_copy(rel, tmp):
-    """The file as the test runs it: unpinned payloads get the port's
-    CPU pin. Returns the path of the copy."""
-    raw = load(PORT_DIR, rel)
-    if rel in UNPINNED:
-        for c in containers(raw):
-            c["command"] += PORT_CPU_PIN
-    path = os.path.join(tmp, "files", rel)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        yaml.safe_dump(raw, f)
-    return path
-
-
 def start_run_local(rel, tmp, cores):
     """run_local on ``rel``, its pods kept to the CPUs ``cores``."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES=HOST_CARDS,
                PYTHONPATH=REPO)
     return subprocess.Popen(
         [sys.executable, "-m", "tf_operator_tpu_torch.run_local",
-         payload_copy(rel, tmp), "--timeout", str(RUN_TIMEOUT_S),
+         os.path.join(PORT_DIR, rel), "--timeout", str(RUN_TIMEOUT_S),
          "--workdir", os.path.join(tmp, "pods", os.path.dirname(rel))],
         cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, preexec_fn=lambda: os.sched_setaffinity(0, cores))
@@ -499,6 +486,9 @@ def test_payload_file_succeeds_through_run_local(runs, rel):
     for pod, lines in logs.items():
         assert lines and re.fullmatch(PAYLOADS[rel][0], lines[-1]), (
             pod, lines[-20:])
+        if pod.split("-")[-2] in NO_GPU_ROLES:
+            assert "device: cpu (TPUJOB_DEVICE=cpu)" in lines, (
+                pod, lines[-20:])
 
 
 @pytest.mark.e2e

@@ -348,6 +348,33 @@ def test_kube_operator_runs_a_cr_job_as_jax(fakes):
             tconst.RESOURCE_GPU: "8"}
 
 
+def test_kube_pods_without_gpus_are_named_the_host(fakes):
+    """On the kube backend a chief and a ps pod, which hold no GPU, carry
+    the operator's device key in their pod body; the slice's workers,
+    which hold the host's GPUs, do not."""
+    pk, fake = PK["torch"], fakes["torch"]
+    client = pk.kube.KubeClient(pk.kube.KubeConfig(server=fake.url))
+    op = pk.kube.KubeOperator(client, post_events=False)
+    op.start(threadiness=1, sync_timeout=10)
+    try:
+        job = pk.testutil.new_tpujob(chief=1, worker=2, ps=1, name="khost")
+        job.spec.slice.accelerator = pk.accelerator
+        client.create(pk.store.TPUJOBS, "default", pk.kube.tpujob_to_k8s(job))
+
+        def pods():
+            return [p for p in fake.state.list("pods", "default", "")["items"]
+                    if p["metadata"]["name"].startswith("khost-")]
+
+        wait_for(lambda: len(pods()) == 4, "the job's four pods")
+        envs = {p["metadata"]["name"]: _without_env(p)[1][0]
+                for p in pods()}
+    finally:
+        op.stop()
+    assert {name: env.get(tconst.ENV_DEVICE) for name, env in envs.items()} \
+        == {"khost-chief-0": "cpu", "khost-ps-0": "cpu",
+            "khost-worker-0": None, "khost-worker-1": None}
+
+
 def test_kube_lease_as_jax(fakes):
     leases = {}
     for name, pk in PK.items():

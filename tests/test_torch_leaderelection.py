@@ -606,6 +606,10 @@ def test_sharded_operator_stops_its_engines_before_releasing_leases(
     a.start()
     try:
         assert a.shard_map.wait_until_held(2, timeout=TAKEOVER_S)
+        # A shard counts as held just before its engine is built.
+        wait_for(lambda: all(a.operator_for(i) is not None
+                             for i in range(2)),
+                 message="A's engine on each shard")
         b.start()
         engines = {a.operator_for(i): i for i in range(2)}
         _slow_stops(monkeypatch, PORT.operator.Operator, stopped)

@@ -198,6 +198,7 @@ def test_payload_crashes_resumes_and_matches_an_uninterrupted_run(
     assert dist_mnist.main(args + ["--checkpoint-dir", str(straight)]) == 0
     third = capsys.readouterr().out
     assert first.splitlines() == ["replica worker-0 starting",
+                                  "device: cpu",
                                   "step 0: loss=" + first.split("=")[1]
                                   .splitlines()[0],
                                   "injected crash at step 3"]

@@ -400,6 +400,45 @@ def test_client_retries_through_server_restart(tmp_path):
 
 # --- cluster spec and the worker -----------------------------------------
 
+def _held_port():
+    """A listening socket on a free loopback port, and the port."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    sock.listen()
+    return sock, sock.getsockname()[1]
+
+
+def test_a_shard_binds_its_port_once_it_comes_free():
+    """A revived shard's address is its predecessor's: the bind waits
+    while the old server (here a listening socket) still holds it."""
+    sock, port = _held_port()
+    threading.Timer(0.5, sock.close).start()
+    started = time.monotonic()
+    server = tps.ParameterServer(host="127.0.0.1", port=port,
+                                 device="cpu").serve()
+    try:
+        assert server.port == port
+        assert time.monotonic() - started >= 0.4
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=5) as resp:
+            assert resp.status == 200
+    finally:
+        server.stop()
+
+
+def test_a_shard_gives_up_on_a_port_held_past_the_bound(monkeypatch):
+    sock, port = _held_port()
+    monkeypatch.setattr(tps, "BIND_RETRY_S", 0.3)
+    try:
+        with pytest.raises(OSError, match="in use"):
+            tps.ParameterServer(host="127.0.0.1", port=port,
+                                device="cpu").serve()
+    finally:
+        sock.close()
+
+
 def test_cluster_ps_addrs_and_own_task():
     spec = ('{"cluster": {"ps": ["127.0.0.1:41000", "127.0.0.1:41001"], '
             '"worker": ["127.0.0.1:41002"]}, '

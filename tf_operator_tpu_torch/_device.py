@@ -10,16 +10,27 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means the CUDA card; raise if there is none.
+# The pod's device as the operator renders it into a pod that holds no
+# GPU (api/constants.py ENV_DEVICE; a copy, so this module stays free of
+# the control plane's imports).
+ENV_DEVICE = "TPUJOB_DEVICE"
 
-    Only an explicit ``"cpu"`` (or ``torch.device("cpu")``) runs on the
-    host: a missing card never turns into a silent CPU run. In a process
-    the env gives a ``LOCAL_RANK`` (one of a pod's processes, one a GPU),
-    a card named without an index is card ``LOCAL_RANK`` of the pod's
-    visible ones, made the current device.
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the device the operator named for this pod
+    (``TPUJOB_DEVICE``, ``cpu`` in a pod that holds no GPU), else the
+    CUDA card; raise if there is none.
+
+    Only an explicit ``"cpu"`` (or ``torch.device("cpu")``, or the
+    operator's key) runs on the host: a missing card never turns into a
+    silent CPU run, nor does an empty or unset ``CUDA_VISIBLE_DEVICES``.
+    In a process the env gives a ``LOCAL_RANK`` (one of a pod's
+    processes, one a GPU), a card named without an index is card
+    ``LOCAL_RANK`` of the pod's visible ones, made the current device.
     """
-    dev = torch.device("cuda") if device is None else torch.device(device)
+    if device is None:
+        device = os.environ.get(ENV_DEVICE) or "cuda"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (or --device "
@@ -34,9 +45,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def describe(device: torch.device) -> str:
     """``device`` as a payload logs it: a card with its name and the
     cards this process was given (``CUDA_VISIBLE_DEVICES``, as the
-    operator's backend or the device plugin set it)."""
+    operator's backend or the device plugin set it); another device with
+    the device the operator named for the pod, where it named one
+    (``TPUJOB_DEVICE``)."""
     if device.type != "cuda":
-        return str(device)
+        named = os.environ.get(ENV_DEVICE)
+        return f"{device} ({ENV_DEVICE}={named})" if named else str(device)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     return (f"{device} ({torch.cuda.get_device_name(device)}, "
             f"CUDA_VISIBLE_DEVICES={'unset' if visible is None else visible})")

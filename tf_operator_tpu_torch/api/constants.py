@@ -148,3 +148,14 @@ ENV_SERVE_TENANT_WEIGHTS = "TPUJOB_SERVE_TENANT_WEIGHTS"
 # and the actors' own membership is outside the LEARNERS' hashes — so
 # actor churn and learner discovery never restart anything.
 ENV_LEARNER_ENDPOINTS = "TPUJOB_LEARNER_ENDPOINTS"
+
+# Env the controller renders into every pod that holds no GPU (its
+# ``pod_gpus`` is 0: chief, ps and evaluator pods, a chipConsuming:false
+# role, every pod of a job with neither a slice nor an nvidia.com/gpu
+# request): the device its payload runs on, ``cpu``, as a JAX process on
+# such a pod runs on its host's default device. ``_device.resolve_device``
+# reads it where the caller names no device. Outside the bootstrap hash
+# like the ENV_CKPT_*/ENV_SERVE_* families: a pod's device is not
+# cluster membership.
+ENV_DEVICE = "TPUJOB_DEVICE"
+DEVICE_NO_GPU = "cpu"

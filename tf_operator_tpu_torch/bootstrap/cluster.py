@@ -217,21 +217,26 @@ def render_worker_env(job: TPUJob, rtype: str, index: int,
     (the SetClusterSpec plugin hook): the GPU contract.
 
     ``TPUJOB_ACCELERATOR_TYPE`` / ``TPUJOB_TOPOLOGY`` where the job declares
-    a slice; for a distributed job also ``TPUJOB_CLUSTER_SPEC`` (byte-equal
-    to the JAX package's) and, on ranked pods, torchrun's env with one
-    process a GPU: ``MASTER_ADDR`` / ``MASTER_PORT`` (process 0, from
-    ``coordinator_address``), ``WORLD_SIZE`` (the processes of every
-    ranked pod) and ``LOCAL_WORLD_SIZE`` (this pod's: its ``pod_gpus``,
-    at least one). A pod of one process also gets ``RANK`` and ``LOCAL_RANK`` = 0; a pod
+    a slice; for a job of one pod that holds g > 1 GPUs,
+    ``LOCAL_WORLD_SIZE`` = g (its g processes are one world, as the JAX
+    process drives every chip of its host); for a distributed job also
+    ``TPUJOB_CLUSTER_SPEC`` (byte-equal to the JAX package's) and, on
+    ranked pods, torchrun's env with one process a GPU: ``MASTER_ADDR`` /
+    ``MASTER_PORT`` (process 0, from ``coordinator_address``),
+    ``WORLD_SIZE`` (the processes of every ranked pod) and
+    ``LOCAL_WORLD_SIZE`` (this pod's: its ``pod_gpus``, at least one). A
+    pod of one process also gets ``RANK`` and ``LOCAL_RANK`` = 0; a pod
     of several gets ``GROUP_RANK`` (its place among the ranked pods) and
     ``GROUP_WORLD_SIZE`` (their count), from which the payload's local
-    launch (``parallel.distributed.launch_local_processes``) gives each of
-    its processes ``RANK`` = ``WORLD_SIZE`` - (``GROUP_WORLD_SIZE`` -
+    launch (``parallel.distributed.launch_local_processes``), where
+    ``TPUJOB_JAX_DISTRIBUTED=1`` turns the job-wide world on, gives each
+    of its processes ``RANK`` = ``WORLD_SIZE`` - (``GROUP_WORLD_SIZE`` -
     ``GROUP_RANK``) x ``LOCAL_WORLD_SIZE`` + ``LOCAL_RANK``:
     ``GROUP_RANK`` x ``LOCAL_WORLD_SIZE`` + ``LOCAL_RANK`` when every
     ranked pod runs as many, and right too behind a one-process chief, as
     the ranked pods after a pod hold as many GPUs as it does (one
-    template a replica type, the types in rank order). No libtpu or DCN
+    template a replica type, the types in rank order); without it the
+    pod's processes are a world of their own. No libtpu or DCN
     keys: the hosts are in the cluster spec, and a job of several slices
     is one world."""
     if domain is None:
@@ -246,6 +251,9 @@ def render_worker_env(job: TPUJob, rtype: str, index: int,
         env["TPUJOB_TOPOLOGY"] = topo.topology_str
 
     if not is_distributed(job):
+        own = pod_gpus(job, rt)
+        if own > 1:
+            env["LOCAL_WORLD_SIZE"] = str(own)
         return env
 
     env["TPUJOB_CLUSTER_SPEC"] = build_cluster_spec(job, rt, index, domain).to_json()

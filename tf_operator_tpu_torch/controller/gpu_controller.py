@@ -34,7 +34,7 @@ from tf_operator_tpu_torch.api.validation import (
     validation_warnings,
 )
 from tf_operator_tpu_torch.bootstrap import learner_endpoints, render_worker_env
-from tf_operator_tpu_torch.bootstrap.cluster import pod_gpus
+from tf_operator_tpu_torch.bootstrap.cluster import is_distributed, pod_gpus
 from tf_operator_tpu_torch.controller import conditions as cond
 from tf_operator_tpu_torch.controller import status as status_mod
 from tf_operator_tpu_torch.controller.control import (
@@ -784,6 +784,14 @@ class GPUJobController(JobPlugin):
 
             pod.spec.tolerations.append(Toleration(
                 key=constants.RESOURCE_GPU, operator="Exists"))
+        # A pod that holds no GPU runs its payload on the host, as a JAX
+        # process on such a pod runs on its host's default device: the
+        # pod's device, named for _device.resolve_device. OUTSIDE the
+        # bootstrap hash (computed from render_worker_env alone), like
+        # the checkpoint and serving env below: a pod's device is not
+        # cluster membership.
+        if pod_gpus(job, rtype) == 0:
+            container.env[constants.ENV_DEVICE] = constants.DEVICE_NO_GPU
         # Restore-with-identity (controller/ckpt.py): checkpoint policy
         # knobs + the committed restore step, rendered at create time.
         # Deliberately AFTER bootstrap env and OUTSIDE the bootstrap
@@ -929,6 +937,10 @@ class GPUJobController(JobPlugin):
         if sparse:
             env.pop("WORLD_SIZE", None)
             env.pop("GROUP_WORLD_SIZE", None)
+        if not is_distributed(job):
+            # A one-pod job's local world is the pod's own GPU count,
+            # fixed for the pod's life by its resources: no restart.
+            env.pop("LOCAL_WORLD_SIZE", None)
         if ("MASTER_ADDR" in env and job.spec.slice.accelerator
                 and job.spec.slice.num_slices > 1):
             env["numSlices"] = str(job.spec.slice.num_slices)

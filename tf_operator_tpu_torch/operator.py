@@ -11,6 +11,7 @@ from __future__ import annotations
 import logging
 import threading
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 from tf_operator_tpu_torch.api import constants
@@ -403,13 +404,21 @@ class ShardedOperator:
     def stop(self) -> None:
         # Every shard's operator stops before its lease is released: a
         # standby that takes a released lease must find no engine of this
-        # replica still reconciling that shard's jobs.
+        # replica still reconciling that shard's jobs. They stop at once,
+        # so the stop takes the slowest engine's drain, not their sum,
+        # and the leases (still renewed meanwhile) go out the sooner. A
+        # failed stop raises before any lease is released.
         with self._lock:
             self._stopping = True
             ops = list(self._shard_ops.values())
             self._shard_ops.clear()
-        for op in ops:
-            op.stop(stop_store_watchers=False)
+        with ThreadPoolExecutor(max_workers=max(1, len(ops)),
+                                thread_name_prefix="shard-stop") as pool:
+            stops = [pool.submit(op.stop, stop_store_watchers=False)
+                     for op in ops]
+        failed = [e for e in (stop.exception() for stop in stops) if e]
+        if failed:
+            raise failed[0]
         self.shard_map.stop()
         if self.backend is not None:
             self.backend.stop()

@@ -32,6 +32,8 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+
 NEG_INF = -1e30
 
 
@@ -263,16 +265,32 @@ def _mean_over(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
     return (x.float().sum(dim=tuple(dims)) / count).to(x.dtype)
 
 
+def _batch_mean(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """``_mean_over`` a batch's dims. Under a data-parallel mesh (the
+    ``Trainer`` enters ``parallel.mesh.use_mesh`` for its step) it is the
+    global batch's, as ``jnp.mean`` over a batch sharded on the data
+    axes: every slice's f32 sums added by an all-reduce whose backward
+    adds every slice's gradient."""
+    mesh = mesh_lib.active_mesh()
+    if mesh is None or mesh_lib.data_parallel_size(mesh) == 1:
+        return _mean_over(x, dims)
+    total = mesh_lib.data_sum(x.float().sum(dim=tuple(dims)), mesh)
+    count = (math.prod(x.shape[d] for d in dims)
+             * mesh_lib.data_parallel_size(mesh))
+    return (total / count).to(x.dtype)
+
+
 def batch_stats(x: torch.Tensor, stats_dtype: torch.dtype = torch.float32
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (dim 1) mean and biased variance over every other dim,
     as TPUBatchNorm computes them: ``x`` cast to ``stats_dtype``, then
-    E[x] and E[x²] − E[x]² in that dtype, returned in f32 with the
-    variance clamped at 0 (no Bessel correction)."""
+    E[x] and E[x²] − E[x]² in that dtype (over the global batch on a
+    data-parallel mesh), returned in f32 with the variance clamped at 0
+    (no Bessel correction)."""
     dims = [d for d in range(x.ndim) if d != 1]
     xs = x.to(stats_dtype)
-    mean = _mean_over(xs, dims)
-    var = _mean_over(xs.square(), dims) - mean.square()
+    mean = _batch_mean(xs, dims)
+    var = _batch_mean(xs.square(), dims) - mean.square()
     return mean.float(), var.float().clamp_min(0.0)
 
 

@@ -7,9 +7,14 @@ package's operator the same facts come as ``JAX_COORDINATOR_ADDRESS``
 (host:port), ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``
 (``TPU_WORKER_ID`` where the id is missing); each is read only where its
 torch key is absent, so a payload runs under either operator. A process
-joins a multi-process run only where the JAX payload joins one:
+joins the job-wide run only where the JAX payload joins one:
 ``TPUJOB_JAX_DISTRIBUTED=1``, more than one process, and a coordinator
-address. It then joins ``torch.distributed`` through a
+address. Without the flag, the processes of a pod that holds several
+GPUs (one a GPU, ``launch_local_processes``) join a world of their own,
+as the JAX process of such a pod builds its mesh over its host's chips:
+``RANK`` = ``LOCAL_RANK``, ``WORLD_SIZE`` = ``LOCAL_WORLD_SIZE``, the
+store at 127.0.0.1 on a port the launch picks. Either way a process
+joins ``torch.distributed`` through a
 ``TCPStore`` at the coordinator's host:port, served by process 0: NCCL
 when the process drives the card, gloo when the caller asked for the
 CPU. That follows the port's device rule (``_device.py``): a missing card
@@ -23,6 +28,7 @@ import dataclasses
 import datetime
 import os
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -34,6 +40,8 @@ import torch.distributed as dist
 from tf_operator_tpu_torch._device import DeviceLike, resolve_device
 from tf_operator_tpu_torch.api.constants import ENV_CKPT_FILE
 
+# The flag that turns the job-wide world on, the JAX payloads' own.
+ENV_JOB_WORLD = "TPUJOB_JAX_DISTRIBUTED"
 # Copy of tf_operator_tpu/api/constants.py DEFAULT_COORDINATOR_PORT: the
 # port a coordinator address without one means.
 DEFAULT_COORDINATOR_PORT = 8476
@@ -52,6 +60,7 @@ class ProcessEnv:
     process_id: int = 0
     coordinator: str = ""
     distributed: bool = False      # TPUJOB_JAX_DISTRIBUTED=1
+    pod_world: bool = False        # one of a pod's own world's processes
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None
@@ -68,14 +77,20 @@ class ProcessEnv:
             process_id=int(env.get("RANK") or env.get("JAX_PROCESS_ID")
                            or env.get("TPU_WORKER_ID") or 0),
             coordinator=coordinator,
-            distributed=env.get("TPUJOB_JAX_DISTRIBUTED") == "1")
+            distributed=env.get(ENV_JOB_WORLD) == "1",
+            # What launch_local_processes gives a pod's own world (and
+            # torchrun a one-node run): every process is local.
+            pod_world=(env.get("LOCAL_RANK") is not None
+                       and int(env.get("LOCAL_WORLD_SIZE") or 1) > 1
+                       and env.get("WORLD_SIZE")
+                       == env.get("LOCAL_WORLD_SIZE")))
 
     @property
     def joins(self) -> bool:
-        """Whether this process joins a multi-process run (the JAX
-        payload's three conditions)."""
-        return (self.distributed and self.num_processes > 1
-                and bool(self.coordinator))
+        """Whether this process joins a multi-process run: the JAX
+        payload's three conditions, or one of a pod's own world."""
+        return ((self.distributed or self.pod_world)
+                and self.num_processes > 1 and bool(self.coordinator))
 
 
 def coordinator_host_port(address: str) -> Tuple[str, int]:
@@ -124,19 +139,32 @@ def maybe_init_distributed(device: DeviceLike = None,
     return env.process_id
 
 
+def job_world(environ: Optional[Mapping[str, str]] = None) -> bool:
+    """Whether a pod's processes join the job-wide world: the flag
+    (``TPUJOB_JAX_DISTRIBUTED=1``) and a ``WORLD_SIZE`` the operator
+    rendered for it. Otherwise a pod of several GPUs is a world of its
+    own."""
+    env = os.environ if environ is None else environ
+    return env.get(ENV_JOB_WORLD) == "1" and bool(env.get("WORLD_SIZE"))
+
+
 def local_ranks(environ: Optional[Mapping[str, str]] = None
                 ) -> Optional[range]:
-    """The global ranks of this pod's processes, where the env asks for
-    several (``LOCAL_WORLD_SIZE`` > 1, torchrun's names, as
+    """The ranks of this pod's processes, where the env asks for several
+    (``LOCAL_WORLD_SIZE`` > 1, torchrun's names, as
     ``bootstrap/cluster.py`` renders them) and this process is none of
-    them yet (no ``LOCAL_RANK``); else None. The pod's first rank is
+    them yet (no ``LOCAL_RANK``); else None. In the job-wide world
+    (``job_world``) they are global: the pod's first rank is
     ``WORLD_SIZE`` - (``GROUP_WORLD_SIZE`` - ``GROUP_RANK``) x
     ``LOCAL_WORLD_SIZE`` (``GROUP_RANK`` x ``LOCAL_WORLD_SIZE`` where
-    ``GROUP_WORLD_SIZE`` is missing, as under torchrun)."""
+    ``GROUP_WORLD_SIZE`` is missing, as under torchrun). Otherwise they
+    are 0 .. ``LOCAL_WORLD_SIZE`` - 1, the pod's own world."""
     env = os.environ if environ is None else environ
     size = int(env.get("LOCAL_WORLD_SIZE") or 1)
     if size <= 1 or env.get("LOCAL_RANK") is not None:
         return None
+    if not job_world(env):
+        return range(size)
     group = int(env.get("GROUP_RANK") or 0)
     if env.get("GROUP_WORLD_SIZE"):
         first = (int(env["WORLD_SIZE"])
@@ -146,14 +174,23 @@ def local_ranks(environ: Optional[Mapping[str, str]] = None
     return range(first, first + size)
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def launch_local_processes(module: str,
                            argv: Optional[Sequence[str]] = None
                            ) -> Optional[int]:
     """Run a pod's local processes, one a GPU it holds, as torchrun does:
     where ``local_ranks`` names several, start ``python -m module argv``
-    once for each, with ``LOCAL_RANK`` = i and ``RANK`` = the pod's first
-    rank + i (only local rank 0 keeps ``TPUJOB_CKPT_FILE``; every one
-    reads ``TPUJOB_PREEMPT_FILE``), wait for them and return the exit
+    once for each, with ``LOCAL_RANK`` = i and ``RANK`` = its rank from
+    ``local_ranks`` (only local rank 0 keeps ``TPUJOB_CKPT_FILE``; every
+    one reads ``TPUJOB_PREEMPT_FILE``). Outside the job-wide world they
+    are a world of their own: ``WORLD_SIZE`` = their count and the store
+    at 127.0.0.1 on a free port (``MASTER_ADDR``/``MASTER_PORT``), with
+    no ``GROUP_*`` key. Wait for them and return the exit
     code: the first non-zero one, after stopping the others (SIGTERM,
     SIGKILL after ``LOCAL_GRACE_S``), else 0. A SIGTERM to this process
     reaches every one. Returns None, starting nothing, where the env asks
@@ -163,9 +200,16 @@ def launch_local_processes(module: str,
     if ranks is None:
         return None
     argv = list(sys.argv[1:] if argv is None else argv)
+    own_world = {} if job_world() else {
+        "WORLD_SIZE": str(len(ranks)), "MASTER_ADDR": "127.0.0.1",
+        "MASTER_PORT": str(_free_port())}
     procs = []
     for i, rank in enumerate(ranks):
-        env = dict(os.environ, LOCAL_RANK=str(i), RANK=str(rank))
+        env = dict(os.environ, LOCAL_RANK=str(i), RANK=str(rank),
+                   **own_world)
+        if own_world:
+            env.pop("GROUP_RANK", None)
+            env.pop("GROUP_WORLD_SIZE", None)
         if i:
             env.pop(ENV_CKPT_FILE, None)
         procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],

@@ -179,6 +179,33 @@ def all_reduce_mean(x: torch.Tensor, mesh: DeviceMesh,
     return x / count if count > 1 else x
 
 
+class _GroupSum(torch.autograd.Function):
+    """A sum over a process group whose backward sums the gradients too:
+    every rank's input feeds every rank's output."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def data_sum(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """``x`` summed over the mesh's data axes, differentiably (a batch
+    statistic of a sharded batch)."""
+    for axis in data_axes(mesh):
+        if mesh.size(mesh.mesh_dim_names.index(axis)) > 1:
+            x = _GroupSum.apply(x, mesh.get_group(axis))
+    return x
+
+
 def mesh_axis_size(tensor: torch.Tensor, axis: str) -> int:
     """Into how many shards the mesh ``axis`` splits ``tensor``: 1 for a
     plain tensor or a DTensor replicated over that axis."""

@@ -13,7 +13,8 @@ one process and a coordinator address, the replicas join one run
 (``parallel/distributed.py``: NCCL on the card, gloo on the CPU) and
 train through the sharded trainer on a ``MeshConfig(dp=-1)`` mesh over
 the processes with ``CNN_RULES`` (parameters replicated); otherwise each
-trains on its own, unsharded, as the JAX payload does.
+replica trains on its own, as the JAX payload does: unsharded, or, in a
+pod of several GPUs, over the pod's own world of one process a GPU.
 
 ``--batch-size`` is the global batch: each process draws only its local
 slice, rank r's of step i from a generator seeded with (i + 1) * nproc +
@@ -100,7 +101,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 def _train(args, rank: int) -> int:
     import torch.distributed as dist
 
-    from tf_operator_tpu_torch._device import resolve_device
+    from tf_operator_tpu_torch._device import describe, resolve_device
     from tf_operator_tpu_torch.models.mnist import (
         MnistCNN,
         param_logical_axes,
@@ -116,6 +117,7 @@ def _train(args, rank: int) -> int:
     )
 
     device = resolve_device(args.device)
+    print("device:", describe(device))
     nproc = dist.get_world_size() if dist.is_initialized() else 1
     index = dist.get_rank() if nproc > 1 else 0
     # One process trains unsharded: a world-1 mesh would only add the

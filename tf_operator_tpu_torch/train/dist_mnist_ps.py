@@ -28,7 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+from tf_operator_tpu_torch._device import DeviceLike, describe, resolve_device
 
 
 def init_params(device: DeviceLike = "cpu"
@@ -91,6 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    print("device:", describe(device), flush=True)
     addrs = cluster_ps_addrs()
     if not addrs:
         raise SystemExit("no ps replicas in TPUJOB_CLUSTER_SPEC")

@@ -29,10 +29,11 @@ BOOTSTRAP_PREFIXES = ("MASTER_", "RANK", "WORLD_SIZE", "LOCAL_", "GROUP_",
 
 
 def devices(device: Optional[str]) -> List[torch.device]:
-    """Every visible card, or the one device the caller names."""
-    if device is not None:
-        return [resolve_device(device)]
-    resolve_device(None)  # raises without a card
+    """Every visible card, or the one device the caller names (or the
+    operator, for a pod that holds no GPU: ``TPUJOB_DEVICE``)."""
+    resolved = resolve_device(device)  # raises without a card
+    if device is not None or resolved.type != "cuda":
+        return [resolved]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 

@@ -34,6 +34,7 @@ push is updating.
 from __future__ import annotations
 
 import argparse
+import errno
 import hmac
 import io
 import json
@@ -52,7 +53,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tf_operator_tpu_torch._device import DeviceLike, resolve_device
+from tf_operator_tpu_torch._device import DeviceLike, describe, resolve_device
 
 log = logging.getLogger("tpu_operator.ps")
 
@@ -62,6 +63,11 @@ ENV_CLUSTER_SPEC = "TPUJOB_CLUSTER_SPEC"
 ENV_PS_TOKEN = "TPUJOB_PS_TOKEN"
 # Directory for shard state persistence (a restarted shard resumes).
 ENV_PS_STATE_DIR = "TPUJOB_PS_STATE_DIR"
+# How long a shard given its port waits for the port to come free (its
+# predecessor's shutdown, a client connection's local end), and how often
+# it tries; half the client's retry window (PSClient.retry_seconds).
+BIND_RETRY_S = 30.0
+BIND_RETRY_PERIOD_S = 0.1
 
 
 # ---------------------------------------------------------------------------
@@ -349,8 +355,24 @@ class ParameterServer:
                                       "text/plain")
                 self._send(404, b"not found", "text/plain")
 
-        self._httpd = ThreadingHTTPServer((self._host or "", self._port),
-                                          Handler)
+        # The address peers dial is this shard's for good (the loopback
+        # resolver's port a host): a revived shard binds it once its
+        # predecessor has let it go, and any shard once a socket that
+        # took the port from the ephemeral range (a client connection's
+        # local end) has closed.
+        deadline = time.monotonic() + (BIND_RETRY_S if self._port else 0.0)
+        while True:
+            try:
+                self._httpd = ThreadingHTTPServer(
+                    (self._host or "", self._port), Handler)
+                break
+            except OSError as e:
+                if (e.errno != errno.EADDRINUSE
+                        or time.monotonic() >= deadline):
+                    raise
+                log.warning("ps port %d in use; retrying the bind",
+                            self._port)
+                time.sleep(BIND_RETRY_PERIOD_S)
         self._port = self._httpd.server_address[1]
         threading.Thread(target=self._httpd.serve_forever,
                          name="ps-http", daemon=True).start()
@@ -544,6 +566,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"task type is {ttype!r}, not 'ps' "
                          f"(is {ENV_CLUSTER_SPEC} set?)")
     device = resolve_device(args.device)
+    print("device:", describe(device), flush=True)
     addrs = cluster_ps_addrs()
     own = addrs[index] if index < len(addrs) else ":0"
     host, _, port_s = own.rpartition(":")
