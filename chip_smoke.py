@@ -227,9 +227,13 @@ no flash kernel, as the JAX decode path runs none):
            memory; one decode step under torch.profiler (device time by
            class, idle share) beside its reckoned bytes. Every request must
            finish to budget with in-vocabulary tokens and finite logits, and
-           the flash launch counters must read 0.
+           the flash launch counters must read 0. The operator's registry
+           (runtime.metrics) must count each request once in its TTFT
+           histogram and its completed requests; the line carries the
+           registry's TTFT p99, the figure the serving autoscaler reads.
 12. worker serve.worker.main --runner llama on the card over a spool of 3
-           requests and the .close sentinel: exit 0, 3 responses.
+           requests and the .close sentinel: exit 0, 3 responses, each
+           counted once in the registry's TTFT and completed series.
 13. resume the MNIST payload (train.dist_mnist) on the card as
            subprocesses: --steps 6 --crash-at-step 3 exits 137, the same
            command again exits 0 resuming at step 3, and an uninterrupted
@@ -561,6 +565,7 @@ from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.ops import ring_attention as ra
 from tf_operator_tpu_torch.parallel.llama_pp import LlamaPipelineTrainer
+from tf_operator_tpu_torch.runtime import metrics as registry
 from tf_operator_tpu_torch.serve import worker
 from tf_operator_tpu_torch.serve.batcher import ContinuousBatcher
 from tf_operator_tpu_torch.serve.engine import ServingEngine
@@ -755,6 +760,7 @@ def emit(record) -> None:
 
 # Phases whose line on the phases line carries these numbers instead.
 PHASE_HEADLINES = {
+    "serve": ("tokens_per_s", "registry_ttft_p99_s"),
     "failover": ("lease_takeover_seconds", "kill_to_succeeded_seconds",
                  "steps"),
     "examples": ("files_run", "slowest_file_seconds", "bert_gang")}
@@ -3058,13 +3064,40 @@ def profile_decode(runner, lengths):
             "top_kernels_ms": top}
 
 
+def registry_counts() -> dict:
+    """The serving series of the operator's registry that a run must
+    raise: TTFT observations and completed requests."""
+    return {"ttft_count": registry.serving_ttft_seconds.count_value(),
+            "completed": registry.serving_requests_total.value(
+                outcome="completed")}
+
+
+def registry_rise(before: dict) -> dict:
+    """The rise of ``registry_counts`` since ``before`` and the registry's
+    TTFT p99 (over every observation of this process: the figure the
+    autoscaler reads)."""
+    after = registry_counts()
+    return {"registry_rise": {k: after[k] - before[k] for k in after},
+            "registry_ttft_p99_s":
+                registry.serving_ttft_seconds.quantile(0.99)}
+
+
+def check_rise(counts: dict, requests: int) -> None:
+    """Each series must have risen by exactly ``requests``."""
+    want = {"ttft_count": requests, "completed": requests}
+    if counts["registry_rise"] != want:
+        raise AssertionError(f"the registry rose by "
+                             f"{counts['registry_rise']}, want {want}")
+
+
 def serve_requests(runner) -> dict:
     """SERVE_PROMPTS through RequestQueue (tenants a:b = 2:1),
     ContinuousBatcher and ServingEngine.run_until_idle on ``runner``:
     TTFT, prefill ms per bucket, decode ms per step, tokens/s and the
     flash launches (which must read 0: decode runs no flash kernel). Every
     request must finish to budget with in-vocabulary tokens and finite
-    logits."""
+    logits, and count once into the registry's TTFT and completed
+    series."""
     cfg = runner.config
     prefill_ms, decode_ms = {}, []
     prefill, decode = runner.prefill, runner.decode
@@ -3099,11 +3132,13 @@ def serve_requests(runner) -> dict:
     for request in requests:
         queue.submit(request)
     fa.reset_launches()
+    counted = registry_counts()
     t0 = time.perf_counter()
     done = engine.run_until_idle()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
+    counts = registry_rise(counted)
     hook.remove()
     runner.prefill, runner.decode = prefill, decode
     generated = sum(len(r.output) for r in done)
@@ -3120,7 +3155,7 @@ def serve_requests(runner) -> dict:
         "decode_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
         "decode_ms_min": min(decode_ms), "decode_ms_max": max(decode_ms),
         "generated_tokens": generated, "wall_s": wall_s,
-        "tokens_per_s": generated / wall_s,
+        "tokens_per_s": generated / wall_s, **counts,
         "max_memory_allocated_gb":
             torch.cuda.max_memory_allocated() / 2 ** 30,
         "flash_launches": launches}
@@ -3135,6 +3170,7 @@ def serve_requests(runner) -> dict:
     if any(launches.values()):
         raise AssertionError(f"the serve path launched flash kernels: "
                              f"{launches}")
+    check_rise(counts, len(requests))
     return record
 
 
@@ -3178,19 +3214,22 @@ def phase_worker():
                 json.dump({"id": f"w{i}", "tenant": "t",
                            "prompt": [1 + i, 2, 3 + i], "maxNewTokens": 8}, f)
         open(os.path.join(root, worker.CLOSE_SENTINEL), "w").close()
+        counted = registry_counts()
         t0 = time.perf_counter()
         rc = worker.main(["--runner", "llama", "--spool", root,
                           "--poll-interval", "0.001"])
         seconds = time.perf_counter() - t0
+        counts = registry_rise(counted)
         responses = {}
         for name in sorted(os.listdir(os.path.join(root, "done"))):
             with open(os.path.join(root, "done", name)) as f:
                 responses[name] = json.load(f)["tokens"]
     emit({"phase": "worker", "rc": rc, "seconds": seconds,
-          "responses": responses})
+          "responses": responses, **counts})
     if rc != 0 or len(responses) != 3:
         raise AssertionError(f"serving worker returned {rc} with "
                              f"{len(responses)} responses, want 0 and 3")
+    check_rise(counts, 3)
 
 
 def mnist_params(directory: str, step: int) -> dict:

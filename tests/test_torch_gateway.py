@@ -20,7 +20,7 @@ import pytest
 
 from tf_operator_tpu.runtime import metrics as jmetrics
 from tf_operator_tpu.serve.gateway import parse_token_map as j_parse
-from tf_operator_tpu_torch.serve import metrics
+from tf_operator_tpu_torch.runtime import metrics
 from tf_operator_tpu_torch.serve import worker as worker_mod
 from tf_operator_tpu_torch.serve.gateway import (
     GatewayServer,
@@ -220,6 +220,41 @@ class TestStreaming:
             open_gw.stop()
 
 
+def _exposition(url):
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        text = resp.read().decode()
+    return text, {line.split()[2] for line in text.splitlines()
+                  if line.startswith("# TYPE ")}
+
+
+def test_operator_metrics_show_the_embedded_gateway(tmp_path, monkeypatch):
+    """With ``--enable-serving-gateway`` the gateway counts into the
+    operator's one registry: its answers show on the operator's
+    ``/metrics``, and its own ``/metrics`` renders the whole catalogue."""
+    from tf_operator_tpu_torch.cli import Server, build_parser
+
+    monkeypatch.delenv("TPUJOB_GATEWAY_TOKENS", raising=False)
+    server = Server(build_parser().parse_args([
+        "--monitoring-port", "-1", "--no-leader-elect",
+        "--enable-serving-gateway", "--gateway-port", "0",
+        "--gateway-spool", str(tmp_path / "spool")]))
+    server.start()
+    try:
+        before = metrics.gateway_requests.value(code="400")
+        assert _error(_url(server.gateway), {"prompt": []}).code == 400
+        operator_text, operator_names = _exposition(
+            f"http://127.0.0.1:{server.monitoring.port}/metrics")
+        _, gateway_names = _exposition(_url(server.gateway, "/metrics"))
+    finally:
+        server.shutdown()
+    line = 'tpu_operator_gateway_requests_total{code="400"} '
+    counted = [ln for ln in operator_text.splitlines() if ln.startswith(line)]
+    assert counted == [f"{line}{int(before) + 1}"]
+    assert gateway_names == operator_names
+    assert {"tpu_operator_jobs_created_total",
+            "tpu_operator_serving_ttft_seconds"} <= gateway_names
+
+
 def test_exposition_matches_jax():
     """The port's counter and histogram render the same text exposition
     as the JAX registry's for the same observations."""
@@ -237,8 +272,8 @@ def test_exposition_matches_jax():
     assert port_c.render() == jax_c.render()
     assert port_h.render() == jax_h.render()
     registry = metrics.Registry()
-    registry.register(port_h)
-    registry.register(port_c)
+    registry._register(port_h)
+    registry._register(port_c)
     # By name, as the JAX registry renders.
     assert registry.render_text() == "\n".join(
         jax_c.render() + jax_h.render()) + "\n"

@@ -10,6 +10,7 @@ barrier and acks it.
 """
 
 import dataclasses
+import importlib
 import json
 import os
 import threading
@@ -30,9 +31,9 @@ from tf_operator_tpu.serve import runner as jrunner
 from tf_operator_tpu.serve import worker as jworker
 from tf_operator_tpu_torch.models import llama as tllama
 from tf_operator_tpu_torch.models.convert import llama_params_from_flax
+from tf_operator_tpu_torch.runtime import metrics as tmetrics
 from tf_operator_tpu_torch.serve import batcher as tbatcher
 from tf_operator_tpu_torch.serve import engine as tengine
-from tf_operator_tpu_torch.serve import metrics as tmetrics
 from tf_operator_tpu_torch.serve import queue as tqueue
 from tf_operator_tpu_torch.serve import runner as trunner
 from tf_operator_tpu_torch.serve import worker as tworker
@@ -130,6 +131,48 @@ def test_fake_runner_trace_matches_jax(slots):
     assert got["metrics"].pop("ttft_sum") == pytest.approx(
         want["metrics"].pop("ttft_sum"), abs=1e-9)
     assert got == want
+
+
+def autoscaler_ttft_p99(root, pkg, spool):
+    """Four requests through ``pkg``'s ``ServingEngine`` on a
+    ``FakeRunner`` (TTFT counted from a fresh series), then the TTFT p99
+    that ``pkg``'s autoscaler reads for a serving gang over ``spool``."""
+    api = importlib.import_module(f"{root}.api")
+    types = importlib.import_module(f"{root}.api.types")
+    autoscaler = importlib.import_module(f"{root}.controller.autoscaler")
+    store_mod = importlib.import_module(f"{root}.runtime.store")
+    testutil = importlib.import_module(f"{root}.testutil")
+    q_mod, b_mod, e_mod, m = (pkg[k] for k in ("queue", "batcher", "engine",
+                                                 "metrics"))
+    m.serving_ttft_seconds.remove()
+    clock = Clock()
+    queue = q_mod.RequestQueue(max_depth=8, clock=clock)
+    engine = e_mod.ServingEngine(
+        queue, b_mod.ContinuousBatcher(b_mod.FakeRunner(max_slots=2),
+                                       clock=clock), clock=clock)
+    for i in range(4):
+        queue.submit(q_mod.Request(id=f"p{i}", tenant="ttft",
+                                   prompt=[i + 1], max_new_tokens=2 + i))
+    assert len(engine.run_until_idle()) == 4
+    assert m.serving_ttft_seconds.count_value() == 4
+    store = store_mod.Store()
+    job = testutil.new_tpujob(worker=1, name="ttft", namespace="default")
+    job.spec.run_policy.serving_policy = types.ServingPolicy(
+        enabled=True, spool_directory=spool, target_queue_depth_per_slice=4)
+    api.set_defaults(job)
+    store.create(store_mod.TPUJOBS, job)
+    scaler = autoscaler.ServingAutoscaler(store, gang=None)
+    return scaler.signals("default", "ttft").get(autoscaler.SIGNAL_TTFT_P99)
+
+
+def test_autoscaler_ttft_signal_matches_jax(tmp_path):
+    """The port's engine counts into the registry its autoscaler reads,
+    so a serving gang scales on TTFT as under JAX: the same requests give
+    the same p99 signal in both packages."""
+    want = autoscaler_ttft_p99("tf_operator_tpu", JAX, str(tmp_path))
+    got = autoscaler_ttft_p99("tf_operator_tpu_torch", PORT, str(tmp_path))
+    assert want is not None
+    assert got == pytest.approx(want, abs=1e-12)
 
 
 @pytest.mark.parametrize("raw", ["a=3,b=1", "", "bad,x=2,y=zero", "z=0",

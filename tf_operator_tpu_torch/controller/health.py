@@ -198,6 +198,12 @@ class SliceHealthController:
         # (ns, group) -> monotonic drain time, for the time-to-rebind
         # histogram; cleared once the gang is fully bound again.
         self._rebind_started: Dict[Tuple[str, str], float] = {}
+        # uids of the pods this controller evicted that the store still
+        # lists. On the kube backend the store is an informer cache that
+        # sees a deletion only when its watch event arrives; until then
+        # an evicted pod must not doom its gang again (a second drain
+        # would evict the rebound pods and count one episode twice).
+        self._evicted_uids: set = set()
         # Groups already warned about a pending (grace-window) drain.
         self._warned_pending: set = set()
 
@@ -425,6 +431,7 @@ class SliceHealthController:
                 log.warning("evicting actor pod %s/%s failed (will "
                             "retry): %s", ns, p.metadata.name, e)
                 continue
+            self._evicted_uids.add(p.metadata.uid)
             evicted.append(p.metadata.name)
             metrics.actor_preemptions.inc(job_namespace=ns,
                                           reason="health")
@@ -508,13 +515,15 @@ class SliceHealthController:
     def _affected_groups(self, degraded: Dict[str, str]
                          ) -> Dict[Tuple[str, str], List[Pod]]:
         """(ns, gang group) -> its live pods bound to degraded nodes."""
+        pods = self.store.list(store_mod.PODS, namespace=self.namespace)
+        self._evicted_uids &= {p.metadata.uid for p in pods}
         if not degraded:
             return {}
         affected: Dict[Tuple[str, str], List[Pod]] = {}
-        for p in self.store.list(store_mod.PODS,
-                                 namespace=self.namespace):
+        for p in pods:
             if (p.status.phase in _TERMINAL_POD_PHASES
-                    or p.spec.node_name not in degraded):
+                    or p.spec.node_name not in degraded
+                    or p.metadata.uid in self._evicted_uids):
                 continue
             group = p.metadata.annotations.get(
                 constants.ANNOTATION_GANG_GROUP, "")
@@ -564,6 +573,9 @@ class SliceHealthController:
                             "(will retry): %s", ns, p.metadata.name,
                             name, e)
                 return
+        # Marked only once the whole gang is evicted: a drain that failed
+        # part-way is re-derived and retried by the next pass.
+        self._evicted_uids.update(p.metadata.uid for p in group_pods)
         reason_str = ", ".join(reasons)
         trace_mod.JOURNAL.record(
             ns, name, "drained", "node-degraded",

@@ -3,9 +3,9 @@
 A request queue with per-tenant QoS lanes (``queue``), slot-based
 continuous batching over the Llama incremental-decode path
 (``batcher``/``runner``), the loop that ties them together and publishes
-the SLO metrics (``engine``, ``metrics``), and the spool-backed serving
-worker a ``serving``-role pod runs (``worker``). Copies of the JAX
-package's modules: the port imports nothing of it.
+the SLO metrics into ``runtime.metrics`` (``engine``), and the
+spool-backed serving worker a ``serving``-role pod runs (``worker``).
+Copies of the JAX package's modules: the port imports nothing of it.
 """
 
 from tf_operator_tpu_torch.serve.queue import Request, RequestQueue  # noqa: F401

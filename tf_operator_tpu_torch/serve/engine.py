@@ -5,7 +5,7 @@ decode); ``run_until_idle`` drives rounds until queue and slots are
 empty (benchmarks, tests, the graft dryrun smoke); the serving worker
 process (serve/worker.py) calls ``step()`` from its own poll loop.
 
-SLO metrics (serve/metrics.py, the JAX package's names):
+SLO metrics (runtime/metrics.py, the operator's one registry):
 - serving_ttft_seconds          enqueue -> first generated token
 - serving_tokens_per_second     decode throughput over a rolling window
 - serving_queue_depth{tenant}   published by the queue itself
@@ -25,7 +25,7 @@ from __future__ import annotations
 import time
 from typing import Callable, List, Optional
 
-from tf_operator_tpu_torch.serve import metrics
+from tf_operator_tpu_torch.runtime import metrics
 from tf_operator_tpu_torch.serve.batcher import ContinuousBatcher
 from tf_operator_tpu_torch.serve.queue import (
     OUTCOME_COMPLETED,

@@ -26,7 +26,10 @@ the JAX gateway's, so either package's gateway fronts either package's
 workers. One difference: each answer is counted in
 ``gateway_requests`` (and a stream timed in
 ``gateway_streaming_seconds``) before its last bytes are written, so a
-client that has read a response finds it counted.
+client that has read a response finds it counted. The gateway counts
+into ``runtime.metrics``, the operator's one registry, so its
+``/metrics`` renders the whole catalogue, and a gateway started in the
+operator (``--enable-serving-gateway``) shows on the operator's own.
 
     python -m tf_operator_tpu_torch.serve.gateway --spool DIR --port 8600
 """
@@ -43,7 +46,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 
-from tf_operator_tpu_torch.serve import metrics
+from tf_operator_tpu_torch.runtime import metrics
 
 log = logging.getLogger("tpu_operator.serve.gateway")
 

@@ -22,7 +22,7 @@ from collections import OrderedDict, deque
 from dataclasses import field
 from typing import Deque, Dict, List, Optional
 
-from tf_operator_tpu_torch.serve import metrics
+from tf_operator_tpu_torch.runtime import metrics
 
 DEFAULT_TENANT = "default"
 
