@@ -11,9 +11,11 @@ Phases, each printing one JSON line:
            flash_attention.cu (the wgmma kernels: bf16 and fp16, all three
            at head_dim 128, 256, 384 and 512) and
            csrc/flash_attention_f32tc.cu (the f32 forward, dQ and dK/dV on
-           tensor cores, 3xTF32, head_dim 128-512); seconds,
-           library paths, and per kernel variant ("flash_fwd[bf16,256]")
-           the registers, stack and spill bytes that ptxas reports.
+           tensor cores, 3xTF32, head_dim 128-512: the forward and dK/dV on
+           tf32 wgmma after their prologue, flash_split_f32tc, the dQ on
+           mma.sync); seconds, library paths, and per kernel variant
+           ("flash_fwd[bf16,256]", "flash_split_f32tc") the registers,
+           stack and spill bytes that ptxas reports.
 3. kernels each flash-attention kernel (forward, dQ, dK/dV) against its
            plain PyTorch version on the card (KERNEL_CASES; B=1, H=32,
            Hkv=8, GQA 4:1): in bf16 at head_dim 128 the training step's
@@ -51,13 +53,21 @@ Phases, each printing one JSON line:
            through out on its own, f32 products in
            TF32, and in f32 P rounded to TF32 before O, P^T and dS^T before
            dV and dK and dS before dQ, as a 3xTF32 kernel that split only
-           the loaded operands would give). In f32 the kernels' out, lse,
+           the loaded operands would give; and, through each of out, dK
+           and dV on its own, the f32 forward's and dK/dV's transposed B
+           operand (V^T, dO^T, Q^T) from the wrong head or stale, and
+           their reduced index left in another order than the
+           fragments'). In f32 the kernels' out, lse,
            dQ, dK and dV are also held to a float64 version at the same
-           limits (f64_ratio), and that check must reject both TF32
-           perturbations through each output on its own: the plain version
+           limits (f64_ratio), and that check must reject the three TF32
+           perturbations (the third: the lo part of the transposed B
+           operands dropped) through each output on its own: the plain version
            sums its long products in f32 too, so against it alone a right
            kernel's margin is partly the plain version's own rounding (its
-           f64_ratio is reported).
+           f64_ratio is reported). In f32 the forward's and dK/dV's
+           prologue copies (fa.f32tc_prologue) must also equal their plain
+           versions (fa.f32tc_split, f32tc_split_t) bit for bit, and the
+           timed cases give the prologue's part of ms (prologue_ms).
            Kernel,
            plain and library (scaled_dot_product_attention, a yardstick
            the port never calls) device times from CUDA events around
@@ -878,6 +888,8 @@ def kernel_variant(mangled: str) -> str:
     template arguments of a compiled kernel's mangled name (the
     anonymous namespace's own name, which holds the file's name, left
     out)."""
+    if "flash_split_f32tc_kernel" in mangled:
+        return "flash_split_f32tc"
     end = mangled.find("_kernelI")
     start = mangled.rfind("flash_", 0, end)
     found = re.match(r"(f|13__nv_bfloat16|6__half)?(?:Li(\d+)E)?E",
@@ -1082,6 +1094,10 @@ def fwd_float64(q, k, v, causal, q_offset):
             (m + torch.log(l)).reshape(b, h, sq))
 
 
+# The TF32 perturbations of f32 cases, which the float64 gate must reject
+# through each output they change on its own.
+F32_F64_PERTURBATIONS = ("tf32", "tf32_register_operands",
+                         "tf32_transposed_operands")
 # The domain perturbations of a column half at head_dim 384-512, which the
 # check must reject through each output they change on its own.
 COLUMN_HALF_PERTURBATIONS = ("d_cols_last_128_zero",
@@ -1177,7 +1193,67 @@ def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
                                k.float()).reshape(q.shape),
             "dk": torch.einsum("bkgqt,bqkgd->btkd", tf32(ds), qg),
             "dv": torch.einsum("bkgqt,bqkgd->btkd", tf32(p), dog)}
+        wrong.update(f32tc_perturbed(q, k, v, do, lse, p, ds, causal,
+                                     q_offset))
     return wrong
+
+
+# The f32 forward's and dK/dV's own ways of going wrong (their prologue's
+# transposed copies V^T, dO^T and Q^T, and the permuted reduced index),
+# which the check must reject through out, dK and dV each on its own.
+F32TC_PERTURBATIONS = ("transposed_from_wrong_head", "transposed_stale",
+                       "reduced_index_misordered")
+
+
+def f32tc_perturbed(q, k, v, do, lse, p, ds, causal, q_offset):
+    """out, dK and dV of f32 kernels whose B operand of O += P V, dV +=
+    P^T dO or dK += dS^T Q is wrong: the transposed copy of the next head
+    (V of KV head hk + 1, dO and Q of head h + 1), a stale one (another
+    call's: fresh values), or one whose S index is not permuted as the
+    fragments' (position 8g + c holding row 8g + c while the fragment's
+    column c is row 8g + PERM8[c]); and, against float64, one whose lo part
+    was dropped (the B operand in TF32 alone). P and dS are the plain
+    version's ([B, Hkv, G, Sq, Sk])."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    pn = torch.exp(fa._scores(q, k, causal, q_offset)[0]
+                   - lse.reshape(b, hkv, h // hkv, sq, 1))
+
+    def group(x):
+        return x.float().reshape(b, sq, hkv, h // hkv, d)
+
+    def outs(vv, dd, qq, probs=pn, pt=p, dst=ds):
+        out = torch.einsum("bkgqt,btkd->bqkgd", probs, vv.float())
+        return {"out": out.reshape(q.shape),
+                "dk": torch.einsum("bkgqt,bqkgd->btkd", dst, group(qq)),
+                "dv": torch.einsum("bkgqt,bqkgd->btkd", pt, group(dd))}
+
+    def misorder(x, dim, n):
+        order = (torch.arange(n, device=x.device).view(-1, 8)[
+            :, list(fa.PERM8)]).reshape(-1)
+        return x.index_select(dim, order)
+
+    wrong = {}
+    if hkv > 1:
+        wrong["transposed_from_wrong_head"] = outs(
+            v.roll(1, dims=2), do.roll(1, dims=2), q.roll(1, dims=2))
+    gen = torch.Generator(device=q.device).manual_seed(1)
+    wrong["transposed_stale"] = outs(
+        *(torch.randn(x.shape, generator=gen, device=q.device) * 0.5
+          for x in (v, do, q)))
+    wrong["reduced_index_misordered"] = outs(
+        v, do, q, probs=misorder(pn, 4, k.shape[1]),
+        pt=misorder(p, 3, sq), dst=misorder(ds, 3, sq))
+    wrong["tf32_transposed_operands"] = outs(tf32(v), tf32(do), tf32(q))
+    return wrong
+
+
+def plain_copy(name, q, k, v, do):
+    """The plain version of the f32 prologue's copy ``name`` (as
+    fa.f32tc_prologue names them)."""
+    x = {"q": q, "k": k, "v": v, "do": do}[name.split("_")[0]]
+    return (fa.f32tc_split_t(x) if name.endswith("_t")
+            else fa.f32tc_split(x))
 
 
 def perturbed(q, k, v, do, ref, delta, causal, q_offset):
@@ -1300,8 +1376,14 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
         case["f64_perturbed_ratio"] = {
             p: {n: check(n, t, exact[n], **lim)["ratio"]
                 for n, t in wrong[p].items()}
-            for p in ("tf32", "tf32_register_operands")}
+            for p in F32_F64_PERTURBATIONS}
         del exact
+        # The forward's and dK/dV's prologue: each copy its kernel reads
+        # equal, bit for bit, to the plain version's.
+        case["prologue_equal"] = {
+            f"{kind}.{n}": bool(torch.equal(t, plain_copy(n, q, k, v, do)))
+            for kind in ("fwd", "dkv")
+            for n, t in fa.f32tc_prologue(kind, q, k, v, do).items()}
     del wrong
     # Keys no query row sees (causal, k >= sq + q_offset) must get exact
     # zeros: the kernel's outputs come from torch.empty.
@@ -1373,6 +1455,11 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                "library_host_launched_ms": library[name][1],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "peak_flop_per_s": peak, "flops": flops, "bytes": nbytes}
+        if keys[name].endswith("_f32tc") and name != "flash_dq":
+            # The part of ms that the prologue's launches take.
+            kind = name[len("flash_"):]
+            row["prologue_ms"] = cuda_ms(
+                lambda: fa.f32tc_prologue(kind, q, k, v, do), reps[name])
         if keys[name].endswith("_f32tc"):
             # 3xTF32: every product as three TF32 products on the tensor
             # cores, its bound; the f32 FMA bound beside it.
@@ -1474,6 +1561,8 @@ def phase_kernels():
             if c.get("unseen_keys_zero") is False]
     bad += [(*tag(c), n, "vs float64") for c in cases
             for n, r in c.get("f64_ratio", {}).items() if r["kernel"] > 1.0]
+    bad += [(*tag(c), n, "prologue copy differs") for c in cases
+            for n, same in c.get("prologue_equal", {}).items() if not same]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"beyond the scaled limits: {bad}")
@@ -1496,9 +1585,15 @@ def phase_kernels():
                for p, ratios in c["domain_perturbed_ratio"].items()
                if p in COLUMN_HALF_PERTURBATIONS
                for n, r in ratios.items() if r <= 1.0]
+    # The f32 kernels' transposed copies and permuted reduced index gone
+    # wrong: each of out, dK and dV it changes on its own.
+    missed += [(*tag(c), p, n) for c in cases
+               for p, ratios in c["domain_perturbed_ratio"].items()
+               if p in F32TC_PERTURBATIONS
+               for n, r in ratios.items() if r <= 1.0]
     # Against float64 each output of a TF32 perturbation on its own: a
-    # kernel that left any one of out, dQ, dK and dV in TF32 must be
-    # caught.
+    # kernel that left any one of out, dQ, dK and dV in TF32, or dropped
+    # the lo part of a transposed operand, must be caught.
     missed += [(*tag(c), p, n, "vs float64") for c in cases
                for p, ratios in c.get("f64_perturbed_ratio", {}).items()
                for n, r in ratios.items() if r <= 1.0]

@@ -190,8 +190,10 @@ def test_kernel_check_rejects_domain_perturbations(case):
     384-512 out's, the dQ's and dK/dV's last 128 columns left as zeros or
     copied from columns 0-127 and out's second column half summed without
     the last visible k tile, TF32 in place of f32, and in f32 P rounded to TF32
-    before O, P^T and dS^T before dV and dK and dS before dQ) through at
-    least one output it changes."""
+    before O, P^T and dS^T before dV and dK and dS before dQ, and the f32
+    forward's and dK/dV's transposed B operands stale, from the wrong head
+    (where there is another KV head), in TF32 alone or paired in another
+    order than the fragments') through at least one output it changes."""
     sq, sk, causal, q_offset, dtype, d = PERTURBED_CASES[case]
     gen = torch.Generator().manual_seed(0)
     q, k, v, do = ((torch.randn(1, s, h, d, generator=gen) * 0.5).to(dtype)
@@ -220,7 +222,10 @@ def test_kernel_check_rejects_domain_perturbations(case):
         expect |= {"d_cols_last_128_zero", "d_cols_last_128_from_cols_0_127",
                    "out_second_half_without_last_k_tile"}
     if dtype == torch.float32:
-        expect |= {"tf32", "tf32_register_operands"}
+        expect |= {"tf32", "tf32_register_operands", "transposed_stale",
+                   "reduced_index_misordered", "tf32_transposed_operands"}
+        if k.shape[2] > 1:
+            expect.add("transposed_from_wrong_head")
     assert set(wrong) == expect
     for kind, outputs in wrong.items():
         ratios = {}

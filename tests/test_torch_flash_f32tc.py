@@ -24,6 +24,18 @@ check at the f32 limits (1e-5), to chip_smoke.py's float64 versions. The
 3xTF32 scheme must pass. 1xTF32 (hi.hi alone) must fail, and so must
 3xTF32 that splits only the loaded operands and leaves the computed ones
 (P, P^T and dS^T, or dS) in TF32.
+
+The forward and the dK/dV kernels take their loaded operands from a
+prologue (the port's ``f32tc_split`` and ``f32tc_split_t`` are its plain
+versions): hi and lo copies of Q, K, V and dO, and transposed copies V^T,
+dO^T and Q^T whose S index is permuted within each group of 8 (PERM8), the
+order in which a tensor-core fragment of the computed operand (P, P^T, dS^T)
+holds its keys or queries. The data-flow tests run the kernels' products
+through those copies, with the computed operand split and put in fragment
+order, and hold them to the plain 3xTF32 emulation above and to the
+float64 versions. They must fail with 1xTF32, with the computed operands
+unsplit, with the transposed copies' lo parts dropped, and with the
+transposed copies left unpermuted.
 """
 
 import importlib.util
@@ -32,6 +44,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+from tf_operator_tpu_torch.ops import flash_attention as tfa
 
 pytestmark = pytest.mark.compute
 
@@ -226,5 +240,174 @@ def test_3xtf32_fwd_scheme_holds_f32_limits(case, scheme):
         results[name] = smoke.check(name, g, w, **lim)
     if accepted:
         assert all(r["ok"] for r in results.values()), results
+    else:
+        assert results["out"]["ratio"] > 1, results
+
+
+def test_prologue_splits_and_permutes():
+    """The plain prologue: hi and lo are TF32 values (low 13 bits zero)
+    that sum to x within 2^-22 of it, and the transposed copy's position
+    8g + c along S holds row 8g + PERM8[c] of x, both parts alike."""
+    x = torch.tensor(np.random.default_rng(5).standard_normal((1, 16, 2, 64)),
+                     dtype=torch.float32)
+    parts = tfa.f32tc_split(x)
+    assert parts.shape == (2, *x.shape)
+    assert (parts.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((parts[0] + parts[1] - x).abs() <= x.abs() * 2.0 ** -22).all()
+    assert sorted(tfa.PERM8) == list(range(8))
+    t = tfa.f32tc_split_t(x)
+    assert t.shape == (2, 1, 2, 64, 16)
+    for pos in range(16):
+        row = 8 * (pos // 8) + tfa.PERM8[pos % 8]
+        assert torch.equal(t[:, 0, :, :, pos], parts[:, 0, row])
+
+
+def fragment_order(x, dim):
+    """x with its index along ``dim`` in the order a fragment of a computed
+    operand holds it: position 8g + c is index 8g + PERM8[c]."""
+    order = torch.arange(x.shape[dim]).view(-1, 8)[
+        :, list(tfa.PERM8)].reshape(-1)
+    return x.index_select(dim, order)
+
+
+# Data-flow scheme -> whether the f32 limits accept it.
+DATAFLOW = {"3xtf32": True, "1xtf32": False,
+            "register_operands_unsplit": False,
+            "transposed_lo_dropped": False,
+            "transposed_unpermuted": False}
+
+
+class Dataflow:
+    """The forward's and the dK/dV's products as the kernels run them: the
+    loaded operands from the prologue's copies ([2, ...]: hi, lo), the
+    computed one split in registers and in fragment order, each product
+    the sum of its parts' products (lo.hi + hi.lo + hi.hi, or hi.hi alone
+    under 1xtf32)."""
+
+    def __init__(self, scheme):
+        self.scheme = scheme
+        self.terms = ([(0, 0)] if scheme == "1xtf32"
+                      else [(1, 0), (0, 1), (0, 0)])
+
+    def product(self, eq, a, b):
+        out = None
+        for i, j in self.terms:
+            term = torch.einsum(eq, a[i], b[j])
+            out = term if out is None else out + term
+        return out
+
+    def register(self, x, dim):
+        """A computed operand as the kernel's fragments: split (hi, lo),
+        or (tf32(x), 0) left unsplit; its reduced index in fragment
+        order."""
+        if self.scheme == "register_operands_unsplit":
+            hi = tfa.tf32_round(x)
+            parts = torch.stack((hi, torch.zeros_like(hi)))
+        else:
+            parts = tfa.f32tc_split(x)
+        return fragment_order(parts, dim + 1)
+
+    def transposed(self, x):
+        """The prologue's transposed copy [2, B, H, D, S] of x [B, S, H, D]
+        as the scheme has it."""
+        if self.scheme == "transposed_unpermuted":
+            return tfa.f32tc_split(x.permute(0, 2, 3, 1))
+        t = tfa.f32tc_split_t(x)
+        if self.scheme == "transposed_lo_dropped":
+            t[1] = 0
+        return t
+
+    def dkv(self, q, k, v, do, lse, delta):
+        """dK, dV of the dK/dV kernel (causal, q_offset 0): S^T = K Q^T and
+        dP^T = V dO^T from the natural copies, dV += P^T dO^T-copy and dK
+        += dS^T Q^T-copy, summed over the GQA group."""
+        b, s, h, d = q.shape
+        hkv = k.shape[2]
+        g = h // hkv
+        qs, dos, ks, vs = (tfa.f32tc_split(x) for x in (q, do, k, v))
+        qt, dot = (self.transposed(x).reshape(2, b, hkv, g, d, s)
+                   for x in (q, do))
+        group = lambda x: x.reshape(2, b, s, hkv, g, d)
+        scale = d ** -0.5
+        st = self.product("btkd,bqkgd->bkgtq", ks, group(qs)) * scale
+        st = st.masked_fill(torch.arange(s)[None, :] < torch.arange(s)[:, None],
+                            NEG_INF)
+        p = torch.exp(st - lse.reshape(b, hkv, g, 1, s))
+        dpt = self.product("btkd,bqkgd->bkgtq", vs, group(dos))
+        ds = p * (dpt - delta.reshape(b, hkv, g, 1, s)) * scale
+        dv = self.product("bkgtq,bkgdq->btkd", self.register(p, 4), dot)
+        dk = self.product("bkgtq,bkgdq->btkd", self.register(ds, 4), qt)
+        return dk, dv
+
+    def fwd(self, q, k, v, block=64):
+        """out, lse of the forward kernel (causal, q_offset 0): S = Q K^T
+        from the natural copies, the online softmax over k tiles of
+        ``block`` keys, O += P V^T-copy."""
+        b, s, h, d = q.shape
+        hkv = k.shape[2]
+        g = h // hkv
+        qs, ks = tfa.f32tc_split(q), tfa.f32tc_split(k)
+        qs = qs.reshape(2, b, s, hkv, g, d)
+        vt = self.transposed(v)                      # [2, B, Hkv, D, S]
+        scale = d ** -0.5
+        m = torch.full((b, hkv, g, s, 1), NEG_INF)
+        l = torch.zeros_like(m)
+        o = torch.zeros(b, hkv, g, s, d)
+        queries = torch.arange(s)[:, None]
+        for k0 in range(0, k.shape[1], block):
+            st = self.product("bqkgd,btkd->bkgqt", qs,
+                              ks[:, :, k0:k0 + block]) * scale
+            keys = torch.arange(k0, k0 + st.shape[-1])[None, :]
+            st = st.masked_fill(queries < keys, NEG_INF)
+            m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+            p = torch.exp(st - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            o = o * corr + self.product("bkgqt,bkdt->bkgqd",
+                                        self.register(p, 4),
+                                        vt[..., k0:k0 + block])
+            m = m_new
+        out = (o / l).permute(0, 3, 1, 2, 4).reshape(q.shape)
+        return out, (m + torch.log(l)).reshape(b, h, s)
+
+
+@pytest.mark.parametrize("scheme", sorted(DATAFLOW))
+def test_dkv_dataflow_through_prologue_copies(case, scheme):
+    """dK and dV through the prologue's split, transposed and permuted
+    copies equal the plain 3xTF32 emulation's and hold the f32 limits of
+    the float64 version; a wrong scheme does not."""
+    q, k, v, do, lse, delta = case
+    want = smoke.dkv_float64(q, k, v, lse, do, delta, True, 0)
+    inputs = [x.float() for x in (q, k, v, do, lse, delta)]
+    got = Dataflow(scheme).dkv(*inputs)
+    plain = dkv(*inputs, SCHEMES["3xtf32"][0])
+    lim = smoke.limits(torch.float32)
+    for name, g, w, pl in zip(("dk", "dv"), got, want, plain):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        result = smoke.check(name, g, w, **lim)
+        if DATAFLOW[scheme]:
+            assert result["ok"], (name, result)
+            assert smoke.check(name, g, pl, **lim)["ok"], name
+        else:
+            assert result["ratio"] > 1, (name, result)
+
+
+@pytest.mark.parametrize("scheme", sorted(DATAFLOW))
+def test_fwd_dataflow_through_prologue_copies(case, scheme):
+    """out and lse through the prologue's split copies and permuted V^T
+    equal the plain 3xTF32 emulation's and hold the f32 limits of the
+    float64 version; a wrong scheme gives an out they reject."""
+    q, k, v, *_ = case
+    want = smoke.fwd_float64(q, k, v, True, 0)
+    inputs = [x.float() for x in (q, k, v)]
+    got = Dataflow(scheme).fwd(*inputs)
+    plain = fwd(*inputs, SCHEMES["3xtf32"][0])
+    lim = smoke.limits(torch.float32)
+    results = {n: smoke.check(n, g, w, **lim)
+               for n, g, w in zip(("out", "lse"), got, want)}
+    if DATAFLOW[scheme]:
+        assert all(r["ok"] for r in results.values()), results
+        for n, g, pl in zip(("out", "lse"), got, plain):
+            assert smoke.check(n, g, pl, **lim)["ok"], n
     else:
         assert results["out"]["ratio"] > 1, results

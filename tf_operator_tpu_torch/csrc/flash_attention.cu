@@ -1983,11 +1983,12 @@ int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km,
 
 extern "C" {
 
+// workspace: the f32 forward's (flash_attention_f32tc.cu); none here.
 int flash_fwd(const void* q, const void* k, const void* v, void* out,
               void* lse, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
               int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
-              int v_ss, int v_sh, int causal, int q_offset, float scale,
-              int dtype, int head_dim, void* stream) {
+              int v_ss, int v_sh, void* workspace, int causal, int q_offset,
+              float scale, int dtype, int head_dim, void* stream) {
   if ((head_dim % 128 != 0 || head_dim < 128 || head_dim > 512) ||
       (dtype != DT_BF16 && dtype != DT_FP16))
     return (int)cudaErrorInvalidValue;

@@ -6,112 +6,143 @@
 //   flash_fwd_f32tc_kernel <- _fwd_kernel (:95; _fwd, pallas_call :143)
 //   flash_dkv_f32tc_kernel <- _dkv_kernel (:207; _bwd_impl, pallas_call :289)
 //   flash_dq_f32tc_kernel  <- _dq_kernel  (:183; _bwd_impl, pallas_call :261)
-// The dK/dV is described here, the dQ and the forward, which share its
-// machinery, at their own definitions below.
-//
-// The dK/dV computes _dkv_kernel's function: for one KV head and a block
-// of keys, over every (GQA member, visible query tile) item, S^T = K Q^T
-// and dP^T = V dO^T (the head_dim reduced), P^T = exp(S^T scale - lse)
-// with the causal mask at the finite -1e30, dS^T = P^T (dP^T - delta)
-// scale, then dV += P^T dO and dK += dS^T Q, summed over the GQA group
-// inside the CTA in a fixed order (no atomics: deterministic). No cast
-// points in f32. Tensors are read as [B, S, H, D] through their element
-// strides; head h reads KV head h / (H / Hkv). Ragged lengths (any
-// multiple of 8): rows past Sq or Sk load as zeros, query columns past Sq
-// get P = dS = 0 (their lse and delta are never read), key rows past Sk
-// are never stored, and a key no query row sees gets zeros.
+// with the TPU kernels' function, no cast points in f32: causal or not
+// with q_offset, GQA (head h reads KV head h / (H / Hkv)), lengths of any
+// multiple of 8 (rows past Sq or Sk load as zeros and are never stored;
+// query columns past Sq get P = dS = 0), masked scores at the finite
+// -1e30, a softmax sum of 0 guarded as 1, keys no query sees given zero
+// dK and dV, and dK/dV summed over the GQA group inside one CTA in a
+// fixed order (no atomics: deterministic).
 //
 // 3xTF32. A TF32 product keeps 10 mantissa bits of each operand, about
 // 1e-4 of a value, where the f32 kernels are held to 1e-5. So every f32
-// operand x, loaded (K, V, Q, dO) or computed (P^T, dS^T), is split into
-// hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and each product is
-// lo.hi + hi.lo + hi.hi, small terms first: about 2^-21 of a product is
-// left (the lo.lo term, 2^-22, is dropped). The tensor cores add into
-// their f32 accumulator rounding toward zero, so a long running sum kept
-// there drifts by about half an ulp of the sum at every step, all one way
-// (at S = 2048 some 1e-4 of dV). So no sum stays in the tensor cores for
-// long: the products of one 64-column chunk of head_dim (pass 1) or of one
-// piece of 8-32 queries (pass 2) are summed there from zero, and added to
-// the f32 accumulators in registers with round-to-nearest adds.
+// operand x, loaded (Q, K, V, dO) or computed (P, P^T, dS^T, dS), is split
+// into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and each
+// product is lo.hi + hi.lo + hi.hi, small terms first: about 2^-21 of a
+// product is left (the lo.lo term, 2^-22, is dropped).
 //
-// What bounds it on the card: tensor-core operations. 8 D FLOPs per
-// visible (key, query) pair and head, each done as three TF32 products:
-// 3 x 8 D FLOPs at 494.7 TFLOP/s (H100 SXM dense TF32), 2.5x faster than
-// the 67 TFLOP/s of f32 FMA the SIMT kernel it replaces ran on. Design:
-//   * mma.sync m16n8k8 (f32 += tf32 x tf32), fragments read by ld.shared
-//     from padded tiles. Not wgmma: its tf32 shape takes only K-major
-//     operands from shared memory, and dV += P^T dO and dK += dS^T Q reduce
-//     over the query rows, so dO and Q would need a transposed copy every
-//     item.
-//   * 256 threads (8 warps), one CTA per (pair of key blocks, KV head,
-//     batch): key blocks j and nkb - 1 - j, so under the causal mask every
-//     CTA walks about the same number of items (the wgmma dK/dV's pairing).
-//     A key block is BKV = 64 keys at D = 128, 32 at D = 256-512, so that
-//     dK and dV of a block are at most 128 registers a thread.
-//   * K and V of the block stay in shared memory. Q and dO of an item come
-//     in pieces by cp.async (16 bytes a copy, zero-filled past the end),
-//     double-buffered: the copy of the next piece runs while the current
-//     one multiplies, one __syncthreads a piece. Pass 1 takes D / 64
-//     pieces of 64 rows by 64 head_dim columns and reduces S^T and dP^T
-//     over them; pass 2 takes pieces of R2 rows (32 at D = 128, 16 at 256,
-//     8 at 384-512: as many as fit the same room) by all of head_dim, on
-//     which every warp adds to all of its dV and dK columns (16 to 32
-//     independent accumulators a warp). Each item's Q
-//     and dO are thus read twice. Holding them whole instead takes 2 x 64
-//     x D floats, double-buffered 512 KB at D = 512 beside 130 KB of K and
-//     V: more than the 227 KB a block may use.
-//   * Warp w owns row block w % (BKV / 16) of 16 keys and column part w /
-//     (BKV / 16): in pass 1 that part of the item's 64 queries, in pass 2
-//     that part of head_dim (dV and dK in registers for the whole key
-//     block, written once at its end). Between the passes P^T and dS^T go
-//     through shared memory (sP, sS), since the warps split the queries
-//     in pass 1 and reduce over all of them in pass 2.
-//   * Bank conflicts. The fragment loads are conflict-free: K, V and the
-//     pieces have row strides of 8 mod 32 floats; pass 1 reads its A (K, V)
-//     and B (Q, dO) fragments as float2, the two k values of a thread being
-//     columns 2t and 2t + 1 of an 8-column step (a permutation of the
-//     reduced index that A and B share, so the sum is unchanged); pass 2
-//     reads sP and sS (row stride 4 mod 32) and the pieces' columns as
-//     scalars in the mma's own order.
-//   * Budgets. Shared memory: K and V (2 BKV (D + 8) floats), 2 slots of a
-//     Q and a dO piece (the larger of 64 x 72 and R2 x (D + 8) floats
-//     each), sP and sS (2 BKV x 68): 224,256 bytes at D = 512, 178,176 at
-//     D = 128, of 232,448. Registers a thread: dK and dV 2 x BKV x D / 256
-//     (64 at D = 128 and 256, 96 at 384, 128 at 512), the tensor-core
-//     sums of a chunk or piece as many again at most, the split fragments.
+// What bounds them on the card. The least time is the tensor cores': per
+// visible (key, query) pair and head the forward does 4 D FLOPs, the dK/dV
+// 8 D and the dQ 6 D, each as three TF32 products at 494.7 TFLOP/s (H100
+// SXM dense TF32). What holds the forward and the dK/dV back is the L2:
+// every operand they stream is twice f32's bytes (hi and lo), 128 KB of
+// tiles a forward k tile (2 q tiles) and 256 KB a dK/dV item at D = 128,
+// some 1 KB per 50-100 KFLOP. Leaving the dK/dV's K and V loads out of a
+// run (results wrong) cut its time by the third of the bytes they are, so
+// the designs below keep what they can resident and stream the rest.
+//
+// The forward and the dK/dV are the Hopper design of the bf16 kernels
+// (flash_attention.cu, hopper.cuh): warp-specialised CTAs of 384 threads,
+// two consumer warpgroups (setmaxnreg 232) that run wgmma.mma_async
+// m64n64k8 .f32.tf32.tf32 and one producer warpgroup (setmaxnreg 40)
+// whose first thread (in the streamed dK/dV, first two) issues TMA loads
+// (cp.async.bulk.tensor, 128-byte swizzle) of 64-row f32 panels into a
+// ring of shared-memory slots with a "full" (TMA transaction bytes) and an
+// "empty" mbarrier each; no __syncthreads after set-up. How each hard part
+// is met:
+//   1. Operand layout. tf32 wgmma reads shared-memory operands K-major
+//      only. S = Q K^T and, in the dK/dV, S^T = K Q^T and dP^T = V dO^T
+//      reduce over head_dim, along which Q, K, V and dO are contiguous:
+//      both operands come straight from their rows. O += P V, dV += P^T dO
+//      and dK += dS^T Q reduce over keys or queries, so their B operands
+//      are V^T, dO^T and Q^T. A prologue kernel (flash_split_f32tc_kernel,
+//      one launch an operand) writes them once a call, [B, H, D, S]
+//      beside [B, S, H, D] copies of Q, K, dO (and V in the dK/dV), each
+//      as hi and lo; its launches are part of the entry's, so its time is
+//      part of the kernel's. The other choice, a transposition in shared
+//      memory after each tile lands, needs an f32 staging tile beside the
+//      hi and lo tiles in 227 KB that they already fill, and a store, a
+//      proxy fence and a barrier before every product. Reckoned at D =
+//      128, S = 2048, H = 32, Hkv = 8: the forward's prologue reads 48 MiB
+//      and writes 96, the dK/dV's reads 80 and writes 288 (some 45 and
+//      110 us at 3.35 TB/s; chip_smoke.py times it apart, prologue_ms).
+//   2. Register A against the accumulator. The computed operand (P in the
+//      forward; P^T and dS^T in the dK/dV) is wgmma's A from registers,
+//      split there. Its tf32 fragment (hopper.cuh) holds columns l%4 and
+//      l%4 + 4 of each 8-column k-step, where the accumulator holds 2(l%4)
+//      and 2(l%4) + 1. So the reduced index is permuted within each group
+//      of 8: fragment column c is accumulator column PERM8[c] = 0, 2, 4,
+//      6, 1, 3, 5, 7 (register e of the fragment = accumulator register 4kk
+//      + (0, 2, 1, 3)[e]: no shuffle), and the prologue writes the
+//      transposed copies with the same permutation along S (position 8g +
+//      c holds row 8g + PERM8[c]), so A and B pair the same keys or
+//      queries and the sum is unchanged.
+//   3. The split. hi and lo of every shared-memory operand are made by the
+//      prologue (separate halves of its output, hi first), so a tile is
+//      TMA'd as it will be read; a 64-row f32 panel (32 columns) is 8 KB.
+//      head_dim is split over CTAs: a CTA owns CW = 128 columns of O or of
+//      dK and dV (D / 128 CTAs a tile), so no accumulator is over 64
+//      registers at any D; the column slices of one tile each reduce S
+//      (and dP) over all of head_dim again, (D / 128 + 1) / 2 times the
+//      work at 256-512 (1.5x, 2x, 2.5x).
+//   4. Accumulator rounding. The tensor cores add into their f32
+//      accumulator rounding toward zero, so a long running sum kept there
+//      drifts about half an ulp of the sum a step, all one way (some 1e-4
+//      of dV at S = 2048). So each unit's products (4 or 8 k-steps, 12 or
+//      24 wgmma) start from zero in the tensor cores and are added to the
+//      f32 registers (S, O, dV, dK) with round-to-nearest adds; S's unit
+//      sums alternate between two 32-register buffers so that one unit's
+//      wgmma run while the last one's sum is added.
+//
+// Forward (flash_fwd_f32tc_kernel): a CTA per (two 64-row q tiles, head,
+// batch, column slice z); consumer warpgroup g owns q tile 2c + g and O's
+// columns 128 z .. 128 z + 127. Per k tile of 64 keys: S = Q K^T, the
+// online softmax on the accumulator layout (quad shuffles, expf), P split
+// in registers, O += P V over two 64-column units of V^T. Both warpgroups
+// take every unit; a warpgroup whose q tile sees fewer k tiles waits for
+// and releases the rest unread.
+//   Shared memory: D = 128: the 2 Q tiles resident (hi, lo: 128 KB) and 3
+//   slots of 32 KB (a 64-column chunk of K, or of V^T, hi and lo): 225 KB
+//   of 227. D = 256-512: 4 slots of 48 KB (a 32-column panel of K and of
+//   both q tiles' Q, or a chunk of V^T): 193 KB.
+//   Registers of a consumer (each D): O 64, S 32, two unit sums 64, the P
+//   fragments 64 (hi and lo, 8 k-steps); S's buffers are dead before P's
+//   fragments live: at most 192 of 232, 0 spills (ptxas).
+//
+// dK/dV (flash_dkv_f32tc_kernel): a CTA per (pair of 64-key tiles j and
+// nkt - 1 - j, so that under the causal mask every CTA walks about the
+// same number of items; KV head; batch; column slice z). Warpgroup 0
+// reduces S^T = K Q^T, makes P^T = exp(S^T scale - lse), hands it to
+// warpgroup 1 through shared memory (16 KB, named barriers) and owns dV +=
+// P^T dO^T-panels; warpgroup 1 reduces dP^T = V dO^T, makes dS^T = P^T
+// (dP^T - delta) scale and owns dK += dS^T Q^T-panels; items (GQA member,
+// q tile) in a fixed order.
+//   D = 128 (dkv_resident): K and V resident (hi, lo: 128 KB), one ring of
+//   5 slots of 16 KB (a 32-column panel of Q or dO, or 64 rows by 32
+//   queries of dO^T or Q^T, hi and lo) that both warpgroups walk (see
+//   there: why each passes the other's units), the hand-off, lse and
+//   delta: 226 KB of 227.
+//   D = 256-512 (dkv_streamed): hi and lo K and V (256 KB and up) cannot
+//   stay; a ring of 3 slots of 32 KB a warpgroup (a 32-column panel of K
+//   and Q, or of V and dO, or a 64-column unit of dO^T or Q^T), K and V
+//   read again each item: 210 KB.
+//   Registers of a consumer: dV or dK 64, S^T or dP^T 32, unit sums 64,
+//   fragments 64: at most 192 of 232, 0 spills.
+//
+// dQ (flash_dq_f32tc_kernel) is still the mma.sync m16n8k8 kernel fed by
+// cp.async, described at its definition: of the three, it loses the least
+// time to its bound on the f32 training step (8 launches x 1.2 ms against
+// the dK/dV's 8 x 1.9 and the forward's 16 x 0.8 on the H100 before this
+// design, PERF.md section 6), and
+// it moves onto the same tf32 wgmma design next (ROADMAP B: the prologue
+// gives K^T for dQ += dS K). The helpers below the dQ's heading serve it
+// alone (Frag, mma3, cp.async, load_rows).
 //
 // The extern "C" entries launch on the caller's stream and return
-// cudaGetLastError(), or cudaErrorInvalidValue for a (dtype, head_dim) they
-// were not built for; the Python wrapper raises on any non-zero value.
+// cudaGetLastError(), cudaErrorInvalidValue for a (dtype, head_dim) they
+// were not built for, or the negated CUresult when a tensor map cannot be
+// built; the Python wrapper raises on any non-zero value. The forward and
+// the dK/dV take a workspace of flash_f32tc_workspace bytes for the
+// prologue's copies.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int NT = 256;        // threads: 8 warps
-constexpr int BQ = 64;         // query rows of an item
-constexpr int C = 64;          // head_dim columns of a Q/dO chunk
-constexpr int LDC = C + 8;     // row stride of a chunk (floats, 8 mod 32)
-constexpr int LDP = BQ + 4;    // row stride of sP and sS (4 mod 32)
 constexpr float NEG_INF = -1e30f;
-
-template <int D>
-constexpr int BKV = D == 128 ? 64 : 32;      // keys of a block
-template <int D>
-constexpr int LDK = D + 8;   // row stride of K, V and a pass-2 piece (8 mod 32)
-// Query rows of a pass-2 piece: as many as fit the pass-1 piece's room.
-template <int D>
-constexpr int R2 = D == 128 ? 32 : D == 256 ? 16 : 8;
-template <int D>
-constexpr int SLOT = BQ * LDC > R2<D> * LDK<D> ? BQ * LDC : R2<D> * LDK<D>;
-template <int D>
-constexpr int SMEM = 4 * (2 * BKV<D> * LDK<D> + 4 * SLOT<D> +
-                          2 * BKV<D> * LDP);
-
-static_assert(SMEM<128> <= 232448 && SMEM<256> <= 232448 &&
-                  SMEM<384> <= 232448 && SMEM<512> <= 232448,
-              "shared memory over the 227 KB a block can use");
 
 // The C entry's `dtype` code for f32 (the Python wrapper's).
 constexpr int DT_F32 = 2;
@@ -120,13 +151,20 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
 }
 
-// ---------------------------------------------------------------- 3xTF32
-
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
 }
+
+// ------------------------------------------- dQ machinery (mma.sync m16n8k8)
+
+constexpr int NT = 256;        // threads of the dQ kernel: 8 warps
+constexpr int C = 64;          // head_dim columns of a K/V chunk
+constexpr int LDC = C + 8;     // row stride of a chunk (floats, 8 mod 32)
+
+template <int D>
+constexpr int LDK = D + 8;   // row stride of Q, dO and a pass-2 piece (8 mod 32)
 
 // An A fragment (4 values) or a B fragment (2 values) split into TF32
 // hi and lo parts.
@@ -212,252 +250,13 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
                ok ? src + static_cast<int64_t>(s) * ss + 4 * c4 : src, ok);
   }
 }
-
-// ---------------------------------------------------------------- kernel
-
-template <int D>
-__global__ void __launch_bounds__(NT, 1) flash_dkv_f32tc_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int H, int Hkv, int Sq,
-    int Sk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
-    int v_sb, int v_ss, int v_sh, int do_sb, int do_ss, int do_sh, int causal,
-    int q_offset, float scale) {
-  constexpr int KB = BKV<D>, LK = LDK<D>, NC = D / C;
-  constexpr int RB = KB / 16, CP = 8 / RB;  // row blocks, column parts
-  constexpr int NT1 = BQ / CP / 8;          // pass 1: query n-tiles a warp
-  constexpr int NT2 = D / CP / 8;           // pass 2: head_dim n-tiles a warp
-  constexpr int P1 = NC, P2 = BQ / R2<D>;   // pieces of the two passes
-  constexpr int KS2 = R2<D> / 8;            // k-steps of a pass-2 piece
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + KB * LK;
-  float* sQ = sV + KB * LK;                 // 2 slots of SLOT<D>
-  float* sdO = sQ + 2 * SLOT<D>;            // 2 slots
-  float* sP = sdO + 2 * SLOT<D>;            // P^T [key][query]
-  float* sS = sP + KB * LDP;                // dS^T [key][query]
-
-  const int nkb = cdiv(Sk, KB), nqt = cdiv(Sq, BQ), group = H / Hkv;
-  const int hb = gridDim.x / cdiv(nkb, 2);  // Hkv * B
-  const int blk = static_cast<int>(blockIdx.x);
-  const int pair = blk / hb, hk = blk % hb % Hkv, b = blk % hb / Hkv;
-  const int n_blk = nkb - 1 - pair != pair ? 2 : 1;  // blocks pair, nkb-1-pair
-  const float* kp = k + static_cast<int64_t>(b) * k_sb +
-                    static_cast<int64_t>(hk) * k_sh;
-  const float* vp = v + static_cast<int64_t>(b) * v_sb +
-                    static_cast<int64_t>(hk) * v_sh;
-
-  // Each key block of the pair: its first key, first visible q tile, and
-  // items (GQA member major, q tile minor); an item is P1 + P2 pieces.
-  struct Block {
-    int k0, first, nqv, items;
-  };
-  auto block = [&](int kb) {
-    int i0 = 0;
-    if (causal) {
-      const int need = kb * KB - q_offset - (BQ - 1);
-      i0 = need > 0 ? cdiv(need, BQ) : 0;
-    }
-    const int nqv = max(nqt - i0, 0);
-    return Block{kb * KB, i0, nqv, group * nqv};
-  };
-  const Block blk0 = block(pair);
-  const Block blk1 = n_blk == 2 ? block(nkb - 1 - pair) : Block{0, 0, 0, 0};
-  constexpr int per_item = P1 + P2;
-  const int total = (blk0.items + blk1.items) * per_item;
-
-  // Issue the copies of piece p into slot p % 2 (and, on a key block's
-  // first piece, its K and V): piece j < P1 of an item is head_dim chunk j
-  // of its Q and dO, piece P1 + r their rows R2 r .. R2 (r + 1) - 1.
-  auto issue = [&](int p) {
-    const bool second = p >= blk0.items * per_item;
-    const Block bu = second ? blk1 : blk0;
-    const int local = second ? p - blk0.items * per_item : p;
-    const int item = local / per_item, j = local % per_item;
-    if (local == 0) {
-      load_rows<KB, D>(sK, LK, kp, k_ss, bu.k0, Sk);
-      load_rows<KB, D>(sV, LK, vp, v_ss, bu.k0, Sk);
-    }
-    const int h = hk * group + item / bu.nqv;
-    const int row0 = (bu.first + item % bu.nqv) * BQ;
-    const float* qp = q + static_cast<int64_t>(b) * q_sb +
-                      static_cast<int64_t>(h) * q_sh;
-    const float* dop = dout + static_cast<int64_t>(b) * do_sb +
-                       static_cast<int64_t>(h) * do_sh;
-    float* pq = sQ + (p & 1) * SLOT<D>;
-    float* pdo = sdO + (p & 1) * SLOT<D>;
-    if (j < P1) {
-      load_rows<BQ, C>(pq, LDC, qp + j * C, q_ss, row0, Sq);
-      load_rows<BQ, C>(pdo, LDC, dop + j * C, do_ss, row0, Sq);
-    } else {
-      const int r = row0 + (j - P1) * R2<D>;
-      load_rows<R2<D>, D>(pq, LK, qp, q_ss, r, Sq);
-      load_rows<R2<D>, D>(pdo, LK, dop, do_ss, r, Sq);
-    }
-    cp_async_commit();
-  };
-  // Wait for piece p, make it visible, and start piece p + 1 (into the
-  // slot that piece p - 1, which every thread is done with, held).
-  auto next_piece = [&](int p) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (p + 1 < total) issue(p + 1);
-  };
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp % RB * 16;            // the warp's 16 keys
-  const int cpart = warp / RB;              // its column part
-
-  if (total > 0) issue(0);
-  int p = 0;
-  for (int u = 0; u < n_blk; ++u) {
-    const Block bu = u ? blk1 : blk0;
-    const int k0 = bu.k0;
-    float acc_dv[NT2][4], acc_dk[NT2][4];
-#pragma unroll
-    for (int n = 0; n < NT2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_dv[n][e] = acc_dk[n][e] = 0.0f;
-
-    for (int item = 0; item < bu.items; ++item) {
-      const int h = hk * group + item / bu.nqv;
-      const int i = bu.first + item % bu.nqv;
-
-      // Pass 1: S^T = K Q^T and dP^T = V dO^T over the chunks. The warp's
-      // queries are n-tiles cpart * NT1 + j. A and B read columns 2t and
-      // 2t + 1 of each 8-column step as the mma's k = t and t + 4. A
-      // chunk's sums stay in the tensor cores (s_c, d_c), then are added
-      // to st and dpt.
-      float st[NT1][4], dpt[NT1][4];
-#pragma unroll
-      for (int j = 0; j < NT1; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
-#pragma unroll 1
-      for (int c = 0; c < P1; ++c, ++p) {
-        next_piece(p);
-        const float* cQ = sQ + (p & 1) * SLOT<D>;
-        const float* cdO = sdO + (p & 1) * SLOT<D>;
-        const float* rK = sK + (r0 + g) * LK + c * C + 2 * t;
-        const float* rV = sV + (r0 + g) * LK + c * C + 2 * t;
-        float s_c[NT1][4], d_c[NT1][4];
-#pragma unroll
-        for (int kk = 0; kk < C / 8; ++kk) {
-          // Rows g and g + 8 of the warp's keys.
-          const float2 kg = *reinterpret_cast<const float2*>(rK + kk * 8);
-          const float2 kg8 =
-              *reinterpret_cast<const float2*>(rK + 8 * LK + kk * 8);
-          const float2 vg = *reinterpret_cast<const float2*>(rV + kk * 8);
-          const float2 vg8 =
-              *reinterpret_cast<const float2*>(rV + 8 * LK + kk * 8);
-          const Frag<4> ak = split<4>({kg.x, kg8.x, kg.y, kg8.y});
-          const Frag<4> av = split<4>({vg.x, vg8.x, vg.y, vg8.y});
-#pragma unroll
-          for (int j = 0; j < NT1; ++j) {
-            const int n = (cpart * NT1 + j) * 8 + g;
-            const float2 q2 = *reinterpret_cast<const float2*>(
-                cQ + n * LDC + kk * 8 + 2 * t);
-            const float2 o2 = *reinterpret_cast<const float2*>(
-                cdO + n * LDC + kk * 8 + 2 * t);
-            const Frag<2> bq = split<2>({q2.x, q2.y});
-            const Frag<2> bo = split<2>({o2.x, o2.y});
-            mma3(s_c[j], ak, bq, kk == 0);
-            mma3(d_c[j], av, bo, kk == 0);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NT1; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            st[j][e] += s_c[j][e];
-            dpt[j][e] += d_c[j][e];
-          }
-      }
-
-      // P^T and dS^T of the warp's tile into sP and sS (every warp read
-      // them last in the previous item's pass 2, before the syncs above).
-      const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq;
-#pragma unroll
-      for (int j = 0; j < NT1; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = r0 + g + 8 * (e / 2);
-          const int qc = (cpart * NT1 + j) * 8 + 2 * t + e % 2;
-          const int qpos = i * BQ + qc;
-          float pv = 0.0f, ds = 0.0f;
-          if (qpos < Sq) {
-            float x = st[j][e] * scale;
-            if (causal && qpos + q_offset < k0 + kl) x = NEG_INF;
-            pv = expf(x - lse[row + qpos]);
-            ds = pv * (dpt[j][e] - delta[row + qpos]) * scale;
-          }
-          sP[kl * LDP + qc] = pv;
-          sS[kl * LDP + qc] = ds;
-        }
-
-      // Pass 2: dV += P^T dO and dK += dS^T Q, KS2 8-query steps a piece,
-      // on the warp's head_dim columns cpart * D / CP + 8n. A piece's sums
-      // stay in the tensor cores (tv, tk), then are added to acc_dv and
-      // acc_dk.
-#pragma unroll 1
-      for (int pc = 0; pc < P2; ++pc, ++p) {
-        next_piece(p);
-        const float* cQ = sQ + (p & 1) * SLOT<D>;
-        const float* cdO = sdO + (p & 1) * SLOT<D>;
-        float tv[NT2][4], tk[NT2][4];
-#pragma unroll
-        for (int ks = 0; ks < KS2; ++ks) {
-          const float* aP = sP + (r0 + g) * LDP + pc * R2<D> + ks * 8 + t;
-          const float* aS = sS + (r0 + g) * LDP + pc * R2<D> + ks * 8 + t;
-          const Frag<4> ap =
-              split<4>({aP[0], aP[8 * LDP], aP[4], aP[8 * LDP + 4]});
-          const Frag<4> as =
-              split<4>({aS[0], aS[8 * LDP], aS[4], aS[8 * LDP + 4]});
-#pragma unroll
-          for (int n = 0; n < NT2; ++n) {
-            const int col = cpart * (D / CP) + n * 8 + g;
-            const float* bO = cdO + (ks * 8 + t) * LK + col;
-            const float* bQ = cQ + (ks * 8 + t) * LK + col;
-            mma3(tv[n], ap, split<2>({bO[0], bO[4 * LK]}), ks == 0);
-            mma3(tk[n], as, split<2>({bQ[0], bQ[4 * LK]}), ks == 0);
-            if (ks == KS2 - 1) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                acc_dv[n][e] += tv[n][e];
-                acc_dk[n][e] += tk[n][e];
-              }
-            }
-          }
-        }
-      }
-    }
-
-    // Write the block's dK and dV (keys past Sk never).
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int key = k0 + r0 + g + 8 * half;
-      if (key >= Sk) continue;
-      const int64_t base = (static_cast<int64_t>(b) * Sk + key) * Hkv * D +
-                           static_cast<int64_t>(hk) * D;
-#pragma unroll
-      for (int n = 0; n < NT2; ++n) {
-        const int col = cpart * (D / CP) + n * 8 + 2 * t;
-        *reinterpret_cast<float2*>(dv + base + col) =
-            make_float2(acc_dv[n][2 * half], acc_dv[n][2 * half + 1]);
-        *reinterpret_cast<float2*>(dk + base + col) =
-            make_float2(acc_dk[n][2 * half], acc_dk[n][2 * half + 1]);
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------- dQ
 //
 // _dq_kernel's function for f32: S = Q K^T, P = exp(S scale - lse), dP =
 // dO V^T, dS = P (dP - delta) scale, dQ += dS K, every product 3xTF32 (Q,
-// K, V, dO and dS split alike) with short tensor-core sums, as above. Bound
+// K, V, dO and dS split alike, in registers, by split above) with short
+// tensor-core sums (the header's hard part 4), on mma.sync m16n8k8 fed by
+// ld.shared from tiles that cp.async double-buffers, 256 threads. Bound
 // by tensor-core operations: 3 x 6 D FLOPs per visible pair and head at
 // 494.7 TFLOP/s. Each dQ row is summed in one CTA in key order
 // (deterministic). One CTA per (query block, head, batch), heaviest causal
@@ -483,7 +282,7 @@ __global__ void __launch_bounds__(NT, 1) flash_dkv_f32tc_kernel(
 //     w / (QB / 16) of dQ, in registers (64 a thread at D = 512); each
 //     piece's sums start from zero in the tensor cores and are added in.
 // So K is read twice a key block (in column pieces, then in row pieces)
-// and V once, all through the two cp.async slots of the dK/dV kernel.
+// and V once, all through two cp.async slots, one __syncthreads a piece.
 // Budgets: Q and dO, 2 slots of 2 x 64 x 72 floats, sS: 215,552 bytes at
 // D = 512, 160,768 at 128. Registers: dQ 2 x QB x D / 256 (32 at 128, 64
 // at 256-512) and as many tensor-core sums in pass 2.
@@ -701,291 +500,1021 @@ __global__ void __launch_bounds__(NT, 1) flash_dq_f32tc_kernel(
   }
 }
 
-// -------------------------------------------------------------- forward
-//
-// _fwd_kernel's function for f32: S = Q K^T, the online softmax over key
-// blocks, O += P V, then O / l and lse = m + log l; every product 3xTF32
-// (Q, K, V and the computed P split alike) with short tensor-core sums,
-// as above. Bound by tensor-core operations: 3 x 4 D FLOPs per visible
-// pair and head at 494.7 TFLOP/s. The dQ's design without dP: one CTA per
-// (query block, head, batch), heaviest causal blocks first, QB = 64
-// queries at D = 128 and 32 at 256-512, whose Q stays in shared memory;
-// key blocks of 64 keys in order, causal blocks past the CTA's last real
-// row skipped. Per key block:
-//   * pass 1: S = Q K^T over D / 128 pieces, each two 64-column chunks of
-//     the block's K (the room of the dQ's K and V chunk); warp w owns
-//     query row block w % (QB / 16) and key part w / (QB / 16), as in the
-//     dQ; each chunk's products are summed in the tensor cores from zero
-//     and added to S in registers;
-//   * the online softmax in registers and f32: keys past Sk and causal
-//     keys score -1e30; each warp's part of a row's max goes through sRed
-//     (one __syncthreads), so every warp of a row block takes the same new
-//     max m; O, in registers, is multiplied by exp(m_old - m) before the
-//     block's P V is added (never a tensor-core partial); each thread
-//     keeps its part of the row sum l, rescaled alike; P = exp(S - m) into
-//     sP [query][key] (row stride 4 mod 32);
-//   * pass 2: O += P V over pieces of R2 key rows by all of head_dim (the
-//     dQ's pass 2 with V for K: keys the reduced index, V N-major, P the
-//     split A operand); warp w owns the row block and head_dim part w /
-//     (QB / 16) of O, each piece's sums started from zero.
-// At the end the parts of l are summed over the quad and, through sRed,
-// over the key parts in a fixed order (a sum of 0 guarded as 1); O / l and
-// lse are written for rows below Sq only. No query row of the domain is
-// fully masked (causal keys are a prefix that holds key 0, q_offset >= 0),
-// so a real row's max is finite from the first block on and masked keys
-// get exp(-1e30 - m) = 0, as in the plain version. Budgets: Q, 2 slots of
-// 2 x 64 x 72 floats, sP and sRed: 149,504 bytes at D = 512, 126,464 at
-// 128. Registers: O QB x D / 256 (32 at 128 and 256, 48 at 384, 64 at
-// 512) and as many tensor-core sums in pass 2.
-template <int D>
-constexpr int FWD_SMEM = 4 * (DQ_QB<D> * LDK<D> + 2 * DQ_SLOT +
-                              DQ_QB<D> * LDS + 128);
 
-static_assert(FWD_SMEM<128> <= 232448 && FWD_SMEM<256> <= 232448 &&
-                  FWD_SMEM<384> <= 232448 && FWD_SMEM<512> <= 232448,
-              "shared memory over the 227 KB a block can use");
+// ------------------------------------------- Hopper kernels (wgmma, TMA)
 
-template <int D>
-__global__ void __launch_bounds__(NT, 1) flash_fwd_f32tc_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out,
-    float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int q_sb,
-    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
-    int v_sh, int causal, int q_offset, float scale) {
-  constexpr int QB = DQ_QB<D>, LK = LDK<D>, R2Q = DQ_R2<D>;
-  constexpr int RB = QB / 16, CP = 8 / RB;  // row blocks, column parts
-  constexpr int NT1 = DQ_KB / CP / 8;       // pass 1: key n-tiles a warp
-  constexpr int NT2 = D / CP / 8;           // pass 2: head_dim n-tiles a warp
-  constexpr int P1 = D / (2 * C), P2 = DQ_KB / R2Q;  // pieces of the passes
-  constexpr int KS2 = R2Q / 8;              // k-steps of a pass-2 piece
-  static_assert(CP * QB == 128, "sRed holds CP x QB floats");
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                         // [QB][LK]
-  float* sSlot = sQ + QB * LK;              // 2 slots of DQ_SLOT
-  float* sP = sSlot + 2 * DQ_SLOT;          // P [query][key]
-  float* sRed = sP + QB * LDS;              // [CP][QB]: a part's max, sum
+constexpr int T = 64;                          // tile rows (q and k)
+constexpr int NT_WS = 384;                     // 2 consumer warpgroups + producer
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PANEL = hopper::PANEL_BYTES;     // 64 rows x 32 f32: 8 KB
+constexpr int UNIT = 4 * PANEL;                // a ring slot: 32 KB
+constexpr int CW = 128;                        // output columns of a CTA
+constexpr int P_FULL = 1, P_EMPTY = 2;         // named barriers (dK/dV)
 
-  const int nqb = cdiv(Sq, QB);
-  const int hb = gridDim.x / nqb;           // H * B
-  const int blk = static_cast<int>(blockIdx.x);
-  const int q0 = (nqb - 1 - blk / hb) * QB, h = blk % hb % H;
-  const int b = blk % hb / H, hk = h / (H / Hkv);
-  int nkb = cdiv(Sk, DQ_KB);
-  if (causal)
-    nkb = min(nkb, (min(q0 + QB, Sq) - 1 + q_offset) / DQ_KB + 1);
-  const float* qp = q + static_cast<int64_t>(b) * q_sb +
-                    static_cast<int64_t>(h) * q_sh;
-  const float* kp = k + static_cast<int64_t>(b) * k_sb +
-                    static_cast<int64_t>(hk) * k_sh;
-  const float* vp = v + static_cast<int64_t>(b) * v_sb +
-                    static_cast<int64_t>(hk) * v_sh;
-  const int total = nkb * (P1 + P2);
+// Fragment column c of a k-step is accumulator column PERM8[c] (see the
+// header, hard part 2); the prologue permutes the S index of the
+// transposed copies the same way.
+__host__ __device__ __forceinline__ constexpr int perm8(int c) {
+  return c < 4 ? 2 * c : 2 * (c - 4) + 1;
+}
 
-  // Issue the copies of piece p into slot p % 2 (and, first, Q): piece
-  // j < P1 of a key block is head_dim chunks 2j and 2j + 1 of its K, piece
-  // P1 + r its V rows R2Q r .. R2Q (r + 1) - 1.
-  auto issue = [&](int p) {
-    const int k0 = p / (P1 + P2) * DQ_KB, j = p % (P1 + P2);
-    float* slot = sSlot + (p & 1) * DQ_SLOT;
-    if (p == 0) load_rows<QB, D>(sQ, LK, qp, q_ss, q0, Sq);
-    if (j < P1) {
-      load_rows<DQ_KB, C>(slot, LDC, kp + 2 * j * C, k_ss, k0, Sk);
-      load_rows<DQ_KB, C>(slot + DQ_KB * LDC, LDC, kp + (2 * j + 1) * C,
-                          k_ss, k0, Sk);
-    } else {
-      load_rows<R2Q, D>(slot, LK, vp, v_ss, k0 + (j - P1) * R2Q, Sk);
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Row and column of accumulator register i (wgmma m64nN layout, see
+// hopper.cuh) for this thread of its warpgroup.
+__device__ __forceinline__ int acc_row(int i, int warp, int lane) {
+  return 16 * warp + lane / 4 + 8 * ((i % 4) / 2);
+}
+__device__ __forceinline__ int acc_col(int i, int lane) {
+  return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+}
+
+// Write the first `rows` rows of a 64 x 64 f32 accumulator (rows
+// `row_stride` floats apart; rows past the sequence's end not stored).
+__device__ __forceinline__ void store_acc(float* dst, const float (&acc)[32],
+                                          int row_stride, int rows, int warp,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = acc_row(i, warp, lane);
+    if (r < rows)
+      *reinterpret_cast<float2*>(dst + static_cast<int64_t>(r) * row_stride +
+                                 acc_col(i, lane)) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+}
+
+__host__ __device__ __forceinline__ int n_tiles(int len) { return cdiv(len, T); }
+
+// Last k tile (exclusive) visible to q tile i: the TPU's _block_visible,
+// j * T <= i * T + q_offset + T - 1.
+__device__ __forceinline__ int k_tiles_visible(int i, int nk, int causal,
+                                               int q_offset) {
+  if (!causal) return nk;
+  return min(nk, (i * T + q_offset + T - 1) / T + 1);
+}
+
+// First q tile that sees k tile j (causal): i * T + q_offset + T - 1 >= j * T.
+__device__ __forceinline__ int first_q_tile(int j, int causal, int q_offset) {
+  if (!causal) return 0;
+  const int need = j * T - q_offset - (T - 1);
+  return need > 0 ? cdiv(need, T) : 0;
+}
+
+// The running sum s of a unit's tensor-core sum t (round to nearest; the
+// first unit's sum is taken as it is).
+__device__ __forceinline__ void add_unit(float (&s)[32], float (&t)[32],
+                                         bool first) {
+  hopper::reg_fence(t);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = first ? t[e] : s[e] + t[e];
+}
+
+// The register A fragments of the 8 k-steps of a 64 x 64 computed operand
+// x (accumulator layout), split: fragment register (0, 1, 2, 3) of k-step
+// kk is accumulator register 4 kk + (0, 2, 1, 3), i.e. fragment column c
+// is accumulator column perm8(c).
+__device__ __forceinline__ void split_frags(uint32_t (&hi)[8][4],
+                                            uint32_t (&lo)[8][4],
+                                            const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float v = x[4 * kk + (r == 1 ? 2 : r == 2 ? 1 : r)];
+      hi[kk][r] = tf32_rna(v);
+      lo[kk][r] = tf32_rna(v - __uint_as_float(hi[kk][r]));
     }
-    cp_async_commit();
-  };
-  auto next_piece = [&](int p) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (p + 1 < total) issue(p + 1);
+}
+
+// acc (+)= A . B over one output unit: A the split register fragments (8
+// k-steps of 8 keys or queries), B the unit's 64 rows by 64 k columns, hi
+// panels 0-1 then lo panels 2-3. lo.hi + hi.lo + hi.hi a k-step.
+__device__ __forceinline__ void unit_rs(float (&acc)[32],
+                                        const uint32_t (&hi)[8][4],
+                                        const uint32_t (&lo)[8][4],
+                                        const unsigned char* slot) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t bhi = desc_panel(slot + (kk / 4) * PANEL, kk % 4);
+    const uint64_t blo = desc_panel(slot + (2 + kk / 4) * PANEL, kk % 4);
+    wgmma_tf32_rs(acc, lo[kk], bhi, kk > 0);
+    wgmma_tf32_rs(acc, hi[kk], blo, 1);
+    wgmma_tf32_rs(acc, hi[kk], bhi, 1);
+  }
+}
+
+// acc (+)= A . B^T over `steps` k-steps, A and B both K-major in shared
+// memory: k-step kk of A's hi at panel a_hi(kk), offset kk % 4, and so on.
+template <int STEPS, typename FA, typename FB>
+__device__ __forceinline__ void unit_ss(float (&acc)[32], FA a, FB b) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk) {
+    const uint64_t ahi = desc_panel(a(kk, 0), kk % 4);
+    const uint64_t alo = desc_panel(a(kk, 1), kk % 4);
+    const uint64_t bhi = desc_panel(b(kk, 0), kk % 4);
+    const uint64_t blo = desc_panel(b(kk, 1), kk % 4);
+    wgmma_tf32_ss(acc, alo, bhi, kk > 0);
+    wgmma_tf32_ss(acc, ahi, blo, 1);
+    wgmma_tf32_ss(acc, ahi, bhi, 1);
+  }
+}
+
+// ---------------------------------------------------------------- prologue
+//
+// x [B, S, H, D] (element strides sb, ss, sh; unit over D) split into its
+// TF32 parts, hi = rna(x) and lo = rna(x - hi): into nat (if given) as
+// [2][B][S][H][D], hi first, and into trn (if given) as [2][B][H][D][S],
+// where position 8g + c along S holds row 8g + perm8(c). A block per 32
+// rows by 32 columns of one (batch, head), the transpose through shared
+// memory so that both writes are coalesced. S is a multiple of 8.
+__global__ void __launch_bounds__(256) flash_split_f32tc_kernel(
+    const float* __restrict__ x, int B, int S, int H, int D, int sb, int ss,
+    int sh, float* __restrict__ nat, float* __restrict__ trn) {
+  __shared__ float tile[32][33];
+  const int s0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int64_t n = static_cast<int64_t>(B) * S * H * D;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int s = s0 + r;
+    float v = 0.0f;
+    if (s < S) {
+      v = x[static_cast<int64_t>(b) * sb + static_cast<int64_t>(s) * ss +
+            static_cast<int64_t>(h) * sh + d0 + tx];
+      if (nat != nullptr) {
+        const uint32_t hi = tf32_rna(v);
+        const int64_t at =
+            ((static_cast<int64_t>(b) * S + s) * H + h) * D + d0 + tx;
+        nat[at] = __uint_as_float(hi);
+        nat[n + at] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
+      }
+    }
+    tile[r][tx] = v;
+  }
+  if (trn == nullptr) return;
+  __syncthreads();
+  const int p = s0 + tx;
+  if (p >= S) return;
+  const int src = (tx & ~7) + perm8(tx & 7);
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const float v = tile[src][r];
+    const uint32_t hi = tf32_rna(v);
+    const int64_t at =
+        ((static_cast<int64_t>(b) * H + h) * D + d0 + r) * S + p;
+    trn[at] = __uint_as_float(hi);
+    trn[n + at] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
+  }
+}
+
+// ----------------------------------------------------------------- forward
+
+template <int D>
+struct Fwd {
+  static constexpr int NZ = D / CW;            // column slices of O
+  static constexpr bool QRES = D == 128;       // Q resident (else streamed)
+  static constexpr int NSU = QRES ? D / 64 : D / 32;  // S units a k tile
+  static constexpr int KPU = QRES ? 8 : 4;     // k-steps an S unit
+  static constexpr int SLOT = QRES ? UNIT : 6 * PANEL;
+  static constexpr int R = QRES ? 3 : 4;       // ring slots
+  static constexpr int QTILE = 2 * (D / 32) * PANEL;  // a resident Q, hi+lo
+  static constexpr int QBYTES = QRES ? 2 * QTILE : 0;
+  static constexpr int SMEM = 1024 + QBYTES + R * SLOT + 8 * (1 + 2 * R);
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT_WS, 1) flash_fwd_f32tc_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, float* __restrict__ out,
+    float* __restrict__ lse, int B, int H, int Hkv, int Sq, int Sk,
+    int causal, int q_offset, float scale) {
+  using namespace hopper;
+  using F = Fwd<D>;
+  constexpr int R = F::R, NSU = F::NSU;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);     // QRES: 2 tiles, hi then lo
+  unsigned char* sRing = sQ + F::QBYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sRing + R * F::SLOT);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + R;
+
+  // Blocks: heaviest q-tile pairs first, then (slice, head, batch).
+  const int nqt = n_tiles(Sq), nkt = n_tiles(Sk), ncta = cdiv(nqt, 2);
+  const int rest = gridDim.x / ncta;             // NZ * H * B
+  const int blk = static_cast<int>(blockIdx.x);
+  const int c = ncta - 1 - blk / rest, r = blk % rest;
+  const int z = r % F::NZ, h = r / F::NZ % H, b = r / F::NZ / H;
+  const int hk = h / (H / Hkv), tiles = min(2, nqt - 2 * c);
+  const int nk = k_tiles_visible(2 * c + tiles - 1, nkt, causal, q_offset);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: the Q tiles (QRES), then per k tile its S units and V^T
+    // units. Batch index b + B is the lo half of the prologue's copies.
+    reg_dealloc<40>();
+    if (threadIdx.x == 256) {
+      if constexpr (F::QRES) {
+        mbar_expect_tx(q_full, tiles * F::QTILE);
+        for (int g = 0; g < tiles; ++g)
+          for (int part = 0; part < 2; ++part)
+            for (int p = 0; p < D / 32; ++p)
+              tma_load_panel(sQ + g * F::QTILE + (part * D / 32 + p) * PANEL,
+                             &qmap, q_full, 32 * p, h, (2 * c + g) * T,
+                             b + part * B);
+      }
+      int u = 0;
+      for (int j = 0; j < nk; ++j) {
+        for (int su = 0; su < NSU + 2; ++su, ++u) {
+          const int s = u % R, use = u / R;
+          if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+          unsigned char* dst = sRing + s * F::SLOT;
+          if (su >= NSU) {
+            // V^T rows 128 z + 64 (su - NSU) .., keys of tile j.
+            const int row = CW * z + 64 * (su - NSU);
+            mbar_expect_tx(&full[s], UNIT);
+            for (int part = 0; part < 2; ++part)
+              for (int p = 0; p < 2; ++p)
+                tma_load_panel(dst + (2 * part + p) * PANEL, &vmap, &full[s],
+                               j * T + 32 * p, hk, row, b + part * B);
+          } else if constexpr (F::QRES) {
+            // K columns 64 su .. 64 su + 63.
+            mbar_expect_tx(&full[s], UNIT);
+            for (int part = 0; part < 2; ++part)
+              for (int p = 0; p < 2; ++p)
+                tma_load_panel(dst + (2 * part + p) * PANEL, &kmap, &full[s],
+                               64 * su + 32 * p, hk, j * T, b + part * B);
+          } else {
+            // Panel su (32 columns) of K and of each q tile's Q.
+            mbar_expect_tx(&full[s], (2 + 2 * tiles) * PANEL);
+            for (int part = 0; part < 2; ++part) {
+              tma_load_panel(dst + part * PANEL, &kmap, &full[s], 32 * su, hk,
+                             j * T, b + part * B);
+              for (int g = 0; g < tiles; ++g)
+                tma_load_panel(dst + (2 + 2 * g + part) * PANEL, &qmap,
+                               &full[s], 32 * su, h, (2 * c + g) * T,
+                               b + part * B);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<232>();
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int iq = 2 * c + wg;                     // this warpgroup's q tile
+  const int my_nk =
+      wg < tiles ? k_tiles_visible(iq, nkt, causal, q_offset) : 0;
+  const unsigned char* myQ = sQ + wg * F::QTILE;
+  auto slot_of = [&](int unit) { return sRing + unit % R * F::SLOT; };
+  auto release = [&](int unit) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[unit % R]);
   };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp % RB * 16;            // the warp's 16 queries
-  const int cpart = warp / RB;              // its key part / head_dim part
-
-  float acc[NT2][4];
+  float o[2][32];
 #pragma unroll
-  for (int n = 0; n < NT2; ++n)
+  for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  // Rows g and g + 8: the running max and this thread's part of the sum.
+    for (int e = 0; e < 32; ++e) o[n][e] = 0.0f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
 
-  if (total > 0) issue(0);
-  int p = 0;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * DQ_KB;
-    // Pass 1: S = Q K^T over the chunks. The warp's keys are n-tiles
-    // cpart * NT1 + j; a chunk's sums stay in the tensor cores (s_c), then
-    // are added to s.
-    float s[NT1][4];
+  if constexpr (F::QRES) mbar_wait(q_full, 0);
+  // The k tiles this q tile sees, then the rest of the CTA's (a q tile
+  // past Sq, or the first of a causal pair, sees fewer): waited for and
+  // released unread.
+  int u = 0;
+  for (int j = 0; j < my_nk; ++j, u += NSU + 2) {
+    float s[32], t[2][32];
+    // S = Q K^T, a unit's sum in t[su % 2] while the last one's is added.
 #pragma unroll
-    for (int j = 0; j < NT1; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll 1
-    for (int c = 0; c < P1; ++c, ++p) {
-      next_piece(p);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float* cK = sSlot + (p & 1) * DQ_SLOT + half * DQ_KB * LDC;
-        const float* rQ = sQ + (r0 + g) * LK + (2 * c + half) * C + 2 * t;
-        float s_c[NT1][4];
-#pragma unroll
-        for (int kk = 0; kk < C / 8; ++kk) {
-          // Rows g and g + 8 of the warp's queries.
-          const float2 qg = *reinterpret_cast<const float2*>(rQ + kk * 8);
-          const float2 qg8 =
-              *reinterpret_cast<const float2*>(rQ + 8 * LK + kk * 8);
-          const Frag<4> aq = split<4>({qg.x, qg8.x, qg.y, qg8.y});
-#pragma unroll
-          for (int j = 0; j < NT1; ++j) {
-            const int n = (cpart * NT1 + j) * 8 + g;
-            const float2 k2 = *reinterpret_cast<const float2*>(
-                cK + n * LDC + kk * 8 + 2 * t);
-            mma3(s_c[j], aq, split<2>({k2.x, k2.y}), kk == 0);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NT1; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] += s_c[j][e];
+    for (int su = 0; su < NSU; ++su) {
+      mbar_wait(&full[(u + su) % R], ((u + su) / R) & 1);
+      const unsigned char* st = slot_of(u + su);
+      wgmma_fence();
+      if constexpr (F::QRES)
+        unit_ss<F::KPU>(
+            t[su % 2],
+            [&](int kk, int part) {
+              return myQ + (part * D / 32 + 2 * su + kk / 4) * PANEL;
+            },
+            [&](int kk, int part) { return st + (2 * part + kk / 4) * PANEL; });
+      else
+        unit_ss<F::KPU>(
+            t[su % 2],
+            [&](int kk, int part) { return st + (2 + 2 * wg + part) * PANEL; },
+            [&](int kk, int part) { return st + part * PANEL; });
+      wgmma_commit();
+      if (su > 0) {
+        wgmma_wait<1>();
+        add_unit(s, t[(su - 1) % 2], su == 1);
+        release(u + su - 1);
       }
     }
+    wgmma_wait<0>();
+    add_unit(s, t[(NSU - 1) % 2], NSU == 1);
+    release(u + NSU - 1);
 
-    // Scale and mask; the warp's part of each row's max, over the quad,
-    // into sRed (every warp read sRed last before the syncs of pass 1).
-    float mx[2] = {NEG_INF, NEG_INF};
+    // Scale, mask (diagonal tiles; keys past Sk on a partial last tile),
+    // online softmax; O rescaled; P split into fragments.
+    const int q0 = iq * T;
+    const bool diag = causal && j * T + T - 1 > q0 + q_offset;
+    const int keys = Sk - j * T;
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < NT1; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = r0 + g + 8 * (e / 2);
-        const int key = k0 + (cpart * NT1 + j) * 8 + 2 * t + e % 2;
-        float x = s[j][e] * scale;
-        if (key >= Sk || (causal && q0 + qr + q_offset < key)) x = NEG_INF;
-        s[j][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      if (t == 0) sRed[cpart * QB + r0 + g + 8 * r] = mx[r];
+    for (int e = 0; e < 32; ++e) {
+      float x = s[e] * scale;
+      if ((diag && q0 + acc_row(e, warp, lane) + q_offset <
+                       j * T + acc_col(e, lane)) ||
+          acc_col(e, lane) >= keys)
+        x = NEG_INF;
+      s[e] = x;
+      mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], x);
     }
-    __syncthreads();
-    // The new max of each row over every key part; O and l rescaled to
-    // it; P = exp(S - m) into sP (every warp read it last in the previous
-    // key block's pass 2, before the syncs of pass 1).
     float corr[2], psum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mn = m[r];
-#pragma unroll
-      for (int c = 0; c < CP; ++c)
-        mn = fmaxf(mn, sRed[c * QB + r0 + g + 8 * r]);
-      corr[r] = expf(m[r] - mn);
-      m[r] = mn;
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = quad_max(mx[rr]);
+      corr[rr] = expf(m[rr] - mx[rr]);
+      m[rr] = mx[rr];
     }
 #pragma unroll
-    for (int j = 0; j < NT1; ++j)
+    for (int e = 0; e < 32; ++e) {
+      s[e] = expf(s[e] - m[(e % 4) / 2]);
+      psum[(e % 4) / 2] += s[e];
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = r0 + g + 8 * (e / 2);
-        const int kc = (cpart * NT1 + j) * 8 + 2 * t + e % 2;
-        const float pv = expf(s[j][e] - m[e / 2]);
-        psum[e / 2] += pv;
-        sP[qr * LDS + kc] = pv;
-      }
+    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * corr[rr] + psum[rr];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int n = 0; n < NT2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
+      for (int e = 0; e < 32; ++e) o[n][e] *= corr[(e % 4) / 2];
+    uint32_t ph[8][4], pl[8][4];
+    split_frags(ph, pl, s);
 
-    // Pass 2: O += P V, KS2 8-key steps a piece, on the warp's head_dim
-    // columns cpart * D / CP + 8n. A piece's sums stay in the tensor cores
-    // (to), then are added to acc.
-#pragma unroll 1
-    for (int pc = 0; pc < P2; ++pc, ++p) {
-      next_piece(p);
-      const float* cV = sSlot + (p & 1) * DQ_SLOT;
-      float to[NT2][4];
+    // O += P V over the two 64-column units of the slice, one unit's sum
+    // in the tensor cores at a time (the P fragments hold 64 registers).
 #pragma unroll
-      for (int ks = 0; ks < KS2; ++ks) {
-        const float* aP = sP + (r0 + g) * LDS + pc * R2Q + ks * 8 + t;
-        const Frag<4> ap =
-            split<4>({aP[0], aP[8 * LDS], aP[4], aP[8 * LDS + 4]});
+    for (int n = 0; n < 2; ++n) {
+      const int unit = u + NSU + n;
+      mbar_wait(&full[unit % R], (unit / R) & 1);
+      wgmma_fence();
+      unit_rs(t[0], ph, pl, slot_of(unit));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(t[0]);
 #pragma unroll
-        for (int n = 0; n < NT2; ++n) {
-          const int col = cpart * (D / CP) + n * 8 + g;
-          const float* bV = cV + (ks * 8 + t) * LK + col;
-          mma3(to[n], ap, split<2>({bV[0], bV[4 * LK]}), ks == 0);
-          if (ks == KS2 - 1) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[n][e] += to[n][e];
-          }
-        }
-      }
+      for (int e = 0; e < 32; ++e) o[n][e] += t[0][e];
+      release(unit);
     }
   }
-
-  // The row sums: over the quad, then over the key parts in a fixed order
-  // through sRed (after every thread has read its maxes).
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  for (; u < nk * (NSU + 2); ++u) {
+    mbar_wait(&full[u % R], (u / R) & 1);
+    release(u);
   }
-  __syncthreads();
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) sRed[cpart * QB + r0 + g + 8 * r] = l[r];
-  }
-  __syncthreads();
+  if (wg >= tiles) return;
 
-  // O / l (l == 0 guarded as 1) and lse; rows past Sq never stored.
+  // O / l (l == 0 guarded as 1) and lse (slice 0), rows below Sq only.
+  const int q0 = iq * T;
+  float inv[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int pos = q0 + r0 + g + 8 * half;
-    float sum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CP; ++c) sum += sRed[c * QB + r0 + g + 8 * half];
+  for (int rr = 0; rr < 2; ++rr) {
+    const float sum = quad_sum(l[rr]);
     const float safe = sum == 0.0f ? 1.0f : sum;
-    const float inv = 1.0f / safe;
-    if (pos >= Sq) continue;
-    if (cpart == 0 && t == 0)
-      lse[(static_cast<int64_t>(b) * H + h) * Sq + pos] = m[half] + logf(safe);
-    const int64_t base = (static_cast<int64_t>(b) * Sq + pos) * H * D +
-                         static_cast<int64_t>(h) * D;
+    inv[rr] = 1.0f / safe;
+    const int row = q0 + 16 * warp + lane / 4 + 8 * rr;
+    if (z == 0 && lane % 4 == 0 && row < Sq)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[rr] + logf(safe);
+  }
+  float* dst = out + (static_cast<int64_t>(b) * Sq + q0) * H * D +
+               static_cast<int64_t>(h) * D + CW * z;
 #pragma unroll
-    for (int n = 0; n < NT2; ++n) {
-      const int col = cpart * (D / CP) + n * 8 + 2 * t;
-      *reinterpret_cast<float2*>(out + base + col) =
-          make_float2(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[n][e] *= inv[(e % 4) / 2];
+    store_acc(dst + 64 * n, o[n], H * D, Sq - q0, warp, lane);
+  }
+}
+
+// ------------------------------------------------------------------- dK/dV
+//
+// Two layouts of one design (header): at D = 128 K and V stay resident
+// (hi and lo, 128 KB) and each item streams its Q, dO, Q^T and dO^T panels
+// through one ring of 16 KB slots (dkv_resident); at 256-512 they cannot,
+// and K and V panels ride with each item's Q and dO panels through a ring
+// of 32 KB slots a warpgroup (dkv_streamed). Re-reading K and V every item
+// is a third of the streamed layout's L2 traffic.
+
+template <int D>
+struct Dkv {
+  static constexpr bool KVRES = D == 128;      // K and V resident
+  static constexpr int NZ = D / CW;            // column slices of dK/dV
+  static constexpr int NSU = D / 32;           // S^T / dP^T units an item
+  // Resident: units of one panel (hi, lo: 16 KB), 8 a warpgroup an item,
+  // in one ring; streamed: units of 32 KB, NSU + 2 a warpgroup an item,
+  // in a ring each.
+  static constexpr int SLOT = KVRES ? 2 * PANEL : UNIT;
+  static constexpr int U = KVRES ? 2 * (NSU + 4) : NSU + 2;
+  static constexpr int R = KVRES ? 5 : 3;
+  static constexpr int RINGS = KVRES ? 1 : 2;
+  static constexpr int KV = KVRES ? 2 * 2 * (D / 32) * PANEL : 0;
+  static constexpr int SMEM = 1024 + KV + RINGS * R * SLOT + T * T * 4 +
+                              2 * 2 * T * 4 + 8 * (2 + 2 * RINGS * R);
+  // The lse/delta buffer of item n is loaded again for item n + 2 once the
+  // slot's last unit is released: one of item n + 1 (a ring a warpgroup)
+  // or, in the shared ring (released by both warpgroups), one past item
+  // n + 1's P^T hand-off, which either warpgroup reaches only after both
+  // finished reading item n's.
+  static_assert(KVRES ? U - R >= 2 * NSU : U >= R,
+                "the lse/delta buffers would be reloaded too early");
+};
+
+// The operand of dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1)
+// from x = S^T or dP^T of item n (q tile i, k tile j): P^T = exp(S^T scale
+// - lse), the causal mask on diagonal tiles, handed to warpgroup 1 through
+// sP; dS^T = P^T (dP^T - delta) scale. Query columns past Sq (their lse
+// and delta are stale) are zero.
+__device__ __forceinline__ void dkv_operand(float (&x)[32], int wg,
+                                            const float* sRow, float* sP,
+                                            int n, int total, int i, int j,
+                                            int Sq, int causal, int q_offset,
+                                            float scale, int tid) {
+  using namespace hopper;
+  const int warp = tid / 32, lane = tid % 32;
+  const int queries = Sq - i * T;
+  if (wg == 0) {
+    const bool diag = causal && j * T + T - 1 > i * T + q_offset;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = acc_col(e, lane);
+      float y = x[e] * scale;
+      if (diag && i * T + col + q_offset < j * T + acc_row(e, warp, lane))
+        y = NEG_INF;
+      x[e] = expf(y - sRow[col]);
+    }
+    if (queries < T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        if (acc_col(e, lane) >= queries) x[e] = 0.0f;
+    }
+    if (n > 0) named_sync(P_EMPTY, 256);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sP[e * 128 + tid] = x[e];
+    named_arrive(P_FULL, 256);
+  } else {
+    named_sync(P_FULL, 256);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      x[e] = sP[e * 128 + tid] * (x[e] - sRow[acc_col(e, lane)]) * scale;
+    if (n + 1 < total) named_arrive(P_EMPTY, 256);
+    if (queries < T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        if (acc_col(e, lane) >= queries) x[e] = 0.0f;
     }
   }
 }
 
+// The pair of k tiles of one CTA (j and nkt - 1 - j), their visible q
+// tiles, and its (slice, KV head, batch).
+struct DkvWork {
+  int pair, z, hk, b, n_jt, nqt, nkt, group, total;
+  __device__ int k_tile(int v) const { return v == 0 ? pair : nkt - 1 - pair; }
+};
+
+template <int NZ>
+__device__ __forceinline__ DkvWork dkv_work(int H, int Hkv, int Sq, int Sk,
+                                            int causal, int q_offset) {
+  DkvWork w;
+  w.nqt = n_tiles(Sq);
+  w.nkt = n_tiles(Sk);
+  w.group = H / Hkv;
+  const int rest = gridDim.x / cdiv(w.nkt, 2);   // NZ * Hkv * B
+  const int blk = static_cast<int>(blockIdx.x);
+  w.pair = blk / rest;
+  const int r = blk % rest;
+  w.z = r % NZ;
+  w.hk = r / NZ % Hkv;
+  w.b = r / NZ / Hkv;
+  w.n_jt = w.nkt - 1 - w.pair != w.pair ? 2 : 1;
+  w.total = 0;
+  for (int v = 0; v < w.n_jt; ++v)
+    w.total += w.group *
+               max(w.nqt - first_q_tile(w.k_tile(v), causal, q_offset), 0);
+  return w;
+}
+
+// D = 128: K and V of the k tile resident (hi then lo, 4 panels each), one
+// ring of R slots of one panel's hi and lo, filled by thread 256 in the
+// order the warpgroups take them: per item, unit k of warpgroup w at 2k +
+// w (k < 4: Q or dO panel k; k >= 4: dO^T or Q^T rows 64 c, queries 32 p
+// for k - 4 = 2c + p). Every consumer warp walks every position: before
+// taking its own unit it waits for the other warpgroup's unit just ahead
+// to land and releases it unread. With R odd a slot alternates between
+// the warpgroups, and a warpgroup that ran two phases ahead of a slot
+// would find that phase's parity already completed (try_wait.parity sees
+// only parity) and read a slot still being filled; walking every position
+// keeps each waiter within one phase of every slot.
+template <int D>
+__device__ __forceinline__ void dkv_resident(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap,
+    const CUtensorMap* qtmap, const CUtensorMap* dotmap, const float* lse,
+    const float* delta, float* dk, float* dv, int B, int H, int Hkv, int Sq,
+    int Sk, int causal, int q_offset, float scale) {
+  using namespace hopper;
+  using F = Dkv<D>;
+  constexpr int R = F::R, NP = D / 32, U = F::U;
+  unsigned char* sKV = align_1024(smem);          // K at 0, V at KV / 2
+  unsigned char* sRing = sKV + F::KV;
+  float* sP = reinterpret_cast<float*>(sRing + R * F::SLOT);
+  float* sStat = sP + T * T;                      // [wg][item % 2][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sStat + 2 * 2 * T);
+  uint64_t* kv_empty = kv_full + 1;
+  uint64_t* full = kv_empty + 1;
+  uint64_t* empty = full + R;
+
+  const DkvWork w = dkv_work<F::NZ>(H, Hkv, Sq, Sk, causal, q_offset);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, CONSUMER_WARPS);
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == 256) {
+      int u = 0, n = 0;
+      for (int v = 0; v < w.n_jt; ++v) {
+        const int j = w.k_tile(v);
+        const int nqv = max(w.nqt - first_q_tile(j, causal, q_offset), 0);
+        const int i0 = w.nqt - nqv;
+        if (v > 0) mbar_wait(kv_empty, (v - 1) & 1);
+        mbar_expect_tx(kv_full, F::KV);
+        for (int part = 0; part < 2; ++part)
+          for (int p = 0; p < NP; ++p) {
+            tma_load_panel(sKV + (part * NP + p) * PANEL, kmap, kv_full,
+                           32 * p, w.hk, j * T, w.b + part * B);
+            tma_load_panel(sKV + F::KV / 2 + (part * NP + p) * PANEL, vmap,
+                           kv_full, 32 * p, w.hk, j * T, w.b + part * B);
+          }
+        for (int t = 0; t < w.group * nqv; ++t, ++n) {
+          const int h = w.hk * w.group + t / nqv, i = i0 + t % nqv;
+          const int64_t row = (static_cast<int64_t>(w.b) * H + h) * Sq + i * T;
+          const uint32_t stat_bytes = min(T, Sq - i * T) * 4;
+          for (int o = 0; o < U; ++o, ++u) {
+            const int s = u % R, use = u / R, g = o % 2, k = o / 2;
+            if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+            unsigned char* dst = sRing + s * F::SLOT;
+            uint64_t* bar = &full[s];
+            mbar_expect_tx(bar, F::SLOT + (k == 0 ? stat_bytes : 0));
+            for (int part = 0; part < 2; ++part) {
+              if (k < NP)
+                tma_load_panel(dst + part * PANEL, g == 0 ? qmap : domap, bar,
+                               32 * k, h, i * T, w.b + part * B);
+              else
+                tma_load_panel(dst + part * PANEL, g == 0 ? dotmap : qtmap,
+                               bar, i * T + 32 * ((k - NP) % 2), h,
+                               CW * w.z + 64 * ((k - NP) / 2),
+                               w.b + part * B);
+            }
+            if (k == 0)
+              bulk_load(sStat + (g * 2 + (n & 1)) * T,
+                        (g == 0 ? lse : delta) + row, stat_bytes, bar);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<232>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const unsigned char* sA = sKV + wg * (F::KV / 2);  // K (wg 0) or V
+  // Unit k of this warpgroup in item n.
+  auto pos = [&](int n, int k) { return n * U + 2 * k + wg; };
+  auto slot_of = [&](int unit) { return sRing + unit % R * F::SLOT; };
+  auto release = [&](int unit) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[unit % R]);
+  };
+  // Take this warpgroup's unit, passing the other's just before it.
+  auto acquire = [&](int unit) {
+    if (unit > 0) {
+      mbar_wait(&full[(unit - 1) % R], ((unit - 1) / R) & 1);
+      release(unit - 1);
+    }
+    mbar_wait(&full[unit % R], (unit / R) & 1);
+  };
+
+  int n = 0;
+  for (int v = 0; v < w.n_jt; ++v) {
+    const int j = w.k_tile(v);
+    const int nqv = max(w.nqt - first_q_tile(j, causal, q_offset), 0);
+    const int i0 = w.nqt - nqv;
+    float acc[2][32];                            // dV (wg 0) or dK
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.0f;
+
+    mbar_wait(kv_full, v & 1);
+    for (int t = 0; t < w.group * nqv; ++t, ++n) {
+      const int i = i0 + t % nqv;
+      float x[32], tc[2][32];
+      // S^T = K Q^T (wg 0) or dP^T = V dO^T over head_dim, a panel a unit.
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        acquire(pos(n, p));
+        const unsigned char* st = slot_of(pos(n, p));
+        wgmma_fence();
+        unit_ss<4>(
+            tc[p % 2],
+            [&](int kk, int part) { return sA + (part * NP + p) * PANEL; },
+            [&](int kk, int part) { return st + part * PANEL; });
+        wgmma_commit();
+        if (p > 0) {
+          wgmma_wait<1>();
+          add_unit(x, tc[(p - 1) % 2], p == 1);
+          release(pos(n, p - 1));
+        }
+      }
+      wgmma_wait<0>();
+      add_unit(x, tc[(NP - 1) % 2], NP == 1);
+      release(pos(n, NP - 1));
+      if (t == w.group * nqv - 1) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kv_empty);    // K, V free for the next tile
+      }
+
+      dkv_operand(x, wg, sStat + (wg * 2 + (n & 1)) * T, sP, n, w.total, i,
+                  j, Sq, causal, q_offset, scale, tid);
+
+      // dV += P^T dO (wg 0) or dK += dS^T Q (wg 1): per 64-column chunk c,
+      // the two 32-query panels of the transposed copy, 8 k-steps summed
+      // in the tensor cores.
+      uint32_t fh[8][4], fl[8][4];
+      split_frags(fh, fl, x);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        wgmma_fence();
+#pragma unroll
+        for (int pq = 0; pq < 2; ++pq) {
+          const int unit = pos(n, NP + 2 * c + pq);
+          acquire(unit);
+          const unsigned char* st = slot_of(unit);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t bhi = desc_panel(st, kk);
+            const uint64_t blo = desc_panel(st + PANEL, kk);
+            wgmma_tf32_rs(tc[0], fl[4 * pq + kk], bhi, pq > 0 || kk > 0);
+            wgmma_tf32_rs(tc[0], fh[4 * pq + kk], blo, 1);
+            wgmma_tf32_rs(tc[0], fh[4 * pq + kk], bhi, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(tc[0]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[c][e] += tc[0][e];
+        release(pos(n, NP + 2 * c));
+        release(pos(n, NP + 2 * c + 1));
+      }
+    }
+    if (nqv == 0) {                              // no item: free K, V
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty);
+    }
+
+    float* dst = (wg == 0 ? dv : dk) +
+                 (static_cast<int64_t>(w.b) * Sk + j * T) * Hkv * D +
+                 static_cast<int64_t>(w.hk) * D + CW * w.z;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      store_acc(dst + 64 * c, acc[c], Hkv * D, Sk - j * T, warp, lane);
+  }
+}
+
+// D = 256-512: two rings of R slots of 32 KB, one a warpgroup, each with
+// its producer thread: warpgroup 0's (thread 256) K and Q panels, then dO^T
+// (lse with an item's first unit); warpgroup 1's (thread 288) V and dO
+// panels, then Q^T (delta).
+template <int D>
+__device__ __forceinline__ void dkv_streamed(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap,
+    const CUtensorMap* qtmap, const CUtensorMap* dotmap, const float* lse,
+    const float* delta, float* dk, float* dv, int B, int H, int Hkv, int Sq,
+    int Sk, int causal, int q_offset, float scale) {
+  using namespace hopper;
+  using F = Dkv<D>;
+  constexpr int R = F::R, NSU = F::NSU, U = F::U;
+  unsigned char* sRing = align_1024(smem);        // ring g: R slots at g R
+  float* sP = reinterpret_cast<float*>(sRing + 2 * R * UNIT);  // P^T hand-off
+  float* sStat = sP + T * T;                      // [ring][item % 2][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sStat + 2 * 2 * T);
+  uint64_t* empty = full + 2 * R;                 // [ring][slot]
+
+  const DkvWork w = dkv_work<F::NZ>(H, Hkv, Sq, Sk, causal, q_offset);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * R; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS / 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    const int g = (threadIdx.x - 256) / 32;
+    if (threadIdx.x % 32 == 0 && g < 2) {
+      const CUtensorMap* amap = g == 0 ? kmap : vmap;
+      const CUtensorMap* bmap = g == 0 ? qmap : domap;
+      const CUtensorMap* tmap = g == 0 ? dotmap : qtmap;
+      const float* stat = g == 0 ? lse : delta;
+      unsigned char* ring = sRing + g * R * UNIT;
+      int u = 0, n = 0;
+      for (int v = 0; v < w.n_jt; ++v) {
+        const int j = w.k_tile(v);
+        const int nqv = max(w.nqt - first_q_tile(j, causal, q_offset), 0);
+        const int i0 = w.nqt - nqv;
+        for (int t = 0; t < w.group * nqv; ++t, ++n) {
+          const int h = w.hk * w.group + t / nqv, i = i0 + t % nqv;
+          const int64_t row = (static_cast<int64_t>(w.b) * H + h) * Sq + i * T;
+          // The item's lse or delta up to Sq only: a multiple of 8 rows,
+          // so 32-byte aligned copies of a multiple of 32 bytes.
+          const uint32_t stat_bytes = min(T, Sq - i * T) * 4;
+          for (int p = 0; p < U; ++p, ++u) {
+            const int s = u % R, use = u / R;
+            if (use > 0) mbar_wait(&empty[g * R + s], (use - 1) & 1);
+            unsigned char* dst = ring + s * UNIT;
+            uint64_t* bar = &full[g * R + s];
+            mbar_expect_tx(bar, UNIT + (p == 0 ? stat_bytes : 0));
+            for (int part = 0; part < 2; ++part) {
+              if (p < NSU) {
+                tma_load_panel(dst + part * PANEL, amap, bar, 32 * p, w.hk,
+                               j * T, w.b + part * B);
+                tma_load_panel(dst + (2 + part) * PANEL, bmap, bar, 32 * p, h,
+                               i * T, w.b + part * B);
+              } else {
+                const int drow = CW * w.z + 64 * (p - NSU);
+                for (int c = 0; c < 2; ++c)
+                  tma_load_panel(dst + (2 * part + c) * PANEL, tmap, bar,
+                                 i * T + 32 * c, h, drow, w.b + part * B);
+              }
+            }
+            if (p == 0)
+              bulk_load(sStat + (g * 2 + (n & 1)) * T, stat + row, stat_bytes,
+                        bar);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<232>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const unsigned char* ring = sRing + wg * R * UNIT;
+  auto slot_of = [&](int unit) { return ring + unit % R * UNIT; };
+  auto wait_unit = [&](int unit) {
+    mbar_wait(&full[wg * R + unit % R], (unit / R) & 1);
+  };
+  auto release = [&](int unit) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[wg * R + unit % R]);
+  };
+
+  int u = 0, n = 0;
+  for (int v = 0; v < w.n_jt; ++v) {
+    const int j = w.k_tile(v);
+    const int nqv = max(w.nqt - first_q_tile(j, causal, q_offset), 0);
+    const int i0 = w.nqt - nqv;
+    float acc[2][32];                            // dV (wg 0) or dK, 128 cols
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.0f;
+
+    for (int t = 0; t < w.group * nqv; ++t, ++n, u += U) {
+      const int i = i0 + t % nqv;
+      float x[32], tc[2][32];
+      // S^T = K Q^T (wg 0) or dP^T = V dO^T (wg 1) over head_dim: a unit
+      // is a 32-column panel of both operands, A at panels 0-1, B at 2-3.
+#pragma unroll
+      for (int p = 0; p < NSU; ++p) {
+        wait_unit(u + p);
+        const unsigned char* st = slot_of(u + p);
+        wgmma_fence();
+        unit_ss<4>(
+            tc[p % 2], [&](int kk, int part) { return st + part * PANEL; },
+            [&](int kk, int part) { return st + (2 + part) * PANEL; });
+        wgmma_commit();
+        if (p > 0) {
+          wgmma_wait<1>();
+          add_unit(x, tc[(p - 1) % 2], p == 1);
+          release(u + p - 1);
+        }
+      }
+      wgmma_wait<0>();
+      add_unit(x, tc[(NSU - 1) % 2], NSU == 1);
+      release(u + NSU - 1);
+
+      dkv_operand(x, wg, sStat + (wg * 2 + (n & 1)) * T, sP, n, w.total, i,
+                  j, Sq, causal, q_offset, scale, tid);
+
+      // dV += P^T dO (wg 0) or dK += dS^T Q (wg 1): the two 64-column
+      // units of the slice, B the transposed copy (dO^T or Q^T).
+      uint32_t fh[8][4], fl[8][4];
+      split_frags(fh, fl, x);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int unit = u + NSU + c;
+        wait_unit(unit);
+        wgmma_fence();
+        unit_rs(tc[0], fh, fl, slot_of(unit));
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(tc[0]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[c][e] += tc[0][e];
+        release(unit);
+      }
+    }
+
+    // The slice of dV (warpgroup 0) or dK; key rows past Sk never.
+    float* dst = (wg == 0 ? dv : dk) +
+                 (static_cast<int64_t>(w.b) * Sk + j * T) * Hkv * D +
+                 static_cast<int64_t>(w.hk) * D + CW * w.z;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      store_acc(dst + 64 * c, acc[c], Hkv * D, Sk - j * T, warp, lane);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT_WS, 1) flash_dkv_f32tc_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap,
+    const __grid_constant__ CUtensorMap qtmap,
+    const __grid_constant__ CUtensorMap dotmap, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int B, int H, int Hkv, int Sq, int Sk,
+    int causal, int q_offset, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  if constexpr (Dkv<D>::KVRES)
+    dkv_resident<D>(smem_raw, &qmap, &kmap, &vmap, &domap, &qtmap, &dotmap,
+                    lse, delta, dk, dv, B, H, Hkv, Sq, Sk, causal, q_offset,
+                    scale);
+  else
+    dkv_streamed<D>(smem_raw, &qmap, &kmap, &vmap, &domap, &qtmap, &dotmap,
+                    lse, delta, dk, dv, B, H, Hkv, Sq, Sk, causal, q_offset,
+                    scale);
+}
+
+static_assert(Fwd<128>::SMEM <= 232448 && Fwd<256>::SMEM <= 232448 &&
+                  Fwd<384>::SMEM <= 232448 && Fwd<512>::SMEM <= 232448 &&
+                  Dkv<128>::SMEM <= 232448 && Dkv<512>::SMEM <= 232448,
+              "shared memory over the 227 KB a block can use");
+
+// The prologue's copies, in floats: the forward's Q and K ([2][B][S][H][D])
+// and V^T ([2][B][Hkv][D][Sk]); the dK/dV's Q, dO, K and V and Q^T, dO^T.
+struct Copies {
+  int64_t q, kv;   // floats of one part (hi or lo) of a q-side, kv-side copy
+};
+inline Copies copies(int B, int H, int Hkv, int Sq, int Sk, int D) {
+  return {static_cast<int64_t>(B) * Sq * H * D,
+          static_cast<int64_t>(B) * Sk * Hkv * D};
+}
+
+// Split x [B, S, H, D] into nat and/or trn (flash_split_f32tc_kernel).
+int split(const float* x, int B, int S, int H, int D, int sb, int ss, int sh,
+          float* nat, float* trn, cudaStream_t stream) {
+  const dim3 grid(cdiv(S, 32), D / 32, B * H);
+  flash_split_f32tc_kernel<<<grid, 256, 0, stream>>>(x, B, S, H, D, sb, ss,
+                                                     sh, nat, trn);
+  return (int)cudaGetLastError();
+}
+
+// The tensor map of a split natural copy [2B, S, H, D] or transposed one
+// [2B, H, D, S] (read as B, D rows, H, S columns).
+CUresult nat_map(CUtensorMap* m, const float* base, int B, int S, int H,
+                 int D) {
+  return hopper::make_bshd_map_f32(m, base, 2 * B, S, H, D,
+                                   static_cast<int64_t>(S) * H * D,
+                                   static_cast<int64_t>(H) * D, D);
+}
+CUresult trn_map(CUtensorMap* m, const float* base, int B, int S, int H,
+                 int D) {
+  return hopper::make_bshd_map_f32(m, base, 2 * B, D, H, S,
+                                   static_cast<int64_t>(H) * D * S, S,
+                                   static_cast<int64_t>(D) * S);
+}
+
+// The forward's prologue: Q and K split, V^T split, into ws as [Q | K |
+// V^T] (flash_f32tc_workspace).
+int prologue_fwd(const float* q, const float* k, const float* v, float* ws,
+                 int B, int H, int Hkv, int Sq, int Sk, int D, int q_sb,
+                 int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+                 int v_ss, int v_sh, cudaStream_t stream) {
+  const Copies n = copies(B, H, Hkv, Sq, Sk, D);
+  float* qs = ws;
+  float* ks = qs + 2 * n.q;
+  float* vt = ks + 2 * n.kv;
+  int rc;
+  if ((rc = split(q, B, Sq, H, D, q_sb, q_ss, q_sh, qs, nullptr, stream)) ||
+      (rc = split(k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, ks, nullptr, stream)))
+    return rc;
+  return split(v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, nullptr, vt, stream);
+}
+
+// The dK/dV's prologue: Q and dO split and transposed, K and V split, into
+// ws as [Q | dO | Q^T | dO^T | K | V].
+int prologue_dkv(const float* q, const float* k, const float* v,
+                 const float* dout, float* ws, int B, int H, int Hkv, int Sq,
+                 int Sk, int D, int q_sb, int q_ss, int q_sh, int k_sb,
+                 int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb,
+                 int do_ss, int do_sh, cudaStream_t stream) {
+  const Copies n = copies(B, H, Hkv, Sq, Sk, D);
+  float* qs = ws;
+  float* dos = qs + 2 * n.q;
+  float* qt = dos + 2 * n.q;
+  float* dot = qt + 2 * n.q;
+  float* ks = dot + 2 * n.q;
+  float* vs = ks + 2 * n.kv;
+  int rc;
+  if ((rc = split(q, B, Sq, H, D, q_sb, q_ss, q_sh, qs, qt, stream)) ||
+      (rc = split(dout, B, Sq, H, D, do_sb, do_ss, do_sh, dos, dot,
+                  stream)) ||
+      (rc = split(k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, ks, nullptr, stream)))
+    return rc;
+  return split(v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, vs, nullptr, stream);
+}
+
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, float* out,
-               float* lse, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
-               int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
-               int v_ss, int v_sh, int causal, int q_offset, float scale,
-               cudaStream_t stream) {
+               float* lse, float* ws, int B, int H, int Hkv, int Sq, int Sk,
+               int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+               int v_sb, int v_ss, int v_sh, int causal, int q_offset,
+               float scale, cudaStream_t stream) {
+  const Copies n = copies(B, H, Hkv, Sq, Sk, D);
+  float* qs = ws;
+  float* ks = qs + 2 * n.q;
+  float* vt = ks + 2 * n.kv;
+  int rc;
+  if ((rc = prologue_fwd(q, k, v, ws, B, H, Hkv, Sq, Sk, D, q_sb, q_ss, q_sh,
+                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, stream)))
+    return rc;
+  CUtensorMap qm, km, vm;
+  CUresult cr;
+  if ((cr = nat_map(&qm, qs, B, Sq, H, D)) ||
+      (cr = nat_map(&km, ks, B, Sk, Hkv, D)) ||
+      (cr = trn_map(&vm, vt, B, Sk, Hkv, D)))
+    return -static_cast<int>(cr);
   cudaFuncSetAttribute(flash_fwd_f32tc_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       FWD_SMEM<D>);
-  flash_fwd_f32tc_kernel<D>
-      <<<cdiv(Sq, DQ_QB<D>) * H * B, NT, FWD_SMEM<D>, stream>>>(
-          q, k, v, out, lse, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss,
-          k_sh, v_sb, v_ss, v_sh, causal, q_offset, scale);
+                       Fwd<D>::SMEM);
+  const int grid = cdiv(n_tiles(Sq), 2) * Fwd<D>::NZ * H * B;
+  flash_fwd_f32tc_kernel<D><<<grid, NT_WS, Fwd<D>::SMEM, stream>>>(
+      qm, km, vm, out, lse, B, H, Hkv, Sq, Sk, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1010,17 +1539,39 @@ int launch_dq(const float* q, const float* k, const float* v,
 template <int D>
 int launch_dkv(const float* q, const float* k, const float* v,
                const float* dout, const float* lse, const float* delta,
-               float* dk, float* dv, int B, int H, int Hkv, int Sq, int Sk,
-               int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
-               int v_sb, int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
-               int causal, int q_offset, float scale, cudaStream_t stream) {
+               float* dk, float* dv, float* ws, int B, int H, int Hkv, int Sq,
+               int Sk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss,
+               int k_sh, int v_sb, int v_ss, int v_sh, int do_sb, int do_ss,
+               int do_sh, int causal, int q_offset, float scale,
+               cudaStream_t stream) {
+  const Copies n = copies(B, H, Hkv, Sq, Sk, D);
+  float* qs = ws;
+  float* dos = qs + 2 * n.q;
+  float* qt = dos + 2 * n.q;
+  float* dot = qt + 2 * n.q;
+  float* ks = dot + 2 * n.q;
+  float* vs = ks + 2 * n.kv;
+  int rc;
+  if ((rc = prologue_dkv(q, k, v, dout, ws, B, H, Hkv, Sq, Sk, D, q_sb, q_ss,
+                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
+                         do_ss, do_sh, stream)))
+    return rc;
+  CUtensorMap qm, km, vm, dom, qtm, dotm;
+  CUresult cr;
+  if ((cr = nat_map(&qm, qs, B, Sq, H, D)) ||
+      (cr = nat_map(&dom, dos, B, Sq, H, D)) ||
+      (cr = nat_map(&km, ks, B, Sk, Hkv, D)) ||
+      (cr = nat_map(&vm, vs, B, Sk, Hkv, D)) ||
+      (cr = trn_map(&qtm, qt, B, Sq, H, D)) ||
+      (cr = trn_map(&dotm, dot, B, Sq, H, D)))
+    return -static_cast<int>(cr);
   cudaFuncSetAttribute(flash_dkv_f32tc_kernel<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<D>);
-  const int npair = cdiv(cdiv(Sk, BKV<D>), 2);
-  flash_dkv_f32tc_kernel<D><<<npair * Hkv * B, NT, SMEM<D>, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh,
-      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal,
-      q_offset, scale);
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       Dkv<D>::SMEM);
+  const int grid = cdiv(n_tiles(Sk), 2) * Dkv<D>::NZ * Hkv * B;
+  flash_dkv_f32tc_kernel<D><<<grid, NT_WS, Dkv<D>::SMEM, stream>>>(
+      qm, km, vm, dom, qtm, dotm, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
+      causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1037,18 +1588,54 @@ extern "C" {
   }                                          \
   return (int)cudaErrorInvalidValue;
 
+// Bytes of the workspace the forward (kind 0) or the dK/dV (kind 2) takes
+// for its prologue's copies; the dQ (kind 1) takes none.
+long long flash_f32tc_workspace(int kind, int B, int H, int Hkv, int Sq,
+                                int Sk, int head_dim) {
+  const Copies n = copies(B, H, Hkv, Sq, Sk, head_dim);
+  const int64_t parts = kind == 0 ? 2 * n.q + 4 * n.kv
+                        : kind == 2 ? 8 * n.q + 4 * n.kv : 0;
+  return static_cast<long long>(parts) * 4;
+}
+
+// The prologue of the forward (kind 0) or of the dK/dV (kind 2) alone,
+// into a workspace of flash_f32tc_workspace bytes: the launches the two
+// entries below make first, for timing them apart and checking the
+// copies (dout unread by the forward's).
+int flash_prologue_f32tc(int kind, const void* q, const void* k,
+                         const void* v, const void* dout, int B, int H,
+                         int Hkv, int Sq, int Sk, int q_sb, int q_ss,
+                         int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+                         int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
+                         void* workspace, int head_dim, void* stream) {
+  if ((kind != 0 && kind != 2) || workspace == nullptr ||
+      (head_dim != 128 && head_dim != 256 && head_dim != 384 &&
+       head_dim != 512))
+    return (int)cudaErrorInvalidValue;
+  if (kind == 0)
+    return prologue_fwd((const float*)q, (const float*)k, (const float*)v,
+                        (float*)workspace, B, H, Hkv, Sq, Sk, head_dim, q_sb,
+                        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                        (cudaStream_t)stream);
+  return prologue_dkv((const float*)q, (const float*)k, (const float*)v,
+                      (const float*)dout, (float*)workspace, B, H, Hkv, Sq,
+                      Sk, head_dim, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                      v_ss, v_sh, do_sb, do_ss, do_sh, (cudaStream_t)stream);
+}
+
 int flash_fwd_f32tc(const void* q, const void* k, const void* v, void* out,
                     void* lse, int B, int H, int Hkv, int Sq, int Sk,
                     int q_sb, int q_ss, int q_sh, int k_sb, int k_ss,
-                    int k_sh, int v_sb, int v_ss, int v_sh, int causal,
-                    int q_offset, float scale, int dtype, int head_dim,
-                    void* stream) {
-  if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
+                    int k_sh, int v_sb, int v_ss, int v_sh, void* workspace,
+                    int causal, int q_offset, float scale, int dtype,
+                    int head_dim, void* stream) {
+  if (dtype != DT_F32 || workspace == nullptr)
+    return (int)cudaErrorInvalidValue;
   F32TC_CASES(launch_fwd,
               ((const float*)q, (const float*)k, (const float*)v,
-               (float*)out, (float*)lse, B, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh,
-               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset, scale,
-               (cudaStream_t)stream))
+               (float*)out, (float*)lse, (float*)workspace, B, H, Hkv, Sq,
+               Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+               causal, q_offset, scale, (cudaStream_t)stream))
 }
 
 int flash_dq_f32tc(const void* q, const void* k, const void* v,
@@ -1067,8 +1654,8 @@ int flash_dq_f32tc(const void* q, const void* k, const void* v,
                scale, (cudaStream_t)stream))
 }
 
-// workspace and splits are the wgmma dK/dV's (flash_attention.cu); this
-// kernel takes 1 split and no workspace.
+// workspace: flash_f32tc_workspace(2, ...) bytes for the prologue's
+// copies; splits is the wgmma dK/dV's (flash_attention.cu) and must be 1.
 int flash_dkv_f32tc(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
@@ -1077,13 +1664,14 @@ int flash_dkv_f32tc(const void* q, const void* k, const void* v,
                     int do_ss, int do_sh, void* workspace, int splits,
                     int causal, int q_offset, float scale, int dtype,
                     int head_dim, void* stream) {
-  if (dtype != DT_F32 || splits != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != DT_F32 || splits != 1 || workspace == nullptr)
+    return (int)cudaErrorInvalidValue;
   F32TC_CASES(launch_dkv,
               ((const float*)q, (const float*)k, (const float*)v,
                (const float*)dout, (const float*)lse, (const float*)delta,
-               (float*)dk, (float*)dv, B, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh,
-               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
-               causal, q_offset, scale, (cudaStream_t)stream))
+               (float*)dk, (float*)dv, (float*)workspace, B, H, Hkv, Sq, Sk,
+               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
+               do_ss, do_sh, causal, q_offset, scale, (cudaStream_t)stream))
 }
 
 }  // extern "C"

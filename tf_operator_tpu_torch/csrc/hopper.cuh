@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the three
-// wgmma shapes the kernels use (bf16 or fp16 operands, f32 accumulators),
-// register-count hand-off (setmaxnreg), named barriers, and the host-side
-// tensor map of a [B, S, H, D] bf16 or fp16 operand (D = 128 to 512).
+// wgmma shapes the bf16/fp16 kernels use (f32 accumulators), the two tf32
+// shapes of the f32 kernels (m64n64k8 with A from shared memory or from
+// registers), register-count hand-off (setmaxnreg), named barriers, and
+// the host-side tensor maps of a [B, S, H, D] bf16 or fp16 operand (D =
+// 128 to 512) and of a [B, S, H, D] f32 one.
 //
 // Tile layout shared by TMA and wgmma. Every operand tile is 64 rows of D
 // two-byte elements (D / 64 panels), stored as D / 64 panels of 8 KB
@@ -26,6 +28,16 @@
 // warp w = t / 32, lane l; register 4n + e holds row 16w + l/4 + 8(e/2),
 // column 8n + 2(l%4) + e%2. Every row is spread over the 4 lanes of one
 // quad, so a row reduction is two xor-shuffles (1, 2).
+//
+// f32 tiles (tf32 wgmma). A 128-byte row holds 32 f32 values, so a panel
+// is 64 rows of 32 columns (8 KB, the same bytes as a bf16 panel) and one
+// TMA box of the f32 map is one such panel. tf32 wgmma reads its shared-
+// memory operands K-major only (no transpose bit): k-step kk of a panel
+// (8 columns, kk < 4) starts at byte 32 kk, 8-row groups 1024 bytes apart
+// (desc_panel). Its register A fragment (m64k8, 4 registers) is that of
+// mma.m16n8k8.tf32: register r of lane l of warp w holds row 16w + l/4 +
+// 8(r%2), column l%4 + 4(r/2), which is not the accumulator's 2(l%4) +
+// e%2 (see the kernels for how they reconcile the two).
 
 #pragma once
 
@@ -137,6 +149,11 @@ __device__ __forceinline__ uint64_t desc_encode(const void* p, uint32_t lbo,
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
   d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
   return d;
+}
+
+// k-step kk (8 f32 columns, kk < 4) of one 64-row K-major f32 panel.
+__device__ __forceinline__ uint64_t desc_panel(const void* panel, int kk) {
+  return desc_encode(static_cast<const char*>(panel) + kk * 32, 16, 1024);
 }
 
 // k-step kk (16 of the D columns) of a K-major tile.
@@ -275,6 +292,51 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
     HOPPER_WGMMA_RS64("bf16");
 }
 
+// D[64 x 64] (f32, 32 registers a thread) (+)= A[64 x 8] . B[64 x 8]^T in
+// tf32, A and B K-major in shared memory (descriptors); accumulate = 0
+// overwrites D. tf32 takes no transpose immediates.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T in tf32, A from registers (four
+// tf32 values in the m16n8k8 A layout, see above), B K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // Two f32 values rounded to a pair of T (round to nearest even), low
 // half first.
 template <typename T>
@@ -351,6 +413,36 @@ inline CUresult make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
                 4, const_cast<void*>(base),
                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Tensor map of a [B, S, H, D] f32 tensor with element strides (sb, ss,
+// sh) and unit stride over the D: one box is one f32 panel, {32 columns,
+// 1 head, 64 rows, 1 batch}, 128-byte swizzled; rows at or past S load as
+// zeros. Any 4-D f32 array whose inner index has unit stride maps so (a
+// [B, H, D, S] transpose as B, D rows, H, S columns).
+inline CUresult make_bshd_map_f32(CUtensorMap* map, const void* base, int B,
+                                  int S, int H, int D, int64_t sb, int64_t ss,
+                                  int64_t sh) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(
+          dlsym(lib, "cuTensorMapEncodeTiled"));
+    if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 4, (cuuint64_t)ss * 4,
+                                 (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {32, 1, TILE_ROWS, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

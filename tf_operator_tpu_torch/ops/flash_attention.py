@@ -19,7 +19,11 @@ f32), in two families picked per kernel by (kind, dtype, head_dim)
 - f32 at every head_dim: the tensor-core kernels of
   ``csrc/flash_attention_f32tc.cu`` (``flash_fwd_f32tc``,
   ``flash_dq_f32tc``, ``flash_dkv_f32tc``), whose products are 3xTF32
-  (each f32 operand split into two TF32 parts), within f32's limits.
+  (each f32 operand split into two TF32 parts), within f32's limits. The
+  forward and the dK/dV are wgmma/TMA kernels fed by a prologue that
+  writes each operand's TF32 parts, and the transposed copies their
+  products reduce over, into a workspace the wrapper allocates
+  (``f32tc_split``, ``f32tc_split_t`` are its plain versions).
 
 Both mask ragged sequence edges in the kernel. The forward is the custom op
 ``tf_operator_tpu_torch::flash_fwd`` returning ``(out, lse)``; its autograd
@@ -200,6 +204,36 @@ def _fwd_reference(q, k, v, causal: bool = True, q_offset: int = 0
     return out, lse
 
 
+# The f32 kernels' prologue (csrc/flash_attention_f32tc.cu,
+# flash_split_f32tc_kernel): each operand's TF32 parts, and the transposed
+# copies whose S index is permuted within each group of 8 so that a
+# tensor-core fragment column c meets accumulator column PERM8[c].
+PERM8 = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero: cvt.rna.tf32.f32), as f32."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -8192).view(torch.float32)
+
+
+def f32tc_split(x: torch.Tensor) -> torch.Tensor:
+    """[2, *x.shape]: hi = tf32(x) and lo = tf32(x - hi)."""
+    hi = tf32_round(x)
+    return torch.stack((hi, tf32_round(x.float() - hi)))
+
+
+def f32tc_split_t(x: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D] (S a multiple of 8) as the prologue's transposed
+    copy [2, B, H, D, S]: position 8g + c along S holds row 8g + PERM8[c],
+    hi then lo."""
+    b, s, h, d = x.shape
+    order = (torch.arange(s, device=x.device).view(-1, 8)[
+        :, list(PERM8)]).reshape(-1)
+    return f32tc_split(x[:, order].permute(0, 2, 3, 1))
+
+
 def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """rowsum(dO * O) in f32, [B, H, Sq] (the TPU's δ pre-pass)."""
     return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
@@ -251,13 +285,19 @@ def _bwd_reference(q, k, v, out, lse, do, causal: bool = True,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every entry ends (causal, q_offset, scale, dtype code, head_dim, stream);
-# the dK/dV entries take (workspace, splits) before that.
+# the forward entries take a workspace (the f32 kernel's; the wgmma
+# forward takes none) and the dK/dV entries (workspace, splits) before
+# that.
 _TAIL = [_I, _I, _F, _I, _I, _P]
 _ARGTYPES = {
-    "flash_fwd": [_P] * 5 + [_I] * 5 + [_I] * 9 + _TAIL,
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_I] * 9 + [_P] + _TAIL,
     "flash_dq": [_P] * 7 + [_I] * 5 + [_I] * 12 + _TAIL,
     "flash_dkv": [_P] * 8 + [_I] * 5 + [_I] * 12 + [_P, _I] + _TAIL,
 }
+
+
+# Kind codes of flash_f32tc_workspace.
+_F32TC_KIND = {"fwd": 0, "dq": 1, "dkv": 2}
 
 
 def _lib(family: str = "") -> ctypes.CDLL:
@@ -268,6 +308,51 @@ def _lib(family: str = "") -> ctypes.CDLL:
         fn.argtypes = _ARGTYPES[f"flash_{kind}"]
         fn.restype = ctypes.c_int
     return lib
+
+
+def f32tc_prologue(kind: str, q, k, v, do=None) -> Dict[str, torch.Tensor]:
+    """The f32 forward's ("fwd") or dK/dV's ("dkv") prologue alone, on
+    CUDA tensors: the copies its kernel reads, by name, each [2, ...] (hi,
+    lo) as ``f32tc_split`` or ``f32tc_split_t`` computes them. Not on the
+    main path (the kernels' entries launch it themselves): for timing it
+    apart and checking its copies on the card."""
+    (b, h, hkv, sq, sk), strides, (_, d) = _check_operands(
+        q, k, v, 0, do if kind == "dkv" else None)
+    if kind == "fwd":
+        strides = strides + [0, 0, 0]
+    ws = _f32tc_workspace(kind, q, k)
+    entry = _lib("_f32tc").flash_prologue_f32tc
+    entry.argtypes = [_I] + [_P] * 4 + [_I] * 17 + [_P, _I, _P]
+    entry.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        rc = entry(_F32TC_KIND[kind], q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), None if do is None else do.data_ptr(),
+                   b, h, hkv, sq, sk, *strides, ws.data_ptr(), d,
+                   torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, f"flash_prologue_f32tc({kind})")
+    flat = ws.view(torch.float32)
+    nq, nkv = 2 * b * sq * h * d, 2 * b * sk * hkv * d
+    shapes = ({"q": ((2, b, sq, h, d), nq), "k": ((2, b, sk, hkv, d), nkv),
+               "v_t": ((2, b, hkv, d, sk), nkv)} if kind == "fwd" else
+              {"q": ((2, b, sq, h, d), nq), "do": ((2, b, sq, h, d), nq),
+               "q_t": ((2, b, h, d, sq), nq), "do_t": ((2, b, h, d, sq), nq),
+               "k": ((2, b, sk, hkv, d), nkv), "v": ((2, b, sk, hkv, d), nkv)})
+    copies, at = {}, 0
+    for name, (shape, n) in shapes.items():
+        copies[name] = flat[at:at + n].view(shape)
+        at += n
+    return copies
+
+
+def _f32tc_workspace(kind: str, q, k) -> torch.Tensor:
+    """The f32 forward's or dK/dV's workspace (its prologue's copies) for
+    these operands, as the library sizes it."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    size = _lib("_f32tc").flash_f32tc_workspace
+    size.argtypes, size.restype = [_I] * 7, ctypes.c_longlong
+    nbytes = size(_F32TC_KIND[kind], b, h, hkv, sq, sk, d)
+    return torch.empty(nbytes, dtype=torch.uint8, device=q.device)
 
 
 def _entry(kind: str, suffix: str):
@@ -349,11 +434,15 @@ def _fwd_cuda(q, k, v, causal, q_offset):
     name = "flash_fwd" + suffix
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # The f32 kernel's prologue copies go to a workspace of its own.
+    ws = (_f32tc_workspace("fwd", q, k) if _FAMILY[suffix] == "_f32tc"
+          else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _entry("fwd", suffix)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, hkv, sq, sk, *strides, int(causal),
+            lse.data_ptr(), b, h, hkv, sq, sk, *strides,
+            None if ws is None else ws.data_ptr(), int(causal),
             q_offset, d ** -0.5, code, d, stream)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -398,9 +487,12 @@ def _dkv_cuda(q, k, v, lse, do, delta, causal, q_offset):
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     b, sk, hkv, _ = k.shape
     splits = dkv_splits(suffix, b, sk, hkv, _sm_count(q.device.index))
-    # The splits' f32 partial dK and dV: [2, splits, B, Sk, Hkv, D].
+    # The splits' f32 partial dK and dV: [2, splits, B, Sk, Hkv, D]; the
+    # f32 kernel's prologue copies.
     ws = (torch.empty((2, splits, *k.shape), dtype=torch.float32,
-                      device=q.device) if splits > 1 else None)
+                      device=q.device) if splits > 1 else
+          _f32tc_workspace("dkv", q, k) if _FAMILY[suffix] == "_f32tc"
+          else None)
     tail = len(_TAIL) - 1                  # the common tail, less the stream
     with torch.cuda.device(q.device):
         rc = _entry("dkv", suffix)(
