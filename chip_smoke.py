@@ -11,9 +11,9 @@ Phases, each printing one JSON line:
            flash_attention.cu (the wgmma kernels: bf16 and fp16, all three
            at head_dim 128, 256, 384 and 512) and
            csrc/flash_attention_f32tc.cu (the f32 forward, dQ and dK/dV on
-           tensor cores, 3xTF32, head_dim 128-512: the forward and dK/dV on
-           tf32 wgmma after their prologue, flash_split_f32tc, the dQ on
-           mma.sync); seconds, library paths, and per kernel variant
+           tensor cores, 3xTF32, head_dim 128-512: all three on tf32 wgmma
+           after their prologue, flash_split_f32tc); seconds, library
+           paths, and per kernel variant
            ("flash_fwd[bf16,256]", "flash_split_f32tc") the registers,
            stack and spill bytes that ptxas reports.
 3. kernels each flash-attention kernel (forward, dQ, dK/dV) against its
@@ -53,18 +53,18 @@ Phases, each printing one JSON line:
            through out on its own, f32 products in
            TF32, and in f32 P rounded to TF32 before O, P^T and dS^T before
            dV and dK and dS before dQ, as a 3xTF32 kernel that split only
-           the loaded operands would give; and, through each of out, dK
-           and dV on its own, the f32 forward's and dK/dV's transposed B
-           operand (V^T, dO^T, Q^T) from the wrong head or stale, and
-           their reduced index left in another order than the
-           fragments'). In f32 the kernels' out, lse,
+           the loaded operands would give; and, through each of out, dQ,
+           dK and dV on its own, the f32 kernels' transposed B operand
+           (V^T, K^T, dO^T, Q^T) from the wrong head or stale, and their
+           reduced index left in another order than the fragments'). In
+           f32 the kernels' out, lse,
            dQ, dK and dV are also held to a float64 version at the same
            limits (f64_ratio), and that check must reject the three TF32
            perturbations (the third: the lo part of the transposed B
            operands dropped) through each output on its own: the plain version
            sums its long products in f32 too, so against it alone a right
            kernel's margin is partly the plain version's own rounding (its
-           f64_ratio is reported). In f32 the forward's and dK/dV's
+           f64_ratio is reported). In f32 the forward's, dQ's and dK/dV's
            prologue copies (fa.f32tc_prologue) must also equal their plain
            versions (fa.f32tc_split, f32tc_split_t) bit for bit, and the
            timed cases give the prologue's part of ms (prologue_ms).
@@ -1198,22 +1198,22 @@ def domain_perturbed(q, k, v, do, ref, delta, causal, q_offset):
     return wrong
 
 
-# The f32 forward's and dK/dV's own ways of going wrong (their prologue's
-# transposed copies V^T, dO^T and Q^T, and the permuted reduced index),
-# which the check must reject through out, dK and dV each on its own.
+# The f32 kernels' own ways of going wrong (their prologue's transposed
+# copies V^T, K^T, dO^T and Q^T, and the permuted reduced index), which
+# the check must reject through out, dQ, dK and dV each on its own.
 F32TC_PERTURBATIONS = ("transposed_from_wrong_head", "transposed_stale",
                        "reduced_index_misordered")
 
 
 def f32tc_perturbed(q, k, v, do, lse, p, ds, causal, q_offset):
-    """out, dK and dV of f32 kernels whose B operand of O += P V, dV +=
-    P^T dO or dK += dS^T Q is wrong: the transposed copy of the next head
-    (V of KV head hk + 1, dO and Q of head h + 1), a stale one (another
-    call's: fresh values), or one whose S index is not permuted as the
-    fragments' (position 8g + c holding row 8g + c while the fragment's
-    column c is row 8g + PERM8[c]); and, against float64, one whose lo part
-    was dropped (the B operand in TF32 alone). P and dS are the plain
-    version's ([B, Hkv, G, Sq, Sk])."""
+    """out, dQ, dK and dV of f32 kernels whose B operand of O += P V, dQ
+    += dS K, dV += P^T dO or dK += dS^T Q is wrong: the transposed copy of
+    the next head (V and K of KV head hk + 1, dO and Q of head h + 1), a
+    stale one (another call's: fresh values), or one whose S index is not
+    permuted as the fragments' (position 8g + c holding row 8g + c while
+    the fragment's column c is row 8g + PERM8[c]); and, against float64,
+    one whose lo part was dropped (the B operand in TF32 alone). P and dS
+    are the plain version's ([B, Hkv, G, Sq, Sk])."""
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     pn = torch.exp(fa._scores(q, k, causal, q_offset)[0]
@@ -1222,9 +1222,10 @@ def f32tc_perturbed(q, k, v, do, lse, p, ds, causal, q_offset):
     def group(x):
         return x.float().reshape(b, sq, hkv, h // hkv, d)
 
-    def outs(vv, dd, qq, probs=pn, pt=p, dst=ds):
+    def outs(vv, kk, dd, qq, probs=pn, dsq=ds, pt=p, dst=ds):
         out = torch.einsum("bkgqt,btkd->bqkgd", probs, vv.float())
-        return {"out": out.reshape(q.shape),
+        dq = torch.einsum("bkgqt,btkd->bqkgd", dsq, kk.float())
+        return {"out": out.reshape(q.shape), "dq": dq.reshape(q.shape),
                 "dk": torch.einsum("bkgqt,bqkgd->btkd", dst, group(qq)),
                 "dv": torch.einsum("bkgqt,bqkgd->btkd", pt, group(dd))}
 
@@ -1236,15 +1237,17 @@ def f32tc_perturbed(q, k, v, do, lse, p, ds, causal, q_offset):
     wrong = {}
     if hkv > 1:
         wrong["transposed_from_wrong_head"] = outs(
-            v.roll(1, dims=2), do.roll(1, dims=2), q.roll(1, dims=2))
+            *(x.roll(1, dims=2) for x in (v, k, do, q)))
     gen = torch.Generator(device=q.device).manual_seed(1)
     wrong["transposed_stale"] = outs(
         *(torch.randn(x.shape, generator=gen, device=q.device) * 0.5
-          for x in (v, do, q)))
+          for x in (v, k, do, q)))
     wrong["reduced_index_misordered"] = outs(
-        v, do, q, probs=misorder(pn, 4, k.shape[1]),
-        pt=misorder(p, 3, sq), dst=misorder(ds, 3, sq))
-    wrong["tf32_transposed_operands"] = outs(tf32(v), tf32(do), tf32(q))
+        v, k, do, q, probs=misorder(pn, 4, k.shape[1]),
+        dsq=misorder(ds, 4, k.shape[1]), pt=misorder(p, 3, sq),
+        dst=misorder(ds, 3, sq))
+    wrong["tf32_transposed_operands"] = outs(*(tf32(x) for x in (v, k, do,
+                                                                 q)))
     return wrong
 
 
@@ -1378,11 +1381,11 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                 for n, t in wrong[p].items()}
             for p in F32_F64_PERTURBATIONS}
         del exact
-        # The forward's and dK/dV's prologue: each copy its kernel reads
-        # equal, bit for bit, to the plain version's.
+        # Each kernel's prologue: each copy its kernel reads equal, bit for
+        # bit, to the plain version's.
         case["prologue_equal"] = {
             f"{kind}.{n}": bool(torch.equal(t, plain_copy(n, q, k, v, do)))
-            for kind in ("fwd", "dkv")
+            for kind in fa.F32TC_COPIES
             for n, t in fa.f32tc_prologue(kind, q, k, v, do).items()}
     del wrong
     # Keys no query row sees (causal, k >= sq + q_offset) must get exact
@@ -1455,7 +1458,7 @@ def check_case(gen, sq, sk, causal, q_offset, timed: bool,
                "library_host_launched_ms": library[name][1],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "peak_flop_per_s": peak, "flops": flops, "bytes": nbytes}
-        if keys[name].endswith("_f32tc") and name != "flash_dq":
+        if keys[name].endswith("_f32tc"):
             # The part of ms that the prologue's launches take.
             kind = name[len("flash_"):]
             row["prologue_ms"] = cuda_ms(
@@ -1586,7 +1589,7 @@ def phase_kernels():
                if p in COLUMN_HALF_PERTURBATIONS
                for n, r in ratios.items() if r <= 1.0]
     # The f32 kernels' transposed copies and permuted reduced index gone
-    # wrong: each of out, dK and dV it changes on its own.
+    # wrong: each of out, dQ, dK and dV it changes on its own.
     missed += [(*tag(c), p, n) for c in cases
                for p, ratios in c["domain_perturbed_ratio"].items()
                if p in F32TC_PERTURBATIONS

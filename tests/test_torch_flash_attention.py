@@ -284,7 +284,7 @@ def test_lib_types_only_the_family_s_own_kinds(family, monkeypatch):
     assert stub.asked == own
     for kind in tfa.KINDS:
         entry = stub.entries[f"flash_{kind}{family}"]
-        assert entry.argtypes == tfa._ARGTYPES[f"flash_{kind}"]
+        assert entry.argtypes == tfa.entry_argtypes(kind, family)
         assert entry.restype is ctypes.c_int
     suffixes = [sfx for sfx, fam in tfa._FAMILY.items() if fam == family]
     for sfx in suffixes:

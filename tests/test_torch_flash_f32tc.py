@@ -25,17 +25,19 @@ check at the f32 limits (1e-5), to chip_smoke.py's float64 versions. The
 3xTF32 that splits only the loaded operands and leaves the computed ones
 (P, P^T and dS^T, or dS) in TF32.
 
-The forward and the dK/dV kernels take their loaded operands from a
-prologue (the port's ``f32tc_split`` and ``f32tc_split_t`` are its plain
-versions): hi and lo copies of Q, K, V and dO, and transposed copies V^T,
-dO^T and Q^T whose S index is permuted within each group of 8 (PERM8), the
-order in which a tensor-core fragment of the computed operand (P, P^T, dS^T)
+The three kernels take their loaded operands from a prologue (the port's
+``f32tc_split`` and ``f32tc_split_t`` are its plain versions): hi and lo
+copies of Q, K, V and dO, and transposed copies V^T, K^T, dO^T and Q^T
+whose S index is permuted within each group of 8 (PERM8), the order in
+which a tensor-core fragment of the computed operand (P, P^T, dS^T, dS)
 holds its keys or queries. The data-flow tests run the kernels' products
 through those copies, with the computed operand split and put in fragment
 order, and hold them to the plain 3xTF32 emulation above and to the
 float64 versions. They must fail with 1xTF32, with the computed operands
 unsplit, with the transposed copies' lo parts dropped, and with the
-transposed copies left unpermuted.
+transposed copies left unpermuted. Each prologue's copy set, as
+``f32tc_prologue`` returns it from the kernels' workspace, is held to those
+plain versions.
 """
 
 import importlib.util
@@ -278,7 +280,7 @@ DATAFLOW = {"3xtf32": True, "1xtf32": False,
 
 
 class Dataflow:
-    """The forward's and the dK/dV's products as the kernels run them: the
+    """The forward's, dQ's and dK/dV's products as the kernels run them: the
     loaded operands from the prologue's copies ([2, ...]: hi, lo), the
     computed one split in registers and in fragment order, each product
     the sum of its parts' products (lo.hi + hi.lo + hi.hi, or hi.hi alone
@@ -338,6 +340,26 @@ class Dataflow:
         dv = self.product("bkgtq,bkgdq->btkd", self.register(p, 4), dot)
         dk = self.product("bkgtq,bkgdq->btkd", self.register(ds, 4), qt)
         return dk, dv
+
+    def dq(self, q, k, v, do, lse, delta):
+        """dQ of the dQ kernel (causal, q_offset 0): S = Q K^T and dP = dO
+        V^T from the natural copies, then dQ += dS K^T-copy with dS the
+        register operand."""
+        b, s, h, d = q.shape
+        hkv = k.shape[2]
+        g = h // hkv
+        qs, dos, ks, vs = (tfa.f32tc_split(x) for x in (q, do, k, v))
+        kt = self.transposed(k)                      # [2, B, Hkv, D, S]
+        group = lambda x: x.reshape(2, b, s, hkv, g, d)
+        scale = d ** -0.5
+        st = self.product("bqkgd,btkd->bkgqt", group(qs), ks) * scale
+        st = st.masked_fill(torch.arange(s)[:, None] < torch.arange(s)[None, :],
+                            NEG_INF)
+        p = torch.exp(st - lse.reshape(b, hkv, g, s, 1))
+        dp = self.product("bqkgd,btkd->bkgqt", group(dos), vs)
+        ds = p * (dp - delta.reshape(b, hkv, g, s, 1)) * scale
+        dq = self.product("bkgqt,bkdt->bqkgd", self.register(ds, 4), kt)
+        return dq.reshape(q.shape)
 
     def fwd(self, q, k, v, block=64):
         """out, lse of the forward kernel (causal, q_offset 0): S = Q K^T
@@ -411,3 +433,79 @@ def test_fwd_dataflow_through_prologue_copies(case, scheme):
             assert smoke.check(n, g, pl, **lim)["ok"], n
     else:
         assert results["out"]["ratio"] > 1, results
+
+
+@pytest.mark.parametrize("scheme", sorted(DATAFLOW))
+def test_dq_dataflow_through_prologue_copies(case, scheme):
+    """dQ through the prologue's split copies and its split, transposed and
+    permuted K^T equals the plain 3xTF32 emulation's and holds the f32
+    limits of the float64 version; a wrong scheme does not."""
+    q, k, v, do, lse, delta = case
+    want = smoke.dq_float64(q, k, v, lse, do, delta, True, 0)
+    inputs = [x.float() for x in (q, k, v, do, lse, delta)]
+    got = Dataflow(scheme).dq(*inputs)
+    plain = dq(*inputs, SCHEMES["3xtf32"][0])
+    lim = smoke.limits(torch.float32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    result = smoke.check("dq", got, want, **lim)
+    if DATAFLOW[scheme]:
+        assert result["ok"], result
+        assert smoke.check("dq", got, plain, **lim)["ok"]
+    else:
+        assert result["ratio"] > 1, result
+
+
+# The copies each kernel reads: the dQ's S = Q K^T and dP = dO V^T take Q,
+# dO, K and V in rows, its dQ += dS K takes K^T.
+PROLOGUE_COPIES = {"fwd": ("q", "k", "v_t"),
+                   "dq": ("q", "do", "k", "v", "k_t"),
+                   "dkv": ("q", "do", "q_t", "do_t", "k", "v")}
+
+
+@pytest.mark.parametrize("kind", sorted(PROLOGUE_COPIES))
+def test_prologue_copies_are_the_plain_splits(kind):
+    """f32tc_prologue's copies of each kernel, read from a workspace laid
+    out as the kernels' prologue writes it (the copies one after another, in
+    F32TC_COPIES order; the dQ's 4 Sq H D + 6 Sk Hkv D floats), are
+    f32tc_split of each operand and f32tc_split_t of the transposed ones, as
+    chip_smoke.py's plain_copy names them; the dQ's K^T is K's transposed,
+    permuted copy."""
+    b, sq, sk, h, hkv, d = 1, 24, 16, 4, 2, 32
+    rng = np.random.default_rng(3)
+    q, do = (torch.tensor(rng.standard_normal((b, sq, h, d)),
+                          dtype=torch.float32) for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((b, sk, hkv, d)),
+                         dtype=torch.float32) for _ in range(2))
+    names = tfa.F32TC_COPIES[kind]
+    assert names == PROLOGUE_COPIES[kind]
+    plain = {n: smoke.plain_copy(n, q, k, v, do) for n in names}
+    flat = torch.cat([plain[n].reshape(-1) for n in names])
+    nq, nkv = b * sq * h * d, b * sk * hkv * d
+    floats = {"fwd": 2 * nq + 4 * nkv, "dq": 4 * nq + 6 * nkv,
+              "dkv": 8 * nq + 4 * nkv}
+    assert flat.numel() == floats[kind]
+    views = tfa.f32tc_views(kind, flat, b, h, hkv, sq, sk, d)
+    assert list(views) == list(names)
+    for n, view in views.items():
+        assert view.data_ptr() >= flat.data_ptr(), n
+        assert torch.equal(view, plain[n]), n
+    if kind == "dq":
+        assert torch.equal(views["k"], tfa.f32tc_split(k))
+        assert torch.equal(views["k_t"], tfa.f32tc_split_t(k))
+        assert views["k_t"].shape == (2, b, hkv, d, sk)
+
+
+def test_f32_dq_entry_takes_its_workspace_where_the_forward_does():
+    """The f32 dQ entry takes the wgmma dQ entry's arguments plus one
+    workspace pointer just before the common tail, where every forward
+    entry takes its own; the other families' dQ entries are unchanged."""
+    tail = len(tfa._TAIL)
+    f32 = tfa.entry_argtypes("dq", "_f32tc")
+    wgmma = tfa.entry_argtypes("dq", "")
+    assert len(f32) == len(wgmma) + 1
+    assert f32[-tail - 1] is tfa._P
+    assert f32[:-tail - 1] + f32[-tail:] == wgmma
+    assert tfa.entry_argtypes("fwd", "_f32tc")[-tail - 1] is tfa._P
+    for kind in tfa.KINDS:
+        assert tfa.entry_argtypes(kind, "") == tfa._ARGTYPES[f"flash_{kind}"]
+    assert tfa.entry_argtypes("dkv", "_f32tc") == tfa._ARGTYPES["flash_dkv"]

@@ -24,46 +24,52 @@
 // What bounds them on the card. The least time is the tensor cores': per
 // visible (key, query) pair and head the forward does 4 D FLOPs, the dK/dV
 // 8 D and the dQ 6 D, each as three TF32 products at 494.7 TFLOP/s (H100
-// SXM dense TF32). What holds the forward and the dK/dV back is the L2:
-// every operand they stream is twice f32's bytes (hi and lo), 128 KB of
-// tiles a forward k tile (2 q tiles) and 256 KB a dK/dV item at D = 128,
-// some 1 KB per 50-100 KFLOP. Leaving the dK/dV's K and V loads out of a
-// run (results wrong) cut its time by the third of the bytes they are, so
-// the designs below keep what they can resident and stream the rest.
+// SXM dense TF32). Every operand they stream is twice f32's bytes (hi and
+// lo), 128 KB of tiles a forward k tile (2 q tiles), 256 KB a dK/dV item
+// and 192 KB a dQ k tile at D = 128, some 1 KB per 50-100 KFLOP. What
+// holds the dK/dV back is that L2 traffic: leaving its K and V loads out
+// of a run (results wrong) cut its time by the third of the bytes they
+// are, so the designs below keep what they can resident and stream the
+// rest. The dQ at D = 128 is not held back so; at 256-512 it is (see
+// there).
 //
-// The forward and the dK/dV are the Hopper design of the bf16 kernels
-// (flash_attention.cu, hopper.cuh): warp-specialised CTAs of 384 threads,
-// two consumer warpgroups (setmaxnreg 232) that run wgmma.mma_async
-// m64n64k8 .f32.tf32.tf32 and one producer warpgroup (setmaxnreg 40)
-// whose first thread (in the streamed dK/dV, first two) issues TMA loads
+// All three are the Hopper design of the bf16 kernels (flash_attention.cu,
+// hopper.cuh): warp-specialised CTAs of 384 threads, two consumer
+// warpgroups (setmaxnreg 232) that run wgmma.mma_async m64n64k8
+// .f32.tf32.tf32 and one producer warpgroup (setmaxnreg 40) whose first
+// thread (in the streamed dK/dV and dQ, first two) issues TMA loads
 // (cp.async.bulk.tensor, 128-byte swizzle) of 64-row f32 panels into a
 // ring of shared-memory slots with a "full" (TMA transaction bytes) and an
 // "empty" mbarrier each; no __syncthreads after set-up. How each hard part
 // is met:
 //   1. Operand layout. tf32 wgmma reads shared-memory operands K-major
-//      only. S = Q K^T and, in the dK/dV, S^T = K Q^T and dP^T = V dO^T
-//      reduce over head_dim, along which Q, K, V and dO are contiguous:
-//      both operands come straight from their rows. O += P V, dV += P^T dO
-//      and dK += dS^T Q reduce over keys or queries, so their B operands
-//      are V^T, dO^T and Q^T. A prologue kernel (flash_split_f32tc_kernel,
-//      one launch an operand) writes them once a call, [B, H, D, S]
-//      beside [B, S, H, D] copies of Q, K, dO (and V in the dK/dV), each
-//      as hi and lo; its launches are part of the entry's, so its time is
-//      part of the kernel's. The other choice, a transposition in shared
-//      memory after each tile lands, needs an f32 staging tile beside the
-//      hi and lo tiles in 227 KB that they already fill, and a store, a
-//      proxy fence and a barrier before every product. Reckoned at D =
-//      128, S = 2048, H = 32, Hkv = 8: the forward's prologue reads 48 MiB
-//      and writes 96, the dK/dV's reads 80 and writes 288 (some 45 and
-//      110 us at 3.35 TB/s; chip_smoke.py times it apart, prologue_ms).
+//      only. S = Q K^T, dP = dO V^T and, in the dK/dV, S^T = K Q^T and
+//      dP^T = V dO^T reduce over head_dim, along which Q, K, V and dO are
+//      contiguous: both operands come straight from their rows. O += P V,
+//      dV += P^T dO, dK += dS^T Q and dQ += dS K reduce over keys or
+//      queries, so their B operands are V^T, dO^T, Q^T and K^T. A prologue
+//      kernel (flash_split_f32tc_kernel, one launch an operand) writes
+//      them once a call, [B, H, D, S] beside [B, S, H, D] copies of the
+//      operands the entry reads in rows, each as hi and lo; its launches
+//      are part of the entry's, so its time is part of the kernel's. The
+//      other choice, a transposition in shared memory after each tile
+//      lands, needs an f32 staging tile beside the hi and lo tiles in 227
+//      KB that they already fill, and a store, a proxy fence and a barrier
+//      before every product. Reckoned at D = 128, S = 2048, H = 32, Hkv =
+//      8: the forward's prologue reads 48 MiB and writes 96, the dQ's
+//      reads 80 and writes 176, the dK/dV's reads 80 and writes 288 (some
+//      45, 76 and 110 us at 3.35 TB/s; chip_smoke.py times it apart,
+//      prologue_ms). One prologue for both backward kernels would write
+//      Q, dO, K and V once: not done yet (ROADMAP).
 //   2. Register A against the accumulator. The computed operand (P in the
-//      forward; P^T and dS^T in the dK/dV) is wgmma's A from registers,
-//      split there. Its tf32 fragment (hopper.cuh) holds columns l%4 and
-//      l%4 + 4 of each 8-column k-step, where the accumulator holds 2(l%4)
-//      and 2(l%4) + 1. So the reduced index is permuted within each group
-//      of 8: fragment column c is accumulator column PERM8[c] = 0, 2, 4,
-//      6, 1, 3, 5, 7 (register e of the fragment = accumulator register 4kk
-//      + (0, 2, 1, 3)[e]: no shuffle), and the prologue writes the
+//      forward; P^T and dS^T in the dK/dV; dS in the dQ) is wgmma's A from
+//      registers, split there. Its tf32 fragment (hopper.cuh) holds
+//      columns l%4 and l%4 + 4 of each 8-column k-step, where the
+//      accumulator holds 2(l%4) and 2(l%4) + 1. So the reduced index is
+//      permuted within each group of 8: fragment column c is accumulator
+//      column PERM8[c] = 0, 2, 4, 6, 1, 3, 5, 7 (register e of the
+//      fragment = accumulator register 4kk + (0, 2, 1, 3)[e]: no
+//      shuffle), and the prologue writes the
 //      transposed copies with the same permutation along S (position 8g +
 //      c holds row 8g + PERM8[c]), so A and B pair the same keys or
 //      queries and the sum is unchanged.
@@ -71,10 +77,12 @@
 //      prologue (separate halves of its output, hi first), so a tile is
 //      TMA'd as it will be read; a 64-row f32 panel (32 columns) is 8 KB.
 //      head_dim is split over CTAs: a CTA owns CW = 128 columns of O or of
-//      dK and dV (D / 128 CTAs a tile), so no accumulator is over 64
-//      registers at any D; the column slices of one tile each reduce S
-//      (and dP) over all of head_dim again, (D / 128 + 1) / 2 times the
-//      work at 256-512 (1.5x, 2x, 2.5x).
+//      dK and dV (D / 128 CTAs a tile), and up to 256 of dQ (at most 128 a
+//      warpgroup), so no accumulator is over 64 registers at any D; the
+//      column slices of one tile each reduce S (and dP) over all of
+//      head_dim again, (D / 128 + 1) / 2 times the work at 256-512 (1.5x,
+//      2x, 2.5x) in the forward and the dK/dV, (2 NZ + 1) / 3 in the dQ
+//      (1x at 256, 1.67x at 384-512).
 //   4. Accumulator rounding. The tensor cores add into their f32
 //      accumulator rounding toward zero, so a long running sum kept there
 //      drifts about half an ulp of the sum a step, all one way (some 1e-4
@@ -119,21 +127,50 @@
 //   Registers of a consumer: dV or dK 64, S^T or dP^T 32, unit sums 64,
 //   fragments 64: at most 192 of 232, 0 spills.
 //
-// dQ (flash_dq_f32tc_kernel) is still the mma.sync m16n8k8 kernel fed by
-// cp.async, described at its definition: of the three, it loses the least
-// time to its bound on the f32 training step (8 launches x 1.2 ms against
-// the dK/dV's 8 x 1.9 and the forward's 16 x 0.8 on the H100 before this
-// design, PERF.md section 6), and
-// it moves onto the same tf32 wgmma design next (ROADMAP B: the prologue
-// gives K^T for dQ += dS K). The helpers below the dQ's heading serve it
-// alone (Frag, mma3, cp.async, load_rows).
+// dQ (flash_dq_f32tc_kernel): a CTA per (64-row q tile, head, batch,
+// column slice z of NZ = D / 256 rounded up; CW = 128 / 256 / 192 / 256
+// columns at D = 128 / 256 / 384 / 512), heaviest causal q tiles first;
+// per k tile of 64 keys in order, warpgroup 0 reduces S = Q K^T and makes
+// P = exp(S scale - lse), hands it to warpgroup 1 through shared memory
+// (16 KB, named barriers), which reduces dP = dO V^T, makes dS = P (dP -
+// delta) scale and hands it back in place; each then adds dS K^T-units to
+// its half of the CTA's dQ columns (at 384, 128 and 64). So each does 3 D
+// FLOPs of the 6 D a pair (the two at 2 D against 4 D had warpgroup 1 alone
+// owned dQ). Each dQ row is summed in one CTA in key order: deterministic,
+// no atomics. lse and delta are per query, so the CTA's rows stay in
+// registers.
+//   D = 128 (dq_resident): Q and dO resident (hi, lo: 128 KB), one ring of
+//   5 slots of 16 KB (a 32-column panel of K or V, or 64 head_dim rows by
+//   32 keys of K^T, hi and lo) that both warpgroups walk, the hand-off:
+//   225 KB of 227. L2 bytes a k tile: 12 panels, 192 KB, for 3 x 6 x 128 x
+//   64 x 64 = 9.4 MFLOP (1 KB per 49 KFLOP).
+//   D = 256-512 (dq_streamed): hi and lo Q and dO (256 KB and up) cannot
+//   stay; a ring of 3 slots of 32 KB a warpgroup (a 32-column panel of Q
+//   and K, or of dO and V, or a 64-column unit of K^T), Q and dO read again
+//   each k tile: 209 KB. L2 bytes a k tile and CTA: (2 D / 32 + NUC) x 32
+//   KB, 640 / 864 / 1152 KB at 256 / 384 / 512 for 18.9 / 23.6 / 31.5
+//   MFLOP (1 KB per 29, 27, 27 KFLOP).
+//   Registers of a consumer: dQ up to 64, S or dP 32, unit sums 64,
+//   fragments 64, as the dK/dV's: 0 spills (ptxas).
+//   What bounds it (hack/torch/f32tc-dq-bound.py, builds with parts of
+//   the work left out, results wrong, on an H100 SXM): at D = 128 not the
+//   L2. Without its ring's loads or without the hand-off's barriers it ran
+//   within 3% of the full build; its products keep the tensor cores busy
+//   about 40% of its time after the prologue, and between them both warpgroups wait for the
+//   last unit's sum, make P or dS, hand it over and split it while
+//   nothing runs on the tensor cores. Overlapping that with the next k
+//   tile's products (a q tile a warpgroup, or the next S issued before
+//   the hand-off) is left to a later design. At 256-512 the streamed
+//   bytes are: without its ring's loads it ran 35% (256) and 27-28%
+//   (512) faster. Multicasting the panels that CTAs share (Q, dO, K, V
+//   across the column slices of one q tile) over a cluster would cut
+//   them; untried.
 //
 // The extern "C" entries launch on the caller's stream and return
 // cudaGetLastError(), cudaErrorInvalidValue for a (dtype, head_dim) they
 // were not built for, or the negated CUresult when a tensor map cannot be
-// built; the Python wrapper raises on any non-zero value. The forward and
-// the dK/dV take a workspace of flash_f32tc_workspace bytes for the
-// prologue's copies.
+// built; the Python wrapper raises on any non-zero value. Each takes a
+// workspace of flash_f32tc_workspace bytes for its prologue's copies.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,350 +194,6 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return r;
 }
 
-// ------------------------------------------- dQ machinery (mma.sync m16n8k8)
-
-constexpr int NT = 256;        // threads of the dQ kernel: 8 warps
-constexpr int C = 64;          // head_dim columns of a K/V chunk
-constexpr int LDC = C + 8;     // row stride of a chunk (floats, 8 mod 32)
-
-template <int D>
-constexpr int LDK = D + 8;   // row stride of Q, dO and a pass-2 piece (8 mod 32)
-
-// An A fragment (4 values) or a B fragment (2 values) split into TF32
-// hi and lo parts.
-template <int N>
-struct Frag {
-  uint32_t hi[N], lo[N];
-};
-
-template <int N>
-__device__ __forceinline__ Frag<N> split(const float (&x)[N]) {
-  Frag<N> f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    f.hi[i] = tf32_rna(x[i]);
-    f.lo[i] = tf32_rna(x[i] - __uint_as_float(f.hi[i]));
-  }
-  return f;
-}
-
-// d[16 x 8] += a[16 x 8] b[8 x 8], TF32 operands, f32 accumulators.
-// Fragments (g = lane / 4, t = lane % 4): a0 (row g, k t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, col g), b1 (t + 4, g); d0
-// (row g, col 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a b (a fresh sum in the tensor cores).
-__device__ __forceinline__ void mma_tf32_new(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.0f));
-}
-
-// d (+)= a b in 3xTF32: lo.hi + hi.lo + hi.hi, small terms first; `fresh`
-// starts a new sum in the tensor cores instead of adding to d.
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a,
-                                     const Frag<2>& b, bool fresh) {
-  if (fresh)
-    mma_tf32_new(d, a.lo, b.hi);
-  else
-    mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// -------------------------------------------------------------- cp.async
-
-// 16 bytes from src to dst, or 16 zero bytes when !valid (src unread).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows s0 .. s0 + ROWS - 1 (zeros at or past S) and COLS floats from
-// `src` (row s at src + s * ss) into dst (row stride ld), by all threads.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
-                                          int ss, int s0, int S) {
-  constexpr int V = COLS / 4;                 // 16-byte copies a row
-#pragma unroll 4
-  for (int e = threadIdx.x; e < ROWS * V; e += NT) {
-    const int r = e / V, c4 = e % V, s = s0 + r;
-    const bool ok = s < S;
-    cp_async16(dst + r * ld + 4 * c4,
-               ok ? src + static_cast<int64_t>(s) * ss + 4 * c4 : src, ok);
-  }
-}
-// ---------------------------------------------------------------- dQ
-//
-// _dq_kernel's function for f32: S = Q K^T, P = exp(S scale - lse), dP =
-// dO V^T, dS = P (dP - delta) scale, dQ += dS K, every product 3xTF32 (Q,
-// K, V, dO and dS split alike, in registers, by split above) with short
-// tensor-core sums (the header's hard part 4), on mma.sync m16n8k8 fed by
-// ld.shared from tiles that cp.async double-buffers, 256 threads. Bound
-// by tensor-core operations: 3 x 6 D FLOPs per visible pair and head at
-// 494.7 TFLOP/s. Each dQ row is summed in one CTA in key order
-// (deterministic). One CTA per (query block, head, batch), heaviest causal
-// blocks first:
-// QB = 64 queries at D = 128, 32 at 256-512, whose Q and dO stay in shared
-// memory (2 x QB x (D + 8) floats: 133 KB at 512), with their lse and
-// delta in registers. Key blocks of KB = 64 keys in order, causal blocks
-// past the CTA's last real row skipped. Per key block:
-//   * pass 1: S = Q K^T and dP = dO V^T over D / 64 pieces, each the 64
-//     keys by 64 head_dim columns of K and of V; warp w owns query row
-//     block w % (QB / 16) and key part w / (QB / 16). A piece's products
-//     are summed in the tensor cores from zero and added to S and dP in
-//     registers. Q and dO are the A operands, read as float2 (columns 2t,
-//     2t + 1 as the mma's k = t, t + 4), the pieces the B operands, the
-//     same way (row strides 8 mod 32: conflict-free);
-//   * P = exp(S scale - lse) (keys past Sk and causal keys at -1e30), dS
-//     = P (dP - delta) scale into sS [query][key] (row stride 4 mod 32);
-//   * pass 2: dQ += dS K over KB / R2 pieces of R2 key rows by all of
-//     head_dim (64 / 32 / 16 / 16 rows at D = 128 / 256 / 384 / 512, as
-//     many as fit a pass-1 piece's room): K N-major, keys the reduced
-//     index, read as scalars at rows 8 mod 32 floats apart, conflict-free;
-//     dS the split A operand. Warp w owns the row block and head_dim part
-//     w / (QB / 16) of dQ, in registers (64 a thread at D = 512); each
-//     piece's sums start from zero in the tensor cores and are added in.
-// So K is read twice a key block (in column pieces, then in row pieces)
-// and V once, all through two cp.async slots, one __syncthreads a piece.
-// Budgets: Q and dO, 2 slots of 2 x 64 x 72 floats, sS: 215,552 bytes at
-// D = 512, 160,768 at 128. Registers: dQ 2 x QB x D / 256 (32 at 128, 64
-// at 256-512) and as many tensor-core sums in pass 2.
-template <int D>
-constexpr int DQ_QB = D == 128 ? 64 : 32;   // queries of a CTA
-constexpr int DQ_KB = 64;                   // keys of a block
-template <int D>
-constexpr int DQ_R2 = D == 128 ? 64 : D == 256 ? 32 : 16;  // pass-2 rows
-constexpr int DQ_SLOT = 2 * DQ_KB * LDC;    // a K and a V piece (floats)
-constexpr int LDS = DQ_KB + 4;              // row stride of sS (4 mod 32)
-template <int D>
-constexpr int DQ_SMEM = 4 * (2 * DQ_QB<D> * LDK<D> + 2 * DQ_SLOT +
-                             DQ_QB<D> * LDS);
-
-static_assert(DQ_R2<128> * LDK<128> <= DQ_SLOT &&
-                  DQ_R2<256> * LDK<256> <= DQ_SLOT &&
-                  DQ_R2<384> * LDK<384> <= DQ_SLOT &&
-                  DQ_R2<512> * LDK<512> <= DQ_SLOT,
-              "a pass-2 piece over its slot");
-static_assert(DQ_SMEM<128> <= 232448 && DQ_SMEM<256> <= 232448 &&
-                  DQ_SMEM<384> <= 232448 && DQ_SMEM<512> <= 232448,
-              "shared memory over the 227 KB a block can use");
-
-template <int D>
-__global__ void __launch_bounds__(NT, 1) flash_dq_f32tc_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int H, int Hkv, int Sq, int Sk, int q_sb,
-    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
-    int v_sh, int do_sb, int do_ss, int do_sh, int causal, int q_offset,
-    float scale) {
-  constexpr int QB = DQ_QB<D>, LK = LDK<D>, R2Q = DQ_R2<D>;
-  constexpr int RB = QB / 16, CP = 8 / RB;  // row blocks, column parts
-  constexpr int NT1 = DQ_KB / CP / 8;       // pass 1: key n-tiles a warp
-  constexpr int NT2 = D / CP / 8;           // pass 2: head_dim n-tiles a warp
-  constexpr int P1 = D / C, P2 = DQ_KB / R2Q;  // pieces of the two passes
-  constexpr int KS2 = R2Q / 8;              // k-steps of a pass-2 piece
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                         // [QB][LK]
-  float* sdO = sQ + QB * LK;
-  float* sSlot = sdO + QB * LK;             // 2 slots of DQ_SLOT
-  float* sS = sSlot + 2 * DQ_SLOT;          // dS [query][key]
-
-  const int nqb = cdiv(Sq, QB);
-  const int hb = gridDim.x / nqb;           // H * B
-  const int blk = static_cast<int>(blockIdx.x);
-  const int q0 = (nqb - 1 - blk / hb) * QB, h = blk % hb % H;
-  const int b = blk % hb / H, hk = h / (H / Hkv);
-  int nkb = cdiv(Sk, DQ_KB);
-  if (causal)
-    nkb = min(nkb, (min(q0 + QB, Sq) - 1 + q_offset) / DQ_KB + 1);
-  const float* qp = q + static_cast<int64_t>(b) * q_sb +
-                    static_cast<int64_t>(h) * q_sh;
-  const float* dop = dout + static_cast<int64_t>(b) * do_sb +
-                     static_cast<int64_t>(h) * do_sh;
-  const float* kp = k + static_cast<int64_t>(b) * k_sb +
-                    static_cast<int64_t>(hk) * k_sh;
-  const float* vp = v + static_cast<int64_t>(b) * v_sb +
-                    static_cast<int64_t>(hk) * v_sh;
-  const int total = nkb * (P1 + P2);
-
-  // Issue the copies of piece p into slot p % 2 (and, first, Q and dO):
-  // piece j < P1 of a key block is head_dim chunk j of its K and V, piece
-  // P1 + r its K rows R2Q r .. R2Q (r + 1) - 1.
-  auto issue = [&](int p) {
-    const int k0 = p / (P1 + P2) * DQ_KB, j = p % (P1 + P2);
-    float* slot = sSlot + (p & 1) * DQ_SLOT;
-    if (p == 0) {
-      load_rows<QB, D>(sQ, LK, qp, q_ss, q0, Sq);
-      load_rows<QB, D>(sdO, LK, dop, do_ss, q0, Sq);
-    }
-    if (j < P1) {
-      load_rows<DQ_KB, C>(slot, LDC, kp + j * C, k_ss, k0, Sk);
-      load_rows<DQ_KB, C>(slot + DQ_KB * LDC, LDC, vp + j * C, v_ss, k0, Sk);
-    } else {
-      load_rows<R2Q, D>(slot, LK, kp, k_ss, k0 + (j - P1) * R2Q, Sk);
-    }
-    cp_async_commit();
-  };
-  auto next_piece = [&](int p) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (p + 1 < total) issue(p + 1);
-  };
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp % RB * 16;            // the warp's 16 queries
-  const int cpart = warp / RB;              // its key part / head_dim part
-
-  // Rows past Sq keep lse = delta = 0: their Q and dO rows are zeros, so
-  // their P and dS stay finite, and they are never stored.
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int pos = q0 + r0 + g + 8 * r;
-    const int64_t at = (static_cast<int64_t>(b) * H + h) * Sq + pos;
-    row_lse[r] = pos < Sq ? lse[at] : 0.0f;
-    row_delta[r] = pos < Sq ? delta[at] : 0.0f;
-  }
-
-  float acc[NT2][4];
-#pragma unroll
-  for (int n = 0; n < NT2; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  if (total > 0) issue(0);
-  int p = 0;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * DQ_KB;
-    // Pass 1: S = Q K^T and dP = dO V^T over the chunks. The warp's keys
-    // are n-tiles cpart * NT1 + j; a chunk's sums stay in the tensor cores
-    // (s_c, d_c), then are added to s and dp.
-    float s[NT1][4], dp[NT1][4];
-#pragma unroll
-    for (int j = 0; j < NT1; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-#pragma unroll 1
-    for (int c = 0; c < P1; ++c, ++p) {
-      next_piece(p);
-      const float* cK = sSlot + (p & 1) * DQ_SLOT;
-      const float* cV = cK + DQ_KB * LDC;
-      const float* rQ = sQ + (r0 + g) * LK + c * C + 2 * t;
-      const float* rO = sdO + (r0 + g) * LK + c * C + 2 * t;
-      float s_c[NT1][4], d_c[NT1][4];
-#pragma unroll
-      for (int kk = 0; kk < C / 8; ++kk) {
-        // Rows g and g + 8 of the warp's queries.
-        const float2 qg = *reinterpret_cast<const float2*>(rQ + kk * 8);
-        const float2 qg8 =
-            *reinterpret_cast<const float2*>(rQ + 8 * LK + kk * 8);
-        const float2 og = *reinterpret_cast<const float2*>(rO + kk * 8);
-        const float2 og8 =
-            *reinterpret_cast<const float2*>(rO + 8 * LK + kk * 8);
-        const Frag<4> aq = split<4>({qg.x, qg8.x, qg.y, qg8.y});
-        const Frag<4> ao = split<4>({og.x, og8.x, og.y, og8.y});
-#pragma unroll
-        for (int j = 0; j < NT1; ++j) {
-          const int n = (cpart * NT1 + j) * 8 + g;
-          const float2 k2 = *reinterpret_cast<const float2*>(
-              cK + n * LDC + kk * 8 + 2 * t);
-          const float2 v2 = *reinterpret_cast<const float2*>(
-              cV + n * LDC + kk * 8 + 2 * t);
-          mma3(s_c[j], aq, split<2>({k2.x, k2.y}), kk == 0);
-          mma3(d_c[j], ao, split<2>({v2.x, v2.y}), kk == 0);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT1; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] += s_c[j][e];
-          dp[j][e] += d_c[j][e];
-        }
-    }
-
-    // dS of the warp's tile into sS (every warp read it last in the
-    // previous key block's pass 2, before the syncs above).
-#pragma unroll
-    for (int j = 0; j < NT1; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = r0 + g + 8 * (e / 2);
-        const int kc = (cpart * NT1 + j) * 8 + 2 * t + e % 2;
-        const int key = k0 + kc;
-        float x = s[j][e] * scale;
-        if (key >= Sk || (causal && q0 + qr + q_offset < key)) x = NEG_INF;
-        const float pv = expf(x - row_lse[e / 2]);
-        sS[qr * LDS + kc] = pv * (dp[j][e] - row_delta[e / 2]) * scale;
-      }
-
-    // Pass 2: dQ += dS K, KS2 8-key steps a piece, on the warp's head_dim
-    // columns cpart * D / CP + 8n. A piece's sums stay in the tensor cores
-    // (tq), then are added to acc.
-#pragma unroll 1
-    for (int pc = 0; pc < P2; ++pc, ++p) {
-      next_piece(p);
-      const float* cK = sSlot + (p & 1) * DQ_SLOT;
-      float tq[NT2][4];
-#pragma unroll
-      for (int ks = 0; ks < KS2; ++ks) {
-        const float* aS = sS + (r0 + g) * LDS + pc * R2Q + ks * 8 + t;
-        const Frag<4> as =
-            split<4>({aS[0], aS[8 * LDS], aS[4], aS[8 * LDS + 4]});
-#pragma unroll
-        for (int n = 0; n < NT2; ++n) {
-          const int col = cpart * (D / CP) + n * 8 + g;
-          const float* bK = cK + (ks * 8 + t) * LK + col;
-          mma3(tq[n], as, split<2>({bK[0], bK[4 * LK]}), ks == 0);
-          if (ks == KS2 - 1) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[n][e] += tq[n][e];
-          }
-        }
-      }
-    }
-  }
-
-  // Write the block's dQ rows (rows past Sq never).
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int pos = q0 + r0 + g + 8 * half;
-    if (pos >= Sq) continue;
-    const int64_t base = (static_cast<int64_t>(b) * Sq + pos) * H * D +
-                         static_cast<int64_t>(h) * D;
-#pragma unroll
-    for (int n = 0; n < NT2; ++n) {
-      const int col = cpart * (D / CP) + n * 8 + 2 * t;
-      *reinterpret_cast<float2*>(dq + base + col) =
-          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
-    }
-  }
-}
-
-
 // ------------------------------------------- Hopper kernels (wgmma, TMA)
 
 constexpr int T = 64;                          // tile rows (q and k)
@@ -510,6 +203,7 @@ constexpr int PANEL = hopper::PANEL_BYTES;     // 64 rows x 32 f32: 8 KB
 constexpr int UNIT = 4 * PANEL;                // a ring slot: 32 KB
 constexpr int CW = 128;                        // output columns of a CTA
 constexpr int P_FULL = 1, P_EMPTY = 2;         // named barriers (dK/dV)
+constexpr int DS_FULL = 3;                     // (dQ, with P_FULL)
 
 // Fragment column c of a k-step is accumulator column PERM8[c] (see the
 // header, hard part 2); the prologue permutes the S index of the
@@ -1410,9 +1104,436 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_dkv_f32tc_kernel(
                     scale);
 }
 
+// ---------------------------------------------------------------------- dQ
+//
+// Two layouts of one design (header), as the dK/dV's: at D = 128 Q and dO
+// stay resident (hi and lo, 128 KB) and each k tile streams its K, V and
+// K^T panels through one ring of 16 KB slots (dq_resident); at 256-512
+// they cannot, and Q and dO panels ride with each k tile's K and V panels
+// through a ring of 32 KB slots a warpgroup (dq_streamed).
+
+template <int D>
+struct Dq {
+  static constexpr bool QRES = D == 128;       // Q and dO resident
+  static constexpr int NZ = (D + 255) / 256;   // column slices of dQ
+  static constexpr int NUC = D / 64 / NZ;      // its 64-column units: 2-4
+  // Units of warpgroup 0 and 1 (at 384, 2 and 1).
+  static constexpr int NU0 = (NUC + 1) / 2, NU1 = NUC / 2;
+  static constexpr int CW = 64 * NUC;          // columns of a CTA
+  static constexpr int NSU = D / 32;           // S / dP units a k tile
+  // Resident: units of one panel (hi, lo: 16 KB), NSU + 2 a warpgroup a k
+  // tile, in one ring; streamed: units of 32 KB, NSU + NU_g a warpgroup a k
+  // tile, in a ring each.
+  static constexpr int SLOT = QRES ? 2 * PANEL : UNIT;
+  static constexpr int R = QRES ? 5 : 3;
+  static constexpr int RINGS = QRES ? 1 : 2;
+  static constexpr int QD = QRES ? 2 * 2 * NSU * PANEL : 0;
+  static constexpr int SMEM =
+      1024 + QD + RINGS * R * SLOT + T * T * 4 + 8 * (1 + 2 * RINGS * R);
+};
+
+// The q tile of one CTA, its visible k tiles, its (column slice, head,
+// batch) and the first of its dQ columns; heaviest causal q tiles first.
+struct DqWork {
+  int i, h, hk, b, nk, col0;
+};
+
+template <int NZ, int CW>
+__device__ __forceinline__ DqWork dq_work(int H, int Hkv, int Sq, int Sk,
+                                          int causal, int q_offset) {
+  DqWork w;
+  const int nqt = n_tiles(Sq);
+  const int rest = gridDim.x / nqt;               // NZ * H * B
+  const int blk = static_cast<int>(blockIdx.x);
+  const int r = blk % rest;
+  w.i = nqt - 1 - blk / rest;
+  w.h = r / NZ % H;
+  w.b = r / NZ / H;
+  w.hk = w.h / (H / Hkv);
+  w.nk = k_tiles_visible(w.i, n_tiles(Sk), causal, q_offset);
+  w.col0 = CW * (r % NZ);
+  return w;
+}
+
+// lse (warpgroup 0) or delta of this thread's two accumulator rows of q
+// tile i; rows past Sq get 0 (their Q and dO rows load as zeros, so their
+// P and dS stay finite, and they are never stored).
+__device__ __forceinline__ void dq_rows(float (&stat)[2], const float* row,
+                                        int i, int Sq, int tid) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = i * T + 16 * (tid / 32) + (tid % 32) / 4 + 8 * r;
+    stat[r] = q < Sq ? row[q] : 0.0f;
+  }
+}
+
+// dS of q tile i, k tile j from x = S (warpgroup 0) or dP (warpgroup 1),
+// in both warpgroups' x: warpgroup 0 makes P = exp(S scale - lse) (the
+// causal mask on diagonal tiles, keys past Sk at -1e30) and hands it to
+// warpgroup 1 through sP; warpgroup 1 makes dS = P (dP - delta) scale and
+// hands it back in place. Each thread reads and writes only its own
+// accumulator positions, so neither hand-off needs more than its barrier:
+// warpgroup 0 writes the next P only after reading this dS, and warpgroup 1
+// reads sP only after the next P_FULL.
+__device__ __forceinline__ void dq_operand(float (&x)[32], int wg,
+                                           const float (&stat)[2], float* sP,
+                                           int i, int j, int Sk, int causal,
+                                           int q_offset, float scale,
+                                           int tid) {
+  using namespace hopper;
+  const int warp = tid / 32, lane = tid % 32;
+  if (wg == 0) {
+    const bool diag = causal && j * T + T - 1 > i * T + q_offset;
+    const int keys = Sk - j * T;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = acc_col(e, lane);
+      float y = x[e] * scale;
+      if ((diag && i * T + acc_row(e, warp, lane) + q_offset < j * T + col) ||
+          col >= keys)
+        y = NEG_INF;
+      x[e] = expf(y - stat[(e % 4) / 2]);
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sP[e * 128 + tid] = x[e];
+    named_arrive(P_FULL, 256);
+    named_sync(DS_FULL, 256);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) x[e] = sP[e * 128 + tid];
+  } else {
+    named_sync(P_FULL, 256);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      x[e] = sP[e * 128 + tid] * (x[e] - stat[(e % 4) / 2]) * scale;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sP[e * 128 + tid] = x[e];
+    named_arrive(DS_FULL, 256);
+  }
+}
+
+// D = 128: Q and dO of the q tile resident (hi then lo, 4 panels each),
+// one ring of R slots of one panel's hi and lo, filled by thread 256 in
+// the order the warpgroups take them: per k tile, unit k of warpgroup w at
+// 2k + w (k < 4: K or V panel k; k = 4, 5: keys 32 (k - 4) .. of K^T rows
+// col0 + 64 w ..). Every consumer warp walks every position, as in
+// dkv_resident (see there why).
+template <int D>
+__device__ __forceinline__ void dq_resident(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap,
+    const CUtensorMap* ktmap, const float* lse, const float* delta,
+    float* dq, int B, int H, int Hkv, int Sq, int Sk, int causal,
+    int q_offset, float scale) {
+  using namespace hopper;
+  using F = Dq<D>;
+  constexpr int R = F::R, NP = F::NSU, U = 2 * (NP + 2);
+  static_assert(F::NU0 == 1 && F::NU1 == 1, "one unit a warpgroup");
+  unsigned char* sQD = align_1024(smem);          // Q at 0, dO at QD / 2
+  unsigned char* sRing = sQD + F::QD;
+  float* sP = reinterpret_cast<float*>(sRing + R * F::SLOT);
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(sP + T * T);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = full + R;
+
+  const DqWork w = dq_work<F::NZ, F::CW>(H, Hkv, Sq, Sk, causal, q_offset);
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qd_full, F::QD);
+      for (int part = 0; part < 2; ++part)
+        for (int p = 0; p < NP; ++p) {
+          tma_load_panel(sQD + (part * NP + p) * PANEL, qmap, qd_full, 32 * p,
+                         w.h, w.i * T, w.b + part * B);
+          tma_load_panel(sQD + F::QD / 2 + (part * NP + p) * PANEL, domap,
+                         qd_full, 32 * p, w.h, w.i * T, w.b + part * B);
+        }
+      int u = 0;
+      for (int j = 0; j < w.nk; ++j) {
+        for (int o = 0; o < U; ++o, ++u) {
+          const int s = u % R, use = u / R, g = o % 2, k = o / 2;
+          if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+          unsigned char* dst = sRing + s * F::SLOT;
+          mbar_expect_tx(&full[s], F::SLOT);
+          for (int part = 0; part < 2; ++part) {
+            if (k < NP)
+              tma_load_panel(dst + part * PANEL, g == 0 ? kmap : vmap,
+                             &full[s], 32 * k, w.hk, j * T, w.b + part * B);
+            else
+              tma_load_panel(dst + part * PANEL, ktmap, &full[s],
+                             j * T + 32 * (k - NP), w.hk, w.col0 + 64 * g,
+                             w.b + part * B);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<232>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const unsigned char* sA = sQD + wg * (F::QD / 2);  // Q (wg 0) or dO
+  // Unit k of this warpgroup in k tile j.
+  auto pos = [&](int j, int k) { return j * U + 2 * k + wg; };
+  auto slot_of = [&](int unit) { return sRing + unit % R * F::SLOT; };
+  auto release = [&](int unit) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[unit % R]);
+  };
+  // Take this warpgroup's unit, passing the other's just before it.
+  auto acquire = [&](int unit) {
+    if (unit > 0) {
+      mbar_wait(&full[(unit - 1) % R], ((unit - 1) / R) & 1);
+      release(unit - 1);
+    }
+    mbar_wait(&full[unit % R], (unit / R) & 1);
+  };
+
+  float stat[2];
+  dq_rows(stat, (wg == 0 ? lse : delta) +
+                    (static_cast<int64_t>(w.b) * H + w.h) * Sq,
+          w.i, Sq, tid);
+  float acc[32];                                  // dQ, 64 columns
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+
+  mbar_wait(qd_full, 0);
+  for (int j = 0; j < w.nk; ++j) {
+    float x[32], tc[2][32];
+    // S = Q K^T (wg 0) or dP = dO V^T over head_dim, a panel a unit.
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      acquire(pos(j, p));
+      const unsigned char* st = slot_of(pos(j, p));
+      wgmma_fence();
+      unit_ss<4>(
+          tc[p % 2],
+          [&](int kk, int part) { return sA + (part * NP + p) * PANEL; },
+          [&](int kk, int part) { return st + part * PANEL; });
+      wgmma_commit();
+      if (p > 0) {
+        wgmma_wait<1>();
+        add_unit(x, tc[(p - 1) % 2], p == 1);
+        release(pos(j, p - 1));
+      }
+    }
+    wgmma_wait<0>();
+    add_unit(x, tc[(NP - 1) % 2], NP == 1);
+    release(pos(j, NP - 1));
+
+    dq_operand(x, wg, stat, sP, w.i, j, Sk, causal, q_offset, scale, tid);
+
+    // dQ += dS K over this warpgroup's 64 columns: the two 32-key panels
+    // of K^T, 8 k-steps summed in the tensor cores.
+    uint32_t fh[8][4], fl[8][4];
+    split_frags(fh, fl, x);
+    wgmma_fence();
+#pragma unroll
+    for (int pk = 0; pk < 2; ++pk) {
+      const int unit = pos(j, NP + pk);
+      acquire(unit);
+      const unsigned char* st = slot_of(unit);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bhi = desc_panel(st, kk);
+        const uint64_t blo = desc_panel(st + PANEL, kk);
+        wgmma_tf32_rs(tc[0], fl[4 * pk + kk], bhi, pk > 0 || kk > 0);
+        wgmma_tf32_rs(tc[0], fh[4 * pk + kk], blo, 1);
+        wgmma_tf32_rs(tc[0], fh[4 * pk + kk], bhi, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(tc[0]);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] += tc[0][e];
+    release(pos(j, NP));
+    release(pos(j, NP + 1));
+  }
+
+  // This warpgroup's 64 columns of dQ; query rows past Sq never.
+  store_acc(dq + (static_cast<int64_t>(w.b) * Sq + w.i * T) * H * D +
+                static_cast<int64_t>(w.h) * D + w.col0 + 64 * wg,
+            acc, H * D, Sq - w.i * T, warp, lane);
+}
+
+// D = 256-512: two rings of R slots of 32 KB, one a warpgroup, each with
+// its producer thread: warpgroup 0's (thread 256) Q and K panels, then its
+// K^T units; warpgroup 1's (thread 288) dO and V panels, then its K^T
+// units. A K^T unit is 64 head_dim rows by the k tile's 64 keys.
+template <int D>
+__device__ __forceinline__ void dq_streamed(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap,
+    const CUtensorMap* ktmap, const float* lse, const float* delta,
+    float* dq, int B, int H, int Hkv, int Sq, int Sk, int causal,
+    int q_offset, float scale) {
+  using namespace hopper;
+  using F = Dq<D>;
+  constexpr int R = F::R, NSU = F::NSU;
+  unsigned char* sRing = align_1024(smem);        // ring g: R slots at g R
+  float* sP = reinterpret_cast<float*>(sRing + 2 * R * UNIT);  // P, dS
+  uint64_t* full = reinterpret_cast<uint64_t*>(sP + T * T);
+  uint64_t* empty = full + 2 * R;                 // [ring][slot]
+
+  const DqWork w = dq_work<F::NZ, F::CW>(H, Hkv, Sq, Sk, causal, q_offset);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * R; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS / 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    const int g = (threadIdx.x - 256) / 32;
+    if (threadIdx.x % 32 == 0 && g < 2) {
+      const CUtensorMap* amap = g == 0 ? qmap : domap;
+      const CUtensorMap* bmap = g == 0 ? kmap : vmap;
+      const int U = NSU + (g == 0 ? F::NU0 : F::NU1);
+      const int col = w.col0 + 64 * (g == 0 ? 0 : F::NU0);
+      unsigned char* ring = sRing + g * R * UNIT;
+      int u = 0;
+      for (int j = 0; j < w.nk; ++j) {
+        for (int p = 0; p < U; ++p, ++u) {
+          const int s = u % R, use = u / R;
+          if (use > 0) mbar_wait(&empty[g * R + s], (use - 1) & 1);
+          unsigned char* dst = ring + s * UNIT;
+          uint64_t* bar = &full[g * R + s];
+          mbar_expect_tx(bar, UNIT);
+          for (int part = 0; part < 2; ++part) {
+            if (p < NSU) {
+              tma_load_panel(dst + part * PANEL, amap, bar, 32 * p, w.h,
+                             w.i * T, w.b + part * B);
+              tma_load_panel(dst + (2 + part) * PANEL, bmap, bar, 32 * p,
+                             w.hk, j * T, w.b + part * B);
+            } else {
+              for (int c = 0; c < 2; ++c)
+                tma_load_panel(dst + (2 * part + c) * PANEL, ktmap, bar,
+                               j * T + 32 * c, w.hk, col + 64 * (p - NSU),
+                               w.b + part * B);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<232>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int nu = wg == 0 ? F::NU0 : F::NU1;       // this warpgroup's units
+  const int U = NSU + nu;
+  const unsigned char* ring = sRing + wg * R * UNIT;
+  auto slot_of = [&](int unit) { return ring + unit % R * UNIT; };
+  auto wait_unit = [&](int unit) {
+    mbar_wait(&full[wg * R + unit % R], (unit / R) & 1);
+  };
+  auto release = [&](int unit) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[wg * R + unit % R]);
+  };
+
+  float stat[2];
+  dq_rows(stat, (wg == 0 ? lse : delta) +
+                    (static_cast<int64_t>(w.b) * H + w.h) * Sq,
+          w.i, Sq, tid);
+  float acc[2][32];                               // dQ, up to 128 columns
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.0f;
+
+  int u = 0;
+  for (int j = 0; j < w.nk; ++j, u += U) {
+    float x[32], tc[2][32];
+    // S = Q K^T (wg 0) or dP = dO V^T (wg 1) over head_dim: a unit is a
+    // 32-column panel of both operands, A at panels 0-1, B at 2-3.
+#pragma unroll
+    for (int p = 0; p < NSU; ++p) {
+      wait_unit(u + p);
+      const unsigned char* st = slot_of(u + p);
+      wgmma_fence();
+      unit_ss<4>(
+          tc[p % 2], [&](int kk, int part) { return st + part * PANEL; },
+          [&](int kk, int part) { return st + (2 + part) * PANEL; });
+      wgmma_commit();
+      if (p > 0) {
+        wgmma_wait<1>();
+        add_unit(x, tc[(p - 1) % 2], p == 1);
+        release(u + p - 1);
+      }
+    }
+    wgmma_wait<0>();
+    add_unit(x, tc[(NSU - 1) % 2], NSU == 1);
+    release(u + NSU - 1);
+
+    dq_operand(x, wg, stat, sP, w.i, j, Sk, causal, q_offset, scale, tid);
+
+    // dQ += dS K over this warpgroup's 64-column units, B a K^T unit.
+    uint32_t fh[8][4], fl[8][4];
+    split_frags(fh, fl, x);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (c >= nu) break;
+      const int unit = u + NSU + c;
+      wait_unit(unit);
+      wgmma_fence();
+      unit_rs(tc[0], fh, fl, slot_of(unit));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(tc[0]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] += tc[0][e];
+      release(unit);
+    }
+  }
+
+  // This warpgroup's units of dQ; query rows past Sq never.
+  float* dst = dq + (static_cast<int64_t>(w.b) * Sq + w.i * T) * H * D +
+               static_cast<int64_t>(w.h) * D + w.col0 +
+               64 * (wg == 0 ? 0 : F::NU0);
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    if (c < nu) store_acc(dst + 64 * c, acc[c], H * D, Sq - w.i * T, warp,
+                          lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT_WS, 1) flash_dq_f32tc_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap,
+    const __grid_constant__ CUtensorMap ktmap, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int B, int H,
+    int Hkv, int Sq, int Sk, int causal, int q_offset, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  if constexpr (Dq<D>::QRES)
+    dq_resident<D>(smem_raw, &qmap, &kmap, &vmap, &domap, &ktmap, lse, delta,
+                   dq, B, H, Hkv, Sq, Sk, causal, q_offset, scale);
+  else
+    dq_streamed<D>(smem_raw, &qmap, &kmap, &vmap, &domap, &ktmap, lse, delta,
+                   dq, B, H, Hkv, Sq, Sk, causal, q_offset, scale);
+}
+
 static_assert(Fwd<128>::SMEM <= 232448 && Fwd<256>::SMEM <= 232448 &&
                   Fwd<384>::SMEM <= 232448 && Fwd<512>::SMEM <= 232448 &&
-                  Dkv<128>::SMEM <= 232448 && Dkv<512>::SMEM <= 232448,
+                  Dkv<128>::SMEM <= 232448 && Dkv<512>::SMEM <= 232448 &&
+                  Dq<128>::SMEM <= 232448 && Dq<512>::SMEM <= 232448,
               "shared memory over the 227 KB a block can use");
 
 // The prologue's copies, in floats: the forward's Q and K ([2][B][S][H][D])
@@ -1489,6 +1610,38 @@ int prologue_dkv(const float* q, const float* k, const float* v,
   return split(v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, vs, nullptr, stream);
 }
 
+// The dQ's copies in its workspace: [Q | dO | K | V | K^T].
+struct DqCopies {
+  float *q, *dout, *k, *v, *kt;
+};
+inline DqCopies dq_copies(float* ws, int B, int H, int Hkv, int Sq, int Sk,
+                          int D) {
+  const Copies n = copies(B, H, Hkv, Sq, Sk, D);
+  DqCopies c;
+  c.q = ws;
+  c.dout = c.q + 2 * n.q;
+  c.k = c.dout + 2 * n.q;
+  c.v = c.k + 2 * n.kv;
+  c.kt = c.v + 2 * n.kv;
+  return c;
+}
+
+// The dQ's prologue: Q, dO and V split, K split and transposed.
+int prologue_dq(const float* q, const float* k, const float* v,
+                const float* dout, float* ws, int B, int H, int Hkv, int Sq,
+                int Sk, int D, int q_sb, int q_ss, int q_sh, int k_sb,
+                int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, int do_sb,
+                int do_ss, int do_sh, cudaStream_t stream) {
+  const DqCopies c = dq_copies(ws, B, H, Hkv, Sq, Sk, D);
+  int rc;
+  if ((rc = split(q, B, Sq, H, D, q_sb, q_ss, q_sh, c.q, nullptr, stream)) ||
+      (rc = split(dout, B, Sq, H, D, do_sb, do_ss, do_sh, c.dout, nullptr,
+                  stream)) ||
+      (rc = split(k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, c.k, c.kt, stream)))
+    return rc;
+  return split(v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, c.v, nullptr, stream);
+}
+
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, float* out,
                float* lse, float* ws, int B, int H, int Hkv, int Sq, int Sk,
@@ -1521,18 +1674,31 @@ int launch_fwd(const float* q, const float* k, const float* v, float* out,
 template <int D>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* delta,
-              float* dq, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
-              int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
-              int v_ss, int v_sh, int do_sb, int do_ss, int do_sh, int causal,
-              int q_offset, float scale, cudaStream_t stream) {
+              float* dq, float* ws, int B, int H, int Hkv, int Sq, int Sk,
+              int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+              int v_sb, int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
+              int causal, int q_offset, float scale, cudaStream_t stream) {
+  const DqCopies c = dq_copies(ws, B, H, Hkv, Sq, Sk, D);
+  int rc;
+  if ((rc = prologue_dq(q, k, v, dout, ws, B, H, Hkv, Sq, Sk, D, q_sb, q_ss,
+                        q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb,
+                        do_ss, do_sh, stream)))
+    return rc;
+  CUtensorMap qm, km, vm, dom, ktm;
+  CUresult cr;
+  if ((cr = nat_map(&qm, c.q, B, Sq, H, D)) ||
+      (cr = nat_map(&dom, c.dout, B, Sq, H, D)) ||
+      (cr = nat_map(&km, c.k, B, Sk, Hkv, D)) ||
+      (cr = nat_map(&vm, c.v, B, Sk, Hkv, D)) ||
+      (cr = trn_map(&ktm, c.kt, B, Sk, Hkv, D)))
+    return -static_cast<int>(cr);
   cudaFuncSetAttribute(flash_dq_f32tc_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       DQ_SMEM<D>);
-  flash_dq_f32tc_kernel<D>
-      <<<cdiv(Sq, DQ_QB<D>) * H * B, NT, DQ_SMEM<D>, stream>>>(
-          q, k, v, dout, lse, delta, dq, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh,
-          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal,
-          q_offset, scale);
+                       Dq<D>::SMEM);
+  const int grid = n_tiles(Sq) * Dq<D>::NZ * H * B;
+  flash_dq_f32tc_kernel<D><<<grid, NT_WS, Dq<D>::SMEM, stream>>>(
+      qm, km, vm, dom, ktm, lse, delta, dq, B, H, Hkv, Sq, Sk, causal,
+      q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1588,27 +1754,28 @@ extern "C" {
   }                                          \
   return (int)cudaErrorInvalidValue;
 
-// Bytes of the workspace the forward (kind 0) or the dK/dV (kind 2) takes
-// for its prologue's copies; the dQ (kind 1) takes none.
+// Bytes of the workspace the forward (kind 0), the dQ (kind 1) or the
+// dK/dV (kind 2) takes for its prologue's copies.
 long long flash_f32tc_workspace(int kind, int B, int H, int Hkv, int Sq,
                                 int Sk, int head_dim) {
   const Copies n = copies(B, H, Hkv, Sq, Sk, head_dim);
-  const int64_t parts = kind == 0 ? 2 * n.q + 4 * n.kv
-                        : kind == 2 ? 8 * n.q + 4 * n.kv : 0;
+  const int64_t parts = kind == 0   ? 2 * n.q + 4 * n.kv
+                        : kind == 1 ? 4 * n.q + 6 * n.kv
+                                    : 8 * n.q + 4 * n.kv;
   return static_cast<long long>(parts) * 4;
 }
 
-// The prologue of the forward (kind 0) or of the dK/dV (kind 2) alone,
-// into a workspace of flash_f32tc_workspace bytes: the launches the two
-// entries below make first, for timing them apart and checking the
-// copies (dout unread by the forward's).
+// The prologue of the forward (kind 0), the dQ (kind 1) or the dK/dV
+// (kind 2) alone, into a workspace of flash_f32tc_workspace bytes: the
+// launches the three entries below make first, for timing them apart and
+// checking the copies (dout unread by the forward's).
 int flash_prologue_f32tc(int kind, const void* q, const void* k,
                          const void* v, const void* dout, int B, int H,
                          int Hkv, int Sq, int Sk, int q_sb, int q_ss,
                          int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
                          int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
                          void* workspace, int head_dim, void* stream) {
-  if ((kind != 0 && kind != 2) || workspace == nullptr ||
+  if (kind < 0 || kind > 2 || workspace == nullptr ||
       (head_dim != 128 && head_dim != 256 && head_dim != 384 &&
        head_dim != 512))
     return (int)cudaErrorInvalidValue;
@@ -1617,6 +1784,11 @@ int flash_prologue_f32tc(int kind, const void* q, const void* k,
                         (float*)workspace, B, H, Hkv, Sq, Sk, head_dim, q_sb,
                         q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                         (cudaStream_t)stream);
+  if (kind == 1)
+    return prologue_dq((const float*)q, (const float*)k, (const float*)v,
+                       (const float*)dout, (float*)workspace, B, H, Hkv, Sq,
+                       Sk, head_dim, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                       v_ss, v_sh, do_sb, do_ss, do_sh, (cudaStream_t)stream);
   return prologue_dkv((const float*)q, (const float*)k, (const float*)v,
                       (const float*)dout, (float*)workspace, B, H, Hkv, Sq,
                       Sk, head_dim, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
@@ -1638,20 +1810,23 @@ int flash_fwd_f32tc(const void* q, const void* k, const void* v, void* out,
                causal, q_offset, scale, (cudaStream_t)stream))
 }
 
+// workspace: flash_f32tc_workspace(1, ...) bytes for the prologue's
+// copies.
 int flash_dq_f32tc(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int B, int H, int Hkv, int Sq, int Sk, int q_sb,
                    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
                    int v_ss, int v_sh, int do_sb, int do_ss, int do_sh,
-                   int causal, int q_offset, float scale, int dtype,
-                   int head_dim, void* stream) {
-  if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
+                   void* workspace, int causal, int q_offset, float scale,
+                   int dtype, int head_dim, void* stream) {
+  if (dtype != DT_F32 || workspace == nullptr)
+    return (int)cudaErrorInvalidValue;
   F32TC_CASES(launch_dq,
               ((const float*)q, (const float*)k, (const float*)v,
                (const float*)dout, (const float*)lse, (const float*)delta,
-               (float*)dq, B, H, Hkv, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss,
-               k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal, q_offset,
-               scale, (cudaStream_t)stream))
+               (float*)dq, (float*)workspace, B, H, Hkv, Sq, Sk, q_sb, q_ss,
+               q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
+               causal, q_offset, scale, (cudaStream_t)stream))
 }
 
 // workspace: flash_f32tc_workspace(2, ...) bytes for the prologue's

@@ -19,11 +19,11 @@ f32), in two families picked per kernel by (kind, dtype, head_dim)
 - f32 at every head_dim: the tensor-core kernels of
   ``csrc/flash_attention_f32tc.cu`` (``flash_fwd_f32tc``,
   ``flash_dq_f32tc``, ``flash_dkv_f32tc``), whose products are 3xTF32
-  (each f32 operand split into two TF32 parts), within f32's limits. The
-  forward and the dK/dV are wgmma/TMA kernels fed by a prologue that
-  writes each operand's TF32 parts, and the transposed copies their
-  products reduce over, into a workspace the wrapper allocates
-  (``f32tc_split``, ``f32tc_split_t`` are its plain versions).
+  (each f32 operand split into two TF32 parts), within f32's limits. All
+  three are wgmma/TMA kernels, each fed by its prologue, which writes each
+  operand's TF32 parts, and the transposed copies their products reduce
+  over, into a workspace the wrapper allocates (``f32tc_split``,
+  ``f32tc_split_t`` are its plain versions).
 
 Both mask ragged sequence edges in the kernel. The forward is the custom op
 ``tf_operator_tpu_torch::flash_fwd`` returning ``(out, lse)``; its autograd
@@ -286,14 +286,22 @@ def _bwd_reference(q, k, v, out, lse, do, causal: bool = True,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every entry ends (causal, q_offset, scale, dtype code, head_dim, stream);
 # the forward entries take a workspace (the f32 kernel's; the wgmma
-# forward takes none) and the dK/dV entries (workspace, splits) before
-# that.
+# forward takes none), the f32 dQ entry its workspace and the dK/dV
+# entries (workspace, splits) before that. Keyed by entry: a family whose
+# entry is not listed takes the wgmma family's form.
 _TAIL = [_I, _I, _F, _I, _I, _P]
 _ARGTYPES = {
     "flash_fwd": [_P] * 5 + [_I] * 5 + [_I] * 9 + [_P] + _TAIL,
     "flash_dq": [_P] * 7 + [_I] * 5 + [_I] * 12 + _TAIL,
+    "flash_dq_f32tc": [_P] * 7 + [_I] * 5 + [_I] * 12 + [_P] + _TAIL,
     "flash_dkv": [_P] * 8 + [_I] * 5 + [_I] * 12 + [_P, _I] + _TAIL,
 }
+
+
+def entry_argtypes(kind: str, family: str = "") -> list:
+    """The ctypes argument types of the C entry ``flash_<kind><family>``."""
+    name = f"flash_{kind}"
+    return _ARGTYPES.get(name + family, _ARGTYPES[name])
 
 
 # Kind codes of flash_f32tc_workspace.
@@ -305,19 +313,29 @@ def _lib(family: str = "") -> ctypes.CDLL:
     lib = _build.load(_LIBRARY[family])
     for kind in KINDS:
         fn = getattr(lib, f"flash_{kind}{family}")
-        fn.argtypes = _ARGTYPES[f"flash_{kind}"]
+        fn.argtypes = entry_argtypes(kind, family)
         fn.restype = ctypes.c_int
     return lib
 
 
+# The copies each f32 kernel's prologue writes (F32TC_COPIES[kind]), in
+# the order of its workspace: a name ending "_t" is the transposed copy of
+# the operand it starts with (``f32tc_split_t``), any other that
+# operand's split (``f32tc_split``).
+F32TC_COPIES = {"fwd": ("q", "k", "v_t"),
+                "dq": ("q", "do", "k", "v", "k_t"),
+                "dkv": ("q", "do", "q_t", "do_t", "k", "v")}
+
+
 def f32tc_prologue(kind: str, q, k, v, do=None) -> Dict[str, torch.Tensor]:
-    """The f32 forward's ("fwd") or dK/dV's ("dkv") prologue alone, on
-    CUDA tensors: the copies its kernel reads, by name, each [2, ...] (hi,
-    lo) as ``f32tc_split`` or ``f32tc_split_t`` computes them. Not on the
-    main path (the kernels' entries launch it themselves): for timing it
-    apart and checking its copies on the card."""
+    """The f32 forward's ("fwd"), dQ's ("dq") or dK/dV's ("dkv") prologue
+    alone, on CUDA tensors: the copies its kernel reads, by the names of
+    ``F32TC_COPIES[kind]``, each [2, ...] (hi, lo) as ``f32tc_split`` or
+    ``f32tc_split_t`` computes them. Not on the main path (the kernels'
+    entries launch it themselves): for timing it apart and checking its
+    copies on the card."""
     (b, h, hkv, sq, sk), strides, (_, d) = _check_operands(
-        q, k, v, 0, do if kind == "dkv" else None)
+        q, k, v, 0, None if kind == "fwd" else do)
     if kind == "fwd":
         strides = strides + [0, 0, 0]
     ws = _f32tc_workspace(kind, q, k)
@@ -330,23 +348,29 @@ def f32tc_prologue(kind: str, q, k, v, do=None) -> Dict[str, torch.Tensor]:
                    b, h, hkv, sq, sk, *strides, ws.data_ptr(), d,
                    torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, f"flash_prologue_f32tc({kind})")
-    flat = ws.view(torch.float32)
-    nq, nkv = 2 * b * sq * h * d, 2 * b * sk * hkv * d
-    shapes = ({"q": ((2, b, sq, h, d), nq), "k": ((2, b, sk, hkv, d), nkv),
-               "v_t": ((2, b, hkv, d, sk), nkv)} if kind == "fwd" else
-              {"q": ((2, b, sq, h, d), nq), "do": ((2, b, sq, h, d), nq),
-               "q_t": ((2, b, h, d, sq), nq), "do_t": ((2, b, h, d, sq), nq),
-               "k": ((2, b, sk, hkv, d), nkv), "v": ((2, b, sk, hkv, d), nkv)})
+    return f32tc_views(kind, ws.view(torch.float32), b, h, hkv, sq, sk, d)
+
+
+def f32tc_views(kind: str, flat: torch.Tensor, b: int, h: int, hkv: int,
+                sq: int, sk: int, d: int) -> Dict[str, torch.Tensor]:
+    """The copies of ``kind``'s prologue as views of its workspace ``flat``
+    (f32), one after another in the order of ``F32TC_COPIES[kind]``:
+    [2, B, S, H, D] splits and [2, B, H, D, S] transposed copies, the
+    q side's at (Sq, H), the k side's at (Sk, Hkv)."""
     copies, at = {}, 0
-    for name, (shape, n) in shapes.items():
+    for name in F32TC_COPIES[kind]:
+        s, heads = (sq, h) if name[:1] in "qd" else (sk, hkv)
+        shape = ((2, b, heads, d, s) if name.endswith("_t")
+                 else (2, b, s, heads, d))
+        n = 2 * b * s * heads * d
         copies[name] = flat[at:at + n].view(shape)
         at += n
     return copies
 
 
 def _f32tc_workspace(kind: str, q, k) -> torch.Tensor:
-    """The f32 forward's or dK/dV's workspace (its prologue's copies) for
-    these operands, as the library sizes it."""
+    """The f32 forward's, dQ's or dK/dV's workspace (its prologue's
+    copies) for these operands, as the library sizes it."""
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
     size = _lib("_f32tc").flash_f32tc_workspace
@@ -469,10 +493,15 @@ def _dq_cuda(q, k, v, lse, do, delta, causal, q_offset):
                              q_offset)
     name = "flash_dq" + suffix
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    # The f32 kernel's prologue copies, passed before the common tail.
+    ws = (_f32tc_workspace("dq", q, k) if _FAMILY[suffix] == "_f32tc"
+          else None)
+    tail = len(_TAIL) - 1                  # the common tail, less the stream
     with torch.cuda.device(q.device):
         rc = _entry("dq", suffix)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args[:-tail],
+            *([] if ws is None else [ws.data_ptr()]), *args[-tail:],
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
